@@ -1,0 +1,55 @@
+"""The port stands alone: importing every module of ``fedml_tpu_torch``
+loads neither JAX, flax nor anything of ``fedml_tpu``; and its entry point
+refuses to run on a host without CUDA unless the caller asks for the CPU."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import fedml_tpu_torch
+
+pytestmark = pytest.mark.torch_port
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import fedml_tpu_torch
+names = ["fedml_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(fedml_tpu_torch.__path__,
+                                          "fedml_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "fedml_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_no_jax_or_fedml_tpu_imported():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = _ROOT
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 25  # every module of the package was imported
+    assert bad == "[]", bad
+
+
+def test_entry_point_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedml_tpu_torch.run_simulation()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedml_tpu_torch.run_simulation(device="cuda")
+    from fedml_tpu_torch.device import get_device
+    assert get_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        get_device("mps")
