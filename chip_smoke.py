@@ -7,23 +7,34 @@ Run from the root of a checkout on a machine with one CUDA card and the CUDA
 toolkit. Phases, in order; any failure exits non-zero before the last line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel of the path from the sources in the checkout (nvcc,
-   sm_90a), with the build time and the compiler's register/shared-memory
-   report;
-3. check each kernel against its plain PyTorch version on the card, at
-   every ResNet-56 block geometry (batch 32) and the odd shapes of the
-   parity tests, in float32 and bfloat16, gradients included;
-4. time each ResNet-56 geometry with CUDA events: the kernel, its plain
-   version, the unfused cuDNN chain (``library_ms``) and the bound;
-5. a tiny run of the whole slice on the card against the same run on the
-   CPU;
-6. the main path: ``fedml_tpu_torch.run_simulation`` at ResNet-56's full
-   width (FedAvg, synthetic CIFAR-10, bf16, fused conv block), with the
-   kernel's launch count held to 27 per forward pass;
-7. one JSON line describing each kernel, then the card line, then
+2. build every kernel from the sources in the checkout (one nvcc per
+   source, all started together; sm_90a), with the build time and the
+   compiler's register/shared-memory/spill report;
+3. check each kernel against its plain PyTorch version on the card:
+   B1 (fused conv block) at every ResNet-56 block geometry (batch 32) and
+   the odd shapes of its parity tests; B2-B4 (flash attention forward, dQ,
+   dK/dV) at the FedLLM round's shape, the 111M hot loop's, long context
+   and the odd shapes of ``tests/test_llm.py`` (key-padding masks, rows
+   with no live key); float32 and bfloat16, gradients included;
+4. time each kernel with CUDA events at the main paths' shapes: the kernel,
+   its plain version, one PyTorch library call for the same function
+   (``library_ms``) and the bound;
+5. tiny runs of both paths on the card against the same runs on the CPU
+   (ResNet-20 FedAvg; the federated LoRA causal LM with flash attention);
+6. the ResNet main path: ``fedml_tpu_torch.run_simulation`` at ResNet-56's
+   full width (FedAvg, synthetic CIFAR-10, bf16, fused conv block), B1's
+   launches held to 27 per forward pass;
+7. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
+   ``bench.py``'s ``bench_federated_lora`` configuration (d 512, 4 layers,
+   seq 256, bf16, LoRA r8, 2 silos, Shakespeare), 2 rounds with eval after
+   each, B2 launches held to 4 per forward and B3/B4 to 4 per local step;
+8. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
+   bf16, full parameters), 8 launches of each attention kernel per step;
+9. one JSON line describing each kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
-Imports nothing of JAX or ``fedml_tpu``.
+Each main path is driven with every launch count set to 0 just before it
+and read just after. Imports nothing of JAX or ``fedml_tpu``.
 """
 
 from __future__ import annotations
@@ -68,6 +79,48 @@ MAIN_PATH = dict(
     client_num_per_round=8, comm_round=2, epochs=1, batch_size=32,
     learning_rate=0.1, synthetic_size=50000, synthetic_test_size=1000,
     frequency_of_the_test=1, random_seed=0)
+
+# The FedLLM main path: bench.py's bench_federated_lora ("BASELINE.json
+# config 4 as a federated round") at its full width, 2 rounds, eval after
+# each.
+LLM_MAIN_PATH = dict(
+    dataset="llm", model="causal_lm", precision="bfloat16",
+    client_num_in_total=2, client_num_per_round=2, comm_round=2, epochs=1,
+    batch_size=8, learning_rate=1e-3, federated_optimizer="fedavg",
+    frequency_of_the_test=1, random_seed=0,
+    llm_corpus_fallback="shakespeare", llm_hidden_size=512,
+    llm_intermediate_size=1408, llm_num_layers=4, llm_num_heads=8,
+    llm_max_seq_len=256, lora_rank=8, llm_attention_impl="flash")
+# The FedLLM hot loop: bench.py's _llm_train_step_timing model (~111M
+# params) at bench_llm_mfu's bs 8 x seq 1024, bf16, flash attention.
+HOT_LOOP = dict(vocab_size=8192, hidden_size=1024, intermediate_size=2816,
+                num_layers=8, num_heads=8, max_seq_len=1024,
+                dtype="bfloat16", attention_impl="flash")
+HOT_BATCH, HOT_STEPS = 8, 4
+
+# Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
+# the trainer calls the model), the hot loop, bench_long_context, and the
+# odd shapes of tests/test_llm.py and tests/test_torch_attention.py:
+# random key padding, and masked prefixes that leave rows with no live key
+# (within one 64-row tile and across tiles).
+ATTN_MAIN = (8, 256, 8, 64, "none")
+ATTN_HOT = (8, 1024, 8, 128, "none")
+ATTN_SHAPES = [ATTN_MAIN, ATTN_HOT, (1, 4096, 8, 128, "none"),
+               (2, 16, 2, 8, "none"), (2, 32, 2, 8, "random"),
+               (1, 16, 1, 8, "prefix4"), (2, 100, 2, 8, "random"),
+               (2, 100, 2, 8, "prefix4"), (2, 200, 2, 64, "prefix70"),
+               (1, 130, 3, 100, "random")]
+# Attention tolerances. Forward, |kernel - plain| <= atol + rtol*|plain|:
+#  float32: both sum in f32 in different orders (~1e-6 relative);
+#  bfloat16: the kernel keeps f32 intermediates and rounds O once, so it is
+#  held to the plain version in f32 on the same bf16 inputs within one bf16
+#  rounding (up to one ulp, 2^-7 relative, where reordering flips it).
+# LSE is f32 in both. Gradients: error relative to the largest entry of
+# the plain gradient (sums over up to s terms of either sign), float32
+# within f32 reordering, bfloat16 within one rounding of the largest entry.
+ATTN_FWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (8e-3, 1e-5)}
+ATTN_LSE_TOL = (1e-5, 1e-5)
+ATTN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 
 
 class SmokeFailure(Exception):
@@ -240,6 +293,242 @@ def tiny_run_agreement(torch, fedml):
     return worst, gpu["final_test_acc"], cpu["final_test_acc"]
 
 
+def build_all(build, names):
+    """One nvcc per source, all started together; print each build's
+    time and the compiler's register, shared-memory and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        t0 = time.time()
+        return name, build.build(name), time.time() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        done = list(pool.map(one, names))
+    for name, lib, dt in done:
+        print(f"build: {name}.cu in {dt:.1f} s -> {lib.name}", flush=True)
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
+                print(f"  ptxas: {line.strip()}")
+
+
+def attn_inputs(torch, gen, shape, dtype):
+    """q, k, v, dO on the card in ``dtype`` and the f32 key mask (or
+    None), drawn on the CPU from ``gen``."""
+    b, s, h, d, mask = shape
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen).to("cuda", dt)
+                  for _ in range(4))
+    if mask == "none":
+        m = None
+    elif mask == "random":
+        m = (torch.rand(b, s, generator=gen) > 0.3).float()
+        m[:, 0] = 1.0
+    else:  # "prefix<n>": the first n keys masked
+        m = torch.ones(b, s)
+        m[:, :int(mask[len("prefix"):])] = 0.0
+    return q, k, v, g, None if m is None else m.to("cuda")
+
+
+def rel_err(torch, got, ref):
+    return ((got.float() - ref).abs().max() /
+            ref.abs().max().clamp(min=1e-30)).item()
+
+
+def check_attention(torch, fa, attn, gen, shape, dtype):
+    """B2-B4 against their plain versions in f32 on the same inputs, the
+    exact zeros of rows with no live key and of masked keys, and the
+    autograd Function against dense attention. Returns (max abs error of
+    O, of dQ, of dK/dV)."""
+    b, s, h, d, mask = shape
+    q, k, v, g, m = attn_inputs(torch, gen, shape, dtype)
+    o, lse = fa.flash_fwd(q, k, v, m)
+    torch.cuda.synchronize()
+    require(o.dtype == q.dtype and tuple(o.shape) == (b, s, h, d)
+            and tuple(lse.shape) == (b, h, s), f"{shape}: bad output")
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    ro, rlse = fa.reference_fwd(qf, kf, vf, m)
+    rtol, atol = ATTN_FWD_TOL[dtype]
+    err = (o.float() - ro).abs()
+    require(torch.isfinite(o.float()).all().item(), f"{shape}: non-finite O")
+    bad = int((err > atol + rtol * ro.abs()).sum())
+    require(bad == 0, f"{shape} {dtype}: {bad} outputs of O beyond tolerance "
+                      f"(max abs err {err.max().item():.3e})")
+    require(torch.isfinite(lse).all().item(), f"{shape}: non-finite LSE")
+    lerr = (lse - rlse).abs()
+    bad = int((lerr > ATTN_LSE_TOL[1] + ATTN_LSE_TOL[0] * rlse.abs()).sum())
+    require(bad == 0, f"{shape} {dtype}: LSE off by {lerr.max().item():.3e}")
+    dd = (g.float() * o.float()).sum(-1)
+    dq = fa.flash_dq(q, k, v, m, g, lse, dd)
+    dk, dv = fa.flash_dkv(q, k, v, m, g, lse, dd)
+    torch.cuda.synchronize()
+    require(all(torch.isfinite(t.float()).all().item() for t in (dq, dk, dv)),
+            f"{shape} {dtype}: non-finite gradients")
+    rdq = fa.reference_dq(qf, kf, vf, m, gf, lse, dd)
+    rdk, rdv = fa.reference_dkv(qf, kf, vf, m, gf, lse, dd)
+    gerr = max(rel_err(torch, a, r) for a, r in ((dq, rdq), (dk, rdk),
+                                                 (dv, rdv)))
+    require(gerr <= ATTN_GRAD_TOL[dtype],
+            f"{shape} {dtype}: gradient error {gerr:.3e}")
+    if m is not None:
+        dead = (m == 0)[:, :, None, None].expand_as(dk)
+        require(bool((dk[dead] == 0).all()) and bool((dv[dead] == 0).all()),
+                f"{shape} {dtype}: masked keys got nonzero dK/dV")
+    if mask.startswith("prefix"):
+        n = int(mask[len("prefix"):])
+        require(bool((o[:, :n] == 0).all()) and bool((dq[:, :n] == 0).all()),
+                f"{shape} {dtype}: rows with no live key are not exactly 0")
+        require(bool((lse[:, :, :n] < -1e29).all()),
+                f"{shape} {dtype}: LSE of rows with no live key not -1e30")
+    if dtype == "float32" and s <= 1024 and not mask.startswith("prefix"):
+        # the autograd Function (D from the stored O, then B3 and B4)
+        # against dense attention under autograd, both in f32
+        grads = []
+        for fn in (attn.flash_causal_attention, attn.dense_causal_attention):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves, attn_mask=m)
+            grads.append(torch.autograd.grad((out * g).sum(), leaves))
+        aerr = max(rel_err(torch, a, r.float()) for a, r in zip(*grads))
+        require(aerr <= ATTN_GRAD_TOL[dtype],
+                f"{shape}: flash vs dense autograd gradients off by "
+                f"{aerr:.3e}")
+    return (err.max().item(), (dq.float() - rdq).abs().max().item(),
+            max((dk.float() - rdk).abs().max().item(),
+                (dv.float() - rdv).abs().max().item()))
+
+
+def attention_cost(shape, itemsize, kernel):
+    """(bytes, causal FLOPs) the kernel's function must move and do: each
+    input read once and each output written once; 2·b·h·(s²/2)·d per
+    product, 2 products for B2, 3 for B3 and 4 for B4."""
+    b, s, h, d, _ = shape
+    t = b * s * h * d * itemsize
+    row = b * h * s * 4
+    tensors, rows, products = {"fwd": (4, 1, 2), "dq": (5, 2, 3),
+                               "dkv": (6, 2, 4)}[kernel]
+    return tensors * t + rows * row, products * b * h * s * s * d
+
+
+def time_attention(torch, F, fa, gen, shape, dtype):
+    """Per kernel: ms of the kernel, its plain version, the library call
+    and the bound, at ``shape`` in ``dtype``."""
+    q, k, v, g, m = attn_inputs(torch, gen, shape, dtype)
+    with torch.no_grad():
+        o, lse = fa.flash_fwd(q, k, v, m)
+        dd = (g.float() * o.float()).sum(-1)
+    args = (q, k, v, m, g, lse, dd)
+    # the yardstick: PyTorch's fused attention on [b, h, s, d] copies,
+    # forward, and its autograd backward (dQ, dK, dV together)
+    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    gl = g.transpose(1, 2).contiguous()
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True), iters=20)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), gl, retain_graph=True), iters=20)
+    rows = {}
+    with torch.no_grad():
+        for kernel, fn, plain, lib in (
+                ("fwd", lambda: fa.flash_fwd(q, k, v, m),
+                 lambda: fa.reference_fwd(q, k, v, m), lib_fwd),
+                ("dq", lambda: fa.flash_dq(*args),
+                 lambda: fa.reference_dq(*args), lib_bwd),
+                ("dkv", lambda: fa.flash_dkv(*args),
+                 lambda: fa.reference_dkv(*args), lib_bwd)):
+            nbytes, ops = attention_cost(shape, q.element_size(), kernel)
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_ops = ops / PEAK_OPS[dtype] * 1e3
+            rows[kernel] = dict(
+                ms=time_ms(torch, fn, iters=20),
+                plain_ms=time_ms(torch, plain, iters=3, warmup=1),
+                library_ms=lib, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return rows
+
+
+def reset_launches(cb, fa):
+    for fn in (cb.fused_block, fa.flash_fwd, fa.flash_dq, fa.flash_dkv):
+        fn.launches = 0
+
+
+def launches(cb, fa):
+    return {"conv_block": cb.fused_block.launches,
+            "flash_fwd": fa.flash_fwd.launches,
+            "flash_dq": fa.flash_dq.launches,
+            "flash_dkv": fa.flash_dkv.launches}
+
+
+def tiny_llm_agreement(torch, run_federated_llm, Arguments):
+    """The federated LoRA fine-tune on the card (B2-B4, f32) against the
+    same run on the CPU (plain versions), from the same seeded base and
+    adapters: 2 silos, 1 round, d 32, 1 layer, SGD at lr 0.05. The run is
+    one round of plain SGD, so card-vs-CPU differences stay at float32
+    reordering; bound rtol 1e-3, atol 1e-5 on every adapter entry."""
+    cfg = dict(dataset="llm_synth", model="causal_lm",
+               client_num_in_total=2, client_num_per_round=2, comm_round=1,
+               epochs=1, batch_size=8, learning_rate=0.05,
+               llm_corpus_size=48, llm_max_seq_len=40, llm_hidden_size=32,
+               llm_num_layers=1, llm_num_heads=2, llm_intermediate_size=64,
+               lora_rank=4, random_seed=5, frequency_of_the_test=1,
+               llm_attention_impl="flash")
+    gpu = run_federated_llm(Arguments(**cfg))
+    cpu = run_federated_llm(Arguments(**cfg), device="cpu")
+    worst, moved = 0.0, 0.0
+    for key, c in cpu["params"].items():
+        g = gpu["params"][key].cpu()
+        worst = max(worst, ((g - c).abs() / (1e-5 + 1e-3 * c.abs()))
+                    .max().item())
+        if key.endswith("lora_b"):
+            moved = max(moved, c.abs().max().item())
+    require(moved > 0, "tiny LLM run: the adapters did not move")
+    require(worst <= 1.0, f"tiny LLM run: card vs CPU adapters off by "
+                          f"{worst:.2f}x the tolerance")
+    hg, hc = gpu["history"][0], cpu["history"][0]
+    require(abs(hg["test_loss"] - hc["test_loss"]) <= 1e-4 * abs(
+        hc["test_loss"]), "tiny LLM run: test loss differs")
+    return worst, hg["test_loss"], hc["test_loss"]
+
+
+def hot_loop(torch, llm, cb, fa):
+    """HOT_STEPS SGD steps (lr 1e-3) of the 111M causal LM on one batch of
+    seeded random tokens, full parameters, as bench.py's
+    _llm_train_step_timing does. Returns (ms per step over all but the
+    first step, losses, launches, parameter count)."""
+    from torch.func import functional_call
+
+    cfg = llm.LLMConfig(**HOT_LOOP)
+    model, params = llm.init_llm(cfg, torch.Generator().manual_seed(0))
+    model.to("cuda")
+    params = {k: v.to("cuda") for k, v in params.items()}
+    spec = llm.CausalLMTrainer(
+        lambda p, x, train=False: functional_call(model, p, (x,)))
+    gen = torch.Generator().manual_seed(1)
+    seq = cfg.max_seq_len
+    batch = {"x": torch.randint(0, cfg.vocab_size, (HOT_BATCH, seq),
+                                generator=gen).cuda(),
+             "y": torch.randint(0, cfg.vocab_size, (HOT_BATCH, seq),
+                                generator=gen).cuda(),
+             "mask": torch.ones(HOT_BATCH).cuda()}
+    losses = []
+    reset_launches(cb, fa)
+    t0 = None
+    for step in range(HOT_STEPS):
+        if step == 1:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, _ = spec.loss(leaves, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            params = {k: v - 1e-3 * gr for (k, v), gr in
+                      zip(params.items(), grads)}
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / (HOT_STEPS - 1) * 1e3
+    return ms, losses, launches(cb, fa), llm.count_params(params)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -247,8 +536,12 @@ def main() -> int:
         return 1
     try:
         import fedml_tpu_torch as fedml
+        from fedml_tpu_torch import llm
+        from fedml_tpu_torch.arguments import Arguments
         from fedml_tpu_torch.core.kernels import build
         from fedml_tpu_torch.core.kernels import conv_block as cb
+        from fedml_tpu_torch.core.kernels import flash_attention as fa
+        from fedml_tpu_torch.llm import attention as attn
     except ImportError as e:
         print(f"chip_smoke: the fedml_tpu_torch package is missing ({e}); "
               f"run from the root of a checkout", file=sys.stderr)
@@ -261,13 +554,7 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
-    t0 = time.time()
-    lib = build.build("conv_block")
-    print(f"build: conv_block.cu in {time.time() - t0:.1f} s -> {lib.name}",
-          flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_all(build, ["conv_block", "flash_attention"])
 
     gen = torch.Generator().manual_seed(0)
     main_err = 0.0
@@ -280,6 +567,16 @@ def main() -> int:
                 main_err = max(main_err, err)
             print(f"check {dtype:8s} n,h,w,cin,cout,s={shape}: max abs err "
                   f"{err:.3e}, grad rel err {gerr:.3e}", flush=True)
+    attn_err = {}
+    for dtype in ("float32", "bfloat16"):
+        for shape in ATTN_SHAPES:
+            errs = check_attention(torch, fa, attn, gen, shape, dtype)
+            if shape == ATTN_MAIN and dtype == "bfloat16":
+                attn_err = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                                    errs))
+            print(f"check {dtype:8s} attention b,s,h,d,mask={shape}: max abs "
+                  f"err O {errs[0]:.3e}, dQ {errs[1]:.3e}, dK/dV "
+                  f"{errs[2]:.3e}", flush=True)
 
     rows = time_geometries(torch, F, cb, gen, MAIN_PATH["precision"])
     for r in rows:
@@ -299,18 +596,34 @@ def main() -> int:
           f"kernel {per_fwd['ms']:.3f} ms, plain {per_fwd['plain_ms']:.3f} "
           f"ms, cuDNN chain {per_fwd['library_ms']:.3f} ms, bound "
           f"{per_fwd['bound_ms']:.4f} ms ({per_fwd['bound_by']})", flush=True)
+    attn_time = {}
+    for label, shape in (("main", ATTN_MAIN), ("hot", ATTN_HOT)):
+        attn_time[label] = time_attention(torch, F, fa, gen, shape,
+                                          "bfloat16")
+        for kernel, r in attn_time[label].items():
+            print(f"time bf16 attention {kernel:3s} b,s,h,d={shape[:4]}: "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"SDPA {r['library_ms']:.4f} ms"
+                  f"{' (fwd)' if kernel == 'fwd' else ' (bwd: dQ+dK+dV)'}, "
+                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
+                  flush=True)
 
     worst, acc_gpu, acc_cpu = tiny_run_agreement(torch, fedml)
     print(f"tiny run (resnet20, f32): card vs CPU params within "
           f"{worst:.3f} of tolerance; test acc {acc_gpu} vs {acc_cpu}",
           flush=True)
+    worst, loss_gpu, loss_cpu = tiny_llm_agreement(
+        torch, llm.run_federated_llm, Arguments)
+    print(f"tiny run (LoRA causal LM, f32, flash): card vs CPU adapters "
+          f"within {worst:.3f} of tolerance; test loss {loss_gpu:.6f} vs "
+          f"{loss_cpu:.6f}", flush=True)
 
-    cb.fused_block.launches = 0
+    reset_launches(cb, fa)
     t0 = time.time()
     result = fedml.run_simulation(**MAIN_PATH)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = cb.fused_block.launches
+    resnet_launches = launches(cb, fa)
     hist = result["history"]
     for h in hist:
         print(f"main path round {h['round']}: {h['round_time_s']:.2f} s, "
@@ -323,20 +636,73 @@ def main() -> int:
     require(all(torch.isfinite(v).all().item()
                 for v in result["params"].values()), "non-finite params")
     forwards = sum(h["local_steps"] + h.get("eval_batches", 0) for h in hist)
-    require(launches == 27 * forwards,
-            f"kernel launched {launches} times, expected 27 x {forwards}")
+    n_b1 = resnet_launches["conv_block"]
+    require(n_b1 == 27 * forwards,
+            f"kernel launched {n_b1} times, expected 27 x {forwards}")
     print(f"main path: {wall:.1f} s end to end, {wall / len(hist):.2f} s per "
-          f"round (eval included), {launches} kernel launches = 27 x "
+          f"round (eval included), {n_b1} kernel launches = 27 x "
           f"{forwards} forward passes", flush=True)
+
+    reset_launches(cb, fa)
+    t0 = time.time()
+    result = llm.run_federated_llm(Arguments(**LLM_MAIN_PATH))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    llm_launches = launches(cb, fa)
+    hist = result["history"]
+    for h in hist:
+        print(f"FedLLM round {h['round']}: {h['round_time_s']:.2f} s, "
+              f"{h['local_steps']} local steps, {h['eval_batches']} eval "
+              f"batches, train_loss {h['train_loss']:.4f}, test_loss "
+              f"{h['test_loss']:.4f}, test_acc {h['test_acc']:.4f}",
+              flush=True)
+        require(all(math.isfinite(h[k]) for k in (
+            "train_loss", "train_acc", "test_acc", "test_loss")),
+            f"FedLLM round {h['round']}: non-finite metrics")
+    require(all(torch.isfinite(v).all().item()
+                for v in result["params"].values()), "non-finite adapters")
+    layers = LLM_MAIN_PATH["llm_num_layers"]
+    steps = sum(h["local_steps"] for h in hist)
+    evals = sum(h["eval_batches"] for h in hist)
+    want = {"conv_block": 0, "flash_fwd": layers * (steps + evals),
+            "flash_dq": layers * steps, "flash_dkv": layers * steps}
+    require(llm_launches == want, f"FedLLM launches {llm_launches}, "
+                                  f"expected {want}")
+    print(f"FedLLM main path: {wall:.1f} s end to end, {wall / len(hist):.2f} "
+          f"s per round (eval included), {steps} local steps and {evals} "
+          f"eval batches; launches {llm_launches}", flush=True)
+
+    ms, losses, hot_launches, n_params = hot_loop(torch, llm, cb, fa)
+    require(all(math.isfinite(x) for x in losses), "hot loop: non-finite loss")
+    per = HOT_LOOP["num_layers"] * HOT_STEPS
+    require(hot_launches == {"conv_block": 0, "flash_fwd": per,
+                             "flash_dq": per, "flash_dkv": per},
+            f"hot loop launches {hot_launches}, expected {per} of each "
+            f"attention kernel")
+    print(f"hot loop ({n_params / 1e6:.1f}M params, bs{HOT_BATCH} x seq "
+          f"{HOT_LOOP['max_seq_len']}, bf16, flash): {ms:.2f} ms per SGD "
+          f"step, losses {[round(x, 4) for x in losses]}; launches "
+          f"{hot_launches}", flush=True)
 
     kernels = [{
         "name": "conv_block", "route": "cuda",
         "source": "fedml_tpu_torch/core/kernels/csrc/conv_block.cu",
         "replaces": "fedml_tpu/core/kernels/conv_block.py:144",
-        "launches": launches, "max_abs_err": main_err,
+        "launches": resnet_launches["conv_block"], "max_abs_err": main_err,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
         "bound_ms": per_fwd["bound_ms"], "bound_by": per_fwd["bound_by"],
         "library_ms": per_fwd["library_ms"]}]
+    for name, key, line in (("flash_fwd", "fwd", 121), ("flash_dq", "dq", 176),
+                            ("flash_dkv", "dkv", 213)):
+        r = attn_time["main"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fedml_tpu_torch/core/kernels/csrc/flash_attention.cu",
+            "replaces": f"fedml_tpu/llm/attention.py:{line}",
+            "launches": llm_launches[name], "max_abs_err": attn_err[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,20 @@
 
 The JAX package ``fedml_tpu`` stays the reference; this package runs the same
 federated round on an NVIDIA H100, with the JAX package's Pallas kernels
-rewritten by hand for Hopper. Slice 1 ports the FedAvg simulation round on
+rewritten by hand for Hopper. Ported so far: the FedAvg simulation round on
 the CIFAR ResNets, with the fused conv block as a CUDA kernel
-(``core/kernels/csrc/conv_block.cu``). Modules follow the JAX package's
-paths. Nothing here imports JAX or ``fedml_tpu``.
+(``core/kernels/csrc/conv_block.cu``), and the federated LoRA fine-tune of
+the causal LM (:mod:`fedml_tpu_torch.llm`), with flash attention's forward
+and backward as CUDA kernels (``core/kernels/csrc/flash_attention.cu``).
+Modules follow the JAX package's paths. Nothing here imports JAX or
+``fedml_tpu``.
 
     import fedml_tpu_torch as fedml
     result = fedml.run_simulation(dataset="synthetic_cifar10",
                                   model="resnet56", fused_conv_block="pallas")
+    from fedml_tpu_torch.llm import run_federated_llm
+    result = run_federated_llm(fedml.Arguments(dataset="llm",
+                                               model="causal_lm"))
 
 Entry points run on CUDA; ``device="cpu"`` runs the plain PyTorch path on
 the CPU, as the parity tests do. Without CUDA and without ``device="cpu"``

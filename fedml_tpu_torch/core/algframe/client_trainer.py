@@ -59,11 +59,15 @@ class ClassificationTrainer(TrainerSpec):
 
 
 def make_trainer_spec(fed, bundle) -> TrainerSpec:
+    """Pick the TrainerSpec from the dataset's declared task."""
     task = getattr(fed, "task", "classification")
+    if task in ("llm", "causal_lm"):
+        from ...llm.trainer import CausalLMTrainer
+        return CausalLMTrainer(bundle.apply)
     if task != "classification":
         raise NotImplementedError(
             f"task={task!r} is not ported to fedml_tpu_torch yet "
-            f"(ported: classification)")
+            f"(ported: classification, llm)")
     return ClassificationTrainer(bundle.apply)
 
 

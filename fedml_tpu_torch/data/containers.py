@@ -68,6 +68,7 @@ def build_federated_dataset(
     num_classes: int,
     eval_batch_size: Optional[int] = None,
     dtype=np.float32,
+    task: str = "classification",
 ) -> FederatedDataset:
     """Stack per-client arrays into one padded ClientData."""
     num_clients = len(client_xs)
@@ -88,7 +89,7 @@ def build_federated_dataset(
         train=train, test={"x": tx, "y": ty, "mask": tm},
         num_classes=num_classes,
         input_shape=tuple(np.asarray(client_xs[0]).shape[1:]),
-        num_clients=num_clients, client_num_samples=counts)
+        num_clients=num_clients, client_num_samples=counts, task=task)
 
 
 def from_central_arrays(

@@ -5,8 +5,12 @@ A flax parameter tree (nested dicts of numpy arrays, e.g.
 ``state_dict`` by scope path: ``Conv_k`` / ``GroupNorm_k`` / ``BasicBlock_k``
 scopes are module attributes of the same names, so the path joined with
 ``.`` is the state-dict key. The port stores conv kernels HWIO like flax;
-the one layout change is the Dense kernel, ``[in, out]`` in flax and
-``[out, in]`` (``Dense_0.weight``) in ``torch.nn.Linear``.
+the one layout change is the Dense kernel of the CIFAR models, ``[in,
+out]`` in flax and ``[out, in]`` (``Dense_0.weight``) in
+``torch.nn.Linear``. The causal LM keeps flax's names and layouts
+(``layer_0.attn.q.kernel`` ``[h, heads, head_dim]``, ``embed.embedding``,
+...), and so do its LoRA adapters (``layer_0.attn.q.lora_a`` ``[in, r]``,
+``lora_b`` ``[r, prod(out)]``): they cross path for path, unchanged.
 
 Neither direction imports JAX: both sides are numpy.
 """

@@ -11,6 +11,7 @@ training, the FedAvg sum and the server step work on plain dicts.
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +25,15 @@ class ModelBundle:
     module: nn.Module
     name: str
     compute_dtype: torch.dtype = torch.float32
+
+    def to(self, device: torch.device) -> "ModelBundle":
+        self.module.to(device)
+        return self
+
+    def template(self) -> Dict[str, Tuple[int, ...]]:
+        """Names and shapes of the trainable parameters."""
+        return {k: tuple(v.shape)
+                for k, v in self.module.state_dict().items()}
 
     def init(self, generator: torch.Generator,
              device: torch.device) -> Params:

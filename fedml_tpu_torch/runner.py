@@ -1,5 +1,6 @@
 """FedMLRunner façade (counterpart of ``fedml_tpu/runner.py``): builds the
-GPU simulator for the ported slice and refuses what it has not ported."""
+GPU simulator for the ported slices and refuses what they have not
+ported."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from .constants import (FEDML_SIMULATION_TYPE_GPU,
                         FEDML_TRAINING_PLATFORM_SIMULATION)
 from .device import get_device
 
-# Knobs of the JAX package whose features this slice does not port, each
+# Knobs of the JAX package whose features the port does not have yet, each
 # with the value(s) that mean "off". A run that sets one otherwise raises
 # NotImplementedError naming it, rather than silently ignoring it.
 UNPORTED_KNOBS: Dict[str, tuple] = {
@@ -34,6 +35,9 @@ UNPORTED_KNOBS: Dict[str, tuple] = {
     "round_mode": (None, "sync"),
     "mesh_shape": (None,),
     "save_model_path": (None, ""),
+    "llm_adapter_export_dir": (None, ""),
+    # the values of this knob that are ported
+    "llm_attention_impl": (None, "", "dense", "flash"),
 }
 
 
@@ -47,7 +51,9 @@ def check_ported(args) -> None:
         if v not in off:
             raise NotImplementedError(
                 f"{knob}={getattr(args, knob)!r} is not ported to "
-                f"fedml_tpu_torch yet (slice 1 ports the FedAvg round)")
+                f"fedml_tpu_torch yet (ported: the FedAvg round of the "
+                f"simulator, with the CIFAR ResNets or the federated LoRA "
+                f"causal LM)")
 
 
 class FedMLRunner:
@@ -55,6 +61,7 @@ class FedMLRunner:
     the simulation platform on the GPU backend."""
 
     def __init__(self, args, device=None, dataset=None, model=None,
+                 client_trainer=None,
                  init_params: Optional[Dict[str, Any]] = None):
         self.args = args
         check_ported(args)
@@ -72,7 +79,8 @@ class FedMLRunner:
         from .core.algframe.client_trainer import make_trainer_spec
         from .optimizers.registry import create_optimizer
         from .simulation.gpu.engine import GPUSimulator
-        spec = make_trainer_spec(dataset, model)
+        spec = (client_trainer if client_trainer is not None
+                else make_trainer_spec(dataset, model))
         opt = create_optimizer(args, spec)
         self.runner = GPUSimulator(args, dataset, model, opt, spec,
                                    get_device(device),

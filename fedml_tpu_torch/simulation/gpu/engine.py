@@ -60,23 +60,24 @@ class GPUSimulator:
         self.history: List[Dict[str, Any]] = []
 
     def _load_params(self, init_params: Dict[str, Any]) -> Params:
-        """Start from given parameters (a state dict of tensors or numpy
-        arrays under the module's names) instead of a fresh init."""
-        self.bundle.module.to(self.device)
-        want = self.bundle.module.state_dict()
+        """Start from given parameters (tensors or numpy arrays under the
+        names of the bundle's trainable parameters: the model's state dict,
+        or the LLM's adapter dict) instead of a fresh init."""
+        self.bundle.to(self.device)
+        want = self.bundle.template()
         if set(init_params) != set(want):
             raise ValueError(
                 f"init_params keys differ from the model's: missing "
                 f"{sorted(set(want) - set(init_params))}, unexpected "
                 f"{sorted(set(init_params) - set(want))}")
         params = {}
-        for k, ref in want.items():
+        for k, shape in want.items():
             v = init_params[k]
             v = v.detach() if torch.is_tensor(v) else torch.tensor(
                 np.asarray(v))
-            if tuple(v.shape) != tuple(ref.shape):
+            if tuple(v.shape) != tuple(shape):
                 raise ValueError(f"init_params[{k!r}]: shape "
-                                 f"{tuple(v.shape)} != {tuple(ref.shape)}")
+                                 f"{tuple(v.shape)} != {tuple(shape)}")
             params[k] = v.to(self.device, torch.float32).clone()
         return params
 

@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
-"""Where a local SGD step of the port's main path spends its time, on the
+"""Where a local SGD step of the port's main paths spends its time, on the
 card.
 
-    python3 scripts/profile_torch_step.py [--steps 10]
+    python3 scripts/profile_torch_step.py [--model resnet56|llm] [--steps 10]
 
-One client's local training at the main path's full width (ResNet-56,
-batch 32, synthetic CIFAR-10 shapes, fused conv block), under
-``torch.profiler`` after a warm-up: prints the step time (host clock around
-work that ends in a synchronize), the device-busy and idle shares of the
-unprofiled step, the conv-block kernel's share, and the top kernels by
-device time. Needs a CUDA card; imports nothing of JAX or ``fedml_tpu``.
+One client's local training at a main path's full width, under
+``torch.profiler`` after a warm-up:
+
+* ``resnet56`` (default): ResNet-56, batch 32, synthetic CIFAR-10 shapes,
+  bf16, fused conv block (B1);
+* ``llm``: the FedLLM round's causal LM (``bench.py``'s
+  ``bench_federated_lora``: d 512, 4 layers, 8 heads, seq 256, bf16, LoRA
+  r8 on q/k/v/o/gate/up/down, flash attention B2-B4), batch 8 of the
+  bundled Shakespeare corpus.
+
+Prints the step time (host clock around work that ends in a synchronize),
+the device-busy and idle shares of the unprofiled step, launches per
+step, the port's own kernels' share, and the top kernels by device time.
+Needs a CUDA card; imports nothing of JAX or ``fedml_tpu``.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import time
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--model", choices=("resnet56", "llm"),
+                    default="resnet56")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -42,18 +52,42 @@ def main() -> int:
     from fedml_tpu_torch.model import create
 
     dev = torch.device("cuda")
-    bundle = create(Arguments(model="resnet56", precision="bfloat16",
-                              fused_conv_block="pallas"), 10)
-    params = bundle.init(torch.Generator().manual_seed(0), dev)
-    spec = ClassificationTrainer(bundle.apply)
-    gen = torch.Generator().manual_seed(1)
     n = args.steps
-    cdata = ClientData(
-        x=torch.randn(n, 32, 32, 32, 3, generator=gen),
-        y=torch.randint(0, 10, (n, 32), generator=gen),
-        mask=torch.ones(n, 32), num_samples=torch.tensor(32.0 * n)).to(dev)
-    opt = make_inner_optimizer("sgd", 0.1)
-    hyper = TrainHyper(learning_rate=0.1, epochs=1)
+    gen = torch.Generator().manual_seed(1)
+    if args.model == "resnet56":
+        bundle = create(Arguments(model="resnet56", precision="bfloat16",
+                                  fused_conv_block="pallas"), 10)
+        params = bundle.init(torch.Generator().manual_seed(0), dev)
+        spec = ClassificationTrainer(bundle.apply)
+        cdata = ClientData(
+            x=torch.randn(n, 32, 32, 32, 3, generator=gen),
+            y=torch.randint(0, 10, (n, 32), generator=gen),
+            mask=torch.ones(n, 32), num_samples=torch.tensor(32.0 * n)).to(dev)
+        opt = make_inner_optimizer("sgd", 0.1)
+        label = "ResNet-56, bs 32, bf16, fused conv block"
+        ours = ("conv_block_kernel",)
+    else:
+        from fedml_tpu_torch.llm import build_llm
+        fed, bundle, spec, _ = build_llm(Arguments(
+            dataset="llm", model="causal_lm", precision="bfloat16",
+            client_num_in_total=2, batch_size=8, random_seed=0,
+            llm_corpus_fallback="shakespeare", llm_hidden_size=512,
+            llm_intermediate_size=1408, llm_num_layers=4, llm_num_heads=8,
+            llm_max_seq_len=256, lora_rank=8, llm_attention_impl="flash"))
+        params = bundle.init(torch.Generator().manual_seed(0), dev)
+        silo = fed.train.client(0)
+        real = int((silo.mask > 0).any(axis=1).sum())
+        reps = -(-n // real)   # the silo's real batches, repeated to n
+        cdata = ClientData(
+            x=torch.from_numpy(silo.x[:real]).repeat(reps, 1, 1)[:n],
+            y=torch.from_numpy(silo.y[:real]).repeat(reps, 1, 1)[:n],
+            mask=torch.from_numpy(silo.mask[:real]).repeat(reps, 1)[:n],
+            num_samples=torch.tensor(float(silo.num_samples))).to(dev)
+        opt = make_inner_optimizer("sgd", 1e-3)
+        label = ("FedLLM causal LM d512 x4 layers, bs 8 x seq 256, bf16, "
+                 "LoRA r8, flash attention")
+        ours = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    hyper = TrainHyper(learning_rate=opt.lr, epochs=1)
     key = prng.PRNGKey(0)
     run_local_sgd(spec, opt, params, cdata, key, hyper)  # warm-up
     torch.cuda.synchronize()
@@ -82,10 +116,8 @@ def main() -> int:
         return 1
     busy = sum(dev_us(e) for e in events)
     busy_step_ms = busy / n / 1e3
-    block = sum(dev_us(e) for e in events if "conv_block_kernel" in e.key)
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"step: {step_ms:.2f} ms per local step (ResNet-56, bs 32, bf16, "
-          f"fused conv block), unprofiled")
+    print(f"step: {step_ms:.2f} ms per local step ({label}), unprofiled")
     # one stream, so kernels do not overlap: the card is busy for the sum
     # of their times; the rest of the unprofiled step it waits on the host
     print(f"device busy {busy_step_ms:.2f} ms per step = "
@@ -93,8 +125,12 @@ def main() -> int:
           f"{1 - busy_step_ms / step_ms:.1%}; {len(events)} kernel names, "
           f"{sum(e.count for e in events) // n} launches per step "
           f"(profiled window {window_us / 1e3 / n:.1f} ms per step)")
-    print(f"conv_block kernel: {block / n / 1e3:.3f} ms per step "
-          f"({block / busy:.1%} of device time)")
+    for name in ours:
+        mine = [e for e in events if name in e.key]
+        t = sum(dev_us(e) for e in mine)
+        print(f"{name}: {t / n / 1e3:.3f} ms per step ({t / busy:.1%} of "
+              f"device time), {sum(e.count for e in mine) // n} launches "
+              f"per step")
     print("top kernels by device time (ms per step, share of device time):")
     for e in sorted(events, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(e) / n / 1e3:8.3f}  {dev_us(e) / busy:6.1%}  "
