@@ -9,16 +9,22 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from the sources in the checkout (one nvcc per
    source, all started together; sm_90a), with the build time and the
-   compiler's register/shared-memory/spill report;
+   compiler's register/shared-memory/spill report; a spill in a
+   tensor-core kernel, or a bf16 CUDA-core B2/B4 in the build, fails;
 3. check each kernel against its plain PyTorch version on the card:
    B1 (fused conv block) at every ResNet-56 block geometry (batch 32) and
    the odd shapes of its parity tests; B2-B4 (flash attention forward, dQ,
    dK/dV) at the FedLLM round's shape, the 111M hot loop's, long context
    and the odd shapes of ``tests/test_llm.py`` (key-padding masks, rows
-   with no live key); float32 and bfloat16, gradients included;
-4. time each kernel with CUDA events at the main paths' shapes: the kernel,
-   its plain version, one PyTorch library call for the same function
-   (``library_ms``) and the bound;
+   with no live key, d 8/100/128 with ragged s); float32 and bfloat16,
+   gradients included, and the autograd Function against dense attention;
+4. time each kernel at the main paths' shapes (B2-B4 at the FedLLM
+   round's and the hot loop's): the kernel with CUDA events around eager
+   calls and as device time (calls captured in a CUDA graph, its replay
+   timed with CUDA events), its plain version, the device time of one
+   PyTorch library call for the same function (``library_ms``) and the
+   bound; B2-B4 must run the kernel their dtype selects (the kernels in
+   the captured graph);
 5. tiny runs of both paths on the card against the same runs on the CPU
    (ResNet-20 FedAvg; the federated LoRA causal LM with flash attention);
 6. the ResNet main path: ``fedml_tpu_torch.run_simulation`` at ResNet-56's
@@ -109,18 +115,34 @@ ATTN_SHAPES = [ATTN_MAIN, ATTN_HOT, (1, 4096, 8, 128, "none"),
                (2, 16, 2, 8, "none"), (2, 32, 2, 8, "random"),
                (1, 16, 1, 8, "prefix4"), (2, 100, 2, 8, "random"),
                (2, 100, 2, 8, "prefix4"), (2, 200, 2, 64, "prefix70"),
-               (1, 130, 3, 100, "random")]
-# Attention tolerances. Forward, |kernel - plain| <= atol + rtol*|plain|:
-#  float32: both sum in f32 in different orders (~1e-6 relative);
-#  bfloat16: the kernel keeps f32 intermediates and rounds O once, so it is
-#  held to the plain version in f32 on the same bf16 inputs within one bf16
-#  rounding (up to one ulp, 2^-7 relative, where reordering flips it).
-# LSE is f32 in both. Gradients: error relative to the largest entry of
-# the plain gradient (sums over up to s terms of either sign), float32
-# within f32 reordering, bfloat16 within one rounding of the largest entry.
-ATTN_FWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (8e-3, 1e-5)}
-ATTN_LSE_TOL = (1e-5, 1e-5)
+               (2, 200, 2, 128, "prefix70"), (1, 130, 3, 100, "random")]
+# Attention tolerances. Error relative to the largest entry of the plain
+# result (sums over up to s terms of either sign): float32 within f32
+# reordering; bfloat16 within one rounding of the largest entry. Gradients
+# in both dtypes, and O in bfloat16: the tensor-core forward rounds P to
+# bf16 before P.V (as FlashAttention-2/3 do), so an entry of O carries the
+# rounding of its weights (2^-9 relative each) besides its own, and a small
+# entry can be off by more than its own ulp.
 ATTN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
+# O in float32, elementwise |kernel - plain| <= atol + rtol*|plain|: both
+# sum in f32 in different orders (~1e-6 relative). LSE is f32 in both
+# dtypes and held the same way.
+ATTN_FWD_TOL = (1e-4, 1e-5)
+ATTN_LSE_TOL = (1e-5, 1e-5)
+# The CUDA kernel each wrapper launches, by dtype.
+KERNEL_NAME = {
+    "bfloat16": {"fwd": "flash_fwd_mma_kernel", "dq": "flash_dq_kernel",
+                 "dkv": "flash_dkv_mma_kernel"},
+    "float32": {"fwd": "flash_fwd_kernel", "dq": "flash_dq_kernel",
+                "dkv": "flash_dkv_kernel"}}
+# What each kernel of the {"kernels": [...]} line is built from.
+DESIGN = {
+    "conv_block": "SIMT f32 (CUDA cores), one CTA per sample",
+    "flash_fwd": "bf16: mma.sync m16n8k16 + ldmatrix + cp.async 2-stage "
+                 "ring; f32: SIMT",
+    "flash_dq": "SIMT f32 (CUDA cores), bf16 and f32 inputs",
+    "flash_dkv": "bf16: mma.sync m16n8k16 + ldmatrix + cp.async 2-stage "
+                 "ring; f32: SIMT"}
 
 
 class SmokeFailure(Exception):
@@ -240,7 +262,9 @@ def block_cost(n, h, cin, cout, s, itemsize):
 
 
 def time_geometries(torch, F, cb, gen, dtype):
-    """Per-geometry (kernel, plain, library, bound) ms at batch 32."""
+    """Per-geometry ms at batch 32: the kernel (CUDA events, and device
+    time), its plain version, the unfused cuDNN chain (device time as
+    ``library_ms``, and CUDA events) and the bound."""
     dt = getattr(torch, dtype)
     rows = []
     for (h, cin, cout, s), count in FLAGSHIP:
@@ -249,17 +273,26 @@ def time_geometries(torch, F, cb, gen, dtype):
         w = {k: (v.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last) if v.dim() == 4 else v)
             for k, v in p.items()}
+
+        def kernel():
+            return cb.fused_block(x, p, strides=s)
+
+        def chain():
+            return library_block(torch, F, x_nchw, w, s, 8, cb.GN_EPS)
+
         with torch.no_grad():
-            k_ms = time_ms(torch, lambda: cb.fused_block(x, p, strides=s))
+            k_ms = time_ms(torch, kernel)
+            k_dev, _ = device_ms(torch, kernel)
             p_ms = time_ms(torch, lambda: cb.reference_block(x, p,
                                                              strides=s))
-            l_ms = time_ms(torch, lambda: library_block(
-                torch, F, x_nchw, w, s, 8, cb.GN_EPS))
+            l_ms = time_ms(torch, chain)
+            l_dev, _ = device_ms(torch, chain)
         nbytes, ops = block_cost(BATCH, h, cin, cout, s, x.element_size())
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = ops / PEAK_OPS[dtype] * 1e3
         rows.append(dict(geometry=f"{h}x{h}x{cin}->{cout} s{s}", count=count,
-                         ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                         ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                         library_ms=l_dev, library_event_ms=l_ms,
                          bytes_ms=t_bytes, ops_ms=t_ops,
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
@@ -295,7 +328,8 @@ def tiny_run_agreement(torch, fedml):
 
 def build_all(build, names):
     """One nvcc per source, all started together; print each build's
-    time and the compiler's register, shared-memory and spill lines."""
+    time and the compiler's register, shared-memory and spill lines.
+    Returns {kernel (mangled name): bytes spilled (stores + loads)}."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(name):
@@ -304,12 +338,22 @@ def build_all(build, names):
 
     with ThreadPoolExecutor(len(names)) as pool:
         done = list(pool.map(one, names))
+    spilled, fn = {}, None
     for name, lib, dt in done:
         print(f"build: {name}.cu in {dt:.1f} s -> {lib.name}", flush=True)
         for line in lib.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "smem")):
                 print(f"  ptxas: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "spill stores" in line and fn is not None:
+                # "0 bytes stack frame, 0 bytes spill stores, 0 bytes
+                # spill loads"
+                words = line.replace(",", " ").split()
+                spilled[fn] = sum(int(words[i - 2]) for i, w in
+                                  enumerate(words) if w == "spill")
+    return spilled
 
 
 def attn_inputs(torch, gen, shape, dtype):
@@ -348,12 +392,17 @@ def check_attention(torch, fa, attn, gen, shape, dtype):
             and tuple(lse.shape) == (b, h, s), f"{shape}: bad output")
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     ro, rlse = fa.reference_fwd(qf, kf, vf, m)
-    rtol, atol = ATTN_FWD_TOL[dtype]
     err = (o.float() - ro).abs()
     require(torch.isfinite(o.float()).all().item(), f"{shape}: non-finite O")
-    bad = int((err > atol + rtol * ro.abs()).sum())
-    require(bad == 0, f"{shape} {dtype}: {bad} outputs of O beyond tolerance "
-                      f"(max abs err {err.max().item():.3e})")
+    if dtype == "float32":
+        rtol, atol = ATTN_FWD_TOL
+        bad = int((err > atol + rtol * ro.abs()).sum())
+        require(bad == 0, f"{shape} {dtype}: {bad} outputs of O beyond "
+                          f"tolerance (max abs err {err.max().item():.3e})")
+    else:
+        oerr = rel_err(torch, o, ro)
+        require(oerr <= ATTN_GRAD_TOL[dtype],
+                f"{shape} {dtype}: O off by {oerr:.3e} of its largest entry")
     require(torch.isfinite(lse).all().item(), f"{shape}: non-finite LSE")
     lerr = (lse - rlse).abs()
     bad = int((lerr > ATTN_LSE_TOL[1] + ATTN_LSE_TOL[0] * rlse.abs()).sum())
@@ -380,18 +429,25 @@ def check_attention(torch, fa, attn, gen, shape, dtype):
                 f"{shape} {dtype}: rows with no live key are not exactly 0")
         require(bool((lse[:, :, :n] < -1e29).all()),
                 f"{shape} {dtype}: LSE of rows with no live key not -1e30")
-    if dtype == "float32" and s <= 1024 and not mask.startswith("prefix"):
-        # the autograd Function (D from the stored O, then B3 and B4)
-        # against dense attention under autograd, both in f32
-        grads = []
-        for fn in (attn.flash_causal_attention, attn.dense_causal_attention):
-            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    if not mask.startswith("prefix") and (
+            dtype == "float32" and s <= 1024 or shape in (ATTN_MAIN,
+                                                           ATTN_HOT)):
+        # the autograd Function (D from the stored O, then B3 and B4) in
+        # `dtype` against dense attention under autograd in f32 on the same
+        # values: output and gradients
+        outs, grads = [], []
+        for fn, dt in ((attn.flash_causal_attention, q.dtype),
+                       (attn.dense_causal_attention, torch.float32)):
+            leaves = [t.detach().to(dt).requires_grad_() for t in (q, k, v)]
             out = fn(*leaves, attn_mask=m)
-            grads.append(torch.autograd.grad((out * g).sum(), leaves))
-        aerr = max(rel_err(torch, a, r.float()) for a, r in zip(*grads))
+            outs.append(out.detach())
+            grads.append(torch.autograd.grad((out.float() * gf).sum(),
+                                             leaves))
+        aerr = max(rel_err(torch, a, r) for a, r in zip(
+            [outs[0], *grads[0]], [outs[1], *grads[1]]))
         require(aerr <= ATTN_GRAD_TOL[dtype],
-                f"{shape}: flash vs dense autograd gradients off by "
-                f"{aerr:.3e}")
+                f"{shape} {dtype}: flash vs dense autograd output and "
+                f"gradients off by {aerr:.3e}")
     return (err.max().item(), (dq.float() - rdq).abs().max().item(),
             max((dk.float() - rdk).abs().max().item(),
                 (dv.float() - rdv).abs().max().item()))
@@ -409,24 +465,78 @@ def attention_cost(shape, itemsize, kernel):
     return tensors * t + rows * row, products * b * h * s * s * d
 
 
+def device_ms(torch, fn, stream=None, iters=20, warmup=3):
+    """(device time of one call of ``fn``, names of the kernels it runs):
+    ``iters`` calls captured once into a CUDA graph on ``stream`` (a new
+    side stream by default), the graph replayed once to warm it and then
+    once more between two CUDA events. Replaying a graph launches its
+    kernels back to back with no host in between, so unlike a clock around
+    eager calls it leaves out the host's launch overhead. The names come
+    from the graph's DOT dump (one node per kernel launch)."""
+    import re
+
+    stream = stream or torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    # keep_graph: the captured graph outlives capture_end, for debug_dump
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.instantiate()
+    dot = os.path.join("build", "device_ms_graph.dot")
+    os.makedirs("build", exist_ok=True)
+    graph.debug_dump(dot)
+    require(os.path.exists(dot), "the CUDA graph wrote no DOT dump")
+    with open(dot) as f:
+        text = f.read()
+    os.unlink(dot)
+    names = {t for t in re.split(r'[\s"|{}]+', text) if "kernel" in t}
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graph.reset()
+    ms = start.elapsed_time(end) / iters
+    require(ms > 0 and names, f"the CUDA graph recorded no kernel "
+                              f"({ms} ms; its DOT dump: {text[:800]!r})")
+    return ms, names
+
+
 def time_attention(torch, F, fa, gen, shape, dtype):
-    """Per kernel: ms of the kernel, its plain version, the library call
-    and the bound, at ``shape`` in ``dtype``."""
+    """Per kernel, at ``shape`` in ``dtype``: ms of the kernel (CUDA events
+    around back-to-back calls of its wrapper, so the wrapper's host time
+    where it exceeds the kernel's) and its device time, its plain version,
+    the library call's device time and the bound."""
     q, k, v, g, m = attn_inputs(torch, gen, shape, dtype)
     with torch.no_grad():
         o, lse = fa.flash_fwd(q, k, v, m)
         dd = (g.float() * o.float()).sum(-1)
     args = (q, k, v, m, g, lse, dd)
     # the yardstick: PyTorch's fused attention on [b, h, s, d] copies,
-    # forward, and its autograd backward (dQ, dK, dV together)
+    # forward, and its autograd backward (dQ, dK, dV together), both as
+    # device time. The forward whose backward is timed runs on the stream
+    # the backward is captured on: autograd runs a backward op on its
+    # forward's stream.
     ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     gl = g.transpose(1, 2).contiguous()
-    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        ql, kl, vl, is_causal=True), iters=20)
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        ol, (ql, kl, vl), gl, retain_graph=True), iters=20)
+    with torch.no_grad():
+        lib_fwd, _ = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_bwd, _ = device_ms(torch, lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), gl, retain_graph=True), stream=side)
     rows = {}
     with torch.no_grad():
         for kernel, fn, plain, lib in (
@@ -439,8 +549,15 @@ def time_attention(torch, F, fa, gen, shape, dtype):
             nbytes, ops = attention_cost(shape, q.element_size(), kernel)
             t_bytes = nbytes / PEAK_BYTES * 1e3
             t_ops = ops / PEAK_OPS[dtype] * 1e3
+            dev, names = device_ms(torch, fn)
+            # one kernel per (kernel, dtype): bf16 B2 and B4 are the
+            # tensor-core kernels, B3 the CUDA-core one
+            want = KERNEL_NAME[dtype][kernel]
+            require(any(want in n for n in names) and not any(
+                "flash" in n and want not in n for n in names),
+                f"{kernel} in {dtype} ran {names}, not {want}")
             rows[kernel] = dict(
-                ms=time_ms(torch, fn, iters=20),
+                ms=time_ms(torch, fn, iters=20), device_ms=dev,
                 plain_ms=time_ms(torch, plain, iters=3, warmup=1),
                 library_ms=lib, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -554,7 +671,14 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
-    build_all(build, ["conv_block", "flash_attention"])
+    spilled = build_all(build, ["conv_block", "flash_attention"])
+    mma = {fn: n for fn, n in spilled.items() if "_mma_kernel" in fn}
+    require(len(mma) == 8, f"expected 8 tensor-core instantiations (B2, B4 "
+                           f"x 4 head widths), the compiler reported {mma}")
+    require(not any(mma.values()), f"tensor-core kernels spill: {mma}")
+    simt_bf16 = [fn for fn in spilled if "bfloat16" in fn and (
+        "flash_fwd_kernel" in fn or "flash_dkv_kernel" in fn)]
+    require(not simt_bf16, f"bf16 CUDA-core B2/B4 built: {simt_bf16}")
 
     gen = torch.Generator().manual_seed(0)
     main_err = 0.0
@@ -581,20 +705,24 @@ def main() -> int:
     rows = time_geometries(torch, F, cb, gen, MAIN_PATH["precision"])
     for r in rows:
         print(f"time bf16 bs{BATCH} {r['geometry']} x{r['count']}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, cuDNN "
-              f"chain {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
-              f"ms ({r['bound_by']})", flush=True)
+              f"{r['ms']:.4f} ms (device time {r['device_ms']:.4f} ms), "
+              f"plain {r['plain_ms']:.4f} ms, cuDNN chain device time "
+              f"{r['library_ms']:.4f} ms (events {r['library_event_ms']:.4f}"
+              f" ms), bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
+              flush=True)
     per_fwd = {k: sum(r[k] * r["count"] for r in rows)
-               for k in ("ms", "plain_ms", "library_ms", "bytes_ms",
-                         "ops_ms")}
+               for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                         "library_event_ms", "bytes_ms", "ops_ms")}
     # the 27 launches together: their bytes over the memory rate against
     # their operations over the peak
     per_fwd["bound_ms"] = max(per_fwd["bytes_ms"], per_fwd["ops_ms"])
     per_fwd["bound_by"] = ("bytes" if per_fwd["bytes_ms"] >= per_fwd["ops_ms"]
                            else "operations")
     print(f"time per ResNet-56 forward (27 blocks, bs{BATCH}, bf16): "
-          f"kernel {per_fwd['ms']:.3f} ms, plain {per_fwd['plain_ms']:.3f} "
-          f"ms, cuDNN chain {per_fwd['library_ms']:.3f} ms, bound "
+          f"kernel {per_fwd['ms']:.3f} ms (device time "
+          f"{per_fwd['device_ms']:.3f} ms), plain {per_fwd['plain_ms']:.3f} "
+          f"ms, cuDNN chain device time {per_fwd['library_ms']:.3f} ms "
+          f"(events {per_fwd['library_event_ms']:.3f} ms), bound "
           f"{per_fwd['bound_ms']:.4f} ms ({per_fwd['bound_by']})", flush=True)
     attn_time = {}
     for label, shape in (("main", ATTN_MAIN), ("hot", ATTN_HOT)):
@@ -602,8 +730,8 @@ def main() -> int:
                                           "bfloat16")
         for kernel, r in attn_time[label].items():
             print(f"time bf16 attention {kernel:3s} b,s,h,d={shape[:4]}: "
-                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"SDPA {r['library_ms']:.4f} ms"
+                  f"kernel {r['ms']:.4f} ms (device time {r['device_ms']:.4f}"
+                  f" ms), plain {r['plain_ms']:.4f} ms, SDPA device time {r['library_ms']:.4f} ms"
                   f"{' (fwd)' if kernel == 'fwd' else ' (bwd: dQ+dK+dV)'}, "
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
                   flush=True)
@@ -684,25 +812,36 @@ def main() -> int:
           f"step, losses {[round(x, 4) for x in losses]}; launches "
           f"{hot_launches}", flush=True)
 
+    # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
         "source": "fedml_tpu_torch/core/kernels/csrc/conv_block.cu",
         "replaces": "fedml_tpu/core/kernels/conv_block.py:144",
+        "design": DESIGN["conv_block"],
         "launches": resnet_launches["conv_block"], "max_abs_err": main_err,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
         "bound_ms": per_fwd["bound_ms"], "bound_by": per_fwd["bound_by"],
-        "library_ms": per_fwd["library_ms"]}]
+        "library_ms": per_fwd["library_ms"],
+        "device_ms": per_fwd["device_ms"],
+        "ms_hot": None, "device_ms_hot": None, "plain_ms_hot": None,
+        "library_ms_hot": None, "bound_ms_hot": None,
+        "bound_by_hot": None}]
     for name, key, line in (("flash_fwd", "fwd", 121), ("flash_dq", "dq", 176),
                             ("flash_dkv", "dkv", 213)):
-        r = attn_time["main"][key]
+        r, rh = attn_time["main"][key], attn_time["hot"][key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fedml_tpu_torch/core/kernels/csrc/flash_attention.cu",
             "replaces": f"fedml_tpu/llm/attention.py:{line}",
+            "design": DESIGN[name],
             "launches": llm_launches[name], "max_abs_err": attn_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "ms_hot": rh["ms"], "device_ms_hot": rh["device_ms"],
+            "plain_ms_hot": rh["plain_ms"],
+            "library_ms_hot": rh["library_ms"],
+            "bound_ms_hot": rh["bound_ms"], "bound_by_hot": rh["bound_by"]})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

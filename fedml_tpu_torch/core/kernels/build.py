@@ -5,8 +5,9 @@ library with a plain C interface and loaded with ``ctypes`` (seconds to
 build, where an extension that includes PyTorch's headers takes minutes).
 The build runs at first use, from the sources in the checkout, into
 ``build/fedml_tpu_torch/`` at the root of the checkout (listed in
-``.gitignore``). The library's name carries a hash of its source and flags,
-so an edited source is rebuilt and a finished build is reused.
+``.gitignore``). The library's name carries a hash of its source, of every
+header in ``csrc/`` (``*.cuh``, which the sources include) and of the flags,
+so an edited source or header is rebuilt and a finished build is reused.
 """
 
 from __future__ import annotations
@@ -39,9 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

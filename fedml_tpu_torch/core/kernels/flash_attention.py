@@ -17,6 +17,21 @@ memory in tiles of 64, f32 accumulation in registers, and the backward
 split into a dQ kernel and a dK/dV kernel so that no two CTAs write the
 same output (no atomics: the backward is bitwise reproducible).
 
+Which kernel runs is fixed by the dtype, one kernel per (kernel, dtype):
+
+============  =======================================  ====================
+kernel        bfloat16                                 float32
+============  =======================================  ====================
+B2 forward    tensor cores (mma.sync bf16, f32 sums)   CUDA cores, f32 FMA
+B3 dQ         CUDA cores, f32 FMA                      CUDA cores, f32 FMA
+B4 dK/dV      tensor cores (mma.sync bf16, f32 sums)   CUDA cores, f32 FMA
+============  =======================================  ====================
+
+The tensor-core kernels round P (and dS in B4) to bf16 as the left operand
+of their second product, as FlashAttention-2/3 do; S, the softmax
+statistics and every sum stay f32. The CUDA-core kernels keep P and dS in
+f32, as the JAX kernels do.
+
 Layouts, at every public function: q, k, v, o, dO and the gradients are
 ``[b, s, h, d]`` (the JAX package's model layout; the kernels read it with
 strides, so no transpose to ``[b·h, s, d]`` is made); the key-padding mask

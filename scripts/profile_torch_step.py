@@ -2,7 +2,8 @@
 """Where a local SGD step of the port's main paths spends its time, on the
 card.
 
-    python3 scripts/profile_torch_step.py [--model resnet56|llm] [--steps 10]
+    python3 scripts/profile_torch_step.py [--model resnet56|llm|llm_hot]
+                                          [--steps 10]
 
 One client's local training at a main path's full width, under
 ``torch.profiler`` after a warm-up:
@@ -12,7 +13,11 @@ One client's local training at a main path's full width, under
 * ``llm``: the FedLLM round's causal LM (``bench.py``'s
   ``bench_federated_lora``: d 512, 4 layers, 8 heads, seq 256, bf16, LoRA
   r8 on q/k/v/o/gate/up/down, flash attention B2-B4), batch 8 of the
-  bundled Shakespeare corpus.
+  bundled Shakespeare corpus;
+* ``llm_hot``: the FedLLM hot loop, ``chip_smoke.py``'s ``HOT_LOOP`` (the
+  ~111M causal LM: d 1024, 8 layers, 8 heads of 128, bf16, flash
+  attention) at bs 8 x seq 1024 on seeded random tokens, full-parameter
+  SGD.
 
 Prints the step time (host clock around work that ends in a synchronize),
 the device-busy and idle shares of the unprofiled step, launches per
@@ -31,7 +36,7 @@ import time
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--model", choices=("resnet56", "llm"),
+    ap.add_argument("--model", choices=("resnet56", "llm", "llm_hot"),
                     default="resnet56")
     args = ap.parse_args()
     import torch
@@ -66,6 +71,29 @@ def main() -> int:
         opt = make_inner_optimizer("sgd", 0.1)
         label = "ResNet-56, bs 32, bf16, fused conv block"
         ours = ("conv_block_kernel",)
+    elif args.model == "llm_hot":
+        from torch.func import functional_call
+
+        from chip_smoke import HOT_BATCH, HOT_LOOP
+        from fedml_tpu_torch import llm
+        cfg = llm.LLMConfig(**HOT_LOOP)
+        model, params = llm.init_llm(cfg, torch.Generator().manual_seed(0))
+        model.to(dev)
+        params = {k: v.to(dev) for k, v in params.items()}
+        spec = llm.CausalLMTrainer(
+            lambda p, x, train=False: functional_call(model, p, (x,)))
+        shape = (n, HOT_BATCH, cfg.max_seq_len)
+        cdata = ClientData(
+            x=torch.randint(0, cfg.vocab_size, shape, generator=gen),
+            y=torch.randint(0, cfg.vocab_size, shape, generator=gen),
+            mask=torch.ones(n, HOT_BATCH),
+            num_samples=torch.tensor(float(n * HOT_BATCH))).to(dev)
+        opt = make_inner_optimizer("sgd", 1e-3)
+        label = (f"~111M causal LM d{cfg.hidden_size} x{cfg.num_layers} "
+                 f"layers, bs {HOT_BATCH} x seq {cfg.max_seq_len}, bf16, "
+                 f"full parameters, flash attention")
+        ours = ("flash_fwd_mma_kernel", "flash_dq_kernel",
+                "flash_dkv_mma_kernel")
     else:
         from fedml_tpu_torch.llm import build_llm
         fed, bundle, spec, _ = build_llm(Arguments(
@@ -86,7 +114,9 @@ def main() -> int:
         opt = make_inner_optimizer("sgd", 1e-3)
         label = ("FedLLM causal LM d512 x4 layers, bs 8 x seq 256, bf16, "
                  "LoRA r8, flash attention")
-        ours = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+        # bf16: B2 and B4 on the tensor cores, B3 on the CUDA cores
+        ours = ("flash_fwd_mma_kernel", "flash_dq_kernel",
+                "flash_dkv_mma_kernel")
     hyper = TrainHyper(learning_rate=opt.lr, epochs=1)
     key = prng.PRNGKey(0)
     run_local_sgd(spec, opt, params, cdata, key, hyper)  # warm-up
