@@ -10,7 +10,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
 2. build every kernel from the sources in the checkout (one nvcc per
    source, all started together; sm_90a), with the build time and the
    compiler's register/shared-memory/spill report; a spill in a
-   tensor-core kernel, or a bf16 CUDA-core B2/B4 in the build, fails;
+   tensor-core kernel, or a bf16 CUDA-core B1-B4 in the build, fails;
 3. check each kernel against its plain PyTorch version on the card:
    B1 (fused conv block) at every ResNet-56 block geometry (batch 32) and
    the odd shapes of its parity tests; B2-B4 (flash attention forward, dQ,
@@ -23,7 +23,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    calls and as device time (calls captured in a CUDA graph, its replay
    timed with CUDA events), its plain version, the device time of one
    PyTorch library call for the same function (``library_ms``) and the
-   bound; B2-B4 must run the kernel their dtype selects (the kernels in
+   bound; B1-B4 must run the kernel their dtype selects (the kernels in
    the captured graph);
 5. tiny runs of both paths on the card against the same runs on the CPU
    (ResNet-20 FedAvg; the federated LoRA causal LM with flash attention);
@@ -70,10 +70,21 @@ ODD = [(2, 7, 9, 16, 16, 1), (2, 7, 7, 16, 32, 2), (2, 9, 8, 16, 32, 2),
 # Forward tolerances, |kernel - plain| <= atol + rtol * |plain|:
 #  float32: the kernel and cuDNN (TF32 off) sum 144-576-term dot products
 #  and 16k-element GroupNorm sums in different orders (~1e-6 relative);
-#  bfloat16: the kernel keeps f32 intermediates and rounds once on output,
-#  so it is held to the plain version in f32 on the same bf16 inputs, within
-#  one bf16 rounding (2^-8 relative) of the output.
+#  bfloat16: the tensor-core kernel rounds y1 to bf16 once, as conv2's A
+#  operand (as the plain version in bf16 does: its GroupNorm casts back to
+#  x's type), keeps everything else f32 and rounds the output once. So it
+#  is held to the plain version in f32 on the same bf16 inputs with y1
+#  rounded at the same place (plain_block_y1_bf16), within one bf16
+#  rounding (2^-8 relative) of the output.
 FWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 2e-3)}
+# bfloat16 B1 is also held to the plain version without that rounding, in
+# f32 and in bf16, by its largest error relative to the largest output
+# entry. f32: y1's rounding (2^-9 relative) carried through conv2 and GN2,
+# plus the output's own rounding, stays within one bf16 ulp of the largest
+# entry (2^-7). bf16: the plain version also rounds conv2's output, both
+# GroupNorms' and the residual sum, so the two can differ by two ulps of
+# the largest entry (2^-6).
+B1_PLAIN_TOL = {"float32": 2 ** -7, "bfloat16": 2 ** -6}
 # Gradients: the kernel's backward recomputes the plain version, so the two
 # differ only by the card's run-to-run summation order; error relative to
 # the largest gradient entry.
@@ -131,16 +142,23 @@ ATTN_FWD_TOL = (1e-4, 1e-5)
 ATTN_LSE_TOL = (1e-5, 1e-5)
 # The CUDA kernel each wrapper launches, by dtype.
 KERNEL_NAME = {
-    "bfloat16": {"fwd": "flash_fwd_mma_kernel", "dq": "flash_dq_kernel",
+    "bfloat16": {"fwd": "flash_fwd_mma_kernel", "dq": "flash_dq_mma_kernel",
                  "dkv": "flash_dkv_mma_kernel"},
     "float32": {"fwd": "flash_fwd_kernel", "dq": "flash_dq_kernel",
                 "dkv": "flash_dkv_kernel"}}
+B1_KERNEL_NAME = {"bfloat16": "conv_block_mma_kernel",
+                  "float32": "conv_block_kernel"}
 # What each kernel of the {"kernels": [...]} line is built from.
 DESIGN = {
-    "conv_block": "SIMT f32 (CUDA cores), one CTA per sample",
+    "conv_block": "bf16: mma.sync m16n8k16 implicit GEMM + ldmatrix, a "
+                  "thread-block cluster per sample (a band of rows per "
+                  "CTA), GroupNorm and conv2's halo across the cluster "
+                  "through distributed shared memory; f32: SIMT, one CTA "
+                  "per sample",
     "flash_fwd": "bf16: mma.sync m16n8k16 + ldmatrix + cp.async 2-stage "
                  "ring; f32: SIMT",
-    "flash_dq": "SIMT f32 (CUDA cores), bf16 and f32 inputs",
+    "flash_dq": "bf16: mma.sync m16n8k16 + ldmatrix + cp.async 2-stage "
+                "ring, keys 32 at a time; f32: SIMT",
     "flash_dkv": "bf16: mma.sync m16n8k16 + ldmatrix + cp.async 2-stage "
                  "ring; f32: SIMT"}
 
@@ -182,25 +200,71 @@ def make_block(torch, gen, n, h, w, cin, cout, stride, dtype, device):
     return rnd(n, h, w, cin), p
 
 
+def plain_block_y1_bf16(torch, cb, x, p, s, groups=8):
+    """``reference_block`` in f32 with y1 rounded to bf16 before conv2: the
+    plain version of the bf16 kernel's numerics."""
+    y = cb._conv_same(x, p["w1"], s)
+    y = torch.relu(cb._group_norm(y, p["g1_scale"], p["g1_bias"], groups,
+                                  cb.GN_EPS))
+    y = cb._conv_same(y.bfloat16().float(), p["w2"], 1)
+    y = cb._group_norm(y, p["g2_scale"], p["g2_bias"], groups, cb.GN_EPS)
+    r = x
+    if "wp" in p:
+        r = cb._group_norm(cb._conv_same(x, p["wp"], s), p["gp_scale"],
+                           p["gp_bias"], groups, cb.GN_EPS)
+    return torch.relu(r + y)
+
+
 def check_case(torch, cb, gen, shape, dtype):
     """Forward and gradients of the kernel against the plain version.
-    Returns (max abs forward error, max relative gradient error)."""
+    Returns (max abs forward error against the plain version in f32, max
+    relative gradient error, and for bf16 the max abs error against the
+    plain version in bf16, else None)."""
     n, h, w, cin, cout, s = shape
     dt = getattr(torch, dtype)
+    if dtype == "bfloat16":
+        # the wrapper's footprint is the kernel's (csrc band_layout)
+        k = cb.cluster_for(n, h, w, cout, s)
+        need = cb._lib().conv_block_mma_smem_bytes(h, w, cin, cout, s, k)
+        require(need == cb.smem_bytes(h, w, cin, cout, s, 8, dt, k),
+                f"{shape}: the kernel needs {need} bytes of shared memory, "
+                f"the wrapper reckons "
+                f"{cb.smem_bytes(h, w, cin, cout, s, 8, dt, k)}")
     x, p = make_block(torch, gen, n, h, w, cin, cout, s, dt, "cuda")
     out = cb.fused_block(x, p, strides=s, groups=8)
     torch.cuda.synchronize()
     require(out.dtype == dt and tuple(out.shape) == (
         n, -(-h // s), -(-w // s), cout), f"{shape} {dtype}: bad output")
-    ref = cb.reference_block(x.float(), {k: v.float() for k, v in p.items()},
-                             strides=s, groups=8)
+    # fixed reduction orders (in bf16 across the cluster too): a second
+    # launch gives the same bits
+    require(torch.equal(out, cb.fused_block(x, p, strides=s, groups=8)),
+            f"{shape} {dtype}: two launches differ")
+    xf, pf = x.float(), {k: v.float() for k, v in p.items()}
+    ref = cb.reference_block(xf, pf, strides=s, groups=8)
     err = (out.float() - ref).abs()
-    rtol, atol = FWD_TOL[dtype]
-    bad = int((err > atol + rtol * ref.abs()).sum())
     require(torch.isfinite(out.float()).all().item(),
             f"{shape} {dtype}: non-finite output")
-    require(bad == 0, f"{shape} {dtype}: {bad} outputs beyond tolerance "
-                      f"(max abs err {err.max().item():.3e})")
+    rtol, atol = FWD_TOL[dtype]
+    err16 = None
+    if dtype == "bfloat16":
+        ref_y1 = plain_block_y1_bf16(torch, cb, xf, pf, s)
+        e = (out.float() - ref_y1).abs()
+        bad = int((e > atol + rtol * ref_y1.abs()).sum())
+        require(bad == 0, f"{shape} {dtype}: {bad} outputs beyond tolerance "
+                          f"of the plain version with y1 in bf16 (max abs "
+                          f"err {e.max().item():.3e})")
+        ref16 = cb.reference_block(x, p, strides=s, groups=8).float()
+        err16 = (out.float() - ref16).abs().max().item()
+        for name, r, e in (("float32", ref, err.max().item()),
+                           ("bfloat16", ref16, err16)):
+            rel = e / r.abs().max().item()
+            require(rel <= B1_PLAIN_TOL[name],
+                    f"{shape} {dtype}: off the plain version in {name} by "
+                    f"{rel:.3e} of its largest entry")
+    else:
+        bad = int((err > atol + rtol * ref.abs()).sum())
+        require(bad == 0, f"{shape} {dtype}: {bad} outputs beyond tolerance "
+                          f"(max abs err {err.max().item():.3e})")
     cot = torch.randn(out.shape, generator=gen).to("cuda")
     grads = []
     for fn in (cb.fused_block, cb.reference_block):
@@ -213,7 +277,7 @@ def check_case(torch, cb, gen, shape, dtype):
                for a, b in zip(*grads))
     require(gerr <= GRAD_TOL[dtype],
             f"{shape} {dtype}: gradient error {gerr:.3e}")
-    return err.max().item(), gerr
+    return err.max().item(), gerr, err16
 
 
 def time_ms(torch, fn, iters=50, warmup=5):
@@ -282,15 +346,21 @@ def time_geometries(torch, F, cb, gen, dtype):
 
         with torch.no_grad():
             k_ms = time_ms(torch, kernel)
-            k_dev, _ = device_ms(torch, kernel)
+            k_dev, names = device_ms(torch, kernel)
             p_ms = time_ms(torch, lambda: cb.reference_block(x, p,
                                                              strides=s))
             l_ms = time_ms(torch, chain)
             l_dev, _ = device_ms(torch, chain)
+        # one kernel per dtype: bf16 B1 is the tensor-core cluster kernel
+        want = B1_KERNEL_NAME[dtype]
+        require(any(want in n for n in names) and not any(
+            "conv_block" in n and want not in n for n in names),
+            f"conv_block in {dtype} ran {names}, not {want}")
         nbytes, ops = block_cost(BATCH, h, cin, cout, s, x.element_size())
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = ops / PEAK_OPS[dtype] * 1e3
         rows.append(dict(geometry=f"{h}x{h}x{cin}->{cout} s{s}", count=count,
+                         cluster=cb.cluster_for(BATCH, h, h, cout, s),
                          ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                          library_ms=l_dev, library_event_ms=l_ms,
                          bytes_ms=t_bytes, ops_ms=t_ops,
@@ -550,8 +620,8 @@ def time_attention(torch, F, fa, gen, shape, dtype):
             t_bytes = nbytes / PEAK_BYTES * 1e3
             t_ops = ops / PEAK_OPS[dtype] * 1e3
             dev, names = device_ms(torch, fn)
-            # one kernel per (kernel, dtype): bf16 B2 and B4 are the
-            # tensor-core kernels, B3 the CUDA-core one
+            # one kernel per (kernel, dtype): bf16 B2-B4 are the
+            # tensor-core kernels
             want = KERNEL_NAME[dtype][kernel]
             require(any(want in n for n in names) and not any(
                 "flash" in n and want not in n for n in names),
@@ -673,24 +743,31 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     spilled = build_all(build, ["conv_block", "flash_attention"])
     mma = {fn: n for fn, n in spilled.items() if "_mma_kernel" in fn}
-    require(len(mma) == 8, f"expected 8 tensor-core instantiations (B2, B4 "
-                           f"x 4 head widths), the compiler reported {mma}")
+    n_attn = sum("flash_" in fn for fn in mma)
+    n_conv = sum("conv_block_mma_kernel" in fn for fn in mma)
+    require(n_attn == 12 and n_conv == len(cb.MMA_WIDTHS) ** 2,
+            f"expected 12 tensor-core instantiations of attention (B2, B3, "
+            f"B4 x 4 head widths) and {len(cb.MMA_WIDTHS) ** 2} of B1 (cin x "
+            f"cout), the compiler reported {mma}")
     require(not any(mma.values()), f"tensor-core kernels spill: {mma}")
-    simt_bf16 = [fn for fn in spilled if "bfloat16" in fn and (
-        "flash_fwd_kernel" in fn or "flash_dkv_kernel" in fn)]
-    require(not simt_bf16, f"bf16 CUDA-core B2/B4 built: {simt_bf16}")
+    simt_bf16 = [fn for fn in spilled if "bfloat16" in fn and any(
+        k in fn for k in ("conv_block_kernel", "flash_fwd_kernel",
+                          "flash_dq_kernel", "flash_dkv_kernel"))]
+    require(not simt_bf16, f"bf16 CUDA-core B1-B4 built: {simt_bf16}")
 
     gen = torch.Generator().manual_seed(0)
-    main_err = 0.0
+    main_err, main_err16 = 0.0, 0.0
     for dtype in ("float32", "bfloat16"):
         shapes = [(BATCH, h, h, cin, cout, s)
                   for (h, cin, cout, s), _ in FLAGSHIP] + ODD
         for shape in shapes:
-            err, gerr = check_case(torch, cb, gen, shape, dtype)
+            err, gerr, err16 = check_case(torch, cb, gen, shape, dtype)
             if dtype == MAIN_PATH["precision"] and shape[0] == BATCH:
                 main_err = max(main_err, err)
+                main_err16 = max(main_err16, err16)
+            vs16 = "" if err16 is None else f" (plain bf16: {err16:.3e})"
             print(f"check {dtype:8s} n,h,w,cin,cout,s={shape}: max abs err "
-                  f"{err:.3e}, grad rel err {gerr:.3e}", flush=True)
+                  f"{err:.3e}{vs16}, grad rel err {gerr:.3e}", flush=True)
     attn_err = {}
     for dtype in ("float32", "bfloat16"):
         for shape in ATTN_SHAPES:
@@ -704,7 +781,8 @@ def main() -> int:
 
     rows = time_geometries(torch, F, cb, gen, MAIN_PATH["precision"])
     for r in rows:
-        print(f"time bf16 bs{BATCH} {r['geometry']} x{r['count']}: kernel "
+        print(f"time bf16 bs{BATCH} {r['geometry']} x{r['count']} (cluster "
+              f"{r['cluster']}): kernel "
               f"{r['ms']:.4f} ms (device time {r['device_ms']:.4f} ms), "
               f"plain {r['plain_ms']:.4f} ms, cuDNN chain device time "
               f"{r['library_ms']:.4f} ms (events {r['library_event_ms']:.4f}"
@@ -819,10 +897,12 @@ def main() -> int:
         "replaces": "fedml_tpu/core/kernels/conv_block.py:144",
         "design": DESIGN["conv_block"],
         "launches": resnet_launches["conv_block"], "max_abs_err": main_err,
+        "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
         "bound_ms": per_fwd["bound_ms"], "bound_by": per_fwd["bound_by"],
         "library_ms": per_fwd["library_ms"],
         "device_ms": per_fwd["device_ms"],
+        "clusters": {r["geometry"]: r["cluster"] for r in rows},
         "ms_hot": None, "device_ms_hot": None, "plain_ms_hot": None,
         "library_ms_hot": None, "bound_ms_hot": None,
         "bound_by_hot": None}]

@@ -12,11 +12,15 @@ which replaces the Pallas TPU kernel
   arithmetic is small next to the bytes the unfused chain moves through
   device memory (every GroupNorm and residual op re-reads the full
   activation), so the ideal kernel is bytes-bound;
-* what the design does about it: one CTA per sample keeps the input with
-  its halo, both intermediates and the GroupNorm statistics in shared
-  memory as f32, so each activation is read once and written once. The
-  first version computes its convolutions on CUDA cores; its measured time
-  and bound are in ``PERF.md``.
+* what the design does about it: every intermediate stays on chip, so each
+  activation is read once and written once. In bfloat16 a thread-block
+  cluster of :func:`cluster_for` CTAs covers one sample, each CTA a band of
+  output rows (:func:`bands`); the convolutions run on the tensor cores as
+  implicit GEMMs, and GroupNorm's statistics and conv2's halo rows cross the
+  cluster through distributed shared memory. In float32 one CTA per sample
+  keeps everything in shared memory as f32 and computes on the CUDA cores.
+  The source note says more; the measured times and bounds are in
+  ``PERF.md``.
 
 Public functions keep the JAX package's layout: NHWC activations, HWIO
 weights, GroupNorm scale/bias ``[C]``, the same ``params`` dict keys
@@ -33,7 +37,7 @@ kernel's on-chip intermediates is saved.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,8 +51,18 @@ MAX_FUSED_CHANNELS = 64
 #: shared memory one CTA may use on an H100 (the 227 KB opt-in)
 MAX_SMEM_BYTES = 232448
 
-#: threads per CTA, rounded down to a multiple of the channel count
+#: float32 kernel: threads per CTA, rounded down to a multiple of the
+#: channel count
 MAX_THREADS = 512
+
+#: bfloat16 kernel: channel counts it takes (in and out), warps per CTA,
+#: 16x16 output units a warp holds in registers per convolution, the
+#: largest (portable) cluster, and the SMs a grid should fill
+MMA_WIDTHS = (16, 32, 64)
+MMA_WARPS = 8
+MMA_UNITS = 4
+MAX_CLUSTER = 8
+NUM_SMS = 132
 
 Params = Dict[str, torch.Tensor]
 
@@ -121,8 +135,10 @@ def _lib():
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.conv_block_forward.argtypes = (
-            [ptr] * 11 + [i32] * 7 + [ctypes.c_float, i32, i32, ptr])
+            [ptr] * 11 + [i32] * 7 + [ctypes.c_float, i32, i32, i32, ptr])
         lib.conv_block_forward.restype = i32
+        lib.conv_block_mma_smem_bytes.argtypes = [i32] * 6
+        lib.conv_block_mma_smem_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
@@ -133,17 +149,72 @@ def threads_for(c: int) -> int:
     return (MAX_THREADS // c) * c
 
 
+def _out_extent(h: int, w: int, strides: int) -> Tuple[int, int]:
+    return -(-h // strides), -(-w // strides)
+
+
+def _units(rows: int, wo: int, c: int) -> int:
+    """16-pixel x 16-channel output units of a band of ``rows`` rows."""
+    return -(-rows * wo // 16) * (c // 16)
+
+
+def cluster_for(n: int, h: int, w: int, c: int, strides: int) -> int:
+    """CTAs per sample of the bfloat16 kernel: the largest of 8, 4, 2, 1
+    with ``n`` x that many CTAs on the card's 132 SMs, at most the output
+    height (each CTA keeps at least one row), and raised until a band's
+    output units fit the warps' registers. Raises if none does."""
+    ho, wo = _out_extent(h, w, strides)
+    cap = min(MAX_CLUSTER, ho)
+    k = min(next((k for k in (8, 4, 2) if n * k <= NUM_SMS), 1), cap)
+    while _units(-(-ho // k), wo, c) > MMA_WARPS * MMA_UNITS:
+        if k == cap:
+            raise ValueError(
+                f"block {h}x{w}->{c} at stride {strides}: a band of "
+                f"{-(-ho // k)} output rows holds more than the "
+                f"{MMA_WARPS * MMA_UNITS} output units the kernel keeps in "
+                f"registers")
+        k += 1
+    return k
+
+
+def bands(ho: int, cluster: int) -> List[Tuple[int, int]]:
+    """Output rows ``[start, stop)`` of each CTA of a cluster, by rank (as
+    the kernel splits them)."""
+    return [(r * ho // cluster, (r + 1) * ho // cluster)
+            for r in range(cluster)]
+
+
+def _align128(v: int) -> int:
+    return -(-v // 128) * 128
+
+
 def smem_bytes(h: int, w: int, cin: int, c: int, strides: int,
-               groups: int) -> int:
-    """Shared memory one CTA needs: x and y1 with their halos, y2, the
-    partial sums and the GroupNorm statistics, all f32."""
-    ho, wo = -(-h // strides), -(-w // strides)
+               groups: int, dtype: torch.dtype = torch.float32,
+               cluster: int = 1) -> int:
+    """Shared memory one CTA needs. float32: x and y1 with their halos, y2,
+    the partial sums and the GroupNorm statistics of one sample, all f32.
+    bfloat16 (``cluster`` CTAs per sample): the tallest band's input rows
+    with their halo and its y1 rows with theirs (bf16), the larger conv's
+    weights and the projection's (bf16), per-warp column sums, the cluster
+    partials, the statistics and the GroupNorm params (f32); as
+    ``csrc/conv_block.cu::band_layout``."""
+    ho, wo = _out_extent(h, w, strides)
+    if dtype == torch.bfloat16:
+        rmax = -(-ho // cluster)
+        parts = (((rmax - 1) * strides + 3) * (w + 2) * cin * 2,
+                 (rmax + 2) * (wo + 2) * c * 2, 9 * max(cin, c) * c * 2,
+                 cin * c * 2, 2 * MMA_WARPS * c * 2 * 4, 3 * c * 2 * 4,
+                 3 * c * 2 * 4, 6 * c * 4)
+        return sum(_align128(b) for b in parts)
     floats = ((h + 2) * (w + 2) * cin + (ho + 2) * (wo + 2) * c + ho * wo * c
               + 2 * threads_for(c) + 6 * groups)
     return 4 * floats
 
 
-def _check(x: torch.Tensor, params: Params, strides: int, groups: int):
+def _check(x: torch.Tensor, params: Params, strides: int,
+           groups: int) -> int:
+    """Raise on what the kernel for x's dtype does not take; return the
+    CTAs per sample (the bfloat16 kernel's cluster, 1 in float32)."""
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
@@ -172,27 +243,39 @@ def _check(x: torch.Tensor, params: Params, strides: int, groups: int):
         raise ValueError(f"strides must be 1 or 2, got {strides}")
     if groups < 1 or c % groups:
         raise ValueError(f"groups={groups} must divide {c} channels")
-    if c > MAX_THREADS:
+    cluster = 1
+    if x.dtype == torch.bfloat16:
+        if cin not in MMA_WIDTHS or c not in MMA_WIDTHS:
+            raise ValueError(f"the bfloat16 kernel takes {MMA_WIDTHS} "
+                             f"channels, got {cin}->{c}")
+        cluster = cluster_for(n, h, w, c, strides)
+    elif c > MAX_THREADS:
         raise ValueError(f"{c} output channels exceed the kernel's "
                          f"{MAX_THREADS}-thread CTA")
-    need = smem_bytes(h, w, cin, c, strides, groups)
+    need = smem_bytes(h, w, cin, c, strides, groups, x.dtype, cluster)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"block {h}x{w}x{cin}->{c} needs {need} bytes of shared memory "
-            f"per sample, over the {MAX_SMEM_BYTES}-byte limit")
+            f"per CTA, over the {MAX_SMEM_BYTES}-byte limit")
+    return cluster
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(x: torch.Tensor, params: Params, strides: int, groups: int,
             eps: float) -> torch.Tensor:
     """One kernel launch on the current stream. Raises on anything the
     kernel does not take, and if the launch is refused."""
-    _check(x, params, strides, groups)
-    x = x.contiguous()
-    p = {k: v.contiguous() for k, v in params.items()}
+    cluster = _check(x, params, strides, groups)
+    # 16-byte aligned, as the bfloat16 kernel's cp.async copies need
+    x, p = _aligned(x), {k: _aligned(v) for k, v in params.items()}
     n, h, w, cin = (int(d) for d in x.shape)
     c = int(p["w1"].shape[-1])
-    out = torch.empty((n, -(-h // strides), -(-w // strides), c),
-                      dtype=x.dtype, device=x.device)
+    out = torch.empty((n, *_out_extent(h, w, strides), c), dtype=x.dtype,
+                      device=x.device)
     if n == 0:
         return out
     # a null projection pointer selects the identity residual
@@ -204,7 +287,7 @@ def _launch(x: torch.Tensor, params: Params, strides: int, groups: int,
         err = _lib().conv_block_forward(
             x.data_ptr(), *ptrs, out.data_ptr(), n, h, w, cin, c,
             int(strides), int(groups), float(eps), _DTYPES[x.dtype],
-            threads_for(c), stream)
+            threads_for(c), cluster, stream)
     if err != 0:
         raise RuntimeError(f"conv_block kernel launch failed: CUDA error "
                            f"{err}")

@@ -6,6 +6,7 @@
 // Replaces the three Pallas TPU kernels of fedml_tpu/llm/attention.py:
 //   B2 flash_fwd_kernel  <- _flash_fwd_kernel  (:121, launched :285)
 //   B3 flash_dq_kernel   <- _flash_dq_kernel   (:176, launched :323)
+// (bf16 runs the tensor-core kernels flash_{fwd,dq,dkv}_mma_kernel)
 //   B4 flash_dkv_kernel  <- _flash_dkv_kernel  (:213, launched :342)
 //
 // Semantics (the same as the TPU kernels'): scale = 1/sqrt(d); key k is
@@ -35,21 +36,21 @@
 //
 // Two designs, chosen by dtype alone (one kernel per (kernel, dtype) pair):
 //
-// * bfloat16 B2 and B4: tensor cores (flash_fwd_mma_kernel,
-//   flash_dkv_mma_kernel). 4 warps per CTA, each owning 16 of the CTA's 64
-//   rows; every product is mma.sync m16n8k16 bf16 with f32 sums
+// * bfloat16 B2, B3 and B4: tensor cores (flash_fwd_mma_kernel,
+//   flash_dq_mma_kernel, flash_dkv_mma_kernel). 4 warps per CTA, each
+//   owning 16 of the CTA's 64 rows; every product is mma.sync m16n8k16 bf16 with f32 sums
 //   (mma_tile.cuh); operands reach registers through ldmatrix from bf16
 //   tiles whose 16-byte chunks are XOR-swizzled (no bank conflicts); the
 //   streamed tiles are double-buffered with cp.async, tile t+1 in flight
 //   while tile t computes. The head width is padded with zeros to DP in
 //   {16, 32, 64, 128} in shared memory only. The scale is applied to the
 //   f32 scores (Q is not pre-scaled in bf16: 1/sqrt(128) is not a power of
-//   two). P (and dS in B4) is rounded to bf16 as the left operand of the
-//   second product, as FlashAttention-2/3 do; S, the softmax statistics and
+//   two). P (and dS in B3 and B4) is rounded to bf16 as the left operand of
+//   the second product, as FlashAttention-2/3 do; S, the softmax statistics and
 //   every sum stay f32. No wgmma, TMA, warp specialisation or persistent
 //   CTAs yet: those are the next levers.
-// * float32 B2-B4 and bfloat16 B3: CUDA cores (flash_fwd_kernel,
-//   flash_dq_kernel, flash_dkv_kernel), f32 FMA, Q pre-scaled in f32, 256
+// * float32 B2-B4: CUDA cores (flash_fwd_kernel, flash_dq_kernel,
+//   flash_dkv_kernel), f32 FMA, Q pre-scaled in f32, 256
 //   threads per CTA, each owning a 4x4 block of the 64x64 score tile and a
 //   4 x ceil(d/16) block of its output rows; tiles staged in shared memory
 //   as f32 rows padded to d+1 floats, so that a row group's 16 lanes read 16
@@ -780,6 +781,155 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   mt::store_rows<DP>(dv + base, Vs, 16 * warp, k0 + 16 * warp, S, ld, D, vv, lane);
 }
 
+// B3 in bf16. One CTA per (b*h, 64-row q tile), the longest rows first, as
+// in B2; each of the 4 warps owns 16 query rows. The Q and dO tiles stay in
+// shared memory for the whole loop and each thread keeps its two rows' LSE
+// and D; K/V tiles 0..qt stream through a two-stage cp.async ring. Per kv
+// tile, 32 keys at a time:
+//   S = Q.K^T and dP = dO.V^T (K and V as B operands read without a
+//   transpose), P = live ? exp(S*scale - LSE) : 0, dS = P o (dP - D) in f32,
+//   dQ += dS.K with dS rounded to bf16 as the A fragment and K read through
+//   ldmatrix.trans; dQ is scaled once at the end and rounded once.
+// Registers at DP 128: dQ takes 64 f32 per thread. Keeping Q's and dO's A
+// fragments resident (32 + 32) beside S and dP of a whole 64-key tile (32 +
+// 32) would pass ptxas's 255, so the fragments are read from shared memory
+// at each 16-deep step (as B4 reads K and V) and a tile's keys are taken 32
+// at a time (S and dP 16 registers each), in a loop that is not unrolled.
+// chip_smoke.py fails if ptxas reports a spill here.
+template <int DP>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ mask,
+                    const bf16* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ dd, bf16* __restrict__ dq, int S, int H, int D,
+                    float scale, int vec) {
+  constexpr int KC = DP / 16;
+  constexpr int NO = DP / 8;
+  constexpr int KU = KC < 2 ? KC : 2;  // 16-deep steps unrolled together
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + TILE * DP;      // dO
+  bf16* Ks = Gs + TILE * DP;      // 2 stages
+  bf16* Vs = Ks + 2 * TILE * DP;  // 2 stages
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int qt = gridDim.y - 1 - blockIdx.y, q0 = qt * TILE;
+  const size_t ld = static_cast<size_t>(H) * D, base = head_off(b, h, S, H, D);
+  const bool vv = vec != 0;
+
+  mt::load_tile<DP, TILE, MMA_THREADS>(Qs, q + base, q0, S, ld, D, vv);
+  mt::load_tile<DP, TILE, MMA_THREADS>(Gs, dout + base, q0, S, ld, D, vv);
+  mt::load_tile<DP, TILE, MMA_THREADS>(Ks, k + base, 0, S, ld, D, vv);
+  mt::load_tile<DP, TILE, MMA_THREADS>(Vs, v + base, 0, S, ld, D, vv);
+  mt::cp_async_commit();
+
+  const int row0 = q0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  float l2[2], drow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    l2[r] = qp < S ? lse[static_cast<size_t>(bh) * S + qp] * LOG2E : 0.f;
+    drow[r] = qp < S ? dd[(static_cast<size_t>(b) * S + qp) * H + h] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  const float c = scale * LOG2E;
+  const uint32_t sQ = mt::smem_u32(Qs), sG = mt::smem_u32(Gs);
+  mt::cp_async_wait<0>();
+  __syncthreads();
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int st = kt & 1;
+    if (kt < qt) {  // the next tile, into the stage the previous one used
+      mt::load_tile<DP, TILE, MMA_THREADS>(Ks + (st ^ 1) * TILE * DP, k + base, (kt + 1) * TILE,
+                                           S, ld, D, vv);
+      mt::load_tile<DP, TILE, MMA_THREADS>(Vs + (st ^ 1) * TILE * DP, v + base, (kt + 1) * TILE,
+                                           S, ld, D, vv);
+    }
+    mt::cp_async_commit();
+    const uint32_t Kt = mt::smem_u32(Ks + st * TILE * DP);
+    const uint32_t Vt = mt::smem_u32(Vs + st * TILE * DP);
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < TILE; c0 += 32) {  // the tile's keys, 32 at a time
+      float s[4][4], dp[4][4];  // rows (g, g+8) x keys k0 + c0 + 8n + 2t + {0, 1}
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll 1
+      for (int k2 = 0; k2 < KC; k2 += KU)
+#pragma unroll
+        for (int u = 0; u < KU; ++u) {
+          const int kc = k2 + u;
+          uint32_t qa[4], ga[4];
+          mt::ldmatrix_x4(qa, mt::a_frag_addr<DP>(sQ, 16 * warp, 2 * kc, lane));
+          mt::ldmatrix_x4(ga, mt::a_frag_addr<DP>(sG, 16 * warp, 2 * kc, lane));
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t bk[4], bv[4];
+            mt::ldmatrix_x4(bk, mt::bt_frag_addr<DP>(Kt, c0 + 16 * np, 2 * kc, lane));
+            mt::mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+            mt::mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+            mt::ldmatrix_x4(bv, mt::bt_frag_addr<DP>(Vt, c0 + 16 * np, 2 * kc, lane));
+            mt::mma_bf16(dp[2 * np], ga, bv[0], bv[1]);
+            mt::mma_bf16(dp[2 * np + 1], ga, bv[2], bv[3]);
+          }
+        }
+
+      // dS in place of dP. Keys of tiles before the diagonal are < q0 <= every
+      // row and < S: only the key mask applies there.
+      const bool all_live = kt < qt && mask == nullptr;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int kp = kt * TILE + c0 + 8 * n + 2 * t + j;
+          const bool real = all_live || key_real(mask, b, kp, S);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 2 * r + j, qp = row0 + 8 * r;
+            const bool live = all_live || (real && kp <= qp && qp < S);
+            const float p = live ? exp2f(fmaf(s[n][i], c, -l2[r])) : 0.f;
+            dp[n][i] = p * (dp[n][i] - drow[r]);
+          }
+        }
+
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {  // dQ += dS.K, 16 keys at a time
+        uint32_t sa[4];
+        mt::acc_to_a(sa, dp[2 * kc], dp[2 * kc + 1]);
+#pragma unroll
+        for (int dc = 0; dc < DP / 16; ++dc) {
+          uint32_t bk[4];
+          mt::ldmatrix_x4_trans(bk, mt::b_frag_addr<DP>(Kt, c0 + 16 * kc, 2 * dc, lane));
+          mt::mma_bf16(acc[2 * dc], sa, bk[0], bk[1]);
+          mt::mma_bf16(acc[2 * dc + 1], sa, bk[2], bk[3]);
+        }
+      }
+    }
+    mt::cp_async_wait<0>();
+    __syncthreads();  // the next tile has landed; this one's readers are done
+  }
+
+  // dQ (scaled once) through this warp's own rows of the Q tile, which only
+  // this warp read, then out with 16-byte stores
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tr = 16 * warp + g + 8 * r;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(Qs + mt::tile_off<DP>(tr, n) + 2 * t) =
+          mt::pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  }
+  __syncwarp();
+  mt::store_rows<DP>(dq + base, Qs, 16 * warp, q0 + 16 * warp, S, ld, D, vv, lane);
+}
+
 // Shared memory of each kernel, in bytes.
 size_t fwd_smem(int D) { return sizeof(float) * (3 * TILE * (D + 1) + TILE * PLD); }
 size_t dq_smem(int D) { return sizeof(float) * (4 * TILE * (D + 1) + TILE * PLD); }
@@ -846,6 +996,9 @@ template <int DP>
 size_t fwd_mma_smem() { return sizeof(bf16) * 5 * TILE * DP; }
 template <int DP>
 size_t dkv_mma_smem() { return sizeof(bf16) * 6 * TILE * DP + sizeof(float) * 4 * TILE; }
+// B3: Q and dO tiles and two stages of K and V.
+template <int DP>
+size_t dq_mma_smem() { return sizeof(bf16) * 6 * TILE * DP; }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
@@ -880,6 +1033,24 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
       static_cast<const float*>(mask), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dd), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), S, H, D, scale, vec);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* mask,
+                          const void* dout, const void* lse, const void* dd, void* dq, int B,
+                          int S, int H, int D, float scale, cudaStream_t st) {
+  const size_t smem = dq_mma_smem<DP>();
+  cudaError_t err = allow_smem(flash_dq_mma_kernel<DP>, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                  aligned16(dout) && aligned16(dq);
+  dim3 grid(B * H, (S + TILE - 1) / TILE);
+  flash_dq_mma_kernel<DP><<<grid, MMA_THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(mask), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dd), static_cast<bf16*>(dq), S, H,
+      D, scale, vec);
   return cudaGetLastError();
 }
 
@@ -928,7 +1099,7 @@ int flash_fwd(const void* q, const void* k, const void* v, const void* mask, voi
   return cudaErrorInvalidValue;
 }
 
-// B3: both dtypes on the CUDA cores.
+// B3: float32 on the CUDA cores, bfloat16 on the tensor cores.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* mask,
                  const void* dout, const void* lse, const void* dd, void* dq, int B, int S,
                  int H, int D, float scale, int dtype, void* stream) {
@@ -937,7 +1108,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* mask,
   if (dtype == 0)
     SIMT_DISPATCH(launch_dq, float, q, k, v, mask, dout, lse, dd, dq, B, S, H, D, scale, st);
   if (dtype == 1)
-    SIMT_DISPATCH(launch_dq, bf16, q, k, v, mask, dout, lse, dd, dq, B, S, H, D, scale, st);
+    MMA_DISPATCH(launch_dq_mma, q, k, v, mask, dout, lse, dd, dq, B, S, H, D, scale, st);
   return cudaErrorInvalidValue;
 }
 

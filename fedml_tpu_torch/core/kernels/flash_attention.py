@@ -23,12 +23,12 @@ Which kernel runs is fixed by the dtype, one kernel per (kernel, dtype):
 kernel        bfloat16                                 float32
 ============  =======================================  ====================
 B2 forward    tensor cores (mma.sync bf16, f32 sums)   CUDA cores, f32 FMA
-B3 dQ         CUDA cores, f32 FMA                      CUDA cores, f32 FMA
+B3 dQ         tensor cores (mma.sync bf16, f32 sums)   CUDA cores, f32 FMA
 B4 dK/dV      tensor cores (mma.sync bf16, f32 sums)   CUDA cores, f32 FMA
 ============  =======================================  ====================
 
-The tensor-core kernels round P (and dS in B4) to bf16 as the left operand
-of their second product, as FlashAttention-2/3 do; S, the softmax
+The tensor-core kernels round P (and dS in B3 and B4) to bf16 as the left
+operand of their second product, as FlashAttention-2/3 do; S, the softmax
 statistics and every sum stay f32. The CUDA-core kernels keep P and dS in
 f32, as the JAX kernels do.
 

@@ -70,7 +70,7 @@ def main() -> int:
             mask=torch.ones(n, 32), num_samples=torch.tensor(32.0 * n)).to(dev)
         opt = make_inner_optimizer("sgd", 0.1)
         label = "ResNet-56, bs 32, bf16, fused conv block"
-        ours = ("conv_block_kernel",)
+        ours = ("conv_block_mma_kernel",)
     elif args.model == "llm_hot":
         from torch.func import functional_call
 
@@ -92,7 +92,7 @@ def main() -> int:
         label = (f"~111M causal LM d{cfg.hidden_size} x{cfg.num_layers} "
                  f"layers, bs {HOT_BATCH} x seq {cfg.max_seq_len}, bf16, "
                  f"full parameters, flash attention")
-        ours = ("flash_fwd_mma_kernel", "flash_dq_kernel",
+        ours = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                 "flash_dkv_mma_kernel")
     else:
         from fedml_tpu_torch.llm import build_llm
@@ -114,8 +114,8 @@ def main() -> int:
         opt = make_inner_optimizer("sgd", 1e-3)
         label = ("FedLLM causal LM d512 x4 layers, bs 8 x seq 256, bf16, "
                  "LoRA r8, flash attention")
-        # bf16: B2 and B4 on the tensor cores, B3 on the CUDA cores
-        ours = ("flash_fwd_mma_kernel", "flash_dq_kernel",
+        # bf16: B2-B4 on the tensor cores
+        ours = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                 "flash_dkv_mma_kernel")
     hyper = TrainHyper(learning_rate=opt.lr, epochs=1)
     key = prng.PRNGKey(0)

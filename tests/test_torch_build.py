@@ -39,6 +39,15 @@ def test_header_edit_changes_the_library(csrc):
     assert build.library_path("flash_attention") != before
 
 
+def test_header_edit_changes_the_conv_block_library(csrc):
+    """conv_block.cu includes mma_tile.cuh too (its bfloat16 kernel)."""
+    assert '#include "mma_tile.cuh"' in (csrc / "conv_block.cu").read_text()
+    before = build.library_path("conv_block")
+    header = csrc / "mma_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build.library_path("conv_block") != before
+
+
 @pytest.mark.parametrize("edit", ["source", "new_header", "flags"])
 def test_other_inputs_change_the_library(csrc, monkeypatch, edit):
     before = build.library_path("flash_attention")

@@ -107,6 +107,29 @@ def test_bf16_matches_jax():
             rtol=0.06, atol=0.06)
 
 
+@pytest.mark.parametrize("s", [1, 2])
+def test_bf16_plain_rounds_y1_before_conv2(s):
+    """In bfloat16 the plain version rounds y1 = relu(GN1(conv1(x))) to
+    bf16 before conv2 (GroupNorm casts back to x's type), as JAX's
+    ``reference_block`` does; the bf16 kernel rounds y1 at the same place,
+    as conv2's A operand. Both packages' y1 are bf16 and agree within
+    bf16 rounding of the conv's output."""
+    cin, cout = 16, 32 if s == 2 else 16
+    x, p = _x(21, (2, 8, 8, cin)), _params(20, cin, cout, s == 2)
+    xj, pj = _to_jax(x, p, jnp.bfloat16)
+    xt, pt = _to_torch(x, p, torch.bfloat16)
+    y1_t = torch.relu(tcb._group_norm(
+        tcb._conv_same(xt, pt["w1"], s), pt["g1_scale"], pt["g1_bias"], 8,
+        tcb.GN_EPS))
+    y1_j = jax.nn.relu(jcb._group_norm(
+        jcb._conv_same(xj, pj["w1"], s), pj["g1_scale"], pj["g1_bias"], 8,
+        jcb.GN_EPS))
+    assert y1_t.dtype == torch.bfloat16 and y1_j.dtype == jnp.bfloat16
+    np.testing.assert_allclose(y1_t.float().numpy(),
+                               np.asarray(y1_j, np.float32),
+                               rtol=2 ** -6, atol=2 ** -6)
+
+
 @pytest.mark.parametrize("case", ["projection_s2", "width16", "odd_9x8_s2"])
 def test_gradients_match_jax(case):
     """Gradients for x and every parameter leaf: the port's autograd
@@ -140,15 +163,75 @@ def test_gradients_match_jax(case):
                                        rtol=1e-4, atol=1e-4, err_msg=k)
 
 
+# ResNet-56's block geometries at batch 32, (h, cin, cout, strides), and the
+# odd shapes of the on-card checks, (n, h, w, cin, cout, strides)
+FLAGSHIP = ((32, 16, 16, 1), (32, 16, 32, 2), (16, 32, 32, 1),
+            (16, 32, 64, 2), (8, 64, 64, 1))
+ODD = ((2, 7, 9, 16, 16, 1), (2, 7, 7, 16, 32, 2), (2, 9, 8, 16, 32, 2),
+       (2, 8, 8, 16, 32, 1), (11, 8, 8, 16, 16, 1))
+
+
 def test_resnet56_geometries_fit_shared_memory():
-    """Every ResNet-56 block keeps one sample's intermediates in one SM's
-    shared memory; the 32x32x16 stage is the tightest (~213 KB)."""
-    for h, cin, cout, s in ((32, 16, 16, 1), (32, 16, 32, 2),
-                            (16, 32, 32, 1), (16, 32, 64, 2),
-                            (8, 64, 64, 1)):
+    """float32: one CTA keeps a whole sample's f32 intermediates, the
+    32x32x16 stage the tightest (~213 KB). bfloat16: a CTA keeps only its
+    band (bf16 x and y1 with halos, the weights), at batch 32 small enough
+    for two CTAs per SM; the 32x32x16 stage, with 4 CTAs per sample, takes
+    under 32 KB."""
+    for h, cin, cout, s in FLAGSHIP:
         assert tcb.smem_bytes(h, h, cin, cout, s, 8) <= tcb.MAX_SMEM_BYTES
         assert tcb.threads_for(cout) % cout == 0
+        k = tcb.cluster_for(32, h, h, cout, s)
+        assert k == 4
+        bf = tcb.smem_bytes(h, h, cin, cout, s, 8, torch.bfloat16, k)
+        assert 2 * bf <= tcb.MAX_SMEM_BYTES
+        # a CTA's band with its halo rows, at most, plus the weights
+        ho = -(-h // s)
+        assert bf >= 2 * ((ho // k - 1) * s + 3) * (h + 2) * cin
     assert tcb.smem_bytes(32, 32, 16, 16, 1, 8) > 210_000
+    assert tcb.smem_bytes(32, 32, 16, 16, 1, 8, torch.bfloat16, 4) < 32_768
+
+
+@pytest.mark.parametrize(
+    "shape", [(32, h, h, cin, cout, s) for h, cin, cout, s in FLAGSHIP]
+    + list(ODD) + [(1000, 32, 32, 16, 16, 1), (1, 16, 16, 32, 64, 2),
+                   (4, 3, 3, 16, 16, 1), (200, 1, 5, 32, 32, 2)],
+    ids=str)
+def test_bands_cover_each_output_row_once(shape):
+    """The bfloat16 kernel's cluster: 1-8 CTAs, at most one per output row
+    (ho may be below the cluster the batch alone would pick), and bands
+    that cover each output row exactly once, in rank order, each within
+    the warps' register budget."""
+    n, h, w, cin, cout, s = shape
+    ho, wo = -(-h // s), -(-w // s)
+    k = tcb.cluster_for(n, h, w, cout, s)
+    assert 1 <= k <= min(tcb.MAX_CLUSTER, ho)
+    if k > 1 and n * k > tcb.NUM_SMS:  # raised for the registers alone
+        rows = -(-ho // (k - 1))
+        assert -(-rows * wo // 16) * (cout // 16) > (
+            tcb.MMA_WARPS * tcb.MMA_UNITS)
+    rows = [r for start, stop in tcb.bands(ho, k) for r in range(start, stop)]
+    assert rows == list(range(ho))
+    for start, stop in tcb.bands(ho, k):
+        assert stop > start
+        units = -(-(stop - start) * wo // 16) * (cout // 16)
+        assert units <= tcb.MMA_WARPS * tcb.MMA_UNITS
+
+
+def test_bf16_wrapper_refuses_what_its_kernel_does_not_take():
+    """bfloat16 takes 16, 32 or 64 channels in and out, and a band whose
+    output fits the warps' registers; float32 (the CUDA-core kernel) takes
+    the same block at 8 channels."""
+    x, p = _to_torch(_x(1, (2, 8, 8, 8)), _params(2, 8, 8, False))
+    assert tcb._check(x, p, 1, 8) == 1
+    xb, pb = x.bfloat16(), {k: v.bfloat16() for k, v in p.items()}
+    with pytest.raises(ValueError, match="bfloat16 kernel takes"):
+        tcb._check(xb, pb, 1, 8)
+    x, p = _to_torch(_x(1, (2, 8, 8, 16)), _params(2, 16, 16, False))
+    xb, pb = x.bfloat16(), {k: v.bfloat16() for k, v in p.items()}
+    assert tcb._check(xb, pb, 1, 8) == 8
+    wide = torch.zeros(1, 2, 4096, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="registers"):
+        tcb._check(wide, pb, 1, 8)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
