@@ -34,10 +34,20 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    ``bench.py``'s ``bench_federated_lora`` configuration (d 512, 4 layers,
    seq 256, bf16, LoRA r8, 2 silos, Shakespeare), 2 rounds with eval after
    each, B2 launches held to 4 per forward and B3/B4 to 4 per local step;
-8. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
+8. the serving path: the FedLLM main path's model, base weights frozen
+   and the adapter the run of phase 7 trained, served through
+   ``fedml_tpu_torch.serving.llm_template.CausalLMPredictor`` with
+   ``bench.py``'s ``bench_llm_serving`` traffic (24 new tokens, concurrency
+   1 / 8 / 64): single mode as the sequential baseline (B2 per layer per
+   token), then batch mode (64 slots, paged KV cache) with a bank of 1
+   adapter and of 64; before it, the cache arithmetic against the CPU,
+   decode against the full forward (f32 tiny, bf16 full width), greedy
+   parity single vs batch on a full fine-tune, adapter isolation; a
+   ``{"serving": ...}`` line;
+9. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
    bf16, full parameters), 8 launches of each attention kernel per step;
-9. one JSON line describing each kernel, then the card line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+10. one JSON line describing each kernel, then the card line, then
+    ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Imports nothing of JAX or ``fedml_tpu``.
@@ -114,6 +124,29 @@ HOT_LOOP = dict(vocab_size=8192, hidden_size=1024, intermediate_size=2816,
                 num_layers=8, num_heads=8, max_seq_len=1024,
                 dtype="bfloat16", attention_impl="flash")
 HOT_BATCH, HOT_STEPS = 8, 4
+# The serving path: bench.py's bench_llm_serving traffic on the FedLLM main
+# path's model (its prompts, 24 new tokens, concurrency 1/8/64, a bank of
+# 1 and of 64 adapters; 64 slots, blocks of 16, prefill chunks of 32).
+SERVE_MAX_NEW = 24
+SERVE_CONC = (1, 8, 64)
+SERVE_BATCH = {"slots": 64, "block_size": 16, "prefill_chunk": 32,
+               "max_adapters": 66, "request_timeout_s": 600.0}
+SERVE_PROMPTS = [f"request {i}: summarize federated round {i * 7}"
+                 for i in range(max(SERVE_CONC))]
+# tests/test_serving_batch.py's TestKVParity prompts
+PARITY_PROMPTS = ["add 2 3", "echo hello world", "x",
+                  "subtract 19 4 and then explain"]
+# Decode step vs the full forward at the same position, error relative to
+# the row's largest logit. f32 (dense, TF32 off): both sum the same terms
+# in different orders and shapes. bf16 at full width: single mode merges
+# the adapter into W before the bf16 cast and its flash forward (B2) rounds
+# P to bf16, the decode step keeps the adapter factored in f32 and its
+# attention in f32; the two differ by a few bf16 roundings through four
+# layers.
+DECODE_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# single vs batch greedy on a full fine-tune may part only where the single
+# path's top two logits are closer than this
+TIE_GAP = 1e-4
 
 # Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
 # the trainer calls the model), the hot loop, bench_long_context, and the
@@ -716,6 +749,287 @@ def hot_loop(torch, llm, cb, fa):
     return ms, losses, launches(cb, fa), llm.count_params(params)
 
 
+
+def cache_arithmetic(torch, kvc):
+    """The paged cache's gather, the three scatters and the copy-on-write
+    at the serving geometry (64 slots, blocks of 16, seq 256, 8 heads of
+    64, bf16 pools) on the card against the same calls on the CPU, on
+    seeded inputs: integer indexing and copies, so bitwise (the trash
+    block, where several dropped rows land on one row, left out)."""
+    cfg = kvc.KVCacheConfig(num_layers=4, kv_heads=8, head_dim=64,
+                            max_seq_len=256, block_size=16,
+                            num_blocks=64 * 16)
+    gen = torch.Generator().manual_seed(11)
+    shape = (cfg.num_layers, cfg.num_blocks + 1, cfg.block_size, 8, 64)
+    pool = torch.randn(shape, generator=gen).bfloat16()
+    s, mb, bs, trash = 64, cfg.max_blocks_per_slot, 16, cfg.trash_block
+    tables = torch.randperm(cfg.num_blocks, generator=gen)[:s * mb].reshape(
+        s, mb).int()
+    tables[5:9, 6:] = trash                   # short rows: trash tails
+    pos = torch.randint(0, 256, (s,), generator=gen).int()
+    active = torch.rand(s, generator=gen) > 0.2
+    tok = torch.randn(s, 8, 64, generator=gen)
+    chunk = torch.randn(8, 32, 8, 64, generator=gen)
+    p0 = torch.randint(0, 224, (8,), generator=gen).int()
+    cpos = p0[:, None] + torch.arange(32).int()[None, :]
+    valid = torch.arange(32)[None, :] < torch.randint(
+        0, 33, (8, 1), generator=gen)
+
+    def run(dev):
+        kp, tb = pool.to(dev).clone(), tables.to(dev)
+        out = [kvc.gather_view(kp[2], tb)]
+        kvc.scatter_token(kp, 1, tb, pos.to(dev), tok.to(dev),
+                          active.to(dev), bs, trash)
+        kvc.scatter_chunk(kp, 3, tb[7], cpos[0].to(dev), chunk[0].to(dev),
+                          valid[0].to(dev), bs, trash)
+        kvc.scatter_chunk_batch(kp, 0, tb[:8], cpos.to(dev), chunk.to(dev),
+                                valid.to(dev), bs, trash)
+        kvc.copy_block_rows(kp, int(tables[0, 0]), int(tables[1, 1]), 7)
+        out.append(kp[:, :cfg.num_blocks])
+        return [t.cpu() for t in out]
+
+    for a, b in zip(run("cuda"), run("cpu")):
+        require(torch.equal(a, b), "cache arithmetic: card and CPU differ")
+    return s
+
+
+def decode_vs_forward(torch, build_llm_bundle, Arguments, DecodeScheduler,
+                      AdapterBank, args, adapter, dtype, dev="cuda"):
+    """One decode step's logits for one slot against the full forward over
+    the padded ``[1, max_seq_len]`` buffer at the same position (single
+    mode's step), on the card; error relative to the row's largest
+    logit."""
+    from fedml_tpu_torch.llm.data import BOS, SEP
+    bundle, tok = build_llm_bundle(Arguments(**args))
+    bundle.to(dev)
+    bank, params = None, bundle.base_params
+    if adapter is None:     # full fine-tune: the params ARE the model
+        params = {k: v.detach() for k, v in bundle.module.state_dict().items()}
+    else:
+        bank = AdapterBank(adapter, alpha=bundle.lora_alpha, capacity=2)
+        bank.add("a", adapter)
+    sched = DecodeScheduler(bundle.module, bundle.cfg, params, bank,
+                            slots=4, block_size=16, prefill_chunk=32,
+                            device=dev)
+    ids = [BOS] + tok.encode("echo hello world, and then some") + [SEP]
+    slot, first = sched.admit(ids, adapter_idx=0 if bank is None else 1,
+                              max_new_tokens=8)
+    with torch.no_grad():
+        _, _, _, _, row = sched._step_fn(
+            sched.params, sched._stack(), sched._kp, sched._vp,
+            sched._dev(sched._tables), sched._dev(sched._pos),
+            sched._dev(sched._active), sched._dev(sched._aidx).long(),
+            sched._dev(sched._last), *sched._sampling(
+                sched._temp, sched._seed, sched._pos + 1))
+        buf = torch.zeros(1, bundle.cfg.max_seq_len, dtype=torch.int32,
+                          device=dev)
+        buf[0, :len(ids) + 1] = torch.tensor(ids + [first])
+        ref = bundle.apply(params if adapter is None else adapter,
+                           buf)[0, len(ids)]
+    err = ((row[slot] - ref).abs().max() / ref.abs().max()).item()
+    require(math.isfinite(err) and err <= DECODE_TOL[dtype],
+            f"decode step vs full forward ({dtype}): {err:.3e} of the "
+            f"largest logit > {DECODE_TOL[dtype]}")
+    return err
+
+
+def greedy_parity(torch, build_llm_bundle, Arguments, CausalLMPredictor,
+                  dev="cuda"):
+    """Batch-mode greedy tokens against single-mode tokens on a full
+    fine-tune artifact (f32, dense, the FedLLM main path's width) for
+    tests/test_serving_batch.py's four prompts, 12 new tokens each. cuBLAS
+    may round the two shapes differently, so the two may part only where
+    the single path's top-2 logit gap is below TIE_GAP; returns each
+    parting (prompt, step, gap). Any other divergence fails."""
+    from fedml_tpu_torch.llm.data import EOS
+    args = dict(LLM_MAIN_PATH, precision="float32", lora_rank=0,
+                llm_attention_impl="dense")
+    bundle, tok = build_llm_bundle(Arguments(**args))
+    params = {k: v.detach() for k, v in bundle.module.state_dict().items()}
+    single = CausalLMPredictor(bundle, params, tokenizer=tok, device=dev)
+    batch = CausalLMPredictor(bundle, params, tokenizer=tok, mode="batch",
+                              batch_opts=dict(SERVE_BATCH, slots=4),
+                              device=dev)
+    parted = []
+
+    def buf_of(ids):
+        buf = torch.zeros(1, bundle.cfg.max_seq_len, dtype=torch.int32,
+                          device=dev)
+        buf[0, :len(ids)] = torch.tensor(ids)
+        return buf
+
+    try:
+        for prompt in PARITY_PROMPTS:
+            ids = single._encode_prompt(prompt, 12)
+            a = []
+            while len(a) < 12:   # single mode's own greedy step
+                nxt = single._step(buf_of(ids + a), len(ids + a), 0.0, None)
+                if nxt == EOS:
+                    break
+                a.append(nxt)
+            b = batch.engine.submit(ids, max_new_tokens=12).result(
+                timeout=SERVE_BATCH["request_timeout_s"])["ids"]
+            if a == b:
+                continue
+            j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            with torch.no_grad():
+                top = bundle.apply(params, buf_of(ids + a[:j]))[
+                    0, len(ids) + j - 1].topk(2).values
+            gap = (top[0] - top[1]).item()
+            print(f"greedy parity: {prompt!r} parts at generated token {j} "
+                  f"(single top-2 gap {gap:.3e})", flush=True)
+            require(gap < TIE_GAP, f"greedy parity: {prompt!r} single {a} "
+                                   f"vs batch {b}, top-2 gap {gap:.3e}")
+            parted.append({"prompt": prompt, "step": j, "gap": gap})
+    finally:
+        batch.close()
+    return parted
+
+
+def isolation(torch, bundle, tok, bank, DecodeScheduler, dev="cuda"):
+    """Two requests for two different adapters of the 64-adapter bank, run
+    side by side in one decode step, each equal their solo runs (and the
+    two differ)."""
+    from fedml_tpu_torch.llm.data import BOS, SEP
+    tok_ids = [BOS] + tok.encode("echo hello world") + [SEP]
+    base = bundle.base_params
+    names = ("silo_3", "silo_40")
+
+    def run(which):
+        sched = DecodeScheduler(bundle.module, bundle.cfg, base, bank,
+                                slots=4, block_size=16, prefill_chunk=32,
+                                device=dev)
+        out = {}
+        for n in which:
+            slot, first = sched.admit(tok_ids, adapter_idx=bank.index(n),
+                                      max_new_tokens=12)
+            out[n] = (slot, [first])
+        for _ in range(11):
+            toks = sched.step()
+            for n, (slot, seq) in out.items():
+                seq.append(toks[slot])
+        return {n: seq for n, (_, seq) in out.items()}
+
+    pair = run(names)
+    for n in names:
+        require(run((n,))[n] == pair[n],
+                f"isolation: {n} alongside another adapter != its solo run")
+    require(pair[names[0]] != pair[names[1]],
+            "isolation: two different adapters gave the same tokens")
+    return True
+
+
+def serve_sweep(pred, prompts, conc, adapter_names):
+    """``conc`` requests at concurrency ``conc`` (bench_llm_serving's
+    sweep): generated tokens/s over the sweep's wall and the p99 request
+    latency from the sweep's start; returns it with the outputs."""
+    import concurrent.futures as cf
+    t0 = time.perf_counter()
+    lats, outs = [0.0] * conc, [None] * conc
+
+    def one(i):
+        outs[i] = pred.generate(prompts[i], max_new_tokens=SERVE_MAX_NEW,
+                                adapter=adapter_names[i % len(adapter_names)])
+        lats[i] = time.perf_counter() - t0
+
+    with cf.ThreadPoolExecutor(conc) as ex:
+        for f in [ex.submit(one, i) for i in range(conc)]:
+            f.result(timeout=SERVE_BATCH["request_timeout_s"])
+    wall = time.perf_counter() - t0
+    toks = sum(o["completion_tokens"] for o in outs)
+    p99 = sorted(lats)[min(conc - 1, int(0.99 * (conc - 1) + 0.5))]
+    return {"tokens_per_s": toks / wall, "p99_latency_s": p99,
+            "tokens": toks, "wall_s": wall}, outs
+
+
+def serving_phase(torch, llm, cb, fa, Arguments, adapter, dev="cuda"):
+    """The serving path at the FedLLM main path's width: the base the run
+    froze and the adapter it trained. Single mode (the sequential baseline,
+    one request at a time as bench_llm_serving's lock does) then batch
+    mode with banks of 1 and 64 adapters. Returns the serving line and the
+    kernels' launches over the legs."""
+    import threading
+    from fedml_tpu_torch.serving.batch import AdapterBank, DecodeScheduler
+    from fedml_tpu_torch.serving.llm_template import CausalLMPredictor
+
+    bundle, tok = llm.build_llm_bundle(Arguments(**LLM_MAIN_PATH))
+    legs, steps, ttft = {}, {}, {}
+    lock = threading.Lock()
+    single = CausalLMPredictor(bundle, adapter, tokenizer=tok, device=dev)
+    single.generate("warm", max_new_tokens=2)
+
+    def serial(prompt, max_new_tokens, adapter=None):
+        with lock:   # the single path serves one request at a time
+            return single.generate(prompt, max_new_tokens=max_new_tokens)
+
+    class Serial:
+        generate = staticmethod(serial)
+
+    reset_launches(cb, fa)
+    forwards = 0
+    for c in SERVE_CONC:
+        legs[f"sequential_c{c}"], outs = serve_sweep(Serial, SERVE_PROMPTS,
+                                                     c, [None])
+        forwards += sum(o["completion_tokens"] + (o["finish_reason"] ==
+                                                  "stop") for o in outs)
+    single_launches = launches(cb, fa)
+    layers = LLM_MAIN_PATH["llm_num_layers"]
+    require(single_launches == {"conv_block": 0, "flash_fwd": layers *
+                                forwards, "flash_dq": 0, "flash_dkv": 0},
+            f"single mode launches {single_launches}, expected "
+            f"{layers} x {forwards} of B2 only")
+
+    gen = torch.Generator().manual_seed(1)
+    bank64 = None
+    batch_launches = {}
+    for tag, n_bank in (("bank1", 1), ("bank64", 64)):
+        pred = CausalLMPredictor(bundle, adapter, tokenizer=tok,
+                                 mode="batch", batch_opts=SERVE_BATCH,
+                                 device=dev)
+        names = [None]
+        if n_bank > 1:
+            for a in range(n_bank):
+                pred.adapter_bank.add(f"silo_{a}", {
+                    k: 0.1 * torch.randn(v.shape, generator=gen)
+                    for k, v in adapter.items()})
+            names = [f"silo_{a}" for a in range(n_bank)]
+            bank64 = pred.adapter_bank
+        try:
+            pred.generate("warm", max_new_tokens=2, adapter=names[0])
+            engine = pred.engine
+            steps0 = engine.scheduler.steps_run
+            reset_launches(cb, fa)
+            for c in SERVE_CONC:
+                engine._ttft_window = type(engine._ttft_window)(
+                    window_s=3600.0)
+                legs[f"batched_{tag}_c{c}"], outs = serve_sweep(
+                    pred, SERVE_PROMPTS, c, names)
+                require(all(o["completion_tokens"] > 0 for o in outs),
+                        f"batched {tag} c{c}: a request generated nothing")
+                if c == 8:
+                    _, mean, p50, p99, n = engine._ttft_window.stats()
+                    ttft[tag] = {"mean_s": mean, "p50_s": p50, "p99_s": p99,
+                                 "n": n}
+            batch_launches[tag] = launches(cb, fa)
+            steps[tag] = engine.scheduler.steps_run - steps0
+            require(engine.health()["status"] == "ok",
+                    f"batched {tag}: engine {engine.health()}")
+        finally:
+            pred.close()
+        require(not any(batch_launches[tag].values()),
+                f"batch mode launched {batch_launches[tag]}: its attention "
+                f"is cached_attention, no kernel")
+    iso = isolation(torch, bundle, tok, bank64, DecodeScheduler, dev)
+    top = max(SERVE_CONC)
+    line = {"legs": legs, "ttft_c8": ttft, "decode_steps": steps,
+            "b2_launches_single": single_launches["flash_fwd"],
+            "single_forwards": forwards, "isolation": iso,
+            "speedup_c64": legs[f"batched_bank1_c{top}"]["tokens_per_s"]
+            / legs[f"sequential_c{top}"]["tokens_per_s"]}
+    return line, single_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -878,6 +1192,35 @@ def main() -> int:
           f"s per round (eval included), {steps} local steps and {evals} "
           f"eval batches; launches {llm_launches}", flush=True)
 
+    # the serving path, on the adapter the FedLLM run just trained
+    from fedml_tpu_torch.llm import kv_cache as kvc
+    from fedml_tpu_torch.serving.batch import AdapterBank, DecodeScheduler
+    from fedml_tpu_torch.serving.llm_template import CausalLMPredictor
+    checks = {"cache_arithmetic_slots": cache_arithmetic(torch, kvc)}
+    tiny = dict(dataset="llm_synth", model="causal_lm", random_seed=3,
+                llm_hidden_size=32, llm_num_layers=2, llm_num_heads=2,
+                llm_intermediate_size=64, llm_max_seq_len=64, lora_rank=0,
+                llm_attention_impl="dense")
+    checks["decode_vs_forward_f32_tiny"] = decode_vs_forward(
+        torch, llm.build_llm_bundle, Arguments, DecodeScheduler,
+        AdapterBank, tiny, None, "float32")
+    checks["decode_vs_forward_bf16"] = decode_vs_forward(
+        torch, llm.build_llm_bundle, Arguments, DecodeScheduler,
+        AdapterBank, LLM_MAIN_PATH, result["params"], "bfloat16")
+    checks["greedy_parity_parted"] = greedy_parity(
+        torch, llm.build_llm_bundle, Arguments, CausalLMPredictor)
+    print(f"serving checks: {json.dumps(checks)}", flush=True)
+    t0 = time.time()
+    serving, serve_launches = serving_phase(torch, llm, cb, fa, Arguments,
+                                            result["params"])
+    serving["checks"] = checks
+    serving["wall_s"] = time.time() - t0
+    for leg, r in serving["legs"].items():
+        print(f"serving {leg}: {r['tokens_per_s']:.1f} tokens/s, p99 "
+              f"{r['p99_latency_s']:.3f} s ({r['tokens']} tokens in "
+              f"{r['wall_s']:.2f} s)", flush=True)
+    print(json.dumps({"serving": serving}), flush=True)
+
     ms, losses, hot_launches, n_params = hot_loop(torch, llm, cb, fa)
     require(all(math.isfinite(x) for x in losses), "hot loop: non-finite loss")
     per = HOT_LOOP["num_layers"] * HOT_STEPS
@@ -896,7 +1239,9 @@ def main() -> int:
         "source": "fedml_tpu_torch/core/kernels/csrc/conv_block.cu",
         "replaces": "fedml_tpu/core/kernels/conv_block.py:144",
         "design": DESIGN["conv_block"],
-        "launches": resnet_launches["conv_block"], "max_abs_err": main_err,
+        "launches": resnet_launches["conv_block"],
+        "launches_serving": serve_launches["conv_block"],
+        "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
         "bound_ms": per_fwd["bound_ms"], "bound_by": per_fwd["bound_by"],
@@ -914,7 +1259,9 @@ def main() -> int:
             "source": "fedml_tpu_torch/core/kernels/csrc/flash_attention.cu",
             "replaces": f"fedml_tpu/llm/attention.py:{line}",
             "design": DESIGN[name],
-            "launches": llm_launches[name], "max_abs_err": attn_err[name],
+            "launches": llm_launches[name],
+            "launches_serving": serve_launches[name],
+            "max_abs_err": attn_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],

@@ -6,7 +6,10 @@ rewritten by hand for Hopper. Ported so far: the FedAvg simulation round on
 the CIFAR ResNets, with the fused conv block as a CUDA kernel
 (``core/kernels/csrc/conv_block.cu``), and the federated LoRA fine-tune of
 the causal LM (:mod:`fedml_tpu_torch.llm`), with flash attention's forward
-and backward as CUDA kernels (``core/kernels/csrc/flash_attention.cu``).
+and backward as CUDA kernels (``core/kernels/csrc/flash_attention.cu``),
+and continuous-batching serving of the LM and its adapters
+(:mod:`fedml_tpu_torch.serving`: paged KV cache, decode scheduler,
+batching engine, multi-LoRA adapter bank, HTTP runner).
 Modules follow the JAX package's paths. Nothing here imports JAX or
 ``fedml_tpu``.
 

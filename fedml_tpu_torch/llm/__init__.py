@@ -6,14 +6,17 @@ ported for the training path:
 - ``attention``: dense golden and flash attention through the CUDA kernels
   of ``core/kernels/flash_attention.py`` (forward B2, backward B3 + B4).
 - ``lora``: adapters as a flat dict transform; federated rounds ship
-  adapters only.
+  adapters only; ``lora_stack``/``lora_select`` for the serving bank.
+- ``kv_cache``: the paged KV cache of the serving path (pools, gathers,
+  scatters, block allocator, prefix index).
 - ``trainer``: completion-only causal-LM TrainerSpec.
 - ``federated``: ``build_llm`` / ``run_federated_llm``.
 - ``hf``: local HF/Llama torch-checkpoint import.
 - ``data``: byte tokenizer and instruction corpora (a copy).
 
-Not ported yet: the cache-aware decode path and the paged KV cache
-(serving slice), adapter-bank export, ``sharding.py`` and ring attention
+The cache-aware decode path (``kv_view``, ``cached_attention``) serves
+through :mod:`fedml_tpu_torch.serving`. Not ported yet: adapter-bank
+export (needs the artifact codec), ``sharding.py`` and ring attention
 (multi-GPU slice).
 
     from fedml_tpu_torch.arguments import Arguments
@@ -27,16 +30,16 @@ Not ported yet: the cache-aware decode path and the paged KV cache
 """
 
 from .model import CausalLM, LLMConfig, count_params, init_llm
-from .lora import (lora_init, lora_merge, lora_param_count, lora_zero_like,
-                   make_lora_apply)
+from .lora import (lora_init, lora_merge, lora_param_count, lora_select,
+                   lora_stack, lora_zero_like, make_lora_apply)
 from .trainer import CausalLMTrainer
 from .federated import (LLMBundle, build_llm, build_llm_bundle,
                         llm_config_from_args, run_federated_llm)
 
 __all__ = [
     "CausalLM", "LLMConfig", "count_params", "init_llm",
-    "lora_init", "lora_merge", "lora_param_count", "lora_zero_like",
-    "make_lora_apply",
+    "lora_init", "lora_merge", "lora_param_count", "lora_select",
+    "lora_stack", "lora_zero_like", "make_lora_apply",
     "CausalLMTrainer",
     "LLMBundle", "build_llm", "build_llm_bundle", "llm_config_from_args",
     "run_federated_llm",

@@ -12,8 +12,9 @@
 - ``ring`` (sequence-parallel over several devices) is not ported yet: it
   belongs to the multi-GPU LLM slice and raises.
 
-The cached/paged decode path (``cached_attention``) belongs to the serving
-slice and is not ported yet.
+- ``cached_attention``: decode/prefill attention over a slot's gathered
+  cache view (the serving path). An XLA program in the JAX package, not a
+  Pallas kernel, so plain PyTorch here.
 """
 
 from __future__ import annotations
@@ -57,6 +58,33 @@ def dense_causal_attention(q, k, v, attn_mask=None):
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def cached_attention(q, k_all, v_all, q_positions):
+    """Decode/prefill attention over a position-ordered cached K/V view.
+
+    q: [b, s, h, d] (s = 1 for decode, chunk length for prefill);
+    k_all/v_all: [b, T, h, d] — the slot's gathered cache view with the
+    current tokens already written at their logical positions;
+    q_positions: [b, s] absolute positions of the query rows.
+
+    The live mask is ``key_index <= q_position``; everything later is set
+    to NEG_INF through ``where`` (exact-zero probability), and the softmax
+    runs over all T keys in f32, term for term as
+    :func:`dense_causal_attention`, so a decode step over a
+    ``T == max_seq_len`` view agrees with the full forward over the padded
+    ``[1, max_seq_len]`` buffer.
+    """
+    d = q.shape[-1]
+    t = k_all.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_all.float()) * scale
+    key_idx = torch.arange(t, dtype=torch.int32, device=q.device)
+    live = key_idx[None, None, None, :] <= q_positions[:, None, :, None]
+    scores = torch.where(live, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v_all.float())
     return out.to(q.dtype)
 
 

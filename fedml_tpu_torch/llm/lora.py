@@ -92,6 +92,29 @@ def lora_zero_like(lora: Params) -> Params:
     return {k: torch.zeros_like(v) for k, v in lora.items()}
 
 
+def lora_stack(adapters: Sequence[Params]) -> Params:
+    """Stack N adapter dicts with the same keys and shapes into ONE dict
+    whose leaves carry a leading ``[A]`` axis (f32) — the resident
+    multi-LoRA bank a batched serving step gathers from (S-LoRA)."""
+    if not adapters:
+        raise ValueError("lora_stack needs >= 1 adapter")
+    keys = list(adapters[0])
+    for a in adapters[1:]:
+        if list(a) != keys:
+            raise ValueError(f"adapter keys differ: {sorted(a)} vs "
+                             f"{sorted(keys)}")
+    return {k: torch.stack([torch.as_tensor(a[k]).float()
+                            for a in adapters]) for k in keys}
+
+
+def lora_select(stack: Params, idx) -> Params:
+    """Gather per-slot adapters out of a stacked bank: every ``[A, ...]``
+    leaf becomes ``[S, ...]`` for an index tensor ``idx`` ``[S]`` (or
+    ``[...]`` for a scalar index) — a pure gather, so the adapter mix is
+    data."""
+    return {k: v[idx] for k, v in stack.items()}
+
+
 def lora_param_count(lora: Params) -> int:
     return int(sum(int(p.numel()) for p in lora.values()))
 

@@ -16,9 +16,13 @@ statistics in f32 and multiplies by its f32 scale before casting back;
 rotary embedding rotates in f32 and casts back; residual adds run in the
 compute dtype; logits are f32.
 
-Only the default (training) path is ported. The cache-aware decode path
-(``kv_view``) and per-slot factored adapters (``adapters``) belong to the
-serving slice and raise.
+Cache-aware path (continuous-batching serving): ``positions`` ``[b, s]``
+absolute positions (out-of-range values mark padded or inactive rows whose
+cache writes are dropped), ``kv_view`` per-layer ``(k_all, v_all)``
+gathered cache views ``[b, T, kv_heads, head_dim]``, and ``adapters`` a
+flat LoRA dict under the flax names (``layer_0.attn.q.lora_a`` ...), each
+leaf either shared (``[d_in, r]``) or per slot (``[b, d_in, r]``) —
+applied as factored f32 side paths, never merged.
 """
 
 from __future__ import annotations
@@ -173,10 +177,48 @@ class RMSNorm(nn.Module):
         return (normed * self.scale).to(x.dtype)
 
 
-def _serving_only(name: str):
-    raise NotImplementedError(
-        f"{name} (the cache-aware decode path / per-slot adapters) belongs "
-        f"to the serving slice and is not ported to fedml_tpu_torch yet")
+def _lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    """Low-rank side path ``(x @ a) @ b * scale`` in f32 (the S-LoRA batched
+    apply: adapters stay factored, so a per-slot adapter gather is two small
+    products, not a weight copy). Leaves are shared ``[d_in, r]`` /
+    ``[r, d_out]`` or per slot ``[b, d_in, r]`` / ``[b, r, d_out]``."""
+    xf = x.float()
+    if a.dim() == 3:   # per-slot adapters
+        h = torch.einsum("bsd,bdr->bsr", xf, a)
+        return torch.einsum("bsr,bro->bso", h, b) * scale
+    return ((xf @ a) @ b) * scale
+
+
+def _adapted(dense: "Dense", name: str, x: torch.Tensor, adapter,
+             scale: float) -> torch.Tensor:
+    """``dense(x)`` plus the LoRA side path of ``adapter[name]`` when the
+    adapter has one (``adapter``: flat ``{"q.lora_a": ..., ...}``)."""
+    y = dense(x)
+    if adapter is not None and f"{name}.lora_a" in adapter:
+        delta = _lora_delta(x, adapter[f"{name}.lora_a"],
+                            adapter[f"{name}.lora_b"], scale)
+        y = y + delta.reshape(y.shape).to(y.dtype)
+    return y
+
+
+def _write_view(view: torch.Tensor, positions: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """The view with ``rows`` ``[b, s, H, D]`` written at ``positions``
+    ``[b, s]``, as f32; rows whose position lies outside ``[0, T)`` are
+    dropped (XLA's ``mode="drop"``). ``index_put_`` has no drop mode, and an
+    out-of-range index raises on the CPU and asserts on the card, so the
+    view gets one spare row ``T`` that every dropped row writes, and it is
+    cut off again: no host sync, and a dropped row never lands on a kept
+    position."""
+    b, t = view.shape[:2]
+    ext = torch.cat([view.float(), view.new_zeros(
+        (b, 1) + tuple(view.shape[2:]), dtype=torch.float32)], dim=1)
+    keep = (positions >= 0) & (positions < t)
+    pos = torch.where(keep, positions.long(), t)
+    bidx = torch.arange(b, device=view.device)[:, None].expand_as(pos)
+    ext.index_put_((bidx, pos), rows.to(view.dtype).float())
+    return ext[:, :t]
 
 
 class Attention(nn.Module):
@@ -190,22 +232,43 @@ class Attention(nn.Module):
         self.o = Dense(cfg.num_heads * cfg.head_dim, (h,), dt)
 
     def forward(self, x, positions, attn_mask=None, kv_view=None,
-                adapter=None):
-        if kv_view is not None or adapter is not None:
-            _serving_only("Attention(kv_view=, adapter=)")
+                adapter=None, lora_scale: float = 1.0):
+        """Default path (``kv_view=None``): full causal self-attention,
+        returns ``(out, None)``. Cache path: ``kv_view = (k_all, v_all)``
+        position-ordered views ``[b, T, kv_heads, head_dim]`` of the slots'
+        cached keys/values; the current tokens' K/V are written into the
+        view at ``positions`` before attending, and returned as
+        ``(out, (k_cur, v_cur))`` for the caller to scatter into the paged
+        pool. ``adapter``: optional flat ``{q,k,v,o}.lora_{a,b}`` side
+        paths."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q = _rope(self.q(x), positions, cfg.rope_theta)
-        k = _rope(self.k(x), positions, cfg.rope_theta)
-        v = self.v(x)
-        if cfg.kv_heads != cfg.num_heads:
-            rep = cfg.num_heads // cfg.kv_heads
-            k = k.repeat_interleave(rep, dim=2)
-            v = v.repeat_interleave(rep, dim=2)
-        from .attention import causal_attention
-        out = causal_attention(q, k, v, impl=cfg.attention_impl,
-                               attn_mask=attn_mask)
-        return self.o(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        q = _adapted(self.q, "q", x, adapter, lora_scale)
+        k = _adapted(self.k, "k", x, adapter, lora_scale)
+        v = _adapted(self.v, "v", x, adapter, lora_scale)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        rep = cfg.num_heads // cfg.kv_heads
+        from .attention import cached_attention, causal_attention
+        if kv_view is not None:
+            new_kv = (k, v)
+            # the views are lifted to f32 here, as cached_attention would:
+            # the values written are the compute-dtype K/V, exactly
+            k_all = _write_view(kv_view[0], positions, k)
+            v_all = _write_view(kv_view[1], positions, v)
+            if rep != 1:
+                k_all = k_all.repeat_interleave(rep, dim=2)
+                v_all = v_all.repeat_interleave(rep, dim=2)
+            out = cached_attention(q, k_all, v_all, positions)
+        else:
+            new_kv = None
+            if rep != 1:
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            out = causal_attention(q, k, v, impl=cfg.attention_impl,
+                                   attn_mask=attn_mask)
+        out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
+        return _adapted(self.o, "o", out, adapter, lora_scale), new_kv
 
 
 class MLP(nn.Module):
@@ -216,10 +279,11 @@ class MLP(nn.Module):
         self.up = Dense(h, (i,), dt)
         self.down = Dense(i, (h,), dt)
 
-    def forward(self, x, adapter=None):
-        if adapter is not None:
-            _serving_only("MLP(adapter=)")
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+    def forward(self, x, adapter=None, lora_scale: float = 1.0):
+        gate = _adapted(self.gate, "gate", x, adapter, lora_scale)
+        up = _adapted(self.up, "up", x, adapter, lora_scale)
+        return _adapted(self.down, "down", F.silu(gate) * up, adapter,
+                        lora_scale)
 
 
 class DecoderLayer(nn.Module):
@@ -230,14 +294,35 @@ class DecoderLayer(nn.Module):
         self.ln_attn = RMSNorm(cfg.hidden_size, cfg.rms_eps)
         self.ln_mlp = RMSNorm(cfg.hidden_size, cfg.rms_eps)
 
-    def forward(self, x, positions, attn_mask=None):
-        h = x + self.attn(self.ln_attn(x), positions, attn_mask)
-        return h + self.mlp(self.ln_mlp(h))
+    def forward(self, x, positions, attn_mask=None, kv_view=None,
+                adapter=None, lora_scale: float = 1.0):
+        attn = mlp = None
+        if adapter is not None:
+            attn = _sub(adapter, "attn.")
+            mlp = _sub(adapter, "mlp.")
+        a_out, new_kv = self.attn(self.ln_attn(x), positions, attn_mask,
+                                  kv_view=kv_view, adapter=attn,
+                                  lora_scale=lora_scale)
+        h = x + a_out
+        h = h + self.mlp(self.ln_mlp(h), adapter=mlp, lora_scale=lora_scale)
+        return h, new_kv
+
+
+def _sub(flat, prefix: str):
+    """The entries of a flat dict under ``prefix``, with it stripped."""
+    n = len(prefix)
+    return {k[n:]: v for k, v in flat.items() if k.startswith(prefix)}
 
 
 class CausalLM(nn.Module):
     """Decoder-only LM. ``forward(tokens [b, s]) -> logits [b, s, vocab]``
-    (f32)."""
+    (f32).
+
+    Cache-aware path: pass ``positions`` and ``kv_view`` (one
+    ``(k_all, v_all)`` per layer) and it returns
+    ``(logits, [(k_cur, v_cur), ...])`` for the caller to scatter into its
+    paged pool; ``adapters`` (flat LoRA dict, shared or per-slot leaves)
+    with ``lora_scale`` adds the factored side paths."""
 
     def __init__(self, cfg: LLMConfig):
         super().__init__()
@@ -259,24 +344,33 @@ class CausalLM(nn.Module):
                 m.reset_parameters(gen)
 
     def forward(self, tokens, train: bool = False, attn_mask=None,
-                positions=None, kv_view=None, adapters=None):
+                positions=None, kv_view=None, adapters=None,
+                lora_scale: float = 1.0):
         del train  # no dropout in the decoder
-        if kv_view is not None or adapters is not None:
-            _serving_only("CausalLM(kv_view=, adapters=)")
         cfg = self.cfg
         x = self.embed(tokens)
         if positions is None:
             pos = torch.arange(tokens.shape[1], dtype=torch.int32,
                                device=tokens.device)
             positions = pos[None, :].expand(tokens.shape)
+        new_kvs = []
         for i in range(cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, positions, attn_mask)
+            x, new_kv = getattr(self, f"layer_{i}")(
+                x, positions, attn_mask,
+                kv_view=None if kv_view is None else kv_view[i],
+                adapter=None if adapters is None
+                else _sub(adapters, f"layer_{i}."),
+                lora_scale=lora_scale)
+            new_kvs.append(new_kv)
         x = self.ln_f(x)
         if cfg.tie_embeddings:
             logits = self.embed.attend(x)
         else:
             logits = self.lm_head(x)
-        return logits.float()
+        logits = logits.float()
+        if kv_view is not None:
+            return logits, new_kvs
+        return logits
 
 
 def init_llm(cfg: LLMConfig, generator: Optional[torch.Generator] = None

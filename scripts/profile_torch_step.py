@@ -2,7 +2,7 @@
 """Where a local SGD step of the port's main paths spends its time, on the
 card.
 
-    python3 scripts/profile_torch_step.py [--model resnet56|llm|llm_hot]
+    python3 scripts/profile_torch_step.py [--model resnet56|llm|llm_hot|serve]
                                           [--steps 10]
 
 One client's local training at a main path's full width, under
@@ -17,7 +17,12 @@ One client's local training at a main path's full width, under
 * ``llm_hot``: the FedLLM hot loop, ``chip_smoke.py``'s ``HOT_LOOP`` (the
   ~111M causal LM: d 1024, 8 layers, 8 heads of 128, bf16, flash
   attention) at bs 8 x seq 1024 on seeded random tokens, full-parameter
-  SGD.
+  SGD;
+* ``serve``: one decode step of the serving path at ``chip_smoke.py``'s
+  serving width (the FedLLM causal LM, bf16, 64 slots all active, paged
+  KV cache in blocks of 16, a bank of 64 seeded adapters, every slot on
+  its own), then one 32-token prefill chunk; ``cached_attention``'s share
+  of the device time besides the rest.
 
 Prints the step time (host clock around work that ends in a synchronize),
 the device-busy and idle shares of the unprofiled step, launches per
@@ -36,8 +41,8 @@ import time
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--model", choices=("resnet56", "llm", "llm_hot"),
-                    default="resnet56")
+    ap.add_argument("--model", choices=("resnet56", "llm", "llm_hot",
+                                        "serve"), default="resnet56")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -58,6 +63,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     n = args.steps
+    if args.model == "serve":
+        return profile_serve(torch, n, dev)
     gen = torch.Generator().manual_seed(1)
     if args.model == "resnet56":
         bundle = create(Arguments(model="resnet56", precision="bfloat16",
@@ -132,19 +139,12 @@ def main() -> int:
         torch.cuda.synchronize()
         window_us = (time.time() - t0) * 1e6
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side kernel events only: CPU ops also carry the device time of
-    # the kernels they launch, and counting both would count it twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    events = device_events(prof, DeviceType)
     if not events:
         print("profile_torch_step: the profiler recorded no device time",
               file=sys.stderr)
         return 1
-    busy = sum(dev_us(e) for e in events)
+    busy = sum(_dev_us(e) for e in events)
     busy_step_ms = busy / n / 1e3
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"step: {step_ms:.2f} ms per local step ({label}), unprofiled")
@@ -157,14 +157,135 @@ def main() -> int:
           f"(profiled window {window_us / 1e3 / n:.1f} ms per step)")
     for name in ours:
         mine = [e for e in events if name in e.key]
-        t = sum(dev_us(e) for e in mine)
+        t = sum(_dev_us(e) for e in mine)
         print(f"{name}: {t / n / 1e3:.3f} ms per step ({t / busy:.1%} of "
               f"device time), {sum(e.count for e in mine) // n} launches "
               f"per step")
     print("top kernels by device time (ms per step, share of device time):")
-    for e in sorted(events, key=dev_us, reverse=True)[:15]:
-        print(f"  {dev_us(e) / n / 1e3:8.3f}  {dev_us(e) / busy:6.1%}  "
+    for e in sorted(events, key=_dev_us, reverse=True)[:15]:
+        print(f"  {_dev_us(e) / n / 1e3:8.3f}  {_dev_us(e) / busy:6.1%}  "
               f"x{e.count // n:<4d} {e.key[:100]}")
+    return 0
+
+
+def device_events(prof, DeviceType):
+    """Device-side kernel events with device time (CPU ops also carry the
+    device time of the kernels they launch; counting both would count it
+    twice)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profile_serve(torch, n, dev):
+    """``n`` decode steps of 64 active slots, then ``n`` 32-token prefill
+    chunks, each timed unprofiled and then under the profiler, with
+    ``cached_attention`` inside a named range."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from chip_smoke import LLM_MAIN_PATH, SERVE_BATCH, SERVE_PROMPTS
+    from fedml_tpu_torch import llm
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.llm import attention
+    from fedml_tpu_torch.llm.data import BOS, SEP
+    from fedml_tpu_torch.serving.batch import AdapterBank, DecodeScheduler
+
+    plain = attention.cached_attention
+
+    def named(*a):
+        with record_function("cached_attention"):
+            return plain(*a)
+
+    attention.cached_attention = named   # model.py resolves it per call
+    bundle, tok = llm.build_llm_bundle(Arguments(**LLM_MAIN_PATH))
+    bundle.to(dev)
+    base = bundle.base_params
+    gen = torch.Generator().manual_seed(1)
+    template = llm.lora_init(gen, base, rank=LLM_MAIN_PATH["lora_rank"])
+    bank = AdapterBank(template, alpha=bundle.lora_alpha,
+                       capacity=SERVE_BATCH["max_adapters"])
+    for a in range(64):
+        bank.add(f"silo_{a}", {k: 0.1 * torch.randn(v.shape, generator=gen)
+                               for k, v in template.items()})
+    slots = SERVE_BATCH["slots"]
+    sched = DecodeScheduler(bundle.module, bundle.cfg, base, bank,
+                            slots=slots, block_size=SERVE_BATCH["block_size"],
+                            prefill_chunk=SERVE_BATCH["prefill_chunk"],
+                            device=dev)
+    for i in range(slots):
+        ids = [BOS] + tok.encode(SERVE_PROMPTS[i]) + [SEP]
+        sched.admit(ids, adapter_idx=1 + i, max_new_tokens=4 * n + 8)
+    label = (f"FedLLM causal LM d{bundle.cfg.hidden_size} x"
+             f"{bundle.cfg.num_layers} layers, bf16, {slots} slots, "
+             f"64-adapter bank")
+    # one 32-token chunk of a fresh prompt: the prefill program and its
+    # write, on a row of its own (no slot is taken)
+    chunk = SERVE_BATCH["prefill_chunk"]
+    ids = [BOS] + tok.encode(("summarize round 7 " * 4)[:chunk - 1])
+    toks = sched._dev(np.asarray(ids, np.int32))
+    row = sched._dev(sched._tables[0])
+
+    def prefill():
+        with torch.no_grad():
+            logits, kcs, vcs = sched._prefill_fn(
+                sched.params, sched._stack(), sched._kp, sched._vp, row,
+                toks, 0, len(ids), 1)
+        # written to the trash block: valid rows routed there by n_valid 0
+        sched._dispatch("llm_prefill_write", sched._chunk_write_fn,
+                        sched._kp, sched._vp, row, 0, 0, kcs, vcs)
+        return logits
+
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    for what, fn in (("decode step", sched.step), ("prefill chunk", prefill)):
+        fn()   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        # the named range also shows up as a device-side annotation
+        # spanning its kernels: leave it out of the kernel events, and take
+        # its share from the host-side range's device time (the kernels it
+        # launched)
+        events = [e for e in device_events(prof, DeviceType)
+                  if e.key != "cached_attention"]
+        if not events:
+            print("profile_torch_step: the profiler recorded no device time",
+                  file=sys.stderr)
+            return 1
+        busy = sum(_dev_us(e) for e in events) / n / 1e3
+        span_ms = sum(_dev_us(e) for e in device_events(prof, DeviceType)
+                      if e.key == "cached_attention") / n / 1e3
+        attn_ms = sum(getattr(e, "device_time_total",
+                              getattr(e, "cuda_time_total", 0.0))
+                      for e in prof.key_averages()
+                      if e.key == "cached_attention"
+                      and e.device_type == DeviceType.CPU) / n / 1e3
+        print(f"{what}: {step_ms:.3f} ms unprofiled ({label}); device busy "
+              f"{busy:.3f} ms = {busy / step_ms:.1%}, idle "
+              f"{1 - busy / step_ms:.1%}; {len(events)} kernel names, "
+              f"{sum(e.count for e in events) // n} launches per "
+              f"{what}; cached_attention's kernels {attn_ms:.3f} ms "
+              f"({attn_ms / busy:.1%} of device time; first to last of its "
+              f"kernels on the device {span_ms:.3f} ms)")
+        print("top kernels by device time (ms per call, share of device "
+              "time):")
+        total = busy * n * 1e3
+        for e in sorted(events, key=_dev_us, reverse=True)[:12]:
+            print(f"  {_dev_us(e) / n / 1e3:8.3f}  {_dev_us(e) / total:6.1%}"
+                  f"  x{e.count // n:<4d} {e.key[:100]}")
     return 0
 
 

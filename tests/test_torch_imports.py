@@ -43,6 +43,35 @@ def test_no_jax_or_fedml_tpu_imported():
     assert bad == "[]", bad
 
 
+_SERVING_PROBE = r"""
+import sys
+import fedml_tpu_torch.llm.kv_cache
+import fedml_tpu_torch.serving
+import fedml_tpu_torch.serving.batch
+import fedml_tpu_torch.serving.llm_template
+import fedml_tpu_torch.core.obs
+from fedml_tpu_torch.serving.llm_template import CausalLMPredictor
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "fedml_tpu"))
+print(bad)
+"""
+
+
+def test_serving_and_kv_cache_import_without_jax():
+    """The serving slice (``serving``, ``serving.batch``, the template,
+    ``llm.kv_cache`` and the obs copies) imports on its own with no JAX
+    module loaded: the obs copies do not reach the JAX package's
+    ``mlops``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = _ROOT
+    out = subprocess.run([sys.executable, "-c", _SERVING_PROBE], cwd=_ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_entry_point_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

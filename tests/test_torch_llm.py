@@ -151,13 +151,24 @@ def test_rope_and_rmsnorm_match_flax():
 
 
 def test_serving_paths_raise():
+    """The cache-aware path and the factored adapters belong to the serving
+    slice; they raised until it was ported and now run. Over an empty cache
+    view the ``kv_view`` forward is the plain causal forward and returns the
+    new K/V per layer; an empty adapter dict changes nothing. Parity with
+    the JAX package: tests/test_torch_serving.py."""
     _, tcfg = _cfgs("tied")
-    tm = tmodel.CausalLM(tcfg)
-    x = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="serving"):
-        tm(x, kv_view=[None, None])
-    with pytest.raises(NotImplementedError, match="serving"):
-        tm(x, adapters={})
+    tm, _ = tmodel.init_llm(tcfg, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(_tokens(3, b=1, s=4)).long()
+    with torch.no_grad():
+        plain = tm(x)
+        view = torch.zeros(1, tcfg.max_seq_len, tcfg.kv_heads, tcfg.head_dim)
+        logits, kvs = tm(x, positions=torch.arange(4)[None],
+                         kv_view=[(view, view)] * tcfg.num_layers)
+        np.testing.assert_allclose(logits.numpy(), plain.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+        assert len(kvs) == tcfg.num_layers
+        assert tuple(kvs[0][0].shape) == (1, 4, tcfg.kv_heads, tcfg.head_dim)
+        assert torch.equal(tm(x, adapters={}), plain)
 
 
 # ------------------------------------------------------------------ LoRA --

@@ -66,3 +66,34 @@ def test_epoch_order_matches_local_training_sort_trick(n_real, n_pad):
 def test_negative_seed_refused():
     with pytest.raises(ValueError):
         prng.PRNGKey(-1)
+
+
+@pytest.mark.parametrize("seed", SEEDS[:5])
+def test_gumbel_and_xla_log_bit_equal(seed):
+    """The serving path's Gumbel noise: ``fold_in(PRNGKey(seed), position)``
+    as the scheduler keys it, uniform in ``[tiny, 1)`` and XLA's CPU log,
+    bit for bit over a byte-tokenizer vocabulary and a long row."""
+    for position, n in ((0, 259), (63, 259), (255, 4096)):
+        key = prng.fold_in(prng.PRNGKey(seed), position)
+        kj = jax.random.fold_in(jax.random.PRNGKey(seed), position)
+        np.testing.assert_array_equal(
+            prng.gumbel(key, n), np.asarray(jax.random.gumbel(kj, (n,))))
+        u = prng.uniform(key, n, minval=1e-3, maxval=2.0)
+        np.testing.assert_array_equal(u, np.asarray(jax.random.uniform(
+            kj, (n,), minval=1e-3, maxval=2.0)))
+    x = np.random.RandomState(seed % 1000).rand(5000).astype(np.float32)
+    x = np.concatenate([x + np.float32(1e-30), x * np.float32(1e-20), x * 7])
+    np.testing.assert_array_equal(prng.xla_log(x), np.asarray(jnp.log(x)))
+
+
+@pytest.mark.parametrize("temp", [0.3, 1.0, 1.7])
+def test_categorical_matches_jax(temp):
+    """``jax.random.categorical`` on ``logits / temp`` (the single path's
+    and the scheduler's seeded sample): the same index for 40 keys."""
+    rows = np.random.RandomState(3).randn(40, 259).astype(np.float32) * 3
+    for i, row in enumerate(rows):
+        key = prng.split(prng.PRNGKey(i))[1]
+        kj = jax.random.split(jax.random.PRNGKey(i))[1]
+        scaled = row / np.float32(temp)
+        assert prng.categorical(key, scaled) == int(
+            jax.random.categorical(kj, jnp.asarray(scaled)))
