@@ -26,14 +26,22 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    bound; B1-B4 must run the kernel their dtype selects (the kernels in
    the captured graph);
 5. tiny runs of both paths on the card against the same runs on the CPU
-   (ResNet-20 FedAvg; the federated LoRA causal LM with flash attention);
-6. the ResNet main path: ``fedml_tpu_torch.run_simulation`` at ResNet-56's
-   full width (FedAvg, synthetic CIFAR-10, bf16, fused conv block), B1's
-   launches held to 27 per forward pass;
+   (ResNet-20 FedAvg; the federated LoRA causal LM with flash attention),
+   and the captured local step against the eager loop on the card
+   (ResNet-20, f32 with TF32 off and bf16; one capture for four clients);
+6. the flagship benchmark (``bench.py``'s ``bench_flagship`` at full
+   width: ResNet-56, synthetic CIFAR-10 50,000 / 1,000, 64 clients per
+   round, bf16, fused conv block): the GPU engine's step captured, then
+   one block of 2 rounds through ``run_rounds_fused`` in timing mode and
+   one eval; the round's FLOPs and MFU; the SP golden loop for one round
+   on 8 clients as the baseline; a ``{"flagship": ...}`` line. B1 held to
+   27 launches per forward pass, counted through the graph's replays (its
+   B1 nodes read from the graph's DOT dump), and one capture;
 7. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
    ``bench.py``'s ``bench_federated_lora`` configuration (d 512, 4 layers,
    seq 256, bf16, LoRA r8, 2 silos, Shakespeare), 2 rounds with eval after
-   each, B2 launches held to 4 per forward and B3/B4 to 4 per local step;
+   each, its local step captured, B2 launches held to 4 per forward and
+   B3/B4 to 4 per local step (warm-up steps included);
 8. the serving path: the FedLLM main path's model, base weights frozen
    and the adapter the run of phase 7 trained, served through
    ``fedml_tpu_torch.serving.llm_template.CausalLMPredictor`` with
@@ -100,12 +108,31 @@ B1_PLAIN_TOL = {"float32": 2 ** -7, "bfloat16": 2 ** -6}
 # the largest gradient entry.
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
+# The ResNet main path: bench.py's bench_flagship at full width (ResNet-56,
+# CIFAR-10-shaped synthetic data 50,000 / 1,000, 64 clients per round,
+# batch 32, bf16, lr 0.1, seed 0) with the fused conv block, in timing
+# mode: one block of FLAGSHIP_BLOCK rounds through run_rounds_fused, then
+# one eval.
 MAIN_PATH = dict(
     backend="gpu", dataset="synthetic_cifar10", model="resnet56",
     precision="bfloat16", fused_conv_block="pallas", client_num_in_total=64,
-    client_num_per_round=8, comm_round=2, epochs=1, batch_size=32,
+    client_num_per_round=64, comm_round=1, epochs=1, batch_size=32,
     learning_rate=0.1, synthetic_size=50000, synthetic_test_size=1000,
-    frequency_of_the_test=1, random_seed=0)
+    frequency_of_the_test=-1, random_seed=0, rounds_per_dispatch=8)
+FLAGSHIP_BLOCK = 2
+# bench_flagship's baseline: the golden loop (SP, eager local steps) on 8
+# clients over 6,250 samples, one round, per-sample normalised
+SP_BASELINE = dict(MAIN_PATH, backend="sp", client_num_in_total=8,
+                   client_num_per_round=8, synthetic_size=6250,
+                   max_total_samples=6250)
+# The captured step against the eager loop on the card (phase 5): one
+# ResNet-20 client's SGD steps (momentum 0.9, lr 0.01) from the same
+# params; largest param difference over the largest param update. The two
+# launch the same kernels, with cuDNN held to deterministic algorithms for
+# the check, so they should agree bitwise; the bound allows a few f32
+# ulps of reordering, and in bf16 a flipped rounding of a gradient entry
+# (2^-8 of it).
+CAPTURE_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 
 # The FedLLM main path: bench.py's bench_federated_lora ("BASELINE.json
 # config 4 as a federated round") at its full width, 2 rounds, eval after
@@ -429,6 +456,177 @@ def tiny_run_agreement(torch, fedml):
     return worst, gpu["final_test_acc"], cpu["final_test_acc"]
 
 
+def captured_vs_eager(torch):
+    """The GPU engine's captured local step against the eager loop on the
+    card: four ResNet-20 clients (fused conv block, SGD with momentum 0.9,
+    lr 0.01, batch 32) each trained from the same params by one step
+    program (captured once, replayed) and by ``run_local_sgd``, in float32
+    with TF32 off and in bf16, cuDNN on deterministic algorithms (the f32
+    weight-gradient algorithm it picks otherwise is not run-to-run
+    reproducible: without this the f32 legs differed by a fraction of the
+    bound, the bf16 legs not at all). Returns {dtype: (worst error over
+    CAPTURE_TOL, replays)}."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for precision, tol in CAPTURE_TOL.items():
+            out[precision] = _captured_vs_eager(torch, precision, tol)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _captured_vs_eager(torch, precision, tol):
+    from fedml_tpu_torch import data, model, prng
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.client_trainer import (
+        ClassificationTrainer, make_inner_optimizer)
+    from fedml_tpu_torch.core.algframe.local_training import (
+        StepProgram, batch_real_of, run_local_sgd)
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+
+    args = Arguments(dataset="synthetic_cifar10", model="resnet20",
+                     precision=precision, fused_conv_block="pallas",
+                     client_num_in_total=4, batch_size=32,
+                     max_total_samples=512, random_seed=3)
+    fed, n_classes = data.load(args)
+    bundle = model.create(args, n_classes, fed.input_shape)
+    params = bundle.init(torch.Generator().manual_seed(3), "cuda")
+    spec = ClassificationTrainer(bundle.apply)
+    opt = make_inner_optimizer("sgd", 0.01, momentum=0.9)
+    hyper = TrainHyper(learning_rate=0.01)
+    train = fed.train.to(torch.device("cuda"))
+    program = StepProgram(spec, opt, params, train.client(0))
+    worst = 0.0
+    for cid in range(4):
+        cdata, key = train.client(cid), prng.fold_in(prng.PRNGKey(3), cid)
+        real = batch_real_of(fed.train.mask[cid])
+        pg, steps, mg = program.run(params, cdata, key, hyper, real)
+        pe, _, me = run_local_sgd(spec, opt, params, cdata, key, hyper,
+                                  batch_real=real)
+        moved = max((pe[k] - params[k]).abs().max().item() for k in pe)
+        diff = max((pg[k] - pe[k]).abs().max().item() for k in pe)
+        loss = abs(mg["loss_sum"].item() - me["loss_sum"].item()) / max(
+            abs(me["loss_sum"].item()), 1e-6)
+        require(steps > 0 and moved > 0,
+                f"captured step: client {cid} did not train")
+        worst = max(worst, diff / moved / tol, loss / tol)
+    require(worst <= 1.0, f"captured step vs eager loop ({precision}): off "
+                          f"by {worst:.2f}x the tolerance")
+    require(program.captures == 1, f"captured step: {program.captures} "
+                                   f"captures for four clients")
+    return worst, program.replays
+
+
+def flagship(torch, cb, fa, card):
+    """Phase 6: ``bench_flagship`` on the port. The GPU engine's step is
+    captured (timed apart), then one block of FLAGSHIP_BLOCK rounds runs
+    through ``run_rounds_fused`` and one eval follows; then the SP golden
+    loop runs one round of SP_BASELINE. Returns the ``flagship`` record and
+    the kernels' launches over the engine's leg."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.local_training import step_count
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    from fedml_tpu_torch.core.obs import profiler
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    def simulator(cfg):
+        args = Arguments(**cfg)
+        fed, n_classes = data.load(args)
+        bundle = model.create(args, n_classes, fed.input_shape)
+        return FedMLRunner(args, dataset=fed, model=bundle).runner, fed
+
+    sim, fed = simulator(MAIN_PATH)
+    hyper = TrainHyper(learning_rate=MAIN_PATH["learning_rate"], epochs=1)
+    reset_launches(cb, fa)
+    capture_s = sim.capture_step(hyper)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    block = sim.run_rounds_fused(0, FLAGSHIP_BLOCK, hyper)
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    round_s = block_s / FLAGSHIP_BLOCK
+    ev = sim.evaluate()
+    torch.cuda.synchronize()
+    engine_launches = launches(cb, fa)
+    for r, m in enumerate(block):
+        print(f"flagship round {r}: {m['local_steps']} local steps, "
+              f"train_loss {m['loss_sum'] / m['count']:.4f}", flush=True)
+        require(all(math.isfinite(m[k]) for k in ("loss_sum", "correct")),
+                f"flagship round {r}: non-finite metrics")
+    require(math.isfinite(ev["test_loss"]), "flagship: non-finite eval")
+    require(all(torch.isfinite(v).all().item()
+                for v in sim.params.values()), "flagship: non-finite params")
+    require(sim.dispatch_stats["captures"] == 1 and len(sim.programs) == 1,
+            f"flagship: {sim.dispatch_stats['captures']} captures, "
+            f"{len(sim.programs)} step programs (want 1 and 1)")
+    (program,) = sim.programs.values()
+    nodes = sum(B1_KERNEL_NAME[MAIN_PATH["precision"]] in line
+                for line in graph_dot(program.graph).splitlines())
+    steps = sum(m["local_steps"] for m in block)
+    n_eval = int(sim.test["x"].shape[0])
+    forwards = program.warmup_steps + program.replays + n_eval
+    n_b1 = engine_launches["conv_block"]
+    require(nodes == program.graph_launches.get(cb.fused_block) == 27,
+            f"flagship: the captured step holds {nodes} B1 nodes (DOT dump)"
+            f" and {program.graph_launches.get(cb.fused_block)} counted "
+            f"at capture, expected 27")
+    require(program.replays == steps, f"flagship: {program.replays} "
+                                      f"replays for {steps} local steps")
+    require(n_b1 == 27 * forwards,
+            f"flagship: B1 launched {n_b1} times, expected 27 x {forwards} "
+            f"forward passes ({program.warmup_steps} warm-up, "
+            f"{program.replays} replayed, {n_eval} eval)")
+    flops = sim.round_cost_flops(hyper)
+    tflops = flops / round_s / 1e12
+    mfu = profiler.mfu_value(flops, round_s, 1, device="cuda")
+    if "H100" in torch.cuda.get_device_name(0):
+        require(mfu is not None, "flagship: MFU is null on an H100")
+
+    sp, sp_fed = simulator(SP_BASELINE)
+    reset_launches(cb, fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp.run(1)
+    torch.cuda.synchronize()
+    sp_round_s = time.perf_counter() - t0
+    sp_steps = sum(step_count(sp.batch_real[c], hyper)
+                   for c in range(sp_fed.num_clients))
+    require(launches(cb, fa)["conv_block"] == 27 * sp_steps,
+            f"SP baseline: B1 launched {launches(cb, fa)['conv_block']} "
+            f"times, expected 27 x {sp_steps}")
+    samples = float(fed.client_num_samples.sum())
+    sp_samples = float(sp_fed.client_num_samples.sum())
+    name, limit = (w.strip() for w in card.split(","))
+    record = {
+        "metric": "fedavg_resnet56_cifar10_rounds_per_hour",
+        "value": 3600.0 / round_s,
+        "unit": f"rounds/hour (64 clients/round, 1 local epoch, bf16, "
+                f"{fed.provenance} data)",
+        # the captured-step engine against the eager golden loop, both on
+        # this one card (per-sample normalised): not the TPU bench's
+        # meaning (a mesh against per-client dispatches)
+        "vs_baseline": (sp_round_s / sp_samples) / (round_s / samples),
+        "sp_baseline_round_s": sp_round_s,
+        "sp_baseline_samples": int(sp_samples),
+        "step_time_s": round_s,
+        "block_s": block_s, "block_rounds": FLAGSHIP_BLOCK,
+        "local_steps": steps, "sp_local_steps": sp_steps,
+        "ms_per_local_step": block_s / steps * 1e3,
+        "round_flops": flops, "tflops": tflops, "mfu": mfu,
+        "peak_tflops": profiler.peak_tflops("cuda"),
+        "n_devices": 1, "data_provenance": fed.provenance,
+        "captures": sim.dispatch_stats["captures"],
+        "capture_s": capture_s, "warmup_steps": program.warmup_steps,
+        "b1_graph_nodes": nodes, "b1_launches": n_b1,
+        "b1_per_forward": n_b1 / forwards,
+        "test_acc_after_block": ev["test_acc"],
+        "hbm_peak_gb": profiler.sample_hbm_peak_gb("cuda"),
+        "card": name, "power_limit": limit}
+    return record, engine_launches
+
+
 def build_all(build, names):
     """One nvcc per source, all started together; print each build's
     time and the compiler's register, shared-memory and spill lines.
@@ -590,13 +788,7 @@ def device_ms(torch, fn, stream=None, iters=20, warmup=3):
         for _ in range(iters):
             fn()
     graph.instantiate()
-    dot = os.path.join("build", "device_ms_graph.dot")
-    os.makedirs("build", exist_ok=True)
-    graph.debug_dump(dot)
-    require(os.path.exists(dot), "the CUDA graph wrote no DOT dump")
-    with open(dot) as f:
-        text = f.read()
-    os.unlink(dot)
+    text = graph_dot(graph)
     names = {t for t in re.split(r'[\s"|{}]+', text) if "kernel" in t}
     graph.replay()
     torch.cuda.synchronize()
@@ -611,6 +803,19 @@ def device_ms(torch, fn, stream=None, iters=20, warmup=3):
     require(ms > 0 and names, f"the CUDA graph recorded no kernel "
                               f"({ms} ms; its DOT dump: {text[:800]!r})")
     return ms, names
+
+
+def graph_dot(graph) -> str:
+    """The DOT dump of a CUDA graph captured with ``keep_graph=True``: one
+    node per kernel launch (or copy, or memset), on one line each."""
+    dot = os.path.join("build", "graph.dot")
+    os.makedirs("build", exist_ok=True)
+    graph.debug_dump(dot)
+    require(os.path.exists(dot), "the CUDA graph wrote no DOT dump")
+    with open(dot) as f:
+        text = f.read()
+    os.unlink(dot)
+    return text
 
 
 def time_attention(torch, F, fa, gen, shape, dtype):
@@ -1137,31 +1342,20 @@ def main() -> int:
     print(f"tiny run (LoRA causal LM, f32, flash): card vs CPU adapters "
           f"within {worst:.3f} of tolerance; test loss {loss_gpu:.6f} vs "
           f"{loss_cpu:.6f}", flush=True)
+    for dtype, (worst, replays) in captured_vs_eager(torch).items():
+        print(f"captured step vs eager loop (resnet20, {dtype}, 4 clients, "
+              f"{replays} replays, 1 capture): within {worst:.3f} of "
+              f"tolerance {CAPTURE_TOL[dtype]}", flush=True)
 
-    reset_launches(cb, fa)
-    t0 = time.time()
-    result = fedml.run_simulation(**MAIN_PATH)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    resnet_launches = launches(cb, fa)
-    hist = result["history"]
-    for h in hist:
-        print(f"main path round {h['round']}: {h['round_time_s']:.2f} s, "
-              f"{h['local_steps']} local steps, train_loss "
-              f"{h['train_loss']:.4f}, test_acc {h['test_acc']:.4f}",
-              flush=True)
-        require(all(math.isfinite(h[k]) for k in (
-            "train_loss", "train_acc", "test_acc", "test_loss")),
-            f"round {h['round']}: non-finite metrics")
-    require(all(torch.isfinite(v).all().item()
-                for v in result["params"].values()), "non-finite params")
-    forwards = sum(h["local_steps"] + h.get("eval_batches", 0) for h in hist)
-    n_b1 = resnet_launches["conv_block"]
-    require(n_b1 == 27 * forwards,
-            f"kernel launched {n_b1} times, expected 27 x {forwards}")
-    print(f"main path: {wall:.1f} s end to end, {wall / len(hist):.2f} s per "
-          f"round (eval included), {n_b1} kernel launches = 27 x "
-          f"{forwards} forward passes", flush=True)
+    record, resnet_launches = flagship(torch, cb, fa, card)
+    print(f"flagship: capture {record['capture_s']:.2f} s (apart from the "
+          f"rounds), {record['block_s']:.2f} s for {FLAGSHIP_BLOCK} rounds "
+          f"of 64 clients = {record['step_time_s']:.3f} s per round, "
+          f"{record['ms_per_local_step']:.2f} ms per local step, MFU "
+          f"{record['mfu']}, SP baseline {record['sp_baseline_round_s']:.2f}"
+          f" s per round; B1 {record['b1_launches']} launches = "
+          f"{record['b1_per_forward']:.0f} per forward", flush=True)
+    print(json.dumps({"flagship": record}), flush=True)
 
     reset_launches(cb, fa)
     t0 = time.time()
@@ -1171,7 +1365,7 @@ def main() -> int:
     llm_launches = launches(cb, fa)
     hist = result["history"]
     for h in hist:
-        print(f"FedLLM round {h['round']}: {h['round_time_s']:.2f} s, "
+        print(f"FedLLM round {h['round']}: "
               f"{h['local_steps']} local steps, {h['eval_batches']} eval "
               f"batches, train_loss {h['train_loss']:.4f}, test_loss "
               f"{h['test_loss']:.4f}, test_acc {h['test_acc']:.4f}",
@@ -1182,15 +1376,23 @@ def main() -> int:
     require(all(torch.isfinite(v).all().item()
                 for v in result["params"].values()), "non-finite adapters")
     layers = LLM_MAIN_PATH["llm_num_layers"]
+    stats = result["dispatch_stats"]
+    require(stats["captures"] == 1, f"FedLLM: {stats['captures']} captures")
+    # the captured step's replays plus the warm-up's eager steps
     steps = sum(h["local_steps"] for h in hist)
+    require(stats["replays"] == steps, f"FedLLM: {stats['replays']} "
+                                       f"replays for {steps} local steps")
+    steps += stats["warmup_steps"]
     evals = sum(h["eval_batches"] for h in hist)
     want = {"conv_block": 0, "flash_fwd": layers * (steps + evals),
             "flash_dq": layers * steps, "flash_dkv": layers * steps}
     require(llm_launches == want, f"FedLLM launches {llm_launches}, "
                                   f"expected {want}")
     print(f"FedLLM main path: {wall:.1f} s end to end, {wall / len(hist):.2f} "
-          f"s per round (eval included), {steps} local steps and {evals} "
-          f"eval batches; launches {llm_launches}", flush=True)
+          f"s per round (eval and the step's capture, "
+          f"{stats['capture_s']:.2f} s, included), {steps} local steps "
+          f"({stats['warmup_steps']} of them the capture's warm-up) and "
+          f"{evals} eval batches; launches {llm_launches}", flush=True)
 
     # the serving path, on the adapter the FedLLM run just trained
     from fedml_tpu_torch.llm import kv_cache as kvc

@@ -3,7 +3,9 @@
 The JAX package ``fedml_tpu`` stays the reference; this package runs the same
 federated round on an NVIDIA H100, with the JAX package's Pallas kernels
 rewritten by hand for Hopper. Ported so far: the FedAvg simulation round on
-the CIFAR ResNets, with the fused conv block as a CUDA kernel
+the CIFAR ResNets and the linear models, through the GPU engine (blocks of
+rounds over a local step captured in a CUDA graph) or the SP golden loop,
+with the fused conv block as a CUDA kernel
 (``core/kernels/csrc/conv_block.cu``), and the federated LoRA fine-tune of
 the causal LM (:mod:`fedml_tpu_torch.llm`), with flash attention's forward
 and backward as CUDA kernels (``core/kernels/csrc/flash_attention.cu``),
@@ -54,13 +56,18 @@ def init(args: Optional[Arguments] = None, **overrides: Any) -> Arguments:
 def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
                    device=None, init_params: Optional[Dict[str, Any]] = None,
                    **overrides: Any) -> Dict[str, Any]:
-    """One-call FedAvg simulation on ``device`` (CUDA unless ``"cpu"``).
+    """One-call FedAvg simulation on ``device`` (CUDA unless ``"cpu"``):
+    ``backend="gpu"`` (aliases ``cuda``, ``tpu``, ``mesh``, ``nccl``,
+    ``mpi``) runs the GPU engine, rounds in blocks of
+    ``rounds_per_dispatch`` over a captured local step; ``backend="sp"``
+    the eager golden loop.
 
     ``init_params`` (optional) starts from given parameters, a state dict
     under the model's names (see :mod:`fedml_tpu_torch.interop` to bring
     them from a flax tree), instead of a fresh seeded init. Returns
     ``params``, ``history``, ``wall_time_s``, ``final_test_acc``,
-    ``final_test_loss`` and ``rounds``, as the JAX engine does."""
+    ``final_test_loss`` and ``rounds``, as the JAX engine does (the GPU
+    engine adds its ``dispatch_stats``)."""
     from . import data as data_mod
     from . import model as model_mod
     from .device import get_device
@@ -69,7 +76,7 @@ def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
     args = init(args, backend=backend, **overrides)
     args.training_type = FEDML_TRAINING_PLATFORM_SIMULATION
     fed, output_dim = data_mod.load(args)
-    bundle = model_mod.create(args, output_dim)
+    bundle = model_mod.create(args, output_dim, fed.input_shape)
     runner = FedMLRunner(args, device=device, dataset=fed, model=bundle,
                          init_params=init_params)
     return runner.run()

@@ -51,10 +51,17 @@ _SCHEMA: Dict[str, Any] = {
     "weight_decay": 0.0,
     "momentum": 0.0,
     "sampling_stream": "legacy",
+    # rounds run between two device -> host reads (the GPU engine's block)
+    "rounds_per_dispatch": 8,
     # validation_args
     "frequency_of_the_test": 5,
     # comm_args
     "backend": "gpu",
+    # obs_args: host/device split + per-round MFU at the engine's dispatch
+    # seam (waits for the device at every block's end)
+    "obs_profile_device": False,
+    # the JAX package's per-program roofline capture; not ported (raises)
+    "obs_roofline": False,
 }
 
 

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,8 +80,11 @@ class InnerOptimizer:
     * ``adamw``: ``scale_by_adam``, then decoupled ``+ wd * p``, then
       ``-lr``.
 
-    ``init(params) -> state``; ``update(grads, state, params) ->
-    (updates, state)``; the caller adds the updates to the params.
+    Everything a step reads that changes between steps or clients lives in
+    the state as a tensor: the moments, Adam's step ``count`` (and so its
+    bias corrections) and ``neg_lr``. :meth:`step_` updates the params
+    and the state in place, so one call can be captured into a CUDA graph
+    and replayed; the eager loop and the captured step both run it.
     """
 
     def __init__(self, name: str, learning_rate: float, momentum: float = 0.0,
@@ -97,38 +99,66 @@ class InnerOptimizer:
         self.wd = float(weight_decay or 0.0)
         self.b1, self.b2, self.eps = b1, b2, eps
 
+    @property
+    def key(self) -> Tuple:
+        """What a captured step bakes in (everything but the state)."""
+        return (self.name, self.momentum, self.wd, self.b1, self.b2,
+                self.eps)
+
     def init(self, params: Params) -> Dict[str, object]:
+        """Fresh state on the params' device: zero moments and count, and
+        ``neg_lr`` = -learning_rate."""
+        dev = next(iter(params.values())).device
         zeros = lambda: {k: torch.zeros_like(v)  # noqa: E731
                          for k, v in params.items()}
+        state: Dict[str, object] = {"neg_lr": torch.tensor(
+            -self.lr, dtype=torch.float32, device=dev)}
         if self.name == "sgd":
-            return {"trace": zeros()} if self.momentum else {}
-        return {"count": 0, "mu": zeros(), "nu": zeros()}
+            if self.momentum:
+                state["trace"] = zeros()
+            return state
+        state.update(count=torch.zeros((), dtype=torch.float32, device=dev),
+                     mu=zeros(), nu=zeros())
+        return state
 
     @torch.no_grad()
-    def update(self, grads: Params, state, params: Params):
+    def reset_(self, state, learning_rate: float) -> None:
+        """Back to :meth:`init`'s values in place, with this learning
+        rate (a client's start)."""
+        state["neg_lr"].fill_(-float(learning_rate))
+        for k, v in state.items():
+            if k == "neg_lr":
+                continue
+            for t in (v.values() if isinstance(v, dict) else (v,)):
+                t.zero_()
+
+    @torch.no_grad()
+    def step_(self, params: Params, grads: Params, state) -> None:
+        """One step in place: ``params += -lr * direction(grads)``."""
+        neg_lr = state["neg_lr"]
         if self.name == "sgd":
-            g = grads
-            if self.wd:
-                g = {k: g[k] + self.wd * params[k] for k in g}
-            if self.momentum:
-                g = {k: g[k] + self.momentum * state["trace"][k] for k in g}
-                state = {"trace": g}
-            return {k: -self.lr * v for k, v in g.items()}, state
-        g = grads
-        if self.name == "adam" and self.wd:
-            g = {k: g[k] + self.wd * params[k] for k in g}
-        count = state["count"] + 1
+            for k, p in params.items():
+                g = grads[k]
+                if self.wd:
+                    g = g + self.wd * p
+                if self.momentum:
+                    g = state["trace"][k].mul_(self.momentum).add_(g)
+                p.add_(neg_lr * g)
+            return
         b1, b2 = self.b1, self.b2
-        mu = {k: (1 - b1) * g[k] + b1 * state["mu"][k] for k in g}
-        nu = {k: (1 - b2) * (g[k] * g[k]) + b2 * state["nu"][k] for k in g}
-        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        u = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.eps)
-             for k in g}
-        if self.name == "adamw" and self.wd:
-            u = {k: u[k] + self.wd * params[k] for k in u}
-        return ({k: -self.lr * v for k, v in u.items()},
-                {"count": count, "mu": mu, "nu": nu})
+        count = state["count"].add_(1.0)
+        c1 = 1.0 - torch.pow(torch.full_like(count, b1), count)
+        c2 = 1.0 - torch.pow(torch.full_like(count, b2), count)
+        for k, p in params.items():
+            g = grads[k]
+            if self.name == "adam" and self.wd:
+                g = g + self.wd * p
+            mu = state["mu"][k].mul_(b1).add_((1 - b1) * g)
+            nu = state["nu"][k].mul_(b2).add_((1 - b2) * (g * g))
+            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            if self.name == "adamw" and self.wd:
+                u = u + self.wd * p
+            p.add_(neg_lr * u)
 
 
 def make_inner_optimizer(name: str, learning_rate, momentum: float = 0.0,

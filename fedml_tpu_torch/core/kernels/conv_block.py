@@ -42,6 +42,8 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import count_launch
+
 #: flax GroupNorm default epsilon — the unfused path's value
 GN_EPS = 1e-6
 
@@ -291,7 +293,7 @@ def _launch(x: torch.Tensor, params: Params, strides: int, groups: int,
     if err != 0:
         raise RuntimeError(f"conv_block kernel launch failed: CUDA error "
                            f"{err}")
-    fused_block.launches += 1
+    count_launch(fused_block)
     return out
 
 
@@ -326,7 +328,8 @@ def fused_block(x: torch.Tensor, params: Params, *, strides: int = 1,
     plain :func:`reference_block` only for a CPU tensor), reference-
     recompute backward. Same signature and params as
     :func:`reference_block`. ``fused_block.launches`` counts kernel
-    launches."""
+    launches (``captured``: launches recorded into a CUDA graph; see
+    :func:`.count_launch`)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block runs on cuda (or cpu), not "
                          f"{x.device}")
@@ -335,4 +338,4 @@ def fused_block(x: torch.Tensor, params: Params, *, strides: int = 1,
                              *(params[k] for k in names))
 
 
-fused_block.launches = 0
+fused_block.launches = fused_block.captured = 0

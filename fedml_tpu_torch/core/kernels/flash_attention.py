@@ -44,7 +44,8 @@ gradient; a masked key gets dK = dV = 0 exactly.
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 only CPU tensors take the plain PyTorch version beside it
 (``reference_*``), which materialises the ``[s, s]`` scores.
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches (``captured``: launches
+recorded into a CUDA graph; see :func:`.count_launch`).
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from . import count_launch
 
 NEG_INF = -1e30
 
@@ -219,7 +222,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if q.numel():
         _call(_lib().flash_fwd, (q, k, v, mask, o, lse), q, "flash_fwd")
-        flash_fwd.launches += 1
+        count_launch(flash_fwd)
     return o, lse
 
 
@@ -234,7 +237,7 @@ def flash_dq(q, k, v, mask, do, lse, dd) -> torch.Tensor:
     if q.numel():
         _call(_lib().flash_bwd_dq, (q, k, v, mask, do, lse, dd, dq), q,
               "flash_dq")
-        flash_dq.launches += 1
+        count_launch(flash_dq)
     return dq
 
 
@@ -249,10 +252,10 @@ def flash_dkv(q, k, v, mask, do, lse, dd
     if q.numel():
         _call(_lib().flash_bwd_dkv, (q, k, v, mask, do, lse, dd, dk, dv), q,
               "flash_dkv")
-        flash_dkv.launches += 1
+        count_launch(flash_dkv)
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_dq.launches = 0
-flash_dkv.launches = 0
+flash_fwd.launches = flash_fwd.captured = 0
+flash_dq.launches = flash_dq.captured = 0
+flash_dkv.launches = flash_dkv.captured = 0

@@ -1,7 +1,8 @@
 """Typed metrics registry — counters, gauges, fixed-bucket histograms
 (counterpart of ``fedml_tpu/core/obs/metrics.py``, as far as the serving
-path uses it: the registry, the ``record_llm_*`` hooks, the watchdog
-counter, :class:`LatencyWindow` and :func:`flush_final`).
+path and the engine's profiling plane use it: the registry, the
+``record_llm_*`` hooks, the watchdog counter, ``record_round_mfu`` /
+``record_hbm_peak``, :class:`LatencyWindow` and :func:`flush_final`).
 
 Two readouts:
 
@@ -527,6 +528,26 @@ def record_watchdog_trip(component: str, reason: str) -> None:
                      "black-box watchdog trips",
                      labels=("component", "reason")).inc(
                          1, component=str(component), reason=str(reason))
+
+
+def record_hbm_peak(gb: float) -> None:
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.gauge("fed_hbm_peak_gb",
+                   "per-device peak memory allocated (GiB, "
+                   "process-monotonic counter)").set(float(gb))
+
+
+def record_round_mfu(mfu: float, tflops: Optional[float] = None) -> None:
+    """Profiling plane: per-round model FLOPs utilization (the engine's
+    FLOPs model, ``round_cost_flops``)."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.gauge("fed_round_mfu",
+                   "per-round model FLOPs utilization").set(float(mfu))
+    if tflops is not None:
+        REGISTRY.gauge("fed_round_tflops",
+                       "achieved TFLOP/s over the round").set(float(tflops))
 
 
 class LatencyWindow:

@@ -1,15 +1,18 @@
 """Dataset dispatch: ``fedml_tpu_torch.data.load(args)`` (counterpart of
-``fedml_tpu/data/data_loader.py``, ported for the CIFAR-10 slice).
+``fedml_tpu/data/data_loader.py``, ported for the image datasets
+``cifar10``, ``mnist`` and ``fashionmnist``).
 
 Two sources:
 
-1. ``cifar10`` from an offline ``cifar10.npz`` cache under
-   ``args.data_cache_dir`` (keys ``x_train``/``y_train``/``x_test``/
-   ``y_test``). The port has no download code.
-2. ``synthetic_cifar10``: the JAX package's labelled stand-in with the same
-   shape and class count. A plain ``cifar10`` with no cache falls back to it
+1. an offline ``<name>.npz`` cache under ``args.data_cache_dir`` (keys
+   ``x_train``/``y_train``/``x_test``/``y_test``). The port has no
+   download code.
+2. ``synthetic_<name>``: the JAX package's labelled stand-in with the same
+   shape and class count. A plain name with no cache falls back to it
    only when ``allow_synthetic`` (or ``$FEDML_TPU_ALLOW_SYNTHETIC``) is set,
    loudly, and the dataset's ``provenance`` says ``synthetic``.
+
+Linear models (``lr``, ``logistic_regression``, ``mlp``) take flat input.
 
 Both produce exactly the JAX loader's padded client arrays, masks and
 sample counts.
@@ -29,7 +32,11 @@ from .containers import FederatedDataset, from_central_arrays
 
 logger = logging.getLogger(__name__)
 
-_IMAGE_DATASETS = {"cifar10": ((32, 32, 3), 10)}
+_IMAGE_DATASETS = {
+    "mnist": ((28, 28, 1), 10),
+    "fashionmnist": ((28, 28, 1), 10),
+    "cifar10": ((32, 32, 3), 10),
+}
 
 
 class DatasetUnavailableError(FileNotFoundError):
@@ -90,13 +97,14 @@ def load(args) -> Tuple[FederatedDataset, int]:
     if name not in _IMAGE_DATASETS:
         raise NotImplementedError(
             f"dataset={raw_name!r} is not ported to fedml_tpu_torch yet "
-            f"(ported: cifar10 from an offline npz, synthetic_cifar10)")
+            f"(ported: {', '.join(sorted(_IMAGE_DATASETS))} from an "
+            f"offline npz, or their synthetic_ stand-ins)")
     num_clients = int(args.client_num_in_total)
     bs = int(args.batch_size)
     seed = int(getattr(args, "random_seed", 0))
     method = getattr(args, "partition_method", "hetero")
     alpha = float(getattr(args, "partition_alpha", 0.5))
-    # linear models take flat input; every ported model is a conv net
+    # linear models take flat input
     flat = str(getattr(args, "model", "")).lower() in (
         "lr", "logistic_regression", "mlp")
     cache_dir = os.path.expanduser(getattr(args, "data_cache_dir", None)

@@ -98,9 +98,12 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotary position embedding, half-split rotation computed in f32.
     x: [b, s, heads, head_dim]; positions: [b, s]."""
     half = x.shape[-1] // 2
+    # made on x's device: a host-to-device copy cannot be captured into a
+    # CUDA graph
     freq = torch.pow(torch.tensor(theta, dtype=torch.float32),
-                     -torch.arange(0, half, dtype=torch.float32) / half)
-    ang = positions[..., None].float() * freq.to(x.device)  # [b, s, half]
+                     -torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq  # [b, s, half]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]

@@ -11,6 +11,7 @@ training, the FedAvg sum and the server step work on plain dicts.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -90,14 +91,24 @@ def _compute_dtype(args) -> torch.dtype:
     return torch.float32
 
 
-def create(args, output_dim: int) -> ModelBundle:
+def create(args, output_dim: int, input_shape=None) -> ModelBundle:
     """The model named by ``args.model``, with ``args.precision`` selecting
-    the compute dtype of the bundle's apply path."""
+    the compute dtype of the bundle's apply path. The linear models need
+    one sample's ``input_shape`` (the dataset's)."""
     name = str(getattr(args, "model", "resnet56")).lower()
-    if not name.startswith("resnet"):
+    if name in ("lr", "logistic_regression", "mlp"):
+        from .linear import MLP, LogisticRegression
+        if input_shape is None:
+            raise ValueError(f"model={name!r} needs the dataset's "
+                             f"input_shape")
+        cls = MLP if name == "mlp" else LogisticRegression
+        module = cls(int(math.prod(input_shape)), output_dim)
+    elif name.startswith("resnet"):
+        from .cv.resnet import create_resnet
+        module = create_resnet(name, output_dim,
+                               fused=_fused_conv_mode(args))
+    else:
         raise NotImplementedError(
             f"model={name!r} is not ported to fedml_tpu_torch yet "
-            f"(ported: resnet20, resnet56)")
-    from .cv.resnet import create_resnet
-    module = create_resnet(name, output_dim, fused=_fused_conv_mode(args))
+            f"(ported: resnet20, resnet56, lr, mlp)")
     return ModelBundle(module, name, compute_dtype=_compute_dtype(args))

@@ -8,13 +8,13 @@ The engine calls ``local_train`` per scheduled client, sums
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 from ..core.algframe.client_trainer import (InnerOptimizer, TrainerSpec,
                                             make_inner_optimizer)
-from ..core.algframe.local_training import run_local_sgd
+from ..core.algframe.local_training import StepProgram, run_local_sgd
 from ..core.algframe.types import (ClientData, ClientOutput, Params,
                                    TrainHyper)
 
@@ -41,15 +41,28 @@ class FedOptimizer:
             momentum=self.momentum, weight_decay=self.weight_decay)
 
     def local_train(self, global_params: Params, server_state,
-                    cdata: ClientData, rng: np.ndarray,
-                    hyper: TrainHyper) -> Tuple[ClientOutput, int]:
-        """One client's local SGD; returns its output and its step count."""
-        params, steps, metrics = run_local_sgd(
-            self.spec, self.make_inner_opt(hyper), global_params, cdata,
-            rng, hyper)
+                    cdata: ClientData, rng: np.ndarray, hyper: TrainHyper,
+                    batch_real: Optional[np.ndarray] = None,
+                    program: Optional[StepProgram] = None
+                    ) -> Tuple[ClientOutput, int]:
+        """One client's local SGD; returns its output and its step count.
+        With ``program`` (built by :meth:`make_step_program`) the steps run
+        through it, else through the eager loop."""
+        if program is None:
+            params, steps, metrics = run_local_sgd(
+                self.spec, self.make_inner_opt(hyper), global_params, cdata,
+                rng, hyper, batch_real=batch_real)
+        else:
+            params, steps, metrics = program.run(
+                global_params, cdata, rng, hyper, batch_real)
         update = {k: params[k] - global_params[k] for k in params}
         return ClientOutput(update=update, weight=cdata.num_samples.float(),
                             metrics=metrics), steps
+
+    def make_step_program(self, params: Params, cdata: ClientData,
+                          hyper: TrainHyper) -> StepProgram:
+        return StepProgram(self.spec, self.make_inner_opt(hyper), params,
+                           cdata)
 
     def server_update(self, params: Params, server_state, agg_update: Params,
                       round_idx: int) -> Tuple[Params, Any]:

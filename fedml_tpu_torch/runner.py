@@ -1,12 +1,12 @@
 """FedMLRunner façade (counterpart of ``fedml_tpu/runner.py``): builds the
-GPU simulator for the ported slices and refuses what they have not
-ported."""
+GPU simulator or the SP golden loop for the ported slices and refuses what
+they have not ported."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from .constants import (FEDML_SIMULATION_TYPE_GPU,
+from .constants import (FEDML_SIMULATION_TYPE_GPU, FEDML_SIMULATION_TYPE_SP,
                         FEDML_TRAINING_PLATFORM_SIMULATION)
 from .device import get_device
 
@@ -25,17 +25,19 @@ UNPORTED_KNOBS: Dict[str, tuple] = {
     "chaos_crash_at_round": (None,),
     "chaos_over_sample": (None, 0, 0.0),
     "client_selection": (None, "uniform"),
+    "contribution_method": (None, "", "none"),
+    "pacer_adapt_cohort": (None, False),
     "selection_adaptive_oversample": (None, False),
     "checkpoint_dir": (None, ""),
     "checkpoint_every_rounds": (None, 0),
     "client_slot_fold": (None, False),
     "robust_fused": (None, "auto"),
     "robust_relayout_quant": (None, "none"),
-    "rounds_per_dispatch": (None,),
     "round_mode": (None, "sync"),
     "mesh_shape": (None,),
     "save_model_path": (None, ""),
     "llm_adapter_export_dir": (None, ""),
+    "obs_roofline": (None, False),
     # the values of this knob that are ported
     "llm_attention_impl": (None, "", "dense", "flash"),
 }
@@ -51,14 +53,14 @@ def check_ported(args) -> None:
         if v not in off:
             raise NotImplementedError(
                 f"{knob}={getattr(args, knob)!r} is not ported to "
-                f"fedml_tpu_torch yet (ported: the FedAvg round of the "
-                f"simulator, with the CIFAR ResNets or the federated LoRA "
-                f"causal LM)")
+                f"fedml_tpu_torch yet (ported: the FedAvg round of the GPU "
+                f"and SP simulators, with the CIFAR ResNets, the linear "
+                f"models or the federated LoRA causal LM)")
 
 
 class FedMLRunner:
     """Dispatch on ``args.training_type`` x ``args.backend``: the port has
-    the simulation platform on the GPU backend."""
+    the simulation platform on the GPU and SP backends."""
 
     def __init__(self, args, device=None, dataset=None, model=None,
                  client_trainer=None,
@@ -72,19 +74,21 @@ class FedMLRunner:
                 f"training_type={ttype!r} is not ported to fedml_tpu_torch "
                 f"yet (ported: simulation)")
         backend = getattr(args, "backend", FEDML_SIMULATION_TYPE_GPU)
-        if backend != FEDML_SIMULATION_TYPE_GPU:
+        if backend == FEDML_SIMULATION_TYPE_GPU:
+            from .simulation.gpu.engine import GPUSimulator as Simulator
+        elif backend == FEDML_SIMULATION_TYPE_SP:
+            from .simulation.sp.simulator import SPSimulator as Simulator
+        else:
             raise NotImplementedError(
                 f"backend={backend!r} is not ported to fedml_tpu_torch yet "
-                f"(ported: gpu)")
+                f"(ported: gpu, sp)")
         from .core.algframe.client_trainer import make_trainer_spec
         from .optimizers.registry import create_optimizer
-        from .simulation.gpu.engine import GPUSimulator
         spec = (client_trainer if client_trainer is not None
                 else make_trainer_spec(dataset, model))
         opt = create_optimizer(args, spec)
-        self.runner = GPUSimulator(args, dataset, model, opt, spec,
-                                   get_device(device),
-                                   init_params=init_params)
+        self.runner = Simulator(args, dataset, model, opt, spec,
+                                get_device(device), init_params=init_params)
 
     def run(self, comm_round: Optional[int] = None) -> Any:
         return self.runner.run(comm_round)

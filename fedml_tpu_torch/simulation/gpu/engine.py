@@ -1,28 +1,41 @@
-"""The GPU simulator: an FL round on one CUDA device (counterpart of the
-round core of ``fedml_tpu/simulation/tpu/engine.py``, ``TPUSimulator``).
+"""The GPU simulator: FL rounds on one CUDA device (counterpart of
+``fedml_tpu/simulation/tpu/engine.py``, ``TPUSimulator``: the round core,
+``run_rounds_fused``, ``run``'s block loop, ``round_cost_flops`` and the
+``_traced`` dispatch seam).
 
-The JAX package runs a round as one SPMD program: a ``lax.scan`` over each
-chip's schedule slots, a weighted ``psum`` over the ``client`` mesh axis and
-the server transform. On one device the psum is the identity, so the round
-here is: each sampled client in schedule order trains from the global
-params (its key is ``fold_in(round_key, client_id)``, the JAX engine's
-``gcid``), its update is accumulated weighted by ``num_samples``, the sum is
-divided by ``max(Σw, 1e-12)`` and ``server_update`` applies it. The test set
-is evaluated every ``frequency_of_the_test`` rounds and after the last.
+The JAX package runs a block of rounds as one SPMD program: a ``lax.scan``
+over rounds, over each chip's schedule slots and over a ``while_loop`` of
+local steps, a weighted ``psum`` over the ``client`` mesh axis and the
+server transform. On one card the psum is the identity, so a round here
+is: each sampled client in schedule order trains from the global params
+(its key is ``fold_in(round_key, client_id)``, the JAX engine's ``gcid``),
+its update is accumulated weighted by ``num_samples``, the sum is divided
+by ``max(Σw, 1e-12)`` and ``server_update`` applies it.
+
+What stands for the one dispatch: every local step is a replay of one CUDA
+graph (``core/algframe/local_training.py::StepProgram``), captured once per
+run, and a block of rounds reads nothing back from the device until it
+ends. Blocks hold at most ``rounds_per_dispatch`` rounds and end at every
+eval round; ``frequency_of_the_test <= 0`` (timing mode) evaluates nothing,
+in the loop or after it.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ... import prng
-from ...core.algframe.local_training import evaluate
+from ...core.algframe.local_training import (METRICS, StepProgram,
+                                             batch_real_of, evaluate)
 from ...core.algframe.types import Params, TrainHyper
+from ...core.obs import profiler as obs_profiler
+from ...core.obs import trace as obs_trace
 from ..sampling import client_sampling, sampling_stream_from_args
 
 logger = logging.getLogger(__name__)
@@ -30,7 +43,11 @@ logger = logging.getLogger(__name__)
 
 class GPUSimulator:
     """FedAvg simulation on one device: clients' data resident on the
-    device, clients trained one after another."""
+    device, clients trained one after another through one step program.
+
+    ``dispatch_stats``: ``dispatches`` (blocks run), ``captures`` (CUDA
+    graphs captured; 1 per run on a card, 0 on the CPU), and the step
+    programs' ``warmup_steps``, ``replays`` and ``capture_s``."""
 
     def __init__(self, args, fed_dataset, bundle, optimizer, spec,
                  device: torch.device,
@@ -48,6 +65,9 @@ class GPUSimulator:
         # parameter init here draws from a torch.Generator instead, so only
         # the round stream is kept
         self.rng = prng.split(prng.PRNGKey(seed))[1]
+        # [clients, n_batches] host bools, read once here rather than from
+        # the device every round
+        self.batch_real = batch_real_of(fed_dataset.train.mask)
         self.train = fed_dataset.train.to(device)
         self.test = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                      for k, v in fed_dataset.test.items()}
@@ -55,39 +75,62 @@ class GPUSimulator:
             gen = torch.Generator().manual_seed(seed)
             self.params = bundle.init(gen, device)
         else:
-            self.params = self._load_params(init_params)
+            self.params = load_params(bundle, init_params, device)
         self.server_state = optimizer.server_init(self.params)
         self.history: List[Dict[str, Any]] = []
+        # one step program per (model, dtype, batch shape, inner optimizer)
+        self.programs: Dict[Tuple, StepProgram] = {}
+        self.dispatch_stats: Dict[str, Any] = {"dispatches": 0,
+                                               "captures": 0}
+        # profiling plane (core/obs/profiler): opt-in host/device split and
+        # per-round MFU at the dispatch seam; off by default because it
+        # waits for the device at every block's end
+        self._obs_profile = bool(getattr(args, "obs_profile_device", False))
+        self._flops_per_round: Optional[float] = None
 
-    def _load_params(self, init_params: Dict[str, Any]) -> Params:
-        """Start from given parameters (tensors or numpy arrays under the
-        names of the bundle's trainable parameters: the model's state dict,
-        or the LLM's adapter dict) instead of a fresh init."""
-        self.bundle.to(self.device)
-        want = self.bundle.template()
-        if set(init_params) != set(want):
-            raise ValueError(
-                f"init_params keys differ from the model's: missing "
-                f"{sorted(set(want) - set(init_params))}, unexpected "
-                f"{sorted(set(init_params) - set(want))}")
-        params = {}
-        for k, shape in want.items():
-            v = init_params[k]
-            v = v.detach() if torch.is_tensor(v) else torch.tensor(
-                np.asarray(v))
-            if tuple(v.shape) != tuple(shape):
-                raise ValueError(f"init_params[{k!r}]: shape "
-                                 f"{tuple(v.shape)} != {tuple(shape)}")
-            params[k] = v.to(self.device, torch.float32).clone()
-        return params
+    # -- the local step -----------------------------------------------------
+    def step_program(self, hyper: TrainHyper) -> StepProgram:
+        """The step program for this run's model, compute dtype, batch
+        shape and inner optimizer; built at first use, captured into a CUDA
+        graph at its first client on a card."""
+        inner = self.opt.make_inner_opt(hyper)
+        x = self.train.x
+        key = (getattr(self.bundle, "name", None),
+               getattr(self.bundle, "compute_dtype", None),
+               tuple(x.shape[2:]), x.dtype, inner.key)
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self.opt.make_step_program(
+                self.params, self.train.client(0), hyper)
+            self.programs[key] = prog
+        return prog
 
-    def run_round(self, round_idx: int, hyper: TrainHyper):
-        """One FedAvg round; returns (summed metrics, local steps run)."""
+    def capture_step(self, hyper: TrainHyper) -> float:
+        """Build the step program now (warm it up and capture it on a
+        card), so its one-time cost falls outside a timed block. Returns
+        the seconds that took."""
+        t0 = time.perf_counter()
+        self.step_program(hyper).prepare(self.params, self.train.client(0),
+                                         hyper)
+        self._update_program_stats()
+        return time.perf_counter() - t0
+
+    def _update_program_stats(self) -> None:
+        progs = self.programs.values()
+        for k in ("captures", "warmup_steps", "replays", "capture_s"):
+            self.dispatch_stats[k] = sum(getattr(p, k) for p in progs)
+
+    # -- rounds -------------------------------------------------------------
+    def _round(self, round_idx: int, hyper: TrainHyper
+               ) -> Tuple[Dict[str, torch.Tensor], int]:
+        """One FedAvg round; returns (summed metrics on the device, local
+        steps run). Reads nothing back from the device."""
         sampled = client_sampling(
             round_idx, self.fed.num_clients,
             int(self.args.client_num_per_round), random_seed=self.seed,
             stream=self.stream)
         round_key = prng.fold_in(self.rng, round_idx)
+        program = self.step_program(hyper)
         acc_u = {k: torch.zeros_like(v) for k, v in self.params.items()}
         acc_w = torch.zeros((), dtype=torch.float32, device=self.device)
         acc_m: Dict[str, torch.Tensor] = {}
@@ -96,7 +139,8 @@ class GPUSimulator:
             cid = int(cid)
             out, n_steps = self.opt.local_train(
                 self.params, self.server_state, self.train.client(cid),
-                prng.fold_in(round_key, cid), hyper)
+                prng.fold_in(round_key, cid), hyper,
+                batch_real=self.batch_real[cid], program=program)
             steps += n_steps
             with torch.no_grad():
                 for k, u in out.update.items():
@@ -110,6 +154,119 @@ class GPUSimulator:
             self.params, self.server_state, agg, round_idx)
         return acc_m, steps
 
+    def _block(self, name: str, start_round: int, n_rounds: int,
+               hyper: TrainHyper) -> List[Dict[str, float]]:
+        self._ensure_flops_model(hyper)
+        with obs_trace.span("block", root=True,
+                            attrs={"role": "engine",
+                                   "start_round": int(start_round),
+                                   "rounds": int(n_rounds)}):
+            out = self._traced(name, n_rounds, lambda: [
+                self._round(start_round + i, hyper)
+                for i in range(n_rounds)])
+            # the block's one device -> host read
+            host = torch.stack([torch.stack([m[k] for k in METRICS])
+                                for m, _ in out]).cpu().numpy()
+        return [dict({k: float(v) for k, v in zip(METRICS, row)},
+                     local_steps=steps)
+                for row, (_, steps) in zip(host, out)]
+
+    def run_rounds_fused(self, start_round: int, n_rounds: int,
+                         hyper: TrainHyper) -> List[Dict[str, float]]:
+        """Run ``n_rounds`` rounds with no device -> host read between them
+        (one at the block's end). Returns each round's summed metrics
+        (``loss_sum``, ``correct``, ``count``) and ``local_steps``."""
+        return self._block("rounds_fused", start_round, n_rounds, hyper)
+
+    def run_round(self, round_idx: int, hyper: TrainHyper
+                  ) -> Dict[str, float]:
+        """One round as its own block; what :meth:`run_rounds_fused`
+        returns for it."""
+        return self._block("round", round_idx, 1, hyper)[0]
+
+    # -- the dispatch seam --------------------------------------------------
+    def _ensure_flops_model(self, hyper: TrainHyper) -> None:
+        """Count the FLOPs model once per run, only under
+        ``obs_profile_device`` (it runs one step on the CPU)."""
+        if self._obs_profile and self._flops_per_round is None:
+            self._flops_per_round = self.round_cost_flops(hyper)
+
+    def _traced(self, name: str, n_rounds: int, fn):
+        """Per-block observability: a ``dispatch`` span around the host's
+        enqueue of the block, and the step captures it triggered. With
+        ``obs_profile_device`` the host then waits for the device
+        (``device_wait_s``), the block is named in a ``torch.profiler``
+        trace, and
+        the FLOPs model becomes the per-round MFU gauge and a ``profile``
+        record."""
+        c0 = self.dispatch_stats["captures"]
+        with obs_trace.span("dispatch", attrs={"name": name,
+                                               "rounds": int(n_rounds)}) \
+                as sp:
+            t0 = time.perf_counter()
+            if self._obs_profile:
+                with torch.profiler.record_function(name):
+                    out = fn()
+            else:
+                out = fn()
+            wall = time.perf_counter() - t0
+            wait = None
+            if self._obs_profile:
+                t1 = time.perf_counter()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                wait = time.perf_counter() - t1
+                sp.set_attr("device_wait_s", round(wait, 6))
+        self._update_program_stats()
+        captures = self.dispatch_stats["captures"] - c0
+        if self._obs_profile:
+            obs_profiler.record_dispatch_profile(
+                name, n_rounds, wall, wait, self._flops_per_round, 1,
+                captures=captures, device=self.device)
+            obs_profiler.sample_hbm_peak_gb(self.device)
+        self.dispatch_stats["dispatches"] += 1
+        return out
+
+    def round_cost_flops(self, hyper: TrainHyper) -> float:
+        """FLOPs of one round's training, for MFU: one fwd+bwd step at the
+        real batch shape times ``n_sampled * epochs * mean real batches
+        per client`` (from the mask: padded batches are skipped, so they
+        are not work).
+
+        The step is counted by ``torch.utils.flop_counter.FlopCounterMode``
+        on a CPU copy of the model, in float32 and on the unfused plain
+        path: the counter cannot see inside a CUDA kernel's launch, and the
+        model's work is the same whichever kernel does it. It counts convolutions and
+        matmuls at their full extent, padding taps included, and no
+        elementwise op. XLA's ``cost_analysis`` (the JAX engine's count)
+        counts only the taps that land inside the unpadded input and one
+        FLOP per elementwise op; on the CIFAR ResNets the padding taps
+        weigh more, so this count is a few percent above XLA's."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        twin = copy.deepcopy(self.bundle).to(torch.device("cpu"))
+        if hasattr(twin, "compute_dtype"):
+            twin.compute_dtype = torch.float32
+        # the unfused path: the fused block's backward recomputes its
+        # forward, work a model-FLOPs count leaves out
+        for m in twin.module.modules():
+            if getattr(m, "use_fused", False):
+                m.use_fused = False
+        spec = type(self.spec)(twin.apply)
+        leaves = {k: v.detach().cpu().requires_grad_()
+                  for k, v in self.params.items()}
+        batch = {k: torch.zeros(t.shape[2:], dtype=t.dtype)
+                 for k, t in (("x", self.train.x), ("y", self.train.y),
+                              ("mask", self.train.mask))}
+        with FlopCounterMode(display=False) as counter:
+            loss, _ = spec.loss(leaves, batch)
+            torch.autograd.grad(loss, list(leaves.values()))
+        per_batch = float(counter.get_total_flops())
+        n_sampled = int(self.args.client_num_per_round)
+        mean_real = float(np.mean(np.sum(self.batch_real, axis=-1)))
+        return per_batch * n_sampled * int(hyper.epochs) * mean_real
+
+    # -- eval and the run ---------------------------------------------------
     def evaluate(self) -> Dict[str, float]:
         stats = evaluate(self.spec, self.params, self.test["x"],
                          self.test["y"], self.test["mask"])
@@ -123,24 +280,41 @@ class GPUSimulator:
             args.comm_round)
         hyper = TrainHyper(learning_rate=float(args.learning_rate),
                            epochs=int(args.epochs))
+        self._ensure_flops_model(hyper)
         freq = int(getattr(args, "frequency_of_the_test", 5) or 5)
+        rpd = max(int(getattr(args, "rounds_per_dispatch", 8) or 1), 1)
         n_test_batches = int(self.test["x"].shape[0])
         t0 = time.time()
-        for r in range(rounds):
-            t_r = time.time()
-            metrics, steps = self.run_round(r, hyper)
-            cnt = max(float(metrics["count"]), 1.0)
-            rec: Dict[str, Any] = {
-                "round": r,
-                "train_loss": float(metrics["loss_sum"]) / cnt,
-                "train_acc": float(metrics["correct"]) / cnt,
-                "local_steps": steps}
-            if freq > 0 and (r % freq == 0 or r == rounds - 1):
-                rec.update(self.evaluate())
-                rec["eval_batches"] = n_test_batches
-                logger.info("round %d: test_acc=%.4f", r, rec["test_acc"])
-            rec["round_time_s"] = time.time() - t_r
-            self.history.append(rec)
+        round_idx = 0
+        while round_idx < rounds:
+            # run up to (and including) the next eval round; freq <= 0
+            # never evaluates (x % -1 == 0 for every x, so it must not
+            # reach the modulo)
+            if freq <= 0:
+                next_eval = rounds - 1
+            else:
+                next_eval = (round_idx if round_idx % freq == 0
+                             else (round_idx // freq + 1) * freq)
+            stop = min(next_eval, rounds - 1, round_idx + rpd - 1)
+            block = self.run_rounds_fused(round_idx, stop - round_idx + 1,
+                                          hyper)
+            for i, m in enumerate(block):
+                r = round_idx + i
+                cnt = max(m["count"], 1.0)
+                rec: Dict[str, Any] = {
+                    "round": r, "train_loss": m["loss_sum"] / cnt,
+                    "train_acc": m["correct"] / cnt,
+                    "local_steps": m["local_steps"]}
+                if freq > 0 and (r % freq == 0 or r == rounds - 1):
+                    with obs_trace.span("eval", root=True,
+                                        attrs={"role": "engine",
+                                               "round_idx": r}):
+                        rec.update(self.evaluate())
+                    rec["eval_batches"] = n_test_batches
+                    logger.info("round %d: test_acc=%.4f", r,
+                                rec["test_acc"])
+                self.history.append(rec)
+            round_idx = stop + 1
         wall = time.time() - t0
         last_eval = next((h for h in reversed(self.history)
                           if "test_acc" in h), None)
@@ -150,4 +324,28 @@ class GPUSimulator:
         return {"params": self.params, "history": self.history,
                 "wall_time_s": wall, "final_test_acc": last_eval["test_acc"],
                 "final_test_loss": last_eval.get("test_loss"),
-                "rounds": rounds}
+                "rounds": rounds, "dispatch_stats": dict(self.dispatch_stats)}
+
+
+def load_params(bundle, init_params: Dict[str, Any],
+                device: torch.device) -> Params:
+    """Parameters from ``init_params`` (tensors or numpy arrays under the
+    names of the bundle's trainable parameters: the model's state dict, or
+    the LLM's adapter dict) instead of a fresh init, as f32 on
+    ``device``."""
+    bundle.to(device)
+    want = bundle.template()
+    if set(init_params) != set(want):
+        raise ValueError(
+            f"init_params keys differ from the model's: missing "
+            f"{sorted(set(want) - set(init_params))}, unexpected "
+            f"{sorted(set(init_params) - set(want))}")
+    params = {}
+    for k, shape in want.items():
+        v = init_params[k]
+        v = v.detach() if torch.is_tensor(v) else torch.tensor(np.asarray(v))
+        if tuple(v.shape) != tuple(shape):
+            raise ValueError(f"init_params[{k!r}]: shape "
+                             f"{tuple(v.shape)} != {tuple(shape)}")
+        params[k] = v.to(device, torch.float32).clone()
+    return params

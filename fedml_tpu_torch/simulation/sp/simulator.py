@@ -1,0 +1,125 @@
+"""Single-process golden simulator (counterpart of
+``fedml_tpu/simulation/sp/simulator.py``, ``SPSimulator``).
+
+The FedAvg round as a plain Python loop over the sampled clients, each
+client trained by the eager loop (``run_local_sgd``: no captured step),
+the stacked updates averaged with ``n_k / Σ n_k`` weights and applied by
+the server step. It is the semantic reference the GPU engine is held to,
+and the eager baseline of the flagship benchmark's ``vs_baseline``.
+
+The JAX golden loop also runs DP, attacks, defenses, contribution
+assessment, participant selection, the pacer and checkpoints; their knobs
+raise in the port (``runner.UNPORTED_KNOBS``), so here each round is
+uniform sampling and the weighted average.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ... import prng
+from ...core.algframe.local_training import batch_real_of, evaluate
+from ...core.algframe.types import TrainHyper
+from ..gpu.engine import load_params
+from ..sampling import client_sampling, sampling_stream_from_args
+
+logger = logging.getLogger(__name__)
+
+
+class SPSimulator:
+    """Python round loop over eager per-client local training on
+    ``device``."""
+
+    def __init__(self, args, fed_dataset, bundle, optimizer, spec,
+                 device: torch.device,
+                 init_params: Optional[Dict[str, Any]] = None):
+        self.args = args
+        self.fed = fed_dataset
+        self.bundle = bundle
+        self.opt = optimizer
+        self.spec = spec
+        self.device = device
+        seed = int(getattr(args, "random_seed", 0))
+        self.seed = seed
+        self.stream = sampling_stream_from_args(args)
+        # split(PRNGKey(seed)) = (init, round stream), as the JAX loop
+        self.rng = prng.split(prng.PRNGKey(seed))[1]
+        self.batch_real = batch_real_of(fed_dataset.train.mask)
+        self.train = fed_dataset.train.to(device)
+        self.test = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                     for k, v in fed_dataset.test.items()}
+        if init_params is None:
+            self.params = bundle.init(torch.Generator().manual_seed(seed),
+                                      device)
+        else:
+            self.params = load_params(bundle, init_params, device)
+        self.server_state = optimizer.server_init(self.params)
+        self.history: List[Dict[str, Any]] = []
+
+    def _evaluate(self) -> Dict[str, float]:
+        stats = evaluate(self.spec, self.params, self.test["x"],
+                         self.test["y"], self.test["mask"])
+        n = max(float(stats["count"]), 1.0)
+        return {"test_acc": float(stats["correct"]) / n,
+                "test_loss": float(stats["loss_sum"]) / n}
+
+    def run(self, comm_round: Optional[int] = None) -> Dict[str, Any]:
+        args = self.args
+        rounds = comm_round if comm_round is not None else int(
+            args.comm_round)
+        hyper = TrainHyper(learning_rate=float(args.learning_rate),
+                           epochs=int(args.epochs))
+        freq = int(getattr(args, "frequency_of_the_test", 5) or 5)
+        t0 = time.time()
+        for round_idx in range(rounds):
+            sampled = client_sampling(
+                round_idx, self.fed.num_clients,
+                int(args.client_num_per_round), random_seed=self.seed,
+                stream=self.stream)
+            round_key = prng.fold_in(self.rng, round_idx)
+            updates, weights, metrics = [], [], []
+            for cid in sampled:
+                cid = int(cid)
+                out, _ = self.opt.local_train(
+                    self.params, self.server_state, self.train.client(cid),
+                    prng.fold_in(round_key, cid), hyper,
+                    batch_real=self.batch_real[cid])
+                updates.append(out.update)
+                weights.append(out.weight)
+                metrics.append(out.metrics)
+            w = torch.stack(weights)
+            norm = w / torch.clamp(w.sum(), min=1e-12)
+            agg = {k: (torch.stack([u[k] for u in updates])
+                       * norm.reshape((-1,) + (1,) * updates[0][k].dim())
+                       ).sum(0)
+                   for k in updates[0]}
+            self.params, self.server_state = self.opt.server_update(
+                self.params, self.server_state, agg, round_idx)
+            rec: Dict[str, Any] = {"round": round_idx}
+            tm = {k: sum(m[k] for m in metrics) for k in metrics[0]}
+            cnt = max(float(tm["count"]), 1.0)
+            rec["train_loss"] = float(tm["loss_sum"]) / cnt
+            rec["train_acc"] = float(tm["correct"]) / cnt
+            # freq <= 0: never evaluate in the loop (timing mode)
+            if freq > 0 and (round_idx % freq == 0
+                             or round_idx == rounds - 1):
+                rec.update(self._evaluate())
+                logger.info("round %d: test_acc=%.4f test_loss=%.4f",
+                            round_idx, rec["test_acc"], rec["test_loss"])
+            self.history.append(rec)
+        wall = time.time() - t0
+        last_eval = next((r for r in reversed(self.history)
+                          if "test_acc" in r), None)
+        if last_eval is None:
+            # timing mode: no eval, in the loop or here
+            last_eval = ({"test_acc": None} if freq <= 0
+                         else self._evaluate())
+        return {"params": self.params, "history": self.history,
+                "wall_time_s": wall, "final_test_acc": last_eval["test_acc"],
+                "final_test_loss": last_eval.get("test_loss"),
+                "rounds": rounds}

@@ -6,7 +6,9 @@ card.
                                           [--steps 10]
 
 One client's local training at a main path's full width, under
-``torch.profiler`` after a warm-up:
+``torch.profiler`` after a warm-up, twice: by the eager loop
+(``run_local_sgd``) and by the GPU engine's step program (the step captured
+in a CUDA graph, replayed per step):
 
 * ``resnet56`` (default): ResNet-56, batch 32, synthetic CIFAR-10 shapes,
   bf16, fused conv block (B1);
@@ -24,9 +26,11 @@ One client's local training at a main path's full width, under
   its own), then one 32-token prefill chunk; ``cached_attention``'s share
   of the device time besides the rest.
 
-Prints the step time (host clock around work that ends in a synchronize),
-the device-busy and idle shares of the unprofiled step, launches per
-step, the port's own kernels' share, and the top kernels by device time.
+Prints, for each of the two, the step time (host clock around work that
+ends in a synchronize), the device-busy and idle shares of the unprofiled
+step, launches per step, the port's own kernels' share, and the top
+kernels by device time; then the captured graph's replays alone, between
+CUDA events.
 Needs a CUDA card; imports nothing of JAX or ``fedml_tpu``.
 """
 
@@ -50,14 +54,12 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from fedml_tpu_torch import prng
     from fedml_tpu_torch.arguments import Arguments
     from fedml_tpu_torch.core.algframe.client_trainer import (
         ClassificationTrainer, make_inner_optimizer)
-    from fedml_tpu_torch.core.algframe.local_training import run_local_sgd
+    from fedml_tpu_torch.core.algframe.local_training import (
+        StepProgram, batch_real_of, run_local_sgd)
     from fedml_tpu_torch.core.algframe.types import ClientData, TrainHyper
     from fedml_tpu_torch.model import create
 
@@ -126,31 +128,66 @@ def main() -> int:
                 "flash_dkv_mma_kernel")
     hyper = TrainHyper(learning_rate=opt.lr, epochs=1)
     key = prng.PRNGKey(0)
-    run_local_sgd(spec, opt, params, cdata, key, hyper)  # warm-up
+    real = batch_real_of(cdata.mask.cpu())
+    program = StepProgram(spec, opt, params, cdata)
+    program.prepare(params, cdata, hyper)
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"captured step: capture {program.capture_s:.2f} s (incl. "
+          f"{program.warmup_steps} warm-up steps)")
+    legs = (("eager", lambda: run_local_sgd(spec, opt, params, cdata, key,
+                                            hyper)),
+            ("captured", lambda: program.run(params, cdata, key, hyper,
+                                             real)))
+    for leg, run in legs:
+        rc = profile_leg(torch, run, n, leg, label, ours)
+        if rc:
+            return rc
+    # the graph alone: n replays back to back, no batch copies, between
+    # CUDA events (device time, plus the graph launches)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        program.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    print(f"captured step, replays only: {start.elapsed_time(end) / n:.3f} "
+          f"ms per step")
+    return 0
+
+
+def profile_leg(torch, run, n, leg, label, ours):
+    """Time ``run`` (``n`` local steps) unprofiled, then under the
+    profiler; print the step time, busy/idle shares, launches and the top
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm-up
     torch.cuda.synchronize()
     t0 = time.time()
-    run_local_sgd(spec, opt, params, cdata, key, hyper)
+    run()
     torch.cuda.synchronize()
     step_ms = (time.time() - t0) / n * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run_local_sgd(spec, opt, params, cdata, key, hyper)
+        run()
         torch.cuda.synchronize()
         window_us = (time.time() - t0) * 1e6
 
     events = device_events(prof, DeviceType)
     if not events:
-        print("profile_torch_step: the profiler recorded no device time",
-              file=sys.stderr)
+        print(f"profile_torch_step: the profiler recorded no device time "
+              f"for the {leg} step", file=sys.stderr)
         return 1
     busy = sum(_dev_us(e) for e in events)
     busy_step_ms = busy / n / 1e3
-    print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"step: {step_ms:.2f} ms per local step ({label}), unprofiled")
+    print(f"{leg} step: {step_ms:.2f} ms per local step ({label}), "
+          f"unprofiled")
     # one stream, so kernels do not overlap: the card is busy for the sum
     # of their times; the rest of the unprofiled step it waits on the host
-    print(f"device busy {busy_step_ms:.2f} ms per step = "
+    print(f"{leg}: device busy {busy_step_ms:.2f} ms per step = "
           f"{busy_step_ms / step_ms:.1%} of the unprofiled step, idle "
           f"{1 - busy_step_ms / step_ms:.1%}; {len(events)} kernel names, "
           f"{sum(e.count for e in events) // n} launches per step "
@@ -158,10 +195,11 @@ def main() -> int:
     for name in ours:
         mine = [e for e in events if name in e.key]
         t = sum(_dev_us(e) for e in mine)
-        print(f"{name}: {t / n / 1e3:.3f} ms per step ({t / busy:.1%} of "
-              f"device time), {sum(e.count for e in mine) // n} launches "
-              f"per step")
-    print("top kernels by device time (ms per step, share of device time):")
+        print(f"{leg}: {name}: {t / n / 1e3:.3f} ms per step ({t / busy:.1%}"
+              f" of device time), {sum(e.count for e in mine) // n} "
+              f"launches per step")
+    print(f"{leg}: top kernels by device time (ms per step, share of device "
+          f"time):")
     for e in sorted(events, key=_dev_us, reverse=True)[:15]:
         print(f"  {_dev_us(e) / n / 1e3:8.3f}  {_dev_us(e) / busy:6.1%}  "
               f"x{e.count // n:<4d} {e.key[:100]}")

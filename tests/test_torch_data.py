@@ -91,4 +91,4 @@ def test_missing_cache_needs_opt_in(tmp_path, monkeypatch):
 
 def test_unported_dataset_raises():
     with pytest.raises(NotImplementedError, match="dataset"):
-        tdata.load(TArguments(dataset="synthetic_mnist"))
+        tdata.load(TArguments(dataset="digits"))

@@ -148,7 +148,7 @@ def test_wide_blocks_stay_unfused():
 
 def test_model_hub_refuses_unported_models():
     with pytest.raises(NotImplementedError, match="model"):
-        thub.create(TArguments(model="lr"), 10)
+        thub.create(TArguments(model="cnn"), 10)
     with pytest.raises(NotImplementedError, match="resnet18"):
         thub.create(TArguments(model="resnet18"), 10)
     bundle = thub.create(TArguments(model="resnet56", precision="bf16",
