@@ -27,8 +27,11 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    the captured graph);
 5. tiny runs of both paths on the card against the same runs on the CPU
    (ResNet-20 FedAvg; the federated LoRA causal LM with flash attention),
-   and the captured local step against the eager loop on the card
-   (ResNet-20, f32 with TF32 off and bf16; one capture for four clients);
+   the captured local step against the eager loop on the card
+   (ResNet-20, f32 with TF32 off and bf16; one capture for four clients),
+   and resume parity: a ResNet-20 run of 4 rounds checkpointed every 2
+   (the checkpoint cuts the 8-round block) against 2 rounds resumed to 4,
+   the resumed simulator's step captured before it restores, bitwise;
 6. the flagship benchmark (``bench.py``'s ``bench_flagship`` at full
    width: ResNet-56, synthetic CIFAR-10 50,000 / 1,000, 64 clients per
    round, bf16, fused conv block): the GPU engine's step captured, then
@@ -36,24 +39,39 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    one eval; the round's FLOPs and MFU; the SP golden loop for one round
    on 8 clients as the baseline; a ``{"flagship": ...}`` line. B1 held to
    27 launches per forward pass, counted through the graph's replays (its
-   B1 nodes read from the graph's DOT dump), and one capture;
+   B1 nodes read from the graph's DOT dump), and one capture. After the
+   timed block: the engine's state through ``RoundCheckpointer`` (bytes,
+   seconds, restored bitwise), and ``save_model`` of its params served by
+   ``CheckpointPredictor`` on the card: one batch of 32 test images
+   bitwise equal to the engine's eval forward, 27 B1 launches;
 7. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
    ``bench.py``'s ``bench_federated_lora`` configuration (d 512, 4 layers,
    seq 256, bf16, LoRA r8, 2 silos, Shakespeare), 2 rounds with eval after
    each, its local step captured, B2 launches held to 4 per forward and
-   B3/B4 to 4 per local step (warm-up steps included);
+   B3/B4 to 4 per local step (warm-up steps and the export's eager
+   personalisation steps included); the adapters exported
+   (``llm_adapter_export_dir``: ``global``, ``silo_0``, ``silo_1``) and
+   reloaded bitwise;
 8. the serving path: the FedLLM main path's model, base weights frozen
    and the adapter the run of phase 7 trained, served through
    ``fedml_tpu_torch.serving.llm_template.CausalLMPredictor`` with
    ``bench.py``'s ``bench_llm_serving`` traffic (24 new tokens, concurrency
    1 / 8 / 64): single mode as the sequential baseline (B2 per layer per
-   token), then batch mode (64 slots, paged KV cache) with a bank of 1
-   adapter and of 64; before it, the cache arithmetic against the CPU,
-   decode against the full forward (f32 tiny, bf16 full width), greedy
-   parity single vs batch on a full fine-tune, adapter isolation; a
+   token), then batch mode (64 slots, paged KV cache) built from the
+   exported artifacts (``CausalLMPredictor.from_artifact`` with
+   ``llm_adapter_dir``; greedy tokens equal to a predictor built in
+   memory from the run's adapters) with a bank of 1 adapter and of 64,
+   and ``bench_llm_serving_adapter_churn``'s traffic (c64, 12 new
+   tokens, 8 adapters, 4 rounds each re-exporting one adapter into the
+   watched directory: 4 swaps, post-swap tokens equal a fresh
+   predictor's); before it, the cache arithmetic against the CPU, decode
+   against the full forward (f32 tiny, bf16 full width), greedy parity
+   single vs batch on a full fine-tune, adapter isolation; a
    ``{"serving": ...}`` line;
 9. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
    bf16, full parameters), 8 launches of each attention kernel per step;
+   then ``save_model`` / ``load_model`` of its params (the codec's MB/s,
+   round trip bitwise);
 10. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -145,6 +163,14 @@ LLM_MAIN_PATH = dict(
     llm_corpus_fallback="shakespeare", llm_hidden_size=512,
     llm_intermediate_size=1408, llm_num_layers=4, llm_num_heads=8,
     llm_max_seq_len=256, lora_rank=8, llm_attention_impl="flash")
+# Resume parity on the card (phase 5): tiny_run_agreement's ResNet-20 run
+# at 4 rounds in timing mode, one 8-round block cut by a checkpoint every 2
+RESUME = dict(dataset="synthetic_cifar10", model="resnet20",
+              client_num_in_total=4, client_num_per_round=2, comm_round=4,
+              batch_size=8, learning_rate=0.01, max_total_samples=64,
+              synthetic_test_size=64, frequency_of_the_test=-1,
+              random_seed=3, fused_conv_block="pallas",
+              rounds_per_dispatch=8, checkpoint_every_rounds=2)
 # The FedLLM hot loop: bench.py's _llm_train_step_timing model (~111M
 # params) at bench_llm_mfu's bs 8 x seq 1024, bf16, flash attention.
 HOT_LOOP = dict(vocab_size=8192, hidden_size=1024, intermediate_size=2816,
@@ -156,8 +182,21 @@ HOT_BATCH, HOT_STEPS = 8, 4
 # 1 and of 64 adapters; 64 slots, blocks of 16, prefill chunks of 32).
 SERVE_MAX_NEW = 24
 SERVE_CONC = (1, 8, 64)
+# bank rows: the zero row, the exported global / silo_0 / silo_1, the
+# artifact's own "default" and 64 more (silo_0 and silo_1 re-added in place)
 SERVE_BATCH = {"slots": 64, "block_size": 16, "prefill_chunk": 32,
-               "max_adapters": 66, "request_timeout_s": 600.0}
+               "max_adapters": 68, "request_timeout_s": 600.0}
+# the same options as from_artifact reads them from the config
+SERVE_ARGS = dict(llm_serving_mode="batch", serving_slots=64,
+                  serving_kv_block_size=16, serving_prefill_chunk=32,
+                  serving_max_adapters=68, serving_request_timeout_s=600.0)
+# bench.py's bench_llm_serving_adapter_churn traffic: concurrency 64, 12
+# new tokens, greedy, a bank of 8 named adapters, 4 rounds each
+# re-exporting one adapter into the directory watch_dir polls every 0.1 s;
+# here on the FedLLM main path's model (d 512), wider than the bench's d
+# 128, so the swap is measured at the main path's width
+CHURN = {"concurrency": 64, "max_new": 12, "bank": 8, "rounds": 4,
+         "poll_s": 0.1}
 SERVE_PROMPTS = [f"request {i}: summarize federated round {i * 7}"
                  for i in range(max(SERVE_CONC))]
 # tests/test_serving_batch.py's TestKVParity prompts
@@ -518,7 +557,51 @@ def _captured_vs_eager(torch, precision, tol):
     return worst, program.replays
 
 
-def flagship(torch, cb, fa, card):
+def resume_parity(torch, tmp, dev="cuda"):
+    """Phase 5: RESUME's run of 4 rounds against 2 rounds resumed to 4
+    from the round-1 checkpoint, on the card, cuDNN on deterministic
+    algorithms (as captured_vs_eager): the params must agree bitwise. The
+    resumed simulator captures its step (``capture_step``) before ``run``
+    restores, so the graph's static tensors take the restored params.
+    Returns (largest difference, blocks of the uninterrupted run)."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    def simulator(name, **kw):
+        args = Arguments(**dict(RESUME, checkpoint_dir=os.path.join(
+            tmp, name), **kw))
+        fed, n_classes = data.load(args)
+        bundle = model.create(args, n_classes, fed.input_shape)
+        return FedMLRunner(args, device=dev, dataset=fed,
+                           model=bundle).runner
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        full = simulator("full").run()
+        simulator("part", comm_round=2).run()
+        sim = simulator("part")
+        sim.capture_step(TrainHyper(learning_rate=RESUME["learning_rate"]))
+        resumed = sim.run()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = max((full["params"][k] - resumed["params"][k]).abs().max().item()
+                for k in full["params"])
+    blocks = full["dispatch_stats"]["dispatches"]
+    require(blocks == 2, f"resume: {blocks} blocks for 4 rounds with a "
+                         f"checkpoint every 2 (want 2: the checkpoint cuts "
+                         f"the 8-round block)")
+    require([h["round"] for h in resumed["history"]] == [2, 3],
+            f"resume: resumed rounds {[h['round'] for h in resumed['history']]}")
+    require(resumed["dispatch_stats"]["captures"] == 1,
+            "resume: the resumed run did not capture its step once")
+    require(worst == 0.0, f"resume: resumed params differ from the "
+                          f"uninterrupted run's by up to {worst:.3e}")
+    return worst, blocks
+
+
+def flagship(torch, cb, fa, card, tmp):
     """Phase 6: ``bench_flagship`` on the port. The GPU engine's step is
     captured (timed apart), then one block of FLAGSHIP_BLOCK rounds runs
     through ``run_rounds_fused`` and one eval follows; then the SP golden
@@ -535,9 +618,10 @@ def flagship(torch, cb, fa, card):
         args = Arguments(**cfg)
         fed, n_classes = data.load(args)
         bundle = model.create(args, n_classes, fed.input_shape)
-        return FedMLRunner(args, dataset=fed, model=bundle).runner, fed
+        return (FedMLRunner(args, dataset=fed, model=bundle).runner, fed,
+                n_classes)
 
-    sim, fed = simulator(MAIN_PATH)
+    sim, fed, n_classes = simulator(MAIN_PATH)
     hyper = TrainHyper(learning_rate=MAIN_PATH["learning_rate"], epochs=1)
     reset_launches(cb, fa)
     capture_s = sim.capture_step(hyper)
@@ -578,13 +662,15 @@ def flagship(torch, cb, fa, card):
             f"flagship: B1 launched {n_b1} times, expected 27 x {forwards} "
             f"forward passes ({program.warmup_steps} warm-up, "
             f"{program.replays} replayed, {n_eval} eval)")
+    handoff = flagship_handoff(torch, cb, fa, sim, MAIN_PATH, n_classes,
+                               fed.input_shape, tmp)
     flops = sim.round_cost_flops(hyper)
     tflops = flops / round_s / 1e12
     mfu = profiler.mfu_value(flops, round_s, 1, device="cuda")
     if "H100" in torch.cuda.get_device_name(0):
         require(mfu is not None, "flagship: MFU is null on an H100")
 
-    sp, sp_fed = simulator(SP_BASELINE)
+    sp, sp_fed, _ = simulator(SP_BASELINE)
     reset_launches(cb, fa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -623,8 +709,63 @@ def flagship(torch, cb, fa, card):
         "b1_per_forward": n_b1 / forwards,
         "test_acc_after_block": ev["test_acc"],
         "hbm_peak_gb": profiler.sample_hbm_peak_gb("cuda"),
-        "card": name, "power_limit": limit}
+        "handoff": handoff, "card": name, "power_limit": limit}
     return record, engine_launches
+
+
+def flagship_handoff(torch, cb, fa, sim, cfg, n_classes, input_shape,
+                     tmp):
+    """Phase 6 after the timed block: the engine's checkpoint state
+    through ``RoundCheckpointer`` (file bytes, seconds of ``maybe_save``,
+    the synchronous host snapshot, and of ``flush``; restored bitwise),
+    then the model artifact: ``save_model`` of the params and
+    ``CheckpointPredictor.from_files`` on the card, one batch of 32 test
+    images bitwise equal to the engine's own eval forward (the same
+    bundle settings: bf16, the fused B1), 27 B1 launches."""
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.checkpoint import RoundCheckpointer
+    from fedml_tpu_torch.serving import CheckpointPredictor, save_model
+
+    ck = RoundCheckpointer(os.path.join(tmp, "flagship_ckpt"), 1)
+    r = FLAGSHIP_BLOCK - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.maybe_save(r, sim.ckpt_state())
+    save_s = time.perf_counter() - t0
+    ck.flush()
+    flush_s = time.perf_counter() - t0 - save_s
+    ckpt_bytes = os.path.getsize(ck.file(r))
+    step, st = ck.latest(sim.ckpt_state())
+    require(step == r and all(torch.equal(st["params"][k], v)
+                              for k, v in sim.params.items()),
+            "flagship checkpoint: the restored params differ")
+
+    t0 = time.perf_counter()
+    path = save_model(sim.params, os.path.join(tmp, "resnet56.fmtpu"))
+    artifact_s = time.perf_counter() - t0
+    pred = CheckpointPredictor.from_files(Arguments(**cfg), path,
+                                          n_classes, input_shape,
+                                          device=sim.device)
+    x = sim.test["x"][0][:BATCH]
+    with torch.no_grad():
+        want = sim.bundle.apply(sim.params, x).cpu()
+    reset_launches(cb, fa)
+    got = torch.tensor(pred.predict({"inputs": x.cpu().tolist()})[
+        "outputs"], dtype=torch.float32)
+    n_b1 = launches(cb, fa)["conv_block"]
+    err = (got - want).abs().max().item()
+    require(tuple(got.shape) == (x.shape[0], n_classes)
+            and torch.isfinite(got).all().item(),
+            f"CheckpointPredictor: logits of shape {tuple(got.shape)}")
+    require(err == 0.0, f"CheckpointPredictor: logits off the engine's "
+                        f"eval forward by {err:.3e} (same dtype and kernels:"
+                        f" bitwise expected)")
+    require(n_b1 == 27, f"CheckpointPredictor: {n_b1} B1 launches for one "
+                        f"forward, expected 27")
+    return {"checkpoint_bytes": ckpt_bytes, "maybe_save_s": save_s,
+            "flush_s": flush_s, "artifact_bytes": os.path.getsize(path),
+            "save_model_s": artifact_s, "predict_images": int(x.shape[0]),
+            "predict_max_abs_err": err, "predict_b1_launches": n_b1}
 
 
 def build_all(build, names):
@@ -915,6 +1056,38 @@ def tiny_llm_agreement(torch, run_federated_llm, Arguments):
     return worst, hg["test_loss"], hc["test_loss"]
 
 
+def export_check(torch, result, export_dir):
+    """The FedLLM run's export: ``global``, ``silo_0`` and ``silo_1``
+    reload bitwise equal to the adapters the run holds, and ``global`` is
+    the run's ``params``. Returns counts, bytes and the export's
+    seconds."""
+    from fedml_tpu_torch.core.distributed.communication.message import \
+        array_to_tensor
+    from fedml_tpu_torch.interop import flax_to_state_dict
+    from fedml_tpu_torch.llm.federated import load_adapter_artifacts
+
+    held = result["adapter_export"]["adapters"]
+    loaded = load_adapter_artifacts(export_dir)
+    require(sorted(loaded) == sorted(held) == ["global", "silo_0", "silo_1"],
+            f"export: adapters {sorted(loaded)}")
+    require(all(torch.equal(held["global"][k], v)
+                for k, v in result["params"].items()),
+            "export: global is not the run's params")
+    for name, tree in loaded.items():
+        flat = flax_to_state_dict(tree)
+        require(set(flat) == set(held[name]) and all(
+            torch.equal(array_to_tensor(flat[k]), v.cpu())
+            for k, v in held[name].items()),
+            f"export: {name} does not reload bitwise")
+    nbytes = sum(os.path.getsize(os.path.join(export_dir, f))
+                 for f in os.listdir(export_dir))
+    return {"adapters": len(loaded), "bytes": nbytes,
+            "bytes_per_adapter": os.path.getsize(
+                os.path.join(export_dir, "global.fmtpu")),
+            "lora_params": sum(v.numel() for v in result["params"].values()),
+            "wall_s": result["adapter_export"]["wall_s"]}
+
+
 def hot_loop(torch, llm, cb, fa):
     """HOT_STEPS SGD steps (lr 1e-3) of the 111M causal LM on one batch of
     seeded random tokens, full parameters, as bench.py's
@@ -951,7 +1124,35 @@ def hot_loop(torch, llm, cb, fa):
         losses.append(loss.item())
     torch.cuda.synchronize()
     ms = (time.time() - t0) / (HOT_STEPS - 1) * 1e3
-    return ms, losses, launches(cb, fa), llm.count_params(params)
+    return ms, losses, launches(cb, fa), llm.count_params(params), params
+
+
+def codec_speed(torch, params, tmp):
+    """Phase 9: ``save_model`` then ``load_model`` of the hot loop's
+    params (f32, on the card): seconds and MB/s of each direction (the
+    device-to-host copy inside the save), the round trip bitwise."""
+    from fedml_tpu_torch.core.distributed.communication.message import \
+        array_to_tensor
+    from fedml_tpu_torch.interop import flax_to_state_dict
+    from fedml_tpu_torch.serving import load_model, save_model
+
+    path = os.path.join(tmp, "hot_loop.fmtpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_model(params, path)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    tree = load_model(path)
+    load_s = time.perf_counter() - t0
+    flat = flax_to_state_dict(tree)
+    require(set(flat) == set(params) and all(
+        torch.equal(array_to_tensor(flat[k]), v.cpu())
+        for k, v in params.items()), "codec: the round trip is not bitwise")
+    os.remove(path)
+    mb = nbytes / 1e6
+    return {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "save_mb_per_s": mb / save_s, "load_mb_per_s": mb / load_s}
 
 
 
@@ -1125,7 +1326,7 @@ def isolation(torch, bundle, tok, bank, DecodeScheduler, dev="cuda"):
     return True
 
 
-def serve_sweep(pred, prompts, conc, adapter_names):
+def serve_sweep(pred, prompts, conc, adapter_names, max_new=SERVE_MAX_NEW):
     """``conc`` requests at concurrency ``conc`` (bench_llm_serving's
     sweep): generated tokens/s over the sweep's wall and the p99 request
     latency from the sweep's start; returns it with the outputs."""
@@ -1134,7 +1335,7 @@ def serve_sweep(pred, prompts, conc, adapter_names):
     lats, outs = [0.0] * conc, [None] * conc
 
     def one(i):
-        outs[i] = pred.generate(prompts[i], max_new_tokens=SERVE_MAX_NEW,
+        outs[i] = pred.generate(prompts[i], max_new_tokens=max_new,
                                 adapter=adapter_names[i % len(adapter_names)])
         lats[i] = time.perf_counter() - t0
 
@@ -1148,16 +1349,27 @@ def serve_sweep(pred, prompts, conc, adapter_names):
             "tokens": toks, "wall_s": wall}, outs
 
 
-def serving_phase(torch, llm, cb, fa, Arguments, adapter, dev="cuda"):
+def greedy_texts(pred, adapter, n=12):
+    return [pred.generate(p, max_new_tokens=n, adapter=adapter)["text"]
+            for p in PARITY_PROMPTS]
+
+
+def serving_phase(torch, llm, cb, fa, Arguments, export, dev="cuda"):
     """The serving path at the FedLLM main path's width: the base the run
-    froze and the adapter it trained. Single mode (the sequential baseline,
-    one request at a time as bench_llm_serving's lock does) then batch
-    mode with banks of 1 and 64 adapters. Returns the serving line and the
-    kernels' launches over the legs."""
+    froze and the adapters it exported. Single mode (the sequential
+    baseline, one request at a time as bench_llm_serving's lock does) on
+    the run's global adapter, then batch mode built from the exported
+    artifacts by ``from_artifact`` (its greedy tokens for no adapter,
+    silo_0 and silo_1 first held to a predictor built in memory from the
+    run's own adapters) with banks of 1 and 64 adapters, then the churn
+    leg. Returns the serving line and the kernels' launches over the
+    single-mode legs."""
     import threading
     from fedml_tpu_torch.serving.batch import AdapterBank, DecodeScheduler
     from fedml_tpu_torch.serving.llm_template import CausalLMPredictor
 
+    adapter = export["adapters"]["global"]
+    export_dir = os.path.dirname(export["manifest"])
     bundle, tok = llm.build_llm_bundle(Arguments(**LLM_MAIN_PATH))
     legs, steps, ttft = {}, {}, {}
     lock = threading.Lock()
@@ -1185,22 +1397,39 @@ def serving_phase(torch, llm, cb, fa, Arguments, adapter, dev="cuda"):
             f"single mode launches {single_launches}, expected "
             f"{layers} x {forwards} of B2 only")
 
+    serve_args = Arguments(**dict(LLM_MAIN_PATH, llm_adapter_dir=export_dir,
+                                  **SERVE_ARGS))
+    t0 = time.perf_counter()
+    pred = CausalLMPredictor.from_artifact(
+        serve_args, os.path.join(export_dir, "global.fmtpu"), device=dev)
+    load_s = time.perf_counter() - t0
     gen = torch.Generator().manual_seed(1)
     bank64 = None
     batch_launches = {}
-    for tag, n_bank in (("bank1", 1), ("bank64", 64)):
-        pred = CausalLMPredictor(bundle, adapter, tokenizer=tok,
-                                 mode="batch", batch_opts=SERVE_BATCH,
-                                 device=dev)
-        names = [None]
-        if n_bank > 1:
-            for a in range(n_bank):
-                pred.adapter_bank.add(f"silo_{a}", {
-                    k: 0.1 * torch.randn(v.shape, generator=gen)
-                    for k, v in adapter.items()})
-            names = [f"silo_{a}" for a in range(n_bank)]
-            bank64 = pred.adapter_bank
+    try:
+        mem_bank = AdapterBank(adapter, alpha=bundle.lora_alpha,
+                               capacity=SERVE_BATCH["max_adapters"])
+        for name in ("silo_0", "silo_1"):
+            mem_bank.add(name, export["adapters"][name])
+        mem = CausalLMPredictor(bundle, adapter, tokenizer=tok,
+                                mode="batch", batch_opts=SERVE_BATCH,
+                                adapter_bank=mem_bank, device=dev)
         try:
+            for name in (None, "silo_0", "silo_1"):
+                require(greedy_texts(pred, name) == greedy_texts(mem, name),
+                        f"from_artifact: greedy tokens for adapter {name} "
+                        f"differ from the in-memory predictor's")
+        finally:
+            mem.close()
+        for tag, n_bank in (("bank1", 1), ("bank64", 64)):
+            names = [None]
+            if n_bank > 1:
+                for a in range(n_bank):
+                    pred.adapter_bank.add(f"silo_{a}", {
+                        k: 0.1 * torch.randn(v.shape, generator=gen)
+                        for k, v in adapter.items()})
+                names = [f"silo_{a}" for a in range(n_bank)]
+                bank64 = pred.adapter_bank
             pred.generate("warm", max_new_tokens=2, adapter=names[0])
             engine = pred.engine
             steps0 = engine.scheduler.steps_run
@@ -1220,22 +1449,113 @@ def serving_phase(torch, llm, cb, fa, Arguments, adapter, dev="cuda"):
             steps[tag] = engine.scheduler.steps_run - steps0
             require(engine.health()["status"] == "ok",
                     f"batched {tag}: engine {engine.health()}")
-        finally:
-            pred.close()
-        require(not any(batch_launches[tag].values()),
-                f"batch mode launched {batch_launches[tag]}: its attention "
-                f"is cached_attention, no kernel")
+            require(not any(batch_launches[tag].values()),
+                    f"batch mode launched {batch_launches[tag]}: its "
+                    f"attention is cached_attention, no kernel")
+    finally:
+        pred.close()
     iso = isolation(torch, bundle, tok, bank64, DecodeScheduler, dev)
+    churn = churn_leg(torch, Arguments, bundle, tok, adapter, export_dir,
+                      dev)
     top = max(SERVE_CONC)
     line = {"legs": legs, "ttft_c8": ttft, "decode_steps": steps,
             "b2_launches_single": single_launches["flash_fwd"],
             "single_forwards": forwards, "isolation": iso,
+            "from_artifact_load_s": load_s,
+            "from_artifact_parity_prompts": len(PARITY_PROMPTS),
+            "churn": churn,
             "speedup_c64": legs[f"batched_bank1_c{top}"]["tokens_per_s"]
             / legs[f"sequential_c{top}"]["tokens_per_s"]}
     return line, single_launches
 
 
+def churn_leg(torch, Arguments, bundle, tok, adapter, export_dir, dev):
+    """CHURN traffic on a predictor built by ``from_artifact`` over a
+    watched directory of 8 seeded adapters: one churn-free sweep (after a
+    warm one), then 4 sweeps each with one adapter re-exported into the
+    directory mid-traffic by ``save_adapter_artifacts``. The watcher must
+    apply 4 swaps, the engine stay healthy, and the last churned adapter's
+    greedy tokens equal a fresh predictor's loaded with its new
+    version."""
+    import concurrent.futures as cf
+    from fedml_tpu_torch.llm.federated import save_adapter_artifacts
+    from fedml_tpu_torch.serving.batch import AdapterBank
+    from fedml_tpu_torch.serving.llm_template import CausalLMPredictor
+
+    gen = torch.Generator().manual_seed(7)
+
+    def rand_adapter():
+        return {k: 0.1 * torch.randn(v.shape, generator=gen)
+                for k, v in adapter.items()}
+
+    conc, max_new, rounds = (CHURN["concurrency"], CHURN["max_new"],
+                             CHURN["rounds"])
+    watched = os.path.join(os.path.dirname(export_dir), "churn")
+    names = [f"silo_{a}" for a in range(CHURN["bank"])]
+    save_adapter_artifacts({n: rand_adapter() for n in names}, watched)
+    # bank rows: the adapters, a fresh row per swap (retired rows rejoin
+    # the pool once their last in-flight pin drops), default and spare
+    capacity = CHURN["bank"] + rounds + 4
+    args = Arguments(**dict(LLM_MAIN_PATH, **dict(
+        SERVE_ARGS, llm_adapter_dir=watched, serving_max_adapters=capacity,
+        llm_adapter_watch_s=CHURN["poll_s"])))
+    pred = CausalLMPredictor.from_artifact(
+        args, os.path.join(export_dir, "global.fmtpu"), device=dev)
+    out = {"width": "d 512, 4 layers (the FedLLM main path), wider than "
+                    "bench_llm_serving_adapter_churn's d 128"}
+    try:
+        pred.generate("warm", max_new_tokens=2, adapter=names[0])
+        serve_sweep(pred, SERVE_PROMPTS, conc, names, max_new)   # warm
+        out["no_churn"], _ = serve_sweep(pred, SERVE_PROMPTS, conc, names,
+                                         max_new)
+        legs, new = [], {}
+        for r in range(rounds):
+            victim = names[r % len(names)]
+            new[victim] = rand_adapter()
+            # past the filesystem's mtime tick since the last export
+            time.sleep(CHURN["poll_s"])
+            with cf.ThreadPoolExecutor(1) as exporter:
+                fut = exporter.submit(save_adapter_artifacts,
+                                      {victim: new[victim]}, watched)
+                leg, _ = serve_sweep(pred, SERVE_PROMPTS, conc, names,
+                                     max_new)
+                fut.result(timeout=60)
+            legs.append(leg)
+        bank = pred.adapter_bank
+        deadline = time.time() + 10        # let the last swap land
+        while bank.swaps < rounds and time.time() < deadline:
+            time.sleep(0.05)
+        health = pred.engine.health()
+        out["churn"] = {
+            "tokens_per_s": sum(x["tokens_per_s"] for x in legs) / rounds,
+            "tokens_per_s_best": max(x["tokens_per_s"] for x in legs),
+            "p99_latency_s": max(x["p99_latency_s"] for x in legs),
+            "rounds": [x["tokens_per_s"] for x in legs],
+            "swaps": bank.swaps, "health": health["status"]}
+        require(bank.swaps == rounds, f"churn: the watcher applied "
+                                      f"{bank.swaps} swaps, expected {rounds}")
+        require(health["status"] == "ok", f"churn: engine {health}")
+        fresh_bank = AdapterBank(adapter, alpha=bundle.lora_alpha,
+                                 capacity=capacity)
+        fresh_bank.add(victim, new[victim])
+        fresh = CausalLMPredictor(
+            bundle, adapter, tokenizer=tok, mode="batch",
+            batch_opts=dict(SERVE_BATCH, max_adapters=capacity),
+            adapter_bank=fresh_bank, device=dev)
+        try:
+            require(greedy_texts(pred, victim) == greedy_texts(fresh, victim),
+                    f"churn: {victim}'s tokens after its swap differ from a "
+                    f"fresh predictor's with the new version")
+        finally:
+            fresh.close()
+    finally:
+        pred.close()
+    return out
+
+
 def main() -> int:
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1258,6 +1578,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return run(torch, F, fedml, llm, Arguments, build, cb, fa, attn,
+                   tmp)
+
+
+def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
+    """The phases after the imports; ``tmp`` holds checkpoints, artifacts
+    and exports and is removed afterwards."""
     card = card_line()
     print(f"card: {card}", flush=True)
     spilled = build_all(build, ["conv_block", "flash_attention"])
@@ -1346,8 +1674,20 @@ def main() -> int:
         print(f"captured step vs eager loop (resnet20, {dtype}, 4 clients, "
               f"{replays} replays, 1 capture): within {worst:.3f} of "
               f"tolerance {CAPTURE_TOL[dtype]}", flush=True)
+    worst, blocks = resume_parity(torch, tmp)
+    print(f"resume (resnet20, f32, 4 rounds, checkpoint every 2, "
+          f"{blocks} blocks): 2 rounds resumed to 4 vs uninterrupted, "
+          f"largest param difference {worst:.3e}", flush=True)
 
-    record, resnet_launches = flagship(torch, cb, fa, card)
+    record, resnet_launches = flagship(torch, cb, fa, card, tmp)
+    h = record["handoff"]
+    print(f"flagship hand-off ({card}): checkpoint {h['checkpoint_bytes']} "
+          f"bytes, maybe_save {h['maybe_save_s']:.4f} s, flush "
+          f"{h['flush_s']:.4f} s; artifact {h['artifact_bytes']} bytes in "
+          f"{h['save_model_s']:.4f} s; CheckpointPredictor on "
+          f"{h['predict_images']} test images: max abs err "
+          f"{h['predict_max_abs_err']:.1e} vs the eval forward, "
+          f"{h['predict_b1_launches']} B1 launches", flush=True)
     print(f"flagship: capture {record['capture_s']:.2f} s (apart from the "
           f"rounds), {record['block_s']:.2f} s for {FLAGSHIP_BLOCK} rounds "
           f"of 64 clients = {record['step_time_s']:.3f} s per round, "
@@ -1357,9 +1697,11 @@ def main() -> int:
           f"{record['b1_per_forward']:.0f} per forward", flush=True)
     print(json.dumps({"flagship": record}), flush=True)
 
+    export_dir = os.path.join(tmp, "adapters")
     reset_launches(cb, fa)
     t0 = time.time()
-    result = llm.run_federated_llm(Arguments(**LLM_MAIN_PATH))
+    result = llm.run_federated_llm(Arguments(
+        **LLM_MAIN_PATH, llm_adapter_export_dir=export_dir))
     torch.cuda.synchronize()
     wall = time.time() - t0
     llm_launches = launches(cb, fa)
@@ -1383,16 +1725,26 @@ def main() -> int:
     require(stats["replays"] == steps, f"FedLLM: {stats['replays']} "
                                        f"replays for {steps} local steps")
     steps += stats["warmup_steps"]
+    # the export's eager personalisation steps, per silo
+    personal = (Arguments().llm_adapter_personalize_steps
+                * LLM_MAIN_PATH["client_num_in_total"])
+    steps += personal
     evals = sum(h["eval_batches"] for h in hist)
     want = {"conv_block": 0, "flash_fwd": layers * (steps + evals),
             "flash_dq": layers * steps, "flash_dkv": layers * steps}
     require(llm_launches == want, f"FedLLM launches {llm_launches}, "
                                   f"expected {want}")
+    export = export_check(torch, result, export_dir)
     print(f"FedLLM main path: {wall:.1f} s end to end, {wall / len(hist):.2f} "
-          f"s per round (eval and the step's capture, "
-          f"{stats['capture_s']:.2f} s, included), {steps} local steps "
-          f"({stats['warmup_steps']} of them the capture's warm-up) and "
-          f"{evals} eval batches; launches {llm_launches}", flush=True)
+          f"s per round (eval, the step's capture, "
+          f"{stats['capture_s']:.2f} s, and the export included), {steps} "
+          f"local steps ({stats['warmup_steps']} of them the capture's "
+          f"warm-up, {personal} the export's personalisation) and {evals} "
+          f"eval batches; launches {llm_launches}", flush=True)
+    print(f"FedLLM export ({card}): {export['adapters']} adapters, "
+          f"{export['bytes']} bytes ({export['bytes_per_adapter']} per "
+          f"adapter, {export['lora_params']} LoRA params) in "
+          f"{export['wall_s']:.3f} s, personalisation included", flush=True)
 
     # the serving path, on the adapter the FedLLM run just trained
     from fedml_tpu_torch.llm import kv_cache as kvc
@@ -1414,16 +1766,27 @@ def main() -> int:
     print(f"serving checks: {json.dumps(checks)}", flush=True)
     t0 = time.time()
     serving, serve_launches = serving_phase(torch, llm, cb, fa, Arguments,
-                                            result["params"])
+                                            result["adapter_export"])
     serving["checks"] = checks
     serving["wall_s"] = time.time() - t0
     for leg, r in serving["legs"].items():
         print(f"serving {leg}: {r['tokens_per_s']:.1f} tokens/s, p99 "
               f"{r['p99_latency_s']:.3f} s ({r['tokens']} tokens in "
               f"{r['wall_s']:.2f} s)", flush=True)
+    churn = serving["churn"]
+    print(f"serving churn ({card}, {churn['width']}): churn-free "
+          f"{churn['no_churn']['tokens_per_s']:.1f} tokens/s p99 "
+          f"{churn['no_churn']['p99_latency_s']:.3f} s; under churn "
+          f"{churn['churn']['tokens_per_s']:.1f} tokens/s (best "
+          f"{churn['churn']['tokens_per_s_best']:.1f}) p99 "
+          f"{churn['churn']['p99_latency_s']:.3f} s; "
+          f"{churn['churn']['swaps']} swaps, engine "
+          f"{churn['churn']['health']}; from_artifact load "
+          f"{serving['from_artifact_load_s']:.2f} s", flush=True)
     print(json.dumps({"serving": serving}), flush=True)
 
-    ms, losses, hot_launches, n_params = hot_loop(torch, llm, cb, fa)
+    ms, losses, hot_launches, n_params, hot_params = hot_loop(
+        torch, llm, cb, fa)
     require(all(math.isfinite(x) for x in losses), "hot loop: non-finite loss")
     per = HOT_LOOP["num_layers"] * HOT_STEPS
     require(hot_launches == {"conv_block": 0, "flash_fwd": per,
@@ -1434,6 +1797,14 @@ def main() -> int:
           f"{HOT_LOOP['max_seq_len']}, bf16, flash): {ms:.2f} ms per SGD "
           f"step, losses {[round(x, 4) for x in losses]}; launches "
           f"{hot_launches}", flush=True)
+    codec = codec_speed(torch, hot_params, tmp)
+    del hot_params
+    print(f"codec ({card}): save_model {codec['bytes']} bytes of the hot "
+          f"loop's params in {codec['save_s']:.3f} s "
+          f"({codec['save_mb_per_s']:.0f} MB/s), load_model in "
+          f"{codec['load_s']:.3f} s ({codec['load_mb_per_s']:.0f} MB/s), "
+          f"round trip bitwise", flush=True)
+    print(json.dumps({"codec": codec}), flush=True)
 
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{

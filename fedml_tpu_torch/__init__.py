@@ -67,7 +67,10 @@ def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
     them from a flax tree), instead of a fresh seeded init. Returns
     ``params``, ``history``, ``wall_time_s``, ``final_test_acc``,
     ``final_test_loss`` and ``rounds``, as the JAX engine does (the GPU
-    engine adds its ``dispatch_stats``)."""
+    engine adds its ``dispatch_stats``). ``save_model_path`` writes the
+    final params there as a serving artifact (the JAX package's bytes);
+    ``checkpoint_dir`` / ``checkpoint_every_rounds`` checkpoint the rounds
+    and resume from the newest checkpoint."""
     from . import data as data_mod
     from . import model as model_mod
     from .device import get_device
@@ -79,4 +82,11 @@ def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
     bundle = model_mod.create(args, output_dim, fed.input_shape)
     runner = FedMLRunner(args, device=device, dataset=fed, model=bundle,
                          init_params=init_params)
-    return runner.run()
+    result = runner.run()
+    save_path = getattr(args, "save_model_path", None)
+    if save_path:
+        import os
+
+        from .serving import save_model
+        save_model(result["params"], os.path.expanduser(str(save_path)))
+    return result

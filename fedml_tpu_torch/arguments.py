@@ -62,6 +62,39 @@ _SCHEMA: Dict[str, Any] = {
     "obs_profile_device": False,
     # the JAX package's per-program roofline capture; not ported (raises)
     "obs_roofline": False,
+    # checkpoint/artifact args
+    "save_model_path": None,     # persist final params (serving artifact)
+    "checkpoint_dir": None,      # round checkpoints (with the codec)
+    "checkpoint_every_rounds": 0,  # 0 = off
+    # federated-LoRA adapter export: after run_federated_llm, write the
+    # global + per-silo personalized adapters as named artifacts the
+    # serving adapter bank loads (None = off)
+    "llm_adapter_export_dir": None,
+    "llm_adapter_personalize_steps": 4,
+    # serving_args (serving/llm_template.from_artifact + serving/batch)
+    "llm_serving_mode": "single",      # single | batch
+    "serving_slots": 8,                # in-flight decode slots
+    "serving_kv_block_size": 16,       # must divide llm_max_seq_len
+    "serving_prefill_chunk": 32,
+    "serving_max_adapters": 64,        # adapter-bank capacity
+    "serving_deadline_s": 0.0,         # per-request decode deadline (0=off)
+    "serving_request_timeout_s": 120.0,
+    "serving_watchdog_s": 30.0,        # stall/NaN watchdog (0 = off)
+    "serving_flight_records": 256,
+    "serving_flight_dir": None,
+    "serving_max_resets": 3,
+    "serving_reset_window_s": 300.0,
+    "serving_max_requeues": 2,
+    "serving_preempt_after_s": 0.0,
+    "serving_shed_queue_depth": 0,     # load shedding (0 = off)
+    "llm_prefix_cache": False,
+    "llm_prefill_batch": 0,
+    "llm_suffix_cache": False,
+    "llm_stream": False,               # SSE on /v1/chat/completions
+    "llm_adapter_dir": None,           # adapter-bank manifest dir to serve
+    # poll llm_adapter_dir every this many seconds and hot-swap changed
+    # exports (0 = off)
+    "llm_adapter_watch_s": 0.0,
 }
 
 
@@ -86,8 +119,10 @@ class Arguments:
         self.backend = FEDML_SIMULATION_BACKEND_ALIASES.get(backend, backend)
         if self.client_num_per_round > self.client_num_in_total:
             self.client_num_per_round = self.client_num_in_total
-        if isinstance(self.data_cache_dir, str):
-            self.data_cache_dir = os.path.expanduser(self.data_cache_dir)
+        for key in ("data_cache_dir", "checkpoint_dir"):
+            val = getattr(self, key, None)
+            if isinstance(val, str):
+                setattr(self, key, os.path.expanduser(val))
 
     def to_dict(self) -> Dict[str, Any]:
         return {k: v for k, v in self.__dict__.items()

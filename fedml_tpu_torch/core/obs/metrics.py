@@ -1,8 +1,10 @@
 """Typed metrics registry — counters, gauges, fixed-bucket histograms
 (counterpart of ``fedml_tpu/core/obs/metrics.py``, as far as the serving
-path and the engine's profiling plane use it: the registry, the
-``record_llm_*`` hooks, the watchdog counter, ``record_round_mfu`` /
-``record_hbm_peak``, :class:`LatencyWindow` and :func:`flush_final`).
+path, the engine's profiling plane, the wire codec and the round
+checkpoints use it: the registry, the ``record_llm_*`` hooks, the watchdog
+counter, ``record_round_mfu`` / ``record_hbm_peak``, ``record_wire`` /
+``record_wire_stage``, ``record_checkpoint_flush``, :class:`LatencyWindow`
+and :func:`flush_final`).
 
 Two readouts:
 
@@ -528,6 +530,41 @@ def record_watchdog_trip(component: str, reason: str) -> None:
                      "black-box watchdog trips",
                      labels=("component", "reason")).inc(
                          1, component=str(component), reason=str(reason))
+
+
+def record_wire(msg_type: Any, nbytes: int) -> None:
+    """``Message.encode`` seam: per-message-type bytes on the wire."""
+    if not _cfg["enabled"]:
+        return
+    t = str(msg_type)
+    REGISTRY.counter("fed_wire_bytes_total",
+                     "bytes serialized at Message.encode, by message type",
+                     labels=("msg_type",)).inc(int(nbytes), msg_type=t)
+    REGISTRY.counter("fed_wire_messages_total",
+                     "messages serialized at Message.encode",
+                     labels=("msg_type",)).inc(1, msg_type=t)
+
+
+def record_wire_stage(msg_type: Any, stage: str, nbytes: int) -> None:
+    """Wire-pipeline seam: bytes attributed to one pipeline stage (raw /
+    sparsified / masked) by message type."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.counter("fed_wire_stage_bytes_total",
+                     "bytes by wire-pipeline stage and message type",
+                     labels=("msg_type", "stage")).inc(
+                         int(nbytes), msg_type=str(msg_type),
+                         stage=str(stage))
+
+
+def record_checkpoint_flush(wall_s: float) -> None:
+    """``RoundCheckpointer.flush`` seam: the wall time the round loop
+    blocks for its checkpoint writes."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.histogram("fed_checkpoint_flush_seconds",
+                       "blocking checkpoint flush wall time",
+                       buckets=WALL_BUCKETS).observe(float(wall_s))
 
 
 def record_hbm_peak(gb: float) -> None:

@@ -1,6 +1,6 @@
 """Distributed tracing — real spans with trace/span IDs, Dapper-style
 (counterpart of ``fedml_tpu/core/obs/trace.py``; the Message propagation
-helpers wait for the wire codec, and spans are emitted through
+helpers wait for the transports, and spans are emitted through
 :mod:`.sink` instead of ``mlops``).
 
 The plane the old ``mlops.event`` never was: every span carries a

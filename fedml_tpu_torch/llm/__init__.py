@@ -10,14 +10,15 @@ ported for the training path:
 - ``kv_cache``: the paged KV cache of the serving path (pools, gathers,
   scatters, block allocator, prefix index).
 - ``trainer``: completion-only causal-LM TrainerSpec.
-- ``federated``: ``build_llm`` / ``run_federated_llm``.
+- ``federated``: ``build_llm`` / ``run_federated_llm`` and the adapter-bank
+  export (``save_adapter_artifacts``, ``personalize_adapter``,
+  ``export_silo_adapters``).
 - ``hf``: local HF/Llama torch-checkpoint import.
 - ``data``: byte tokenizer and instruction corpora (a copy).
 
 The cache-aware decode path (``kv_view``, ``cached_attention``) serves
-through :mod:`fedml_tpu_torch.serving`. Not ported yet: adapter-bank
-export (needs the artifact codec), ``sharding.py`` and ring attention
-(multi-GPU slice).
+through :mod:`fedml_tpu_torch.serving`. Not ported yet: ``sharding.py``
+and ring attention (multi-GPU slice).
 
     from fedml_tpu_torch.arguments import Arguments
     from fedml_tpu_torch.llm import run_federated_llm

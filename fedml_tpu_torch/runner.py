@@ -28,16 +28,20 @@ UNPORTED_KNOBS: Dict[str, tuple] = {
     "contribution_method": (None, "", "none"),
     "pacer_adapt_cohort": (None, False),
     "selection_adaptive_oversample": (None, False),
-    "checkpoint_dir": (None, ""),
-    "checkpoint_every_rounds": (None, 0),
     "client_slot_fold": (None, False),
     "robust_fused": (None, "auto"),
     "robust_relayout_quant": (None, "none"),
     "round_mode": (None, "sync"),
     "mesh_shape": (None,),
-    "save_model_path": (None, ""),
-    "llm_adapter_export_dir": (None, ""),
     "obs_roofline": (None, False),
+    # serving chaos (core/chaos's ServingChaosInjector)
+    "chaos_serving_stall_prob": (None, 0, 0.0),
+    "chaos_serving_stall_s": (None, 0, 0.0),
+    "chaos_serving_stall_at_step": (None,),
+    "chaos_serving_nan_prob": (None, 0, 0.0),
+    "chaos_serving_nan_at_step": (None,),
+    "chaos_serving_conn_drop_prob": (None, 0, 0.0),
+    "chaos_serving_crash_at_request": (None,),
     # the values of this knob that are ported
     "llm_attention_impl": (None, "", "dense", "flash"),
 }
@@ -55,7 +59,8 @@ def check_ported(args) -> None:
                 f"{knob}={getattr(args, knob)!r} is not ported to "
                 f"fedml_tpu_torch yet (ported: the FedAvg round of the GPU "
                 f"and SP simulators, with the CIFAR ResNets, the linear "
-                f"models or the federated LoRA causal LM)")
+                f"models or the federated LoRA causal LM, their round "
+                f"checkpoints, and serving them)")
 
 
 class FedMLRunner:

@@ -7,10 +7,14 @@ The HTTP layer is the stdlib ``ThreadingHTTPServer``: POST ``/predict``
 ``/debug/state``. :class:`Overloaded` is the load-shed verdict (HTTP 503 +
 ``Retry-After``); :class:`SSEStream` a route's streaming verdict.
 
-Model artifacts (``save_model`` / ``load_model``) and
-``CheckpointPredictor`` use the msgpack wire codec of
-``core/distributed/communication/message.py``, which is not ported yet:
-they raise.
+Model artifacts (``save_model`` / ``load_model``) are msgpack-encoded
+trees, the wire codec of ``core/distributed/communication/message.py``
+behind a magic header, never pickle: loading a served artifact must not be
+a code-execution vector. An artifact holds the nested flax tree the JAX
+package writes (``interop.state_dict_to_flax`` of the port's state dict),
+so the two packages write the same bytes for the same parameters and read
+each other's artifacts. :class:`CheckpointPredictor` serves a trained
+classifier from one.
 """
 
 from __future__ import annotations
@@ -20,11 +24,20 @@ import logging
 import threading
 from abc import ABC, abstractmethod
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..core.distributed.communication.message import dumps_tree, loads_tree
 
 logger = logging.getLogger(__name__)
 
 PyTree = Any
+
+# artifact magic: lets load_model fail loudly (instead of unpacking
+# garbage) on foreign files, and marks the format as the msgpack codec
+_ARTIFACT_MAGIC = b"FMTPU1\n"
 
 
 class Overloaded(RuntimeError):
@@ -55,26 +68,49 @@ class SSEStream:
         self.headers = dict(headers or {})
 
 
-def _needs_codec(what: str):
-    raise NotImplementedError(
-        f"{what} needs the msgpack wire codec "
-        f"(core/distributed/communication/message.py), which is not ported "
-        f"to fedml_tpu_torch yet")
+def _is_state_dict(params: PyTree) -> bool:
+    return (isinstance(params, Mapping) and len(params) > 0 and all(
+        isinstance(v, (torch.Tensor, np.ndarray)) for v in params.values()))
 
 
 def save_model(params: PyTree, path: str) -> str:
-    """Persist model params with the wire codec — not ported."""
-    _needs_codec("save_model")
+    """Persist model params with the wire codec (``dumps_tree``), through
+    a temporary file and ``os.replace`` so a reader never sees half an
+    artifact. A flat dict of tensors or arrays is the port's state dict
+    and is written as its nested flax tree (the JAX package's layout);
+    any other tree is written as it is."""
+    import os
+
+    from ..interop import state_dict_to_flax
+    tree = state_dict_to_flax(params) if _is_state_dict(params) else params
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(_ARTIFACT_MAGIC)
+        f.write(dumps_tree(tree))
+    os.replace(tmp, path)
+    return path
 
 
 def check_model_magic(path: str) -> None:
-    """Validate an artifact's magic header — not ported."""
-    _needs_codec("check_model_magic")
+    """Cheap receive-time validation: existence + magic header, without
+    unpacking the whole artifact (which the consumer will do anyway)."""
+    with open(path, "rb") as f:
+        if f.read(len(_ARTIFACT_MAGIC)) != _ARTIFACT_MAGIC:
+            raise ValueError(
+                f"{path}: not a fedml_tpu model artifact (bad magic)")
 
 
 def load_model(path: str) -> PyTree:
-    """Load a ``save_model`` artifact — not ported."""
-    _needs_codec("load_model")
+    """The tree a ``save_model`` artifact holds (nested, numpy leaves);
+    ``interop.flax_to_state_dict`` makes it the port's state dict."""
+    with open(path, "rb") as f:
+        head = f.read(len(_ARTIFACT_MAGIC))
+        if head != _ARTIFACT_MAGIC:
+            raise ValueError(
+                f"{path}: not a fedml_tpu model artifact (bad magic); "
+                "legacy pickle artifacts are not loaded — re-save with "
+                "save_model")
+        return loads_tree(f.read())
 
 
 class FedMLPredictor(ABC):
@@ -89,18 +125,40 @@ class FedMLPredictor(ABC):
 
 
 class CheckpointPredictor(FedMLPredictor):
-    """Serve a trained classifier from a ``save_model`` artifact — needs
-    the wire codec, not ported."""
+    """Serve a trained classifier: request ``{"inputs": [[...], ...]}``
+    (NHWC images or flat features, as the model takes them) -> response
+    ``{"outputs": logits, "classes": argmax}``. The forward is the
+    bundle's ``apply`` on ``device`` (CUDA unless ``"cpu"``), in the
+    bundle's compute dtype and with its fused conv block setting: the
+    engine's own eval forward."""
 
-    def __init__(self, bundle, params: PyTree):
-        _needs_codec("CheckpointPredictor")
+    def __init__(self, bundle, params: PyTree, device=None):
+        from ..device import get_device
+        from ..interop import flax_to_state_dict
+        from ..simulation.gpu.engine import load_params
+        self.device = get_device(device)
+        self.bundle = bundle
+        if not _is_state_dict(params):   # a nested (flax) tree
+            params = flax_to_state_dict(params)
+        self.params = load_params(bundle, params, self.device)
 
     @classmethod
-    def from_files(cls, args, params_path: str, output_dim: int):
-        _needs_codec("CheckpointPredictor.from_files")
+    def from_files(cls, args, params_path: str, output_dim: int,
+                   input_shape=None, device=None) -> "CheckpointPredictor":
+        """The model named by ``args`` (``model``, ``precision``,
+        ``fused_conv_block``; the linear models need ``input_shape``)
+        with the params of a ``save_model`` artifact."""
+        from ..model import create
+        bundle = create(args, output_dim, input_shape)
+        return cls(bundle, load_model(params_path), device=device)
 
     def predict(self, request: Any) -> Any:
-        _needs_codec("CheckpointPredictor")
+        x = torch.from_numpy(np.asarray(request["inputs"], np.float32))
+        with torch.no_grad():
+            logits = self.bundle.apply(self.params, x.to(self.device))
+        logits = logits.cpu().numpy()
+        return {"outputs": logits.tolist(),
+                "classes": logits.argmax(-1).tolist()}
 
 
 class FedMLInferenceRunner:

@@ -20,14 +20,18 @@ adapter by writing a FRESH row and repointing the name — never by
 overwriting the live row — so requests already in flight (which resolved
 the name to a row at submit and pinned it via :meth:`retain_row`) keep
 the exact version they started with; the retired row returns to the free
-pool when its last pin drops. Watching an export directory
-(``watch_dir``) and building a bank from artifacts (``from_artifacts``)
-need the msgpack artifact codec, which is not ported yet: both raise.
+pool when its last pin drops. :meth:`AdapterBank.from_artifacts` builds a
+bank from an exported adapter directory (``llm/federated.py``'s
+``save_adapter_artifacts``, the JAX package's or the port's: the
+artifacts hold nested flax trees, converted with
+``interop.flax_to_state_dict``), and :meth:`AdapterBank.watch_dir` polls
+such a directory and hot-swaps what changed.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 from typing import Any, Dict, List, Optional
 
@@ -73,6 +77,9 @@ class AdapterBank:
         self._row_refs: Dict[int, int] = {}
         self._retired: set = set()
         self.swaps = 0
+        # watch_dir's polling thread
+        self._watch_thread: Optional[threading.Thread] = None
+        self._watch_stop = threading.Event()
 
     @property
     def scale(self) -> float:
@@ -208,15 +215,80 @@ class AdapterBank:
     # --- watched hot-swap ---------------------------------------------------
     def watch_dir(self, manifest_dir: str, poll_s: float = 2.0,
                   swap_existing: bool = False) -> None:
-        """Poll a ``save_adapter_artifacts`` dir and hot-swap changed
-        adapters live — needs the msgpack artifact codec, not ported."""
-        raise NotImplementedError(
-            "AdapterBank.watch_dir needs the msgpack artifact codec "
-            "(serving.save_model/load_model), which is not ported to "
-            "fedml_tpu_torch yet; use swap() with an adapter dict")
+        """Poll a ``save_adapter_artifacts`` dir and hot-swap changed or
+        new adapters live. The initial scan only RECORDS mtimes (the bank
+        was typically just loaded from this dir) unless
+        ``swap_existing``; every later change of an artifact file's mtime
+        triggers :meth:`swap` for its name. Half-written exports are
+        tolerated (the exporter writes atomically via ``os.replace``; a
+        failed poll is logged and retried at the next one). A re-export
+        within one mtime tick of the filesystem is not seen."""
+        if self._watch_thread is not None and self._watch_thread.is_alive():
+            raise RuntimeError("already watching an adapter dir")
+        self._watch_stop.clear()
+        seen: Dict[str, float] = {} if swap_existing \
+            else self._scan_mtimes(manifest_dir)
+
+        def loop() -> None:
+            while not self._watch_stop.wait(float(poll_s)):
+                try:
+                    self._poll_once(manifest_dir, seen)
+                except Exception:  # noqa: BLE001 — watcher must survive
+                    logger.exception("adapter watch poll failed (will "
+                                     "retry)")
+
+        self._watch_thread = threading.Thread(
+            target=loop, daemon=True, name="llm-adapter-watch")
+        self._watch_thread.start()
+        logger.info("adapter bank: watching %s every %.1fs",
+                    manifest_dir, float(poll_s))
+
+    @staticmethod
+    def _scan_mtimes(manifest_dir: str) -> Dict[str, float]:
+        """Name -> artifact mtime of what the manifest lists now; empty
+        when nothing has been exported yet."""
+        import json
+        out: Dict[str, float] = {}
+        try:
+            with open(os.path.join(manifest_dir, "manifest.json")) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError):
+            return out
+        for name, fname in (manifest.get("adapters") or {}).items():
+            try:
+                out[str(name)] = os.path.getmtime(
+                    os.path.join(manifest_dir, fname))
+            except OSError:
+                pass
+        return out
+
+    def _poll_once(self, manifest_dir: str, seen: Dict[str, float]) -> None:
+        import json
+
+        from ...interop import flax_to_state_dict
+        from ...serving import load_model
+        with open(os.path.join(manifest_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        changed = []
+        for name, fname in (manifest.get("adapters") or {}).items():
+            try:
+                mtime = os.path.getmtime(os.path.join(manifest_dir, fname))
+            except OSError:
+                continue   # export in progress
+            if seen.get(str(name)) != mtime:
+                changed.append((str(name), fname, mtime))
+        for name, fname, mtime in changed:
+            tree = load_model(os.path.join(manifest_dir, fname))
+            self.swap(name, flax_to_state_dict(tree))
+            seen[name] = mtime
 
     def stop_watch(self) -> None:
-        """Nothing to stop: :meth:`watch_dir` is not ported."""
+        """Stop the polling thread (joined with a timeout)."""
+        self._watch_stop.set()
+        th = self._watch_thread
+        if th is not None:
+            th.join(timeout=5.0)
+            self._watch_thread = None
 
     def index(self, name: Optional[str]) -> int:
         """Name → bank index; ``None`` → the zero adapter. Unknown names
@@ -251,9 +323,23 @@ class AdapterBank:
     @classmethod
     def from_artifacts(cls, manifest_dir: str, alpha: float = 16.0,
                        capacity: int = 64) -> "AdapterBank":
-        """Build a bank from a ``save_adapter_artifacts`` directory —
-        needs the msgpack artifact codec, not ported."""
-        raise NotImplementedError(
-            "AdapterBank.from_artifacts needs the msgpack artifact codec, "
-            "which is not ported to fedml_tpu_torch yet; build the bank "
-            "with AdapterBank(template) and add()")
+        """Build a bank from a ``save_adapter_artifacts`` directory
+        (manifest.json + one msgpack artifact per named adapter, the
+        layout ``llm/federated.py`` exports per silo)."""
+        from ...interop import flax_to_state_dict
+        from ...llm.federated import load_adapter_artifacts
+        adapters = {name: flax_to_state_dict(tree) for name, tree in
+                    load_adapter_artifacts(manifest_dir).items()}
+        if not adapters:
+            raise ValueError(f"no adapters in {manifest_dir}")
+        template = next(iter(adapters.values()))
+        # +2: the reserved zero row AND the served artifact's own adapter,
+        # which CausalLMPredictor registers as "default" after loading: a
+        # manifest that exactly fills `capacity` must not fail there
+        bank = cls(template, alpha=alpha,
+                   capacity=max(capacity, len(adapters) + 2))
+        for name, tree in adapters.items():
+            bank.add(name, tree)
+        logger.info("adapter bank: loaded %d adapters from %s",
+                    len(adapters), manifest_dir)
+        return bank

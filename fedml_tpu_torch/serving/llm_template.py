@@ -14,9 +14,9 @@ Two serving modes (``mode``):
 
 The chat endpoint speaks ``POST /v1/chat/completions`` with the OpenAI
 request/response schema (and SSE streaming with ``stream=True``).
-Loading a served artifact (``from_artifact``, ``serve_chat``) needs the
-msgpack artifact codec, which is not ported yet: both raise. Predictors
-run on CUDA unless built with ``device="cpu"``.
+``from_artifact`` / ``serve_chat`` load a served ``save_model`` artifact
+(and, in batch mode, an exported adapter directory) the way the launcher
+does. Predictors run on CUDA unless built with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 
 from .. import prng
 from ..device import get_device
-from . import FedMLInferenceRunner, FedMLPredictor, _needs_codec
+from . import FedMLInferenceRunner, FedMLPredictor, load_model
 
 logger = logging.getLogger(__name__)
 
@@ -175,9 +175,78 @@ class CausalLMPredictor(FedMLPredictor):
 
     @classmethod
     def from_artifact(cls, args, params_path: str, **kw):
-        """Load a served ``save_model`` artifact the way the launcher does
-        — needs the msgpack artifact codec, not ported."""
-        _needs_codec("CausalLMPredictor.from_artifact")
+        """Load a served artifact the way the launcher does: rebuild the
+        bundle from config (model only, no dataset; the base drawn from
+        ``random_seed``), params from the msgpack artifact (the JAX
+        package's or the port's). ``llm_serving_mode: batch`` turns on
+        continuous batching with the ``serving_*`` options;
+        ``llm_adapter_dir`` loads a named adapter bank exported by
+        ``llm/federated.py`` and ``llm_adapter_watch_s > 0`` watches it
+        for hot-swaps. ``device`` rides in ``kw``."""
+        from ..core.distributed.communication.message import \
+            array_to_tensor
+        from ..interop import flax_to_state_dict
+        from ..llm.federated import build_llm_bundle
+        from ..runner import check_ported
+        check_ported(args)   # the chaos_serving_* knobs, among others
+        bundle, tokenizer = build_llm_bundle(args)
+        kw.setdefault("mode", str(getattr(args, "llm_serving_mode",
+                                          "single")))
+        if kw["mode"] == "batch":
+            kw.setdefault("batch_opts", {
+                "slots": int(getattr(args, "serving_slots", 8)),
+                "block_size": int(getattr(args, "serving_kv_block_size",
+                                          16)),
+                "prefill_chunk": int(getattr(args, "serving_prefill_chunk",
+                                             32)),
+                "max_adapters": int(getattr(args, "serving_max_adapters",
+                                            64)),
+                "deadline_s": float(getattr(args, "serving_deadline_s",
+                                            0.0)),
+                "request_timeout_s": float(
+                    getattr(args, "serving_request_timeout_s", 120.0)),
+                "watchdog_s": float(getattr(args, "serving_watchdog_s",
+                                            30.0)),
+                "flight_records": int(getattr(args,
+                                              "serving_flight_records",
+                                              256)),
+                "flight_dir": (getattr(args, "serving_flight_dir", None)
+                               or getattr(args, "log_file_dir", None)),
+                "max_resets": int(getattr(args, "serving_max_resets", 3)),
+                "reset_window_s": float(
+                    getattr(args, "serving_reset_window_s", 300.0)),
+                "max_requeues": int(
+                    getattr(args, "serving_max_requeues", 2)),
+                "preempt_after_s": float(
+                    getattr(args, "serving_preempt_after_s", 0.0)),
+                "shed_queue_depth": int(
+                    getattr(args, "serving_shed_queue_depth", 0)),
+                "prefix_cache": bool(
+                    getattr(args, "llm_prefix_cache", False)),
+                "prefill_batch": int(
+                    getattr(args, "llm_prefill_batch", 0) or 0),
+                "suffix_cache": bool(
+                    getattr(args, "llm_suffix_cache", False)),
+            })
+            adapter_dir = getattr(args, "llm_adapter_dir", None)
+            if adapter_dir and kw.get("adapter_bank") is None:
+                from .batch import AdapterBank
+                kw["adapter_bank"] = AdapterBank.from_artifacts(
+                    adapter_dir,
+                    alpha=float(getattr(args, "lora_alpha", 16.0)),
+                    capacity=int(getattr(args, "serving_max_adapters",
+                                         64)))
+                # adapter hot-swap: watch the export dir so a fresh
+                # federated round's adapters go live with zero restart
+                watch_s = float(getattr(args, "llm_adapter_watch_s",
+                                        0.0) or 0.0)
+                if watch_s > 0:
+                    kw["adapter_bank"].watch_dir(adapter_dir,
+                                                 poll_s=watch_s)
+        kw.setdefault("stream", bool(getattr(args, "llm_stream", False)))
+        params = {k: array_to_tensor(v) for k, v in
+                  flax_to_state_dict(load_model(params_path)).items()}
+        return cls(bundle, params, tokenizer=tokenizer, **kw)
 
     # --- generation ---------------------------------------------------------
     def _encode_prompt(self, prompt: str, max_new_tokens: int) -> List[int]:
@@ -543,7 +612,15 @@ class ChatCompletionRunner(FedMLInferenceRunner):
 
 
 def serve_chat(args, params_path: str, host: str = "127.0.0.1",
-               port: int = 0, block: bool = False) -> ChatCompletionRunner:
-    """Two-line path from a federated LoRA artifact to a chat endpoint —
-    needs the msgpack artifact codec, not ported."""
-    _needs_codec("serve_chat")
+               port: int = 0, block: bool = False,
+               device=None) -> ChatCompletionRunner:
+    """Two-line path from a federated LoRA artifact to a chat endpoint on
+    ``device`` (CUDA unless ``"cpu"``)."""
+    predictor = CausalLMPredictor.from_artifact(args, params_path,
+                                                device=device)
+    runner = ChatCompletionRunner(predictor, host=host, port=port)
+    if block:
+        runner.run()
+    else:
+        runner.start()
+    return runner

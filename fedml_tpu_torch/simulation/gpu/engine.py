@@ -16,8 +16,13 @@ What stands for the one dispatch: every local step is a replay of one CUDA
 graph (``core/algframe/local_training.py::StepProgram``), captured once per
 run, and a block of rounds reads nothing back from the device until it
 ends. Blocks hold at most ``rounds_per_dispatch`` rounds and end at every
-eval round; ``frequency_of_the_test <= 0`` (timing mode) evaluates nothing,
-in the loop or after it.
+eval round and every checkpoint round; ``frequency_of_the_test <= 0``
+(timing mode) evaluates nothing, in the loop or after it.
+
+Round checkpoints (``checkpoint_dir`` / ``checkpoint_every_rounds``,
+``core/checkpoint.py``) hold ``params``, ``server_state`` and the round
+``rng``: the part of the JAX engine's checkpoint state this engine has.
+``run`` resumes from the newest one at the round after it.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ... import prng
 from ...core.algframe.local_training import (METRICS, StepProgram,
                                              batch_real_of, evaluate)
 from ...core.algframe.types import Params, TrainHyper
+from ...core.checkpoint import RoundCheckpointer
 from ...core.obs import profiler as obs_profiler
 from ...core.obs import trace as obs_trace
 from ..sampling import client_sampling, sampling_stream_from_args
@@ -87,6 +93,28 @@ class GPUSimulator:
         # waits for the device at every block's end
         self._obs_profile = bool(getattr(args, "obs_profile_device", False))
         self._flops_per_round: Optional[float] = None
+        self.ckpt = RoundCheckpointer(
+            getattr(args, "checkpoint_dir", None),
+            int(getattr(args, "checkpoint_every_rounds", 0) or 0))
+
+    # -- checkpoints --------------------------------------------------------
+    def ckpt_state(self) -> Dict[str, Any]:
+        return {"params": self.params, "server_state": self.server_state,
+                "rng": self.rng}
+
+    def restore(self) -> int:
+        """Load the newest checkpoint, if any; returns the round to start
+        at. A step program built before this (``capture_step``) takes the
+        restored params at its next client: it copies the start params
+        into its own tensors then."""
+        restored = self.ckpt.latest(self.ckpt_state())
+        if restored is None:
+            return 0
+        step, st = restored
+        self.params, self.server_state = st["params"], st["server_state"]
+        self.rng = st["rng"]
+        logger.info("resumed from checkpoint at round %d", step)
+        return step + 1
 
     # -- the local step -----------------------------------------------------
     def step_program(self, hyper: TrainHyper) -> StepProgram:
@@ -285,7 +313,7 @@ class GPUSimulator:
         rpd = max(int(getattr(args, "rounds_per_dispatch", 8) or 1), 1)
         n_test_batches = int(self.test["x"].shape[0])
         t0 = time.time()
-        round_idx = 0
+        round_idx = self.restore()
         while round_idx < rounds:
             # run up to (and including) the next eval round; freq <= 0
             # never evaluates (x % -1 == 0 for every x, so it must not
@@ -296,6 +324,12 @@ class GPUSimulator:
                 next_eval = (round_idx if round_idx % freq == 0
                              else (round_idx // freq + 1) * freq)
             stop = min(next_eval, rounds - 1, round_idx + rpd - 1)
+            if self.ckpt.enabled:
+                # maybe_save fires when (r + 1) % every == 0: the block
+                # must END on such a round, or the checkpoint would hold
+                # end-of-block params under an earlier round's label
+                every = self.ckpt.every
+                stop = min(stop, (round_idx + every) // every * every - 1)
             block = self.run_rounds_fused(round_idx, stop - round_idx + 1,
                                           hyper)
             for i, m in enumerate(block):
@@ -314,7 +348,15 @@ class GPUSimulator:
                     logger.info("round %d: test_acc=%.4f", r,
                                 rec["test_acc"])
                 self.history.append(rec)
+                if self.ckpt.enabled:
+                    with obs_trace.span("checkpoint", root=True,
+                                        attrs={"role": "engine",
+                                               "round_idx": r}):
+                        self.ckpt.maybe_save(r, self.ckpt_state())
             round_idx = stop + 1
+        # the writes must be on disk before the run returns: the next
+        # run's checkpointer cannot wait on this one's
+        self.ckpt.flush()
         wall = time.time() - t0
         last_eval = next((h for h in reversed(self.history)
                           if "test_acc" in h), None)

@@ -8,9 +8,11 @@ the server step. It is the semantic reference the GPU engine is held to,
 and the eager baseline of the flagship benchmark's ``vs_baseline``.
 
 The JAX golden loop also runs DP, attacks, defenses, contribution
-assessment, participant selection, the pacer and checkpoints; their knobs
-raise in the port (``runner.UNPORTED_KNOBS``), so here each round is
-uniform sampling and the weighted average.
+assessment, participant selection and the pacer; their knobs raise in the
+port (``runner.UNPORTED_KNOBS``), so here each round is uniform sampling
+and the weighted average. Round checkpoints (``checkpoint_dir`` /
+``checkpoint_every_rounds``) hold ``params``, ``server_state`` and
+``rng``, as the GPU engine's do.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 from ... import prng
 from ...core.algframe.local_training import batch_real_of, evaluate
 from ...core.algframe.types import TrainHyper
-from ..gpu.engine import load_params
+from ...core.checkpoint import RoundCheckpointer
+from ..gpu.engine import GPUSimulator, load_params
 from ..sampling import client_sampling, sampling_stream_from_args
 
 logger = logging.getLogger(__name__)
@@ -60,6 +63,14 @@ class SPSimulator:
             self.params = load_params(bundle, init_params, device)
         self.server_state = optimizer.server_init(self.params)
         self.history: List[Dict[str, Any]] = []
+        self.ckpt = RoundCheckpointer(
+            getattr(args, "checkpoint_dir", None),
+            int(getattr(args, "checkpoint_every_rounds", 0) or 0))
+
+    # the same checkpoint state as the GPU engine's, saved and restored
+    # the same way
+    ckpt_state = GPUSimulator.ckpt_state
+    restore = GPUSimulator.restore
 
     def _evaluate(self) -> Dict[str, float]:
         stats = evaluate(self.spec, self.params, self.test["x"],
@@ -76,7 +87,7 @@ class SPSimulator:
                            epochs=int(args.epochs))
         freq = int(getattr(args, "frequency_of_the_test", 5) or 5)
         t0 = time.time()
-        for round_idx in range(rounds):
+        for round_idx in range(self.restore(), rounds):
             sampled = client_sampling(
                 round_idx, self.fed.num_clients,
                 int(args.client_num_per_round), random_seed=self.seed,
@@ -112,6 +123,9 @@ class SPSimulator:
                 logger.info("round %d: test_acc=%.4f test_loss=%.4f",
                             round_idx, rec["test_acc"], rec["test_loss"])
             self.history.append(rec)
+            self.ckpt.maybe_save(round_idx, self.ckpt_state())
+        # the writes must be on disk before the run returns
+        self.ckpt.flush()
         wall = time.time() - t0
         last_eval = next((r for r in reversed(self.history)
                           if "test_acc" in r), None)

@@ -1,0 +1,39 @@
+#!/usr/bin/env python3
+"""The flagship phase of one checkout's ``chip_smoke.py``, alone, in this
+fresh process, on one CUDA card.
+
+    python3 scripts/flagship_ab.py <checkout> plain|resume_first
+
+``<checkout>`` is the root of a checkout (this one, or an older commit
+unpacked with ``git archive``); its kernels are built there first.
+``resume_first`` runs its phase-5 resume parity check before the flagship
+phase, as ``chip_smoke.py`` does. Prints one JSON line: rounds/hour, ms per
+local step, the SP baseline's seconds per round and the card. Run two
+checkouts in turns (parent, change, change, parent) in one call to compare
+them on one card.
+"""
+import inspect, json, os, sys, tempfile
+root, mode = os.path.abspath(sys.argv[1]), sys.argv[2]
+os.chdir(root)
+sys.path.insert(0, root)
+import torch
+import chip_smoke as c
+from fedml_tpu_torch.core.kernels import build, conv_block as cb
+from fedml_tpu_torch.core.kernels import flash_attention as fa
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+for name in ("conv_block", "flash_attention"):
+    build.build(name)
+card = c.card_line()
+with tempfile.TemporaryDirectory() as tmp:
+    if mode == "resume_first":
+        c.resume_parity(torch, tmp)
+    if "tmp" in inspect.signature(c.flagship).parameters:
+        rec, _ = c.flagship(torch, cb, fa, card, tmp)
+    else:
+        rec, _ = c.flagship(torch, cb, fa, card)
+print(json.dumps({"checkout": os.path.basename(root), "mode": mode,
+                  "rounds_per_hour": rec["value"],
+                  "ms_per_local_step": rec["ms_per_local_step"],
+                  "sp_baseline_round_s": rec["sp_baseline_round_s"],
+                  "card": card}))

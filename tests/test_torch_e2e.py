@@ -109,7 +109,7 @@ def test_fresh_init_is_seeded_and_runs():
     ("federated_optimizer", "FedProx"), ("enable_dp", True),
     ("enable_attack", True), ("enable_defense", True),
     ("chaos_dropout_prob", 0.2), ("client_selection", "oort"),
-    ("checkpoint_dir", "/nonexistent"), ("client_slot_fold", True),
+    ("mesh_shape", (2, 2)), ("client_slot_fold", True),
     ("robust_relayout_quant", "int8"), ("obs_roofline", True),
     ("round_mode", "async_buffered")])
 def test_unported_knobs_raise(knob, value):

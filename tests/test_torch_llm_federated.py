@@ -129,7 +129,7 @@ def test_full_fine_tune_when_rank_is_zero():
 
 @pytest.mark.parametrize("knob,value", [
     ("llm_attention_impl", "ring"),
-    ("llm_adapter_export_dir", "/nonexistent/adapters")])
+    ("chaos_serving_nan_at_step", 4)])
 def test_unported_llm_knobs_raise(knob, value):
     cfg = dict(CFG, comm_round=1, llm_corpus_size=24, **{knob: value})
     with pytest.raises(NotImplementedError, match=knob):

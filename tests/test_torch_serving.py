@@ -39,7 +39,7 @@ from fedml_tpu.serving.llm_template import CausalLMPredictor as JPredictor
 from fedml_tpu_torch.arguments import Arguments as TArguments
 from fedml_tpu_torch.interop import flax_to_state_dict
 from fedml_tpu_torch.llm.federated import build_llm_bundle as t_build_bundle
-from fedml_tpu_torch.serving import Overloaded
+from fedml_tpu_torch.serving import Overloaded, save_model
 from fedml_tpu_torch.serving.batch import AdapterBank as TBank
 from fedml_tpu_torch.serving.batch import DecodeScheduler as TScheduler
 from fedml_tpu_torch.serving.llm_template import (CausalLMPredictor,
@@ -534,7 +534,7 @@ def test_step_failure_resolves_every_waiter(lora_art):
         engine.submit([1, 2], max_new_tokens=2)
 
 
-def test_shed_and_unported_knobs_raise(lora_art, monkeypatch):
+def test_shed_and_unported_knobs_raise(lora_art, monkeypatch, tmp_path):
     _, tb, tok, _, tparams = lora_art
     pred = CausalLMPredictor(tb, tparams, tokenizer=tok, mode="batch",
                              batch_opts=dict(BATCH, shed_queue_depth=1),
@@ -545,16 +545,31 @@ def test_shed_and_unported_knobs_raise(lora_art, monkeypatch):
             pred.generate("x", max_new_tokens=2)
     finally:
         pred.close()
-    with pytest.raises(NotImplementedError, match="codec"):
-        CausalLMPredictor.from_artifact(TArguments(**_kw()), "a.fmtpu")
+    # the artifact codec works: from_artifact loads a saved adapter...
+    path = str(tmp_path / "a.fmtpu")
+    save_model(tparams, path)
+    loaded = CausalLMPredictor.from_artifact(TArguments(**_kw()), path,
+                                             device="cpu")
+    for k, v in tparams.items():
+        assert torch.equal(loaded.params[k], v), k
+    # ...and refuses the serving-chaos knobs, which are not ported
+    with pytest.raises(NotImplementedError, match="chaos_serving_nan"):
+        CausalLMPredictor.from_artifact(
+            TArguments(**_kw(chaos_serving_nan_at_step=3)), path,
+            device="cpu")
     with pytest.raises(NotImplementedError, match="chaos"):
         CausalLMPredictor(tb, tparams, tokenizer=tok, mode="batch",
                           batch_opts=dict(BATCH, chaos=object()),
                           device="cpu")
     with pytest.raises(NotImplementedError, match="roofline"):
         TScheduler(tb.module, tb.cfg, tb.base_params, roofline=True)
-    with pytest.raises(NotImplementedError, match="codec"):
-        TBank(tparams).watch_dir("adapters")
+    # watch_dir polls a directory (nothing exported there yet) and stops
+    bank = TBank(tparams)
+    bank.watch_dir(str(tmp_path / "adapters"), poll_s=0.01)
+    thread = bank._watch_thread
+    assert thread.is_alive()
+    bank.stop_watch()
+    assert not thread.is_alive() and bank.swaps == 0
     # the entry point runs on CUDA unless asked for the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
