@@ -44,7 +44,20 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    seconds, restored bitwise), and ``save_model`` of its params served by
    ``CheckpointPredictor`` on the card: one batch of 32 test images
    bitwise equal to the engine's eval forward, 27 B1 launches;
-7. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
+7. the federated optimizer family: (a) each of the nine optimizers and
+   FedOpt's adam, adagrad and yogi on ResNet-20 (f32, 2 rounds of 4 of 8
+   clients) through the GPU engine (captured) against the SP loop (eager),
+   cuDNN on deterministic algorithms, within a few ulps of the largest
+   update (expected bitwise); (b) SCAFFOLD on the flagship's configuration
+   (its step, the control-variate transform inside, captured apart; one
+   timed block of 2 rounds, one eval), rounds/hour beside phase 6's
+   FedAvg, B1 at 27 launches per forward, the bytes of the ``[64, ...]``
+   client-state stack; (c) B1 against its plain version at the folded
+   batch (64 x 32 = 2,048, bf16), then FedSGD on the flagship's shape
+   (8,192 samples) for one round with ``client_slot_fold`` on and one with
+   it off, their seconds and B1 launches, the folded aggregate held to
+   the unfolded one; an ``{"optimizers": ...}`` line;
+8. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
    ``bench.py``'s ``bench_federated_lora`` configuration (d 512, 4 layers,
    seq 256, bf16, LoRA r8, 2 silos, Shakespeare), 2 rounds with eval after
    each, its local step captured, B2 launches held to 4 per forward and
@@ -52,8 +65,8 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    personalisation steps included); the adapters exported
    (``llm_adapter_export_dir``: ``global``, ``silo_0``, ``silo_1``) and
    reloaded bitwise;
-8. the serving path: the FedLLM main path's model, base weights frozen
-   and the adapter the run of phase 7 trained, served through
+9. the serving path: the FedLLM main path's model, base weights frozen
+   and the adapter the run of phase 8 trained, served through
    ``fedml_tpu_torch.serving.llm_template.CausalLMPredictor`` with
    ``bench.py``'s ``bench_llm_serving`` traffic (24 new tokens, concurrency
    1 / 8 / 64): single mode as the sequential baseline (B2 per layer per
@@ -68,11 +81,11 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    against the full forward (f32 tiny, bf16 full width), greedy parity
    single vs batch on a full fine-tune, adapter isolation; a
    ``{"serving": ...}`` line;
-9. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
+10. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
    bf16, full parameters), 8 launches of each attention kernel per step;
    then ``save_model`` / ``load_model`` of its params (the codec's MB/s,
    round trip bitwise);
-10. one JSON line describing each kernel, then the card line, then
+11. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -121,6 +134,16 @@ FWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 2e-3)}
 # GroupNorms' and the residual sum, so the two can differ by two ulps of
 # the largest entry (2^-6).
 B1_PLAIN_TOL = {"float32": 2 ** -7, "bfloat16": 2 ** -6}
+# B1 at the folded round's batch (FOLD_BATCH, phase 7): 8.4-33.5 M outputs
+# per geometry against 0.1-0.5 M at batch 32. FWD_TOL leaves out one term
+# of the bf16 kernel's numerics: a y1 entry near a bf16 rounding midpoint
+# may round the other way than in the plain version (another f32 sum
+# order), which moves an output by ~1e-3 per such entry in its receptive
+# field, whatever the output's size. On the card a few to a few tens of
+# outputs per geometry (of millions) fall just outside FWD_TOL at that
+# batch, where the output is small. So at that batch the elementwise bound
+# adds y1_flip_bound (computed per output from the plain version); the
+# count outside FWD_TOL alone is printed.
 # Gradients: the kernel's backward recomputes the plain version, so the two
 # differ only by the card's run-to-run summation order; error relative to
 # the largest gradient entry.
@@ -171,6 +194,42 @@ RESUME = dict(dataset="synthetic_cifar10", model="resnet20",
               synthetic_test_size=64, frequency_of_the_test=-1,
               random_seed=3, fused_conv_block="pallas",
               rounds_per_dispatch=8, checkpoint_every_rounds=2)
+# The federated optimizer family (phase 7). (a) tiny_run_agreement's
+# ResNet-20 run (fused conv block, f32) with 8 clients, 4 a round, 2 rounds
+# (client state waits out a round), once per configuration through the GPU
+# engine (captured) and once through the SP loop (eager), cuDNN on
+# deterministic algorithms. Both run the same step and aggregation
+# arithmetic, so they should agree bitwise; the bound is FAMILY_ULPS f32
+# ulps of the largest update.
+FAMILY_CFG = dict(
+    dataset="synthetic_cifar10", model="resnet20", client_num_in_total=8,
+    client_num_per_round=4, comm_round=2, batch_size=8, learning_rate=0.01,
+    max_total_samples=64, synthetic_test_size=64, frequency_of_the_test=-1,
+    random_seed=3, fused_conv_block="pallas")
+FAMILY = {"FedAvg": {}, "FedProx": {}, "FedOpt": {},
+          "FedOpt_adam": dict(server_optimizer="adam", server_lr=0.01),
+          "FedOpt_adagrad": dict(server_optimizer="adagrad", server_lr=0.01),
+          "FedOpt_yogi": dict(server_optimizer="yogi", server_lr=0.01),
+          "FedSGD": dict(server_lr=0.1), "FedLocalSGD": {}, "SCAFFOLD": {},
+          "FedNova": dict(momentum=0.9), "FedDyn": {}, "Mime": {}}
+FAMILY_ULPS = 4
+# (b) SCAFFOLD on the flagship's configuration (MAIN_PATH), its step
+# captured apart, one timed block of FLAGSHIP_BLOCK rounds, one eval.
+SCAFFOLD_PATH = dict(MAIN_PATH, federated_optimizer="SCAFFOLD")
+# (c) FedSGD at the flagship's shape (ResNet-56, batch 32, bf16, fused conv
+# block, 64 clients a round), the data cut from 50,000 to 8,192 samples so
+# that one round with client_slot_fold off (64 clients x 7 padded batches
+# = 448 passes at batch 32) and one with it on (7 passes at 64 x 32 =
+# 2,048) fit the phase's time; both from the same seeded params.
+FEDSGD_PATH = dict(MAIN_PATH, federated_optimizer="FedSGD", server_lr=0.1,
+                   synthetic_size=8192)
+FOLD_BATCH = FEDSGD_PATH["client_num_per_round"] * FEDSGD_PATH["batch_size"]
+# The folded and the unfolded aggregate sum the same per-sample bf16
+# gradients over batches of 2,048 and of 32: other cuDNN algorithms, other
+# B1 cluster splits, other reduction orders. Bound: the largest difference
+# within 2^-6 of the largest aggregate entry (a few bf16 roundings).
+FOLD_TOL = 2.0 ** -6
+
 # The FedLLM hot loop: bench.py's _llm_train_step_timing model (~111M
 # params) at bench_llm_mfu's bs 8 x seq 1024, bf16, flash attention.
 HOT_LOOP = dict(vocab_size=8192, hidden_size=1024, intermediate_size=2816,
@@ -271,12 +330,18 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_state() -> str:
+    """The card's SM clock, power draw and temperature now (read right
+    after a timed block, so blocks timed at other points of a run can be
+    set side by side)."""
+    return card_line("clocks.sm,power.draw,temperature.gpu")
 
 
 def make_block(torch, gen, n, h, w, cin, cout, stride, dtype, device):
@@ -314,11 +379,40 @@ def plain_block_y1_bf16(torch, cb, x, p, s, groups=8):
     return torch.relu(r + y)
 
 
-def check_case(torch, cb, gen, shape, dtype):
+def y1_flip_bound(torch, cb, x, p, s, groups=8):
+    """How far the bf16 kernel's output may move from
+    ``plain_block_y1_bf16`` because a y1 entry rounds to the other bf16
+    neighbour: the kernel's conv1 and GN1 sum in another f32 order, so an
+    entry within max(1/64 of its bf16 ulp, 2^-16) of a rounding midpoint
+    may round either way (f32 reordering moves y1 by ~1e-6 of its terms'
+    size: 30-100x less). Each such entry moves conv2's output by at most
+    ``|w2| * ulp``; summed over the receptive field and scaled by GN2's
+    ``rstd * |scale|`` (its statistics over 16k entries move negligibly),
+    per output."""
+    y = cb._conv_same(x, p["w1"], s)
+    y1 = torch.relu(cb._group_norm(y, p["g1_scale"], p["g1_bias"], groups,
+                                   cb.GN_EPS))
+    r = y1.bfloat16().float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r)[1] - 8)
+    near = ((y1 - r).abs() - ulp / 2).abs() <= torch.clamp(ulp / 64,
+                                                           min=2.0 ** -16)
+    z = cb._conv_same(r, p["w2"], 1)
+    n, h, w, c = z.shape
+    zg = z.reshape(n, h, w, groups, c // groups)
+    var = (zg.square().mean(dim=(1, 2, 4), keepdim=True)
+           - zg.mean(dim=(1, 2, 4), keepdim=True).square()).clamp(min=0.0)
+    dz = cb._conv_same(near * ulp, p["w2"].abs(), 1).reshape(zg.shape)
+    return (dz * torch.rsqrt(var + cb.GN_EPS)).reshape(z.shape) * p[
+        "g2_scale"].abs()
+
+
+def check_case(torch, cb, gen, shape, dtype, flips=False):
     """Forward and gradients of the kernel against the plain version.
     Returns (max abs forward error against the plain version in f32, max
     relative gradient error, and for bf16 the max abs error against the
-    plain version in bf16, else None)."""
+    plain version in bf16, else None). ``flips`` (bf16): add
+    :func:`y1_flip_bound` to the elementwise tolerance (B1 at the folded
+    batch; see above B1_PLAIN_TOL)."""
     n, h, w, cin, cout, s = shape
     dt = getattr(torch, dtype)
     if dtype == "bfloat16":
@@ -348,7 +442,12 @@ def check_case(torch, cb, gen, shape, dtype):
     if dtype == "bfloat16":
         ref_y1 = plain_block_y1_bf16(torch, cb, xf, pf, s)
         e = (out.float() - ref_y1).abs()
-        bad = int((e > atol + rtol * ref_y1.abs()).sum())
+        tol = atol + rtol * ref_y1.abs()
+        if flips:
+            print(f"  {shape}: {int((e > tol).sum())} of {e.numel()} "
+                  f"outputs beyond FWD_TOL alone", flush=True)
+            tol = tol + y1_flip_bound(torch, cb, xf, pf, s)
+        bad = int((e > tol).sum())
         require(bad == 0, f"{shape} {dtype}: {bad} outputs beyond tolerance "
                           f"of the plain version with y1 in bf16 (max abs "
                           f"err {e.max().item():.3e})")
@@ -630,6 +729,7 @@ def flagship(torch, cb, fa, card, tmp):
     block = sim.run_rounds_fused(0, FLAGSHIP_BLOCK, hyper)
     torch.cuda.synchronize()
     block_s = time.perf_counter() - t0
+    state = card_state()
     round_s = block_s / FLAGSHIP_BLOCK
     ev = sim.evaluate()
     torch.cuda.synchronize()
@@ -709,7 +809,8 @@ def flagship(torch, cb, fa, card, tmp):
         "b1_per_forward": n_b1 / forwards,
         "test_acc_after_block": ev["test_acc"],
         "hbm_peak_gb": profiler.sample_hbm_peak_gb("cuda"),
-        "handoff": handoff, "card": name, "power_limit": limit}
+        "handoff": handoff, "card": name, "power_limit": limit,
+        "card_after_block": state}
     return record, engine_launches
 
 
@@ -766,6 +867,174 @@ def flagship_handoff(torch, cb, fa, sim, cfg, n_classes, input_shape,
             "flush_s": flush_s, "artifact_bytes": os.path.getsize(path),
             "save_model_s": artifact_s, "predict_images": int(x.shape[0]),
             "predict_max_abs_err": err, "predict_b1_launches": n_b1}
+
+
+def family_agreement(torch, fedml):
+    """Phase 7 (a): every FAMILY configuration through the GPU engine
+    (its programs captured) and the SP loop (eager) on the card, cuDNN on
+    deterministic algorithms. Returns {label: (largest param difference,
+    largest update, captures)}."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, kw in FAMILY.items():
+            cfg = dict(FAMILY_CFG, federated_optimizer=label.split("_")[0],
+                       **kw)
+            gpu = fedml.run_simulation(**cfg)
+            sp = fedml.run_simulation(backend="sp", **cfg)
+            p0 = fedml.run_simulation(backend="sp",
+                                      **dict(cfg, comm_round=0))["params"]
+            moved = max((sp["params"][k] - p0[k]).abs().max().item()
+                        for k in p0)
+            diff = max((gpu["params"][k] - sp["params"][k]).abs().max()
+                       .item() for k in p0)
+            captures = gpu["dispatch_stats"]["captures"]
+            want = 2 if label == "Mime" else 1
+            require(moved > 0 and all(torch.isfinite(v).all().item()
+                                      for v in gpu["params"].values()),
+                    f"family {label}: the run did not train or diverged")
+            require(captures == want, f"family {label}: {captures} "
+                                      f"captures, expected {want}")
+            require(diff <= FAMILY_ULPS * 2.0 ** -23 * moved,
+                    f"family {label}: GPU engine vs SP loop differ by "
+                    f"{diff:.3e}, more than {FAMILY_ULPS} ulps of the "
+                    f"largest update {moved:.3e}")
+            out[label] = (diff, moved, captures)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _simulator(cfg):
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.runner import FedMLRunner
+    args = Arguments(**cfg)
+    fed, n_classes = data.load(args)
+    bundle = model.create(args, n_classes, fed.input_shape)
+    return FedMLRunner(args, dataset=fed, model=bundle).runner
+
+
+def scaffold_flagship(torch, cb, fa):
+    """Phase 7 (b): SCAFFOLD on the flagship's configuration. Its step
+    (the control-variate transform inside) is captured apart, then one
+    block of FLAGSHIP_BLOCK rounds is timed and one eval follows. Returns
+    its record and the kernels' launches over the path."""
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    sim = _simulator(SCAFFOLD_PATH)
+    hyper = TrainHyper(learning_rate=SCAFFOLD_PATH["learning_rate"])
+    reset_launches(cb, fa)
+    capture_s = sim.capture_step(hyper)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    block = sim.run_rounds_fused(0, FLAGSHIP_BLOCK, hyper)
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    state = card_state()
+    ev = sim.evaluate()
+    torch.cuda.synchronize()
+    path_launches = launches(cb, fa)
+    (program,) = sim.programs.values()
+    steps = sum(m["local_steps"] for m in block)
+    n_eval = int(sim.test["x"].shape[0])
+    forwards = program.warmup_steps + program.replays + n_eval
+    n_b1 = path_launches["conv_block"]
+    require(all(math.isfinite(m["loss_sum"]) for m in block)
+            and math.isfinite(ev["test_loss"]),
+            "SCAFFOLD flagship: non-finite metrics")
+    require(sim.dispatch_stats["captures"] == 1,
+            f"SCAFFOLD flagship: {sim.dispatch_stats['captures']} captures")
+    require(program.grad_transform is not None,
+            "SCAFFOLD flagship: the captured step has no transform")
+    require(program.replays == steps, f"SCAFFOLD flagship: "
+                                      f"{program.replays} replays for "
+                                      f"{steps} local steps")
+    require(program.graph_launches.get(cb.fused_block) == 27
+            and n_b1 == 27 * forwards,
+            f"SCAFFOLD flagship: B1 launched {n_b1} times, expected 27 x "
+            f"{forwards} forward passes")
+    c_i = sim.client_states["c_i"]
+    state_bytes = sum(v.numel() * v.element_size() for v in c_i.values())
+    # every client trained (64 of 64 a round), so every row moved
+    rows = int((torch.stack([v.flatten(1).abs().amax(1) for v in
+                             c_i.values()]).amax(0) > 0).sum().item())
+    require(rows == sim.fed.num_clients,
+            f"SCAFFOLD flagship: {rows} clients' c_i moved, expected "
+            f"{sim.fed.num_clients}")
+    round_s = block_s / FLAGSHIP_BLOCK
+    return {"rounds_per_hour": 3600.0 / round_s, "step_time_s": round_s,
+            "block_s": block_s, "block_rounds": FLAGSHIP_BLOCK,
+            "local_steps": steps,
+            "ms_per_local_step": block_s / steps * 1e3,
+            "capture_s": capture_s, "warmup_steps": program.warmup_steps,
+            "replays": program.replays, "eval_batches": n_eval,
+            "b1_launches": n_b1, "b1_per_forward": n_b1 / forwards,
+            "client_state_rows": rows,
+            "client_state_bytes": state_bytes, "card_after_block": state,
+            "test_acc_after_block": ev["test_acc"]}, path_launches
+
+
+def fedsgd_fold(torch, cb, fa, gen):
+    """Phase 7 (c): B1 against its plain version at the folded batch (the
+    five ResNet-56 geometries at FOLD_BATCH, bf16), then one FedSGD round
+    of FEDSGD_PATH with client_slot_fold on and one with it off, each
+    with its gradient program captured apart. Returns the record and the
+    kernels' launches over each round."""
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    dtype = FEDSGD_PATH["precision"]
+    errs = []
+    for (h, cin, cout, s), _ in FLAGSHIP:
+        err, gerr, _ = check_case(torch, cb, gen,
+                                  (FOLD_BATCH, h, h, cin, cout, s), dtype,
+                                  flips=True)
+        errs.append(err)
+        print(f"check {dtype} n,h,w,cin,cout,s={(FOLD_BATCH, h, h, cin, cout, s)}"
+              f" (the fold's batch): max abs err {err:.3e}, grad rel err "
+              f"{gerr:.3e}", flush=True)
+    hyper = TrainHyper(learning_rate=FEDSGD_PATH["learning_rate"])
+    rounds = {}
+    for fold in (True, False):
+        sim = _simulator(dict(FEDSGD_PATH, client_slot_fold=fold))
+        p0 = {k: v.clone() for k, v in sim.params.items()}
+        reset_launches(cb, fa)
+        capture_s = sim.capture_step(hyper)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = sim.run_round(0, hyper)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        n = launches(cb, fa)
+        (program,) = sim.programs.values()
+        passes = program.warmup_steps + program.replays
+        require(n["conv_block"] == 27 * passes,
+                f"FedSGD (fold {fold}): B1 launched {n['conv_block']} "
+                f"times, expected 27 x {passes} passes")
+        require(math.isfinite(m["loss_sum"]), f"FedSGD (fold {fold}): "
+                                              f"non-finite loss")
+        rounds[fold] = dict(
+            round_s=round_s, capture_s=capture_s, passes=program.replays,
+            batch=int(program.batch["x"].shape[0]),
+            b1_launches=n["conv_block"], count=m["count"],
+            train_loss=m["loss_sum"] / m["count"],
+            agg={k: (sim.params[k] - p0[k]).float() for k in p0},
+            launches=n)
+        del sim
+    fold, unfold = rounds[True], rounds[False]
+    require(fold["batch"] == FOLD_BATCH and fold["count"] == unfold["count"],
+            f"FedSGD fold: batch {fold['batch']}, {fold['count']} vs "
+            f"{unfold['count']} samples")
+    diff = max((fold["agg"][k] - unfold["agg"][k]).abs().max().item()
+               for k in unfold["agg"])
+    largest = max(v.abs().max().item() for v in unfold["agg"].values())
+    require(largest > 0 and diff <= FOLD_TOL * largest,
+            f"FedSGD fold: folded aggregate off the unfolded one by "
+            f"{diff:.3e} ({diff / max(largest, 1e-30):.2e} of its largest "
+            f"entry, bound {FOLD_TOL:.2e})")
+    for r in rounds.values():
+        del r["agg"]
+    return {"b1_fold_batch_max_abs_err": max(errs), "fold": fold,
+            "unfold": unfold, "max_abs_diff": diff, "largest": largest,
+            "rel_diff": diff / largest}
 
 
 def build_all(build, names):
@@ -1694,8 +1963,43 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
           f"{record['ms_per_local_step']:.2f} ms per local step, MFU "
           f"{record['mfu']}, SP baseline {record['sp_baseline_round_s']:.2f}"
           f" s per round; B1 {record['b1_launches']} launches = "
-          f"{record['b1_per_forward']:.0f} per forward", flush=True)
+          f"{record['b1_per_forward']:.0f} per forward; card after the "
+          f"block (SM clock, power, temperature): "
+          f"{record['card_after_block']}", flush=True)
     print(json.dumps({"flagship": record}), flush=True)
+
+    t_family = time.perf_counter()
+    for label, (diff, moved, caps) in family_agreement(torch, fedml).items():
+        print(f"family {label:15s} (resnet20, f32, 2 rounds, 4 of 8 "
+              f"clients): GPU engine vs SP loop largest difference "
+              f"{diff:.3e} (largest update {moved:.3e}, bound "
+              f"{FAMILY_ULPS} ulps), {caps} capture(s)", flush=True)
+    family_s = time.perf_counter() - t_family
+    scaffold, scaffold_launches = scaffold_flagship(torch, cb, fa)
+    print(f"SCAFFOLD flagship ({card}): {scaffold['rounds_per_hour']:.2f} "
+          f"rounds/hour ({scaffold['step_time_s']:.3f} s per round, "
+          f"{scaffold['ms_per_local_step']:.2f} ms per local step) beside "
+          f"FedAvg's {record['value']:.2f} ({record['step_time_s']:.3f} s) "
+          f"above; capture {scaffold['capture_s']:.2f} s, "
+          f"{scaffold['replays']} replays, B1 {scaffold['b1_launches']} "
+          f"launches = {scaffold['b1_per_forward']:.0f} per forward; "
+          f"client-state stack [64, ...] {scaffold['client_state_bytes']} "
+          f"bytes; card after the block: {scaffold['card_after_block']}",
+          flush=True)
+    fold = fedsgd_fold(torch, cb, fa, gen)
+    for key in ("fold", "unfold"):
+        r = fold[key]
+        print(f"FedSGD {key:6s} ({card}): one round {r['round_s']:.3f} s "
+              f"({r['passes']} passes at batch {r['batch']}, capture "
+              f"{r['capture_s']:.2f} s apart), B1 {r['b1_launches']} "
+              f"launches", flush=True)
+    print(f"FedSGD folded vs unfolded aggregate: largest difference "
+          f"{fold['max_abs_diff']:.3e} = {fold['rel_diff']:.2e} of the "
+          f"largest entry (bound {FOLD_TOL:.2e})", flush=True)
+    print(json.dumps({"optimizers": {
+        "phase_s": time.perf_counter() - t_family,
+        "family_agreement_s": family_s, "scaffold": scaffold,
+        "fedsgd": fold, "card": card}}), flush=True)
 
     export_dir = os.path.join(tmp, "adapters")
     reset_launches(cb, fa)
@@ -1813,6 +2117,10 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "replaces": "fedml_tpu/core/kernels/conv_block.py:144",
         "design": DESIGN["conv_block"],
         "launches": resnet_launches["conv_block"],
+        "launches_scaffold": scaffold_launches["conv_block"],
+        "launches_fedsgd_fold": fold["fold"]["b1_launches"],
+        "launches_fedsgd_unfold": fold["unfold"]["b1_launches"],
+        "max_abs_err_fold_batch": fold["b1_fold_batch_max_abs_err"],
         "launches_serving": serve_launches["conv_block"],
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,

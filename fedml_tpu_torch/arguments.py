@@ -50,7 +50,15 @@ _SCHEMA: Dict[str, Any] = {
     "learning_rate": 0.03,
     "weight_decay": 0.0,
     "momentum": 0.0,
+    "server_optimizer": "sgd",
+    "server_lr": 1.0,
+    "server_momentum": 0.9,
+    "fedprox_mu": 0.1,
+    "feddyn_alpha": 0.01,
     "sampling_stream": "legacy",
+    # fold the sampled clients into the batch axis (optimizers that
+    # evaluate shared params only: FedSGD); refuses any other optimizer
+    "client_slot_fold": False,
     # rounds run between two device -> host reads (the GPU engine's block)
     "rounds_per_dispatch": 8,
     # validation_args

@@ -52,11 +52,26 @@ class ClientData:
 
 @dataclasses.dataclass
 class ClientOutput:
-    """What one simulated client returns from local training: the delta
-    ``local - global``, its aggregation weight and summed metrics."""
+    """What one simulated client returns from local training.
+
+    ``update``: the delta ``local - global``.
+    ``weight``: its aggregation weight (``n_k``).
+    ``client_state``: the client's persistent optimizer state after this
+    round (SCAFFOLD's ``c_i``, FedDyn's ``h_i``; ``{}`` for stateless
+    optimizers).
+    ``extras``: optimizer-specific values that ride the same weighted sum
+    as the update (SCAFFOLD's ``delta_c``, FedNova's ``a``, Mime's
+    full-batch gradient).
+    ``metrics``: summed training metrics.
+    """
     update: Params
     weight: torch.Tensor
+    client_state: Dict[str, Any]
+    extras: Dict[str, Any]
     metrics: Dict[str, torch.Tensor]
+
+    def replace(self, **changes: Any) -> "ClientOutput":
+        return dataclasses.replace(self, **changes)
 
 
 @dataclasses.dataclass

@@ -5,8 +5,10 @@ The JAX package writes its round checkpoints with orbax; the port writes
 them with the msgpack wire codec (``serving.save_model``: magic header,
 ``dumps_tree``, temporary file and ``os.replace``), one file per round,
 ``round_<r>.fmtpu``. The two packages do not read each other's
-checkpoints. The state is the simulators' ``params``, ``server_state`` and
-round ``rng``; a resumed run continues at the round after the newest
+checkpoints. The state is the simulators' ``params``, ``server_state``,
+round ``rng`` and, for an optimizer with per-client state,
+``client_states`` (the GPU engine's ``[num_clients, ...]`` stack, the SP
+loop's list); a resumed run continues at the round after the newest
 checkpoint.
 """
 

@@ -28,7 +28,6 @@ UNPORTED_KNOBS: Dict[str, tuple] = {
     "contribution_method": (None, "", "none"),
     "pacer_adapt_cohort": (None, False),
     "selection_adaptive_oversample": (None, False),
-    "client_slot_fold": (None, False),
     "robust_fused": (None, "auto"),
     "robust_relayout_quant": (None, "none"),
     "round_mode": (None, "sync"),
@@ -47,6 +46,10 @@ UNPORTED_KNOBS: Dict[str, tuple] = {
 }
 
 
+PORTED_OPTIMIZERS = ("FedAvg, FedProx, FedOpt (sgd, adam, adagrad, yogi), "
+                     "FedSGD, FedLocalSGD, SCAFFOLD, FedNova, FedDyn, Mime")
+
+
 def check_ported(args) -> None:
     """Raise NotImplementedError for the first knob of an unported
     feature that ``args`` turns on."""
@@ -57,8 +60,9 @@ def check_ported(args) -> None:
         if v not in off:
             raise NotImplementedError(
                 f"{knob}={getattr(args, knob)!r} is not ported to "
-                f"fedml_tpu_torch yet (ported: the FedAvg round of the GPU "
-                f"and SP simulators, with the CIFAR ResNets, the linear "
+                f"fedml_tpu_torch yet (ported: the GPU and SP simulators' "
+                f"rounds with every federated optimizer ({PORTED_OPTIMIZERS})"
+                f" and client_slot_fold, with the CIFAR ResNets, the linear "
                 f"models or the federated LoRA causal LM, their round "
                 f"checkpoints, and serving them)")
 

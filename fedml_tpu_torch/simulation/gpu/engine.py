@@ -8,9 +8,20 @@ over rounds, over each chip's schedule slots and over a ``while_loop`` of
 local steps, a weighted ``psum`` over the ``client`` mesh axis and the
 server transform. On one card the psum is the identity, so a round here
 is: each sampled client in schedule order trains from the global params
-(its key is ``fold_in(round_key, client_id)``, the JAX engine's ``gcid``),
-its update is accumulated weighted by ``num_samples``, the sum is divided
-by ``max(Σw, 1e-12)`` and ``server_update`` applies it.
+and its own row of the per-client state (its key is ``fold_in(round_key,
+client_id)``, the JAX engine's ``gcid``); its update and its extras are
+accumulated weighted by the client's weight and its new state is written
+back to its row; both sums are divided by ``max(Σw, 1e-12)`` and
+``server_update`` applies them with the round index.
+
+``client_states`` holds the optimizer's per-client state (SCAFFOLD's
+``c_i``, FedDyn's ``h_i``) as one stacked tensor ``[num_clients, ...]`` per
+leaf on the device; a client that sits out a round keeps its row.
+
+``client_slot_fold`` (optimizers that declare ``folds_client_slots``:
+FedSGD) folds every sampled client into the batch axis: one full-batch
+pass over ``[n_batches, n_sampled * batch_size]`` replaces the per-client
+passes (the JAX engine folds each chip's slots; one card folds them all).
 
 What stands for the one dispatch: every local step is a replay of one CUDA
 graph (``core/algframe/local_training.py::StepProgram``), captured once per
@@ -20,9 +31,10 @@ eval round and every checkpoint round; ``frequency_of_the_test <= 0``
 (timing mode) evaluates nothing, in the loop or after it.
 
 Round checkpoints (``checkpoint_dir`` / ``checkpoint_every_rounds``,
-``core/checkpoint.py``) hold ``params``, ``server_state`` and the round
-``rng``: the part of the JAX engine's checkpoint state this engine has.
-``run`` resumes from the newest one at the round after it.
+``core/checkpoint.py``) hold ``params``, ``server_state``, the round
+``rng`` and, for an optimizer with per-client state, ``client_states``: the
+part of the JAX engine's checkpoint state this engine has. ``run`` resumes
+from the newest one at the round after it.
 """
 
 from __future__ import annotations
@@ -36,10 +48,13 @@ import numpy as np
 import torch
 
 from ... import prng
-from ...core.algframe.local_training import (METRICS, StepProgram,
-                                             batch_real_of, evaluate)
-from ...core.algframe.types import Params, TrainHyper
+from ...core.algframe.local_training import (METRICS, GradProgram,
+                                             StepProgram, batch_real_of,
+                                             evaluate)
+from ...core.algframe.types import ClientData, Params, TrainHyper
 from ...core.checkpoint import RoundCheckpointer
+from ...core.collectives import (WeightedSum, stack_trees, tree_copy_,
+                                 tree_map, weighted_mean)
 from ...core.obs import profiler as obs_profiler
 from ...core.obs import trace as obs_trace
 from ..sampling import client_sampling, sampling_stream_from_args
@@ -48,8 +63,10 @@ logger = logging.getLogger(__name__)
 
 
 class GPUSimulator:
-    """FedAvg simulation on one device: clients' data resident on the
-    device, clients trained one after another through one step program.
+    """FL simulation on one device: clients' data and per-client state
+    resident on the device, clients trained one after another through one
+    step program (and, for the optimizers that take a full-batch gradient,
+    one gradient program).
 
     ``dispatch_stats``: ``dispatches`` (blocks run), ``captures`` (CUDA
     graphs captured; 1 per run on a card, 0 on the CPU), and the step
@@ -83,9 +100,15 @@ class GPUSimulator:
         else:
             self.params = load_params(bundle, init_params, device)
         self.server_state = optimizer.server_init(self.params)
+        self.client_states = (
+            stack_trees(optimizer.client_state_init(self.params),
+                        fed_dataset.num_clients)
+            if optimizer.has_client_state else {})
+        self._slot_fold = self._resolve_slot_fold()
         self.history: List[Dict[str, Any]] = []
-        # one step program per (model, dtype, batch shape, inner optimizer)
-        self.programs: Dict[Tuple, StepProgram] = {}
+        # one step program per (model, dtype, batch shape, inner optimizer,
+        # optimizer transform); one gradient program per batch shape
+        self.programs: Dict[Tuple, Any] = {}
         self.dispatch_stats: Dict[str, Any] = {"dispatches": 0,
                                                "captures": 0}
         # profiling plane (core/obs/profiler): opt-in host/device split and
@@ -99,8 +122,11 @@ class GPUSimulator:
 
     # -- checkpoints --------------------------------------------------------
     def ckpt_state(self) -> Dict[str, Any]:
-        return {"params": self.params, "server_state": self.server_state,
-                "rng": self.rng}
+        st = {"params": self.params, "server_state": self.server_state,
+              "rng": self.rng}
+        if self.opt.has_client_state:
+            st["client_states"] = self.client_states
+        return st
 
     def restore(self) -> int:
         """Load the newest checkpoint, if any; returns the round to start
@@ -113,33 +139,54 @@ class GPUSimulator:
         step, st = restored
         self.params, self.server_state = st["params"], st["server_state"]
         self.rng = st["rng"]
+        if self.opt.has_client_state:
+            self.client_states = st["client_states"]
         logger.info("resumed from checkpoint at round %d", step)
         return step + 1
 
     # -- the local step -----------------------------------------------------
     def step_program(self, hyper: TrainHyper) -> StepProgram:
         """The step program for this run's model, compute dtype, batch
-        shape and inner optimizer; built at first use, captured into a CUDA
-        graph at its first client on a card."""
+        shape, inner optimizer and optimizer transform; built at first use,
+        captured into a CUDA graph at its first client on a card."""
         inner = self.opt.make_inner_opt(hyper)
         x = self.train.x
         key = (getattr(self.bundle, "name", None),
                getattr(self.bundle, "compute_dtype", None),
-               tuple(x.shape[2:]), x.dtype, inner.key)
+               tuple(x.shape[2:]), x.dtype, inner.key,
+               self.opt.transform_key)
         prog = self.programs.get(key)
         if prog is None:
             prog = self.opt.make_step_program(
-                self.params, self.train.client(0), hyper)
+                self.params, self.server_state, self.train.client(0), hyper)
+            self.programs[key] = prog
+        return prog
+
+    def grad_program(self, cdata: ClientData) -> GradProgram:
+        """The full-batch gradient program for ``cdata``'s batch shape
+        (a client's, or the folded round's wider one)."""
+        key = ("grad", getattr(self.bundle, "name", None),
+               getattr(self.bundle, "compute_dtype", None),
+               tuple(cdata.x.shape[1:]), cdata.x.dtype)
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = GradProgram(self.spec, self.params, cdata)
             self.programs[key] = prog
         return prog
 
     def capture_step(self, hyper: TrainHyper) -> float:
-        """Build the step program now (warm it up and capture it on a
-        card), so its one-time cost falls outside a timed block. Returns
-        the seconds that took."""
+        """Build the programs a round runs now (warm them up and capture
+        them on a card), so their one-time cost falls outside a timed
+        block. Returns the seconds that took."""
         t0 = time.perf_counter()
-        self.step_program(hyper).prepare(self.params, self.train.client(0),
-                                         hyper)
+        if self._slot_fold:
+            folded = self._fold(range(int(self.args.client_num_per_round)))
+            self.grad_program(folded).prepare(self.params, folded)
+        else:
+            self.opt.prepare_programs(
+                self, self.params, self.server_state,
+                tree_map(lambda a: a[0], self.client_states),
+                self.train.client(0), hyper)
         self._update_program_stats()
         return time.perf_counter() - t0
 
@@ -148,39 +195,90 @@ class GPUSimulator:
         for k in ("captures", "warmup_steps", "replays", "capture_s"):
             self.dispatch_stats[k] = sum(getattr(p, k) for p in progs)
 
+    def _resolve_slot_fold(self) -> bool:
+        """``client_slot_fold``: folding is exact only when every sampled
+        client evaluates the SHARED params; refuse loudly otherwise (a
+        silent fallback would misreport the measured mode). The JAX
+        engine's other refusals (robust mode, DP, per-slot selection
+        metrics) belong to knobs that raise earlier here
+        (``runner.UNPORTED_KNOBS``)."""
+        pref = getattr(self.args, "client_slot_fold", False)
+        if not pref or str(pref).lower() in ("false", "0", "no", "none",
+                                             "off"):
+            return False
+        if not getattr(self.opt, "folds_client_slots", False):
+            raise ValueError(
+                "client_slot_fold: this config cannot fold client slots "
+                f"into the batch axis: optimizer {type(self.opt).__name__} "
+                "runs per-client local trajectories (only optimizers "
+                "declaring folds_client_slots=True, e.g. FedSGD, evaluate "
+                "shared params on a sample-additive objective)")
+        return True
+
     # -- rounds -------------------------------------------------------------
     def _round(self, round_idx: int, hyper: TrainHyper
                ) -> Tuple[Dict[str, torch.Tensor], int]:
-        """One FedAvg round; returns (summed metrics on the device, local
-        steps run). Reads nothing back from the device."""
+        """One round; returns (summed metrics on the device, local steps
+        run). Reads nothing back from the device."""
         sampled = client_sampling(
             round_idx, self.fed.num_clients,
             int(self.args.client_num_per_round), random_seed=self.seed,
             stream=self.stream)
         round_key = prng.fold_in(self.rng, round_idx)
-        program = self.step_program(hyper)
-        acc_u = {k: torch.zeros_like(v) for k, v in self.params.items()}
-        acc_w = torch.zeros((), dtype=torch.float32, device=self.device)
+        if self._slot_fold:
+            return self._folded_round(round_idx, sampled, round_key)
+        acc = WeightedSum(self.params,
+                          self.opt.server_extras_zero(self.params))
         acc_m: Dict[str, torch.Tensor] = {}
         steps = 0
         for cid in sampled:
             cid = int(cid)
+            # views of the client's rows: written back in place below
+            cstate = tree_map(lambda a: a[cid], self.client_states)
             out, n_steps = self.opt.local_train(
-                self.params, self.server_state, self.train.client(cid),
-                prng.fold_in(round_key, cid), hyper,
-                batch_real=self.batch_real[cid], program=program)
+                self.params, self.server_state, cstate,
+                self.train.client(cid), prng.fold_in(round_key, cid), hyper,
+                batch_real=self.batch_real[cid], programs=self)
             steps += n_steps
-            with torch.no_grad():
-                for k, u in out.update.items():
-                    acc_u[k] += u * out.weight
-            acc_w = acc_w + out.weight
+            acc.add(out)
+            if self.opt.has_client_state:
+                tree_copy_(cstate, out.client_state)
             for k, m in out.metrics.items():
                 acc_m[k] = acc_m[k] + m if k in acc_m else m
-        denom = torch.clamp(acc_w, min=1e-12)
-        agg = {k: v / denom for k, v in acc_u.items()}
-        self.params, self.server_state = self.opt.server_update(
-            self.params, self.server_state, agg, round_idx)
+        self._server_step(round_idx, *acc.mean())
         return acc_m, steps
+
+    def _fold(self, sampled) -> ClientData:
+        """The sampled clients' data folded into the batch axis:
+        ``[clients, n_batches, bs, ...]`` -> ``[n_batches, n * bs, ...]``,
+        batch i holding each client's batch i in schedule order."""
+        idx = torch.as_tensor(np.asarray(list(sampled), np.int64),
+                              device=self.device)
+
+        def fold(a):
+            a = a[idx].transpose(0, 1)
+            return a.reshape((a.shape[0], -1) + tuple(a.shape[3:]))
+
+        t = self.train
+        return ClientData(fold(t.x), fold(t.y), fold(t.mask),
+                          t.num_samples[idx].float().sum())
+
+    def _folded_round(self, round_idx: int, sampled, round_key
+                      ) -> Tuple[Dict[str, torch.Tensor], int]:
+        """One folded round: one full-batch pass over the folded clients
+        gives the weight-scaled update sum directly."""
+        folded = self._fold(sampled)
+        acc_u, acc_m = self.opt.local_train_folded(
+            self.params, folded, round_key, programs=self)
+        self._server_step(
+            round_idx, weighted_mean(acc_u, folded.num_samples),
+            weighted_mean(self.opt.server_extras_zero(self.params),
+                          folded.num_samples))
+        return acc_m, 0
+
+    def _server_step(self, round_idx: int, agg: Params, agg_ex) -> None:
+        self.params, self.server_state = self.opt.server_update(
+            self.params, self.server_state, agg, agg_ex, round_idx)
 
     def _block(self, name: str, start_round: int, n_rounds: int,
                hyper: TrainHyper) -> List[Dict[str, float]]:

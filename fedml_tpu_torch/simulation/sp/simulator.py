@@ -1,18 +1,21 @@
 """Single-process golden simulator (counterpart of
 ``fedml_tpu/simulation/sp/simulator.py``, ``SPSimulator``).
 
-The FedAvg round as a plain Python loop over the sampled clients, each
-client trained by the eager loop (``run_local_sgd``: no captured step),
-the stacked updates averaged with ``n_k / Σ n_k`` weights and applied by
-the server step. It is the semantic reference the GPU engine is held to,
-and the eager baseline of the flagship benchmark's ``vs_baseline``.
+The round as a plain Python loop over the sampled clients, each client
+trained by the eager loop (``run_local_sgd``: no captured step) from the
+global params and its own entry of ``client_states`` (a list, one entry
+per client, replaced by the state the client returns), the updates and
+extras averaged with ``n_k / Σ n_k`` weights by the GPU engine's
+arithmetic (:class:`~fedml_tpu_torch.core.collectives.WeightedSum`) and
+applied by the optimizer's server step. It is the semantic reference the GPU engine
+is held to, and the eager baseline of the flagship benchmark's
+``vs_baseline``.
 
 The JAX golden loop also runs DP, attacks, defenses, contribution
 assessment, participant selection and the pacer; their knobs raise in the
 port (``runner.UNPORTED_KNOBS``), so here each round is uniform sampling
 and the weighted average. Round checkpoints (``checkpoint_dir`` /
-``checkpoint_every_rounds``) hold ``params``, ``server_state`` and
-``rng``, as the GPU engine's do.
+``checkpoint_every_rounds``) hold what the GPU engine's hold.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ... import prng
 from ...core.algframe.local_training import batch_real_of, evaluate
 from ...core.algframe.types import TrainHyper
 from ...core.checkpoint import RoundCheckpointer
+from ...core.collectives import WeightedSum
 from ..gpu.engine import GPUSimulator, load_params
 from ..sampling import client_sampling, sampling_stream_from_args
 
@@ -62,6 +66,8 @@ class SPSimulator:
         else:
             self.params = load_params(bundle, init_params, device)
         self.server_state = optimizer.server_init(self.params)
+        self.client_states = [optimizer.client_state_init(self.params)
+                              for _ in range(fed_dataset.num_clients)]
         self.history: List[Dict[str, Any]] = []
         self.ckpt = RoundCheckpointer(
             getattr(args, "checkpoint_dir", None),
@@ -93,24 +99,22 @@ class SPSimulator:
                 int(args.client_num_per_round), random_seed=self.seed,
                 stream=self.stream)
             round_key = prng.fold_in(self.rng, round_idx)
-            updates, weights, metrics = [], [], []
+            acc = WeightedSum(self.params,
+                              self.opt.server_extras_zero(self.params))
+            metrics = []
             for cid in sampled:
                 cid = int(cid)
                 out, _ = self.opt.local_train(
-                    self.params, self.server_state, self.train.client(cid),
-                    prng.fold_in(round_key, cid), hyper,
-                    batch_real=self.batch_real[cid])
-                updates.append(out.update)
-                weights.append(out.weight)
+                    self.params, self.server_state, self.client_states[cid],
+                    self.train.client(cid), prng.fold_in(round_key, cid),
+                    hyper, batch_real=self.batch_real[cid])
+                acc.add(out)
                 metrics.append(out.metrics)
-            w = torch.stack(weights)
-            norm = w / torch.clamp(w.sum(), min=1e-12)
-            agg = {k: (torch.stack([u[k] for u in updates])
-                       * norm.reshape((-1,) + (1,) * updates[0][k].dim())
-                       ).sum(0)
-                   for k in updates[0]}
+                if self.opt.has_client_state:
+                    self.client_states[cid] = out.client_state
+            agg, agg_extras = acc.mean()
             self.params, self.server_state = self.opt.server_update(
-                self.params, self.server_state, agg, round_idx)
+                self.params, self.server_state, agg, agg_extras, round_idx)
             rec: Dict[str, Any] = {"round": round_idx}
             tm = {k: sum(m[k] for m in metrics) for k in metrics[0]}
             cnt = max(float(tm["count"]), 1.0)

@@ -2,15 +2,18 @@
 """The flagship phase of one checkout's ``chip_smoke.py``, alone, in this
 fresh process, on one CUDA card.
 
-    python3 scripts/flagship_ab.py <checkout> plain|resume_first
+    python3 scripts/flagship_ab.py <checkout> plain|resume_first|scaffold
 
 ``<checkout>`` is the root of a checkout (this one, or an older commit
 unpacked with ``git archive``); its kernels are built there first.
 ``resume_first`` runs its phase-5 resume parity check before the flagship
-phase, as ``chip_smoke.py`` does. Prints one JSON line: rounds/hour, ms per
-local step, the SP baseline's seconds per round and the card. Run two
-checkouts in turns (parent, change, change, parent) in one call to compare
-them on one card.
+phase, as ``chip_smoke.py`` does; ``scaffold`` runs the same configuration
+with SCAFFOLD instead (``chip_smoke.py``'s phase 7 (b)). Prints one JSON
+line: rounds/hour, ms per local step, the SP baseline's seconds per round
+(FedAvg only), the card, and (checkouts with ``card_state``) the card's SM
+clock, power and temperature right after the timed block. Run two
+checkouts or two modes in turns (A, B, B, A) in one call to compare them
+on one card.
 """
 import inspect, json, os, sys, tempfile
 root, mode = os.path.abspath(sys.argv[1]), sys.argv[2]
@@ -28,12 +31,16 @@ card = c.card_line()
 with tempfile.TemporaryDirectory() as tmp:
     if mode == "resume_first":
         c.resume_parity(torch, tmp)
-    if "tmp" in inspect.signature(c.flagship).parameters:
+    if mode == "scaffold":
+        rec, _ = c.scaffold_flagship(torch, cb, fa)
+        rec["value"] = rec["rounds_per_hour"]
+    elif "tmp" in inspect.signature(c.flagship).parameters:
         rec, _ = c.flagship(torch, cb, fa, card, tmp)
     else:
         rec, _ = c.flagship(torch, cb, fa, card)
 print(json.dumps({"checkout": os.path.basename(root), "mode": mode,
                   "rounds_per_hour": rec["value"],
                   "ms_per_local_step": rec["ms_per_local_step"],
-                  "sp_baseline_round_s": rec["sp_baseline_round_s"],
+                  "sp_baseline_round_s": rec.get("sp_baseline_round_s"),
+                  "card_after_block": rec.get("card_after_block"),
                   "card": card}))

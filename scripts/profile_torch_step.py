@@ -3,7 +3,7 @@
 card.
 
     python3 scripts/profile_torch_step.py [--model resnet56|llm|llm_hot|serve]
-                                          [--steps 10]
+                                          [--steps 10] [--optimizer NAME]
 
 One client's local training at a main path's full width, under
 ``torch.profiler`` after a warm-up, twice: by the eager loop
@@ -11,7 +11,9 @@ One client's local training at a main path's full width, under
 in a CUDA graph, replayed per step):
 
 * ``resnet56`` (default): ResNet-56, batch 32, synthetic CIFAR-10 shapes,
-  bf16, fused conv block (B1);
+  bf16, fused conv block (B1); ``--optimizer`` (a ``federated_optimizer``
+  name, default FedAvg) puts that optimizer's ``grad_transform`` in the
+  step, with its fresh server and client state as ``ctx``;
 * ``llm``: the FedLLM round's causal LM (``bench.py``'s
   ``bench_federated_lora``: d 512, 4 layers, 8 heads, seq 256, bf16, LoRA
   r8 on q/k/v/o/gate/up/down, flash attention B2-B4), batch 8 of the
@@ -47,6 +49,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--model", choices=("resnet56", "llm", "llm_hot",
                                         "serve"), default="resnet56")
+    ap.add_argument("--optimizer", default="FedAvg")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -78,7 +81,8 @@ def main() -> int:
             y=torch.randint(0, 10, (n, 32), generator=gen),
             mask=torch.ones(n, 32), num_samples=torch.tensor(32.0 * n)).to(dev)
         opt = make_inner_optimizer("sgd", 0.1)
-        label = "ResNet-56, bs 32, bf16, fused conv block"
+        label = (f"ResNet-56, bs 32, bf16, fused conv block, "
+                 f"{args.optimizer}")
         ours = ("conv_block_mma_kernel",)
     elif args.model == "llm_hot":
         from torch.func import functional_call
@@ -129,15 +133,22 @@ def main() -> int:
     hyper = TrainHyper(learning_rate=opt.lr, epochs=1)
     key = prng.PRNGKey(0)
     real = batch_real_of(cdata.mask.cpu())
-    program = StepProgram(spec, opt, params, cdata)
-    program.prepare(params, cdata, hyper)
+    from fedml_tpu_torch.optimizers import create_optimizer
+    fo = create_optimizer(Arguments(federated_optimizer=args.optimizer),
+                          spec)
+    transform = fo.transform
+    ctx = None if transform is None else fo._ctx(
+        params, fo.server_init(params), fo.client_state_init(params))
+    program = StepProgram(spec, opt, params, cdata, transform, ctx)
+    program.prepare(params, cdata, hyper, ctx)
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"captured step: capture {program.capture_s:.2f} s (incl. "
           f"{program.warmup_steps} warm-up steps)")
     legs = (("eager", lambda: run_local_sgd(spec, opt, params, cdata, key,
-                                            hyper)),
+                                            hyper, grad_transform=transform,
+                                            ctx=ctx)),
             ("captured", lambda: program.run(params, cdata, key, hyper,
-                                             real)))
+                                             real, ctx=ctx)))
     for leg, run in legs:
         rc = profile_leg(torch, run, n, leg, label, ours)
         if rc:

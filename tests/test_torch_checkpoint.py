@@ -1,6 +1,6 @@
 """Round checkpoints of the port (``core/checkpoint.py``) for the ``sp``
-and ``gpu`` backends: the port of ``tests/test_checkpoint.py`` (SCAFFOLD's
-case is left out: SCAFFOLD is not ported).
+and ``gpu`` backends: the port of ``tests/test_checkpoint.py``, SCAFFOLD's
+per-client control variates included.
 
 A run interrupted at round k and resumed must end with the exact params
 of an uninterrupted run: determinism makes this testable bitwise, through
@@ -72,6 +72,39 @@ def test_resume_matches_uninterrupted(tmp_path, backend, kw, stop):
     assert resumed["final_test_acc"] == full["final_test_acc"]
 
 
+@pytest.mark.parametrize("backend", ["sp", "gpu"])
+def test_scaffold_resume_restores_client_states(tmp_path, backend):
+    """SCAFFOLD with 3 of 8 clients a round: the checkpoint holds every
+    client's ``c_i`` (also of the clients that sat the rounds out), and a
+    resumed run equals an uninterrupted one bitwise."""
+    kw = dict(federated_optimizer="SCAFFOLD", learning_rate=0.05,
+              client_num_per_round=3, frequency_of_the_test=100)
+    full = _run(backend, tmp_path / "full", **kw)
+    _run(backend, tmp_path / "part", **dict(kw, comm_round=2))
+    sim = _gpu_sim(tmp_path / "part", backend, **kw)
+    resumed = sim.run()
+    _equal(full["params"], resumed["params"])
+    assert [h["round"] for h in resumed["history"]] == [2, 3]
+    ck = RoundCheckpointer(str(tmp_path / "full"), 2)
+    step, st = ck.latest(_gpu_sim(tmp_path / "other", backend,
+                                  **kw).ckpt_state())
+    assert step == 3
+    # the GPU engine stacks the states [clients, ...]; SP keeps a list
+    states = st["client_states"]
+    rows = (list(states) if backend == "sp" else
+            [{"c_i": {k: v[i] for k, v in states["c_i"].items()}}
+             for i in range(BASE["client_num_in_total"])])
+    assert len(rows) == BASE["client_num_in_total"]
+    # clients that trained carry a nonzero control variate
+    assert max(float(v.abs().max()) for r in rows
+               for v in r["c_i"].values()) > 0
+    for i, r in enumerate(rows):
+        want = (sim.client_states[i] if backend == "sp" else
+                {"c_i": {k: v[i] for k, v in
+                         sim.client_states["c_i"].items()}})
+        _equal(r["c_i"], want["c_i"])
+
+
 def test_checkpoint_rounds_end_fused_blocks(tmp_path):
     r = _run("gpu", tmp_path, **dict(FUSED, rounds_per_dispatch=8))
     # blocks end at round 0 (eval), 2 and 5 (checkpoints) and 7 (the
@@ -121,8 +154,8 @@ def test_keeps_the_three_newest(tmp_path):
     _equal(st["params"], r["params"])
 
 
-def _gpu_sim(ckpt_dir, **kw):
-    args = TArguments(backend="gpu", **dict(
+def _gpu_sim(ckpt_dir, backend="gpu", **kw):
+    args = TArguments(backend=backend, **dict(
         BASE, checkpoint_dir=str(ckpt_dir), **kw))
     fed, out_dim = tdata.load(args)
     bundle = tmodel.create(args, out_dim, fed.input_shape)

@@ -106,13 +106,16 @@ def test_fresh_init_is_seeded_and_runs():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("federated_optimizer", "FedProx"), ("enable_dp", True),
+    ("enable_secure_agg", True), ("enable_dp", True),
     ("enable_attack", True), ("enable_defense", True),
     ("chaos_dropout_prob", 0.2), ("client_selection", "oort"),
-    ("mesh_shape", (2, 2)), ("client_slot_fold", True),
+    ("mesh_shape", (2, 2)), ("chaos_straggler_prob", 0.1),
     ("robust_relayout_quant", "int8"), ("obs_roofline", True),
     ("round_mode", "async_buffered")])
 def test_unported_knobs_raise(knob, value):
     cfg = dict(CFG, comm_round=1, max_total_samples=16, **{knob: value})
-    with pytest.raises(NotImplementedError, match=knob):
+    with pytest.raises(NotImplementedError, match=knob) as ei:
         fedml_tpu_torch.run_simulation(device="cpu", **cfg)
+    # the refusal names what is ported
+    assert "SCAFFOLD" in str(ei.value) and "client_slot_fold" in str(
+        ei.value)

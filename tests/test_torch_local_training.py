@@ -134,3 +134,70 @@ def test_evaluate_sums_masked_stats():
     assert float(stats["count"]) == 6.0
     assert 0.0 <= float(stats["correct"]) <= 6.0
     assert np.isfinite(float(stats["loss_sum"]))
+
+
+class _Programs:
+    """What the GPU engine hands ``local_train``: one step program and one
+    gradient program, built at first use."""
+
+    def __init__(self, opt, params, server_state, cdata, hyper):
+        from fedml_tpu_torch.core.algframe.local_training import GradProgram
+        self.step = opt.make_step_program(params, server_state, cdata, hyper)
+        self.grad = GradProgram(opt.spec, params, cdata)
+
+    def step_program(self, hyper):
+        return self.step
+
+    def grad_program(self, cdata):
+        return self.grad
+
+
+@pytest.mark.parametrize("name", ["FedProx", "SCAFFOLD", "FedDyn", "Mime"])
+def test_step_program_with_transform_equals_eager_loop(name):
+    """The optimizer's ``grad_transform`` inside the step program (its ctx
+    copied into static tensors per client) against the eager loop with the
+    same transform, bitwise, for three clients through one program; the
+    transform moves the update away from FedAvg's."""
+    from types import SimpleNamespace
+    from fedml_tpu_torch.core.algframe.local_training import batch_real_of
+    from fedml_tpu_torch.core.collectives import tree_map
+    from fedml_tpu_torch.optimizers import create_optimizer
+
+    tb = TBundle(TResNet(10, 1), "resnet")
+    spec = tct.ClassificationTrainer(tb.apply)
+    params = tb.init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    args = SimpleNamespace(federated_optimizer=name, fedprox_mu=0.5,
+                           feddyn_alpha=0.3, server_momentum=0.7,
+                           client_num_in_total=4, client_num_per_round=2)
+    opt = create_optimizer(args, spec)
+    fedavg = create_optimizer(SimpleNamespace(), spec)
+    gen = torch.Generator().manual_seed(1)
+    rand = lambda t: 0.05 * torch.randn(t.shape, generator=gen)  # noqa
+    server_state = tree_map(rand, opt.server_init(params))
+    hyper = TrainHyper(learning_rate=0.05, epochs=2)
+    clients = [ClientData(*_client(3, 4, c, seed)).to(torch.device("cpu"))
+               for c, seed in (([4, 4, 2], 1), ([4, 0, 0], 2),
+                               ([3, 4, 4], 3))]
+    programs = _Programs(opt, params, server_state, clients[0], hyper)
+    for i, cdata in enumerate(clients):
+        cstate = tree_map(rand, opt.client_state_init(params))
+        key = np.asarray([0, i + 11], np.uint32)
+        real = batch_real_of(cdata.mask)
+        eager, se = opt.local_train(params, server_state, cstate, cdata,
+                                    key, hyper, batch_real=real)
+        prog, sp_ = opt.local_train(params, server_state, cstate, cdata,
+                                    key, hyper, batch_real=real,
+                                    programs=programs)
+        assert se == sp_ == 2 * int(real.sum())
+        for field in ("update", "client_state", "extras", "metrics"):
+            a, b = getattr(eager, field), getattr(prog, field)
+            tree_map(lambda x, y: torch.equal(x, y) or pytest.fail(
+                f"{name} client {i}: {field} differs"), a, b)
+        plain, _ = fedavg.local_train(params, {}, {}, cdata, key, hyper,
+                                      batch_real=real)
+        if name == "Mime":   # its SGD runs on the first half of split(key)
+            continue
+        assert max(float((prog.update[k] - plain.update[k]).abs().max())
+                   for k in params) > 1e-6
+    assert programs.step.grad_transform is not None
+    assert programs.step.captures == 0 and programs.step.replays == 0
