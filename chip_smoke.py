@@ -57,7 +57,25 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    (8,192 samples) for one round with ``client_slot_fold`` on and one with
    it off, their seconds and B1 launches, the folded aggregate held to
    the unfolded one; an ``{"optimizers": ...}`` line;
-8. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
+8. the defended round: (a) twelve ResNet-20 configurations (f32, 2
+   rounds of 4 of 8 clients, cuDNN on deterministic algorithms: LDP, CDP
+   gaussian and laplace, NbAFL, byzantine_flip + multi_krum,
+   byzantine_random + rfa, label_flip + foolsgold, coordinate_median,
+   trimmed_mean, bulyan, cclip, weak_dp): the fused path against the host
+   path (params and verdicts) and the GPU engine against the SP loop
+   (the configurations without a stochastic attack or defense), and the
+   device ``normal`` against the host one at 855,770 draws (1 ulp); (b)
+   the defended flagship: MAIN_PATH with 12 of 64 clients flipped x5 and
+   multi-krum keeping 20, one timed block of 2 rounds on the fused path,
+   1 round on the host path, 1 round of LDP; rounds/hour beside phase
+   6's FedAvg, the device milliseconds of attack + defense + DP per round
+   (CUDA events), the matrix bytes, B1 at 27 launches per forward with
+   one capture, the verdicts excluding every flipped client; (c)
+   ``bench_robust_krum`` and ``bench_robust_rfa`` at their own
+   configuration (16 clients, lr, blocks of 8): fused and host
+   rounds/hour, ``vs_baseline``, ``params_max_abs_diff``,
+   ``verdicts_identical``; a ``{"robust": ...}`` line;
+9. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
    ``bench.py``'s ``bench_federated_lora`` configuration (d 512, 4 layers,
    seq 256, bf16, LoRA r8, 2 silos, Shakespeare), 2 rounds with eval after
    each, its local step captured, B2 launches held to 4 per forward and
@@ -65,8 +83,8 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    personalisation steps included); the adapters exported
    (``llm_adapter_export_dir``: ``global``, ``silo_0``, ``silo_1``) and
    reloaded bitwise;
-9. the serving path: the FedLLM main path's model, base weights frozen
-   and the adapter the run of phase 8 trained, served through
+10. the serving path: the FedLLM main path's model, base weights frozen
+   and the adapter the run of phase 9 trained, served through
    ``fedml_tpu_torch.serving.llm_template.CausalLMPredictor`` with
    ``bench.py``'s ``bench_llm_serving`` traffic (24 new tokens, concurrency
    1 / 8 / 64): single mode as the sequential baseline (B2 per layer per
@@ -81,11 +99,11 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    against the full forward (f32 tiny, bf16 full width), greedy parity
    single vs batch on a full fine-tune, adapter isolation; a
    ``{"serving": ...}`` line;
-10. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
+11. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
    bf16, full parameters), 8 launches of each attention kernel per step;
    then ``save_model`` / ``load_model`` of its params (the codec's MB/s,
    round trip bitwise);
-11. one JSON line describing each kernel, then the card line, then
+12. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -229,6 +247,78 @@ FOLD_BATCH = FEDSGD_PATH["client_num_per_round"] * FEDSGD_PATH["batch_size"]
 # B1 cluster splits, other reduction orders. Bound: the largest difference
 # within 2^-6 of the largest aggregate entry (a few bf16 roundings).
 FOLD_TOL = 2.0 ** -6
+
+# The defended round (phase 8). (a) FAMILY_CFG's ResNet-20 run (f32, 2
+# rounds of 4 of 8 clients, cuDNN on deterministic algorithms) under each
+# configuration below: the fused path (the one-card sharded kernels, no
+# read-back inside a block) against the host path (a verdict read each
+# round; same kernels, so bitwise expected, within ROBUST_ULPS ulps of the
+# largest update), and the engine against the SP loop (the host kernels)
+# for the configurations whose noise both draw alike: DP's is keyed
+# alike, a stochastic attack's or defense's folds the shard index in on
+# the engine only. The sharded and host kernels compute norms and krum's
+# scores in other float32 orders (FoolsGold's logit magnifies that), so
+# engine vs SP is held to ROBUST_SP_TOL of the largest update.
+ROBUST_DP = dict(dp_epsilon=10.0, dp_delta=1e-5, dp_clip_norm=1.0)
+ROBUST = {
+    "ldp_gaussian": dict(enable_dp=True, dp_type="local_dp", **ROBUST_DP),
+    "cdp_gaussian": dict(enable_dp=True, dp_type="central_dp", **ROBUST_DP),
+    "cdp_laplace": dict(enable_dp=True, dp_type="central_dp",
+                        dp_mechanism="laplace", **ROBUST_DP),
+    "nbafl": dict(enable_dp=True, dp_type="nbafl", **ROBUST_DP),
+    "flip_multi_krum": dict(enable_attack=True, attack_type="byzantine_flip",
+                            byzantine_client_num=1, attack_scale=5.0,
+                            enable_defense=True, defense_type="multi_krum",
+                            krum_param_m=2),
+    "random_rfa": dict(enable_attack=True, attack_type="byzantine_random",
+                       byzantine_client_num=1, enable_defense=True,
+                       defense_type="rfa"),
+    "label_flip_foolsgold": dict(enable_attack=True, attack_type="label_flip",
+                                 byzantine_client_num=2, enable_defense=True,
+                                 defense_type="foolsgold"),
+    "coordinate_median": dict(enable_defense=True,
+                              defense_type="coordinate_median"),
+    "trimmed_mean": dict(enable_defense=True, defense_type="trimmed_mean",
+                         beta=0.25),
+    "bulyan": dict(enable_defense=True, defense_type="bulyan",
+                   byzantine_client_num=1),
+    "cclip": dict(enable_defense=True, defense_type="cclip", tau=0.05),
+    "weak_dp": dict(enable_defense=True, defense_type="weak_dp"),
+}
+ROBUST_STOCHASTIC = ("random_rfa", "weak_dp")
+ROBUST_ULPS = 4
+ROBUST_SP_TOL = 1e-3
+# the LDP noise of one flagship client: ResNet-56's parameter count
+FLAGSHIP_PARAMS = 855770
+# (b) the defended flagship: MAIN_PATH with bench_robust_krum's knobs
+# scaled to 64 clients (12 flipped x5, multi-krum keeping 20); legs: the
+# fused path for FLAGSHIP_BLOCK rounds, the host path for 1, and LDP
+# (gaussian, epsilon 10, delta 1e-5, clip 1.0) for 1 (2 put the phase
+# at 148 s, over its ~120 s share of the run).
+ROBUST_FLAGSHIP = dict(MAIN_PATH, enable_attack=True,
+                       attack_type="byzantine_flip", byzantine_client_num=12,
+                       attack_scale=5.0, enable_defense=True,
+                       defense_type="multi_krum", krum_param_m=20)
+ROBUST_LEGS = (("fused", ROBUST_FLAGSHIP, FLAGSHIP_BLOCK),
+               ("host", dict(ROBUST_FLAGSHIP, robust_fused="host"), 1),
+               ("ldp", dict(MAIN_PATH, enable_dp=True, dp_type="local_dp",
+                            dp_mechanism="gaussian", **ROBUST_DP), 1))
+# (c) bench.py's bench_robust_krum and bench_robust_rfa at their own
+# configuration: 16 clients of synthetic MNIST, logistic regression, 3
+# flipped x5; a warm-up block of ROBUST_BENCH_BLOCK rounds, then two timed
+# blocks per leg (fused, host), the best per-round time of each.
+ROBUST_BENCH = dict(backend="gpu", dataset="synthetic_mnist", model="lr",
+                    client_num_in_total=16, client_num_per_round=16,
+                    comm_round=24, epochs=1, batch_size=32,
+                    learning_rate=0.1, frequency_of_the_test=10_000,
+                    random_seed=0, enable_attack=True,
+                    attack_type="byzantine_flip", byzantine_client_num=3,
+                    attack_scale=5.0, enable_defense=True)
+ROBUST_BENCH_BLOCK = 8
+ROBUST_BENCHES = {
+    "fedavg_robust_krum_rounds_per_hour": dict(defense_type="multi_krum",
+                                               krum_param_m=5),
+    "fedavg_robust_rfa_rounds_per_hour": dict(defense_type="rfa")}
 
 # The FedLLM hot loop: bench.py's _llm_train_step_timing model (~111M
 # params) at bench_llm_mfu's bs 8 x seq 1024, bf16, flash attention.
@@ -1035,6 +1125,263 @@ def fedsgd_fold(torch, cb, fa, gen):
     return {"b1_fold_batch_max_abs_err": max(errs), "fold": fold,
             "unfold": unfold, "max_abs_diff": diff, "largest": largest,
             "rel_diff": diff / largest}
+
+
+def robust_simulator(cfg, dev=None, fed=None):
+    """A simulator of ``cfg`` (the GPU engine or the SP loop) on ``dev``
+    (the card unless given), on ``fed`` when given (the dataset ``cfg``
+    loads, loaded once for several legs)."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.runner import FedMLRunner
+    args = Arguments(**cfg)
+    if fed is None:
+        fed, _ = data.load(args)
+    bundle = model.create(args, fed.num_classes, fed.input_shape)
+    return FedMLRunner(args, device=dev, dataset=fed, model=bundle).runner
+
+
+def _largest(torch, a, b):
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in b)
+
+
+def robust_agreement(torch, cfgs=None, dev=None):
+    """Phase 8 (a): every ROBUST configuration on FAMILY_CFG through the
+    GPU engine's fused path, its host path (robust configurations) and
+    the SP loop, cuDNN on deterministic algorithms. Returns {label:
+    record}."""
+    import numpy as np
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, kw in (cfgs or ROBUST).items():
+            cfg = dict(FAMILY_CFG, **kw)
+            fused = robust_simulator(cfg, dev)
+            p0 = {k: v.clone() for k, v in fused.params.items()}
+            fused.run()
+            sp = robust_simulator(dict(cfg, backend="sp"), dev)
+            sp.run()
+            moved = _largest(torch, fused.params, p0)
+            rec = {"robust_mode": fused.robust_mode,
+                   "fused": fused.robust_fused, "largest_update": moved,
+                   "captures": fused.dispatch_stats["captures"]}
+            require(moved > 0 and all(torch.isfinite(v).all().item()
+                                      for v in fused.params.values()),
+                    f"robust {label}: the run did not train or diverged")
+            require(rec["captures"] == (0 if dev == "cpu" else 1),
+                    f"robust {label}: {rec['captures']} captures")
+            if fused.robust_mode:
+                host = robust_simulator(dict(cfg, robust_fused="host"), dev)
+                host.run()
+                rec["fused_vs_host"] = _largest(torch, fused.params,
+                                                host.params)
+                rec["verdict_diff"] = max(
+                    float(np.abs(fused.verdicts[r][1]
+                                 - host.verdicts[r][1]).max())
+                    for r in fused.verdicts)
+                require(fused.robust_fused and not host.robust_fused
+                        and sorted(fused.verdicts) == sorted(host.verdicts)
+                        == [0, 1], f"robust {label}: paths or verdicts "
+                                   f"missing")
+                require(rec["fused_vs_host"]
+                        <= ROBUST_ULPS * 2.0 ** -23 * moved
+                        and rec["verdict_diff"] == 0.0,
+                        f"robust {label}: fused vs host differ by "
+                        f"{rec['fused_vs_host']:.3e} (verdicts by "
+                        f"{rec['verdict_diff']:.3e}), bound {ROBUST_ULPS} "
+                        f"ulps of {moved:.3e}")
+            if label not in ROBUST_STOCHASTIC:
+                rec["engine_vs_sp"] = _largest(torch, fused.params,
+                                               sp.params)
+                bound = (ROBUST_SP_TOL if fused.robust_mode
+                         else ROBUST_ULPS * 2.0 ** -23)
+                require(rec["engine_vs_sp"] <= bound * moved,
+                        f"robust {label}: engine vs SP loop differ by "
+                        f"{rec['engine_vs_sp']:.3e}, bound {bound:.1e} of "
+                        f"{moved:.3e}")
+            out[label] = rec
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def device_normal_check(torch, dev="cuda", n=FLAGSHIP_PARAMS):
+    """The torch form of ``prng.normal`` on the card against its numpy
+    form on the host, ``n`` draws: the largest difference in float32
+    ulps (bound 1) and the device milliseconds of one draw."""
+    import numpy as np
+
+    from fedml_tpu_torch import prng
+    key = prng.fold_in(prng.PRNGKey(7), 999983)
+    host = prng.normal(key, n)
+    got = prng.normal_t(key, n, dev)
+    ms = time_ms(torch, lambda: prng.normal_t(key, n, dev), iters=10,
+                 warmup=2) if dev == "cuda" else None
+    a = got.cpu().numpy().view(np.int32).astype(np.int64)
+    b = host.view(np.int32).astype(np.int64)
+    ulps = int(np.abs(a - b).max())
+    require(ulps <= 1 and np.isfinite(host).all(),
+            f"device normal: {ulps} ulps off the host form at {n} draws")
+    return {"draws": n, "max_ulps": ulps, "device_ms": ms}
+
+
+class _DeviceTimer:
+    """Wraps a simulator's bound method: CUDA events around every call
+    (on the CPU, nothing), summed after the block."""
+
+    def __init__(self, torch, sim, name):
+        self.torch, self.events = torch, []
+        inner = getattr(sim, name)
+        cuda = sim.device.type == "cuda"
+
+        def timed(*a, **kw):
+            if not cuda:
+                return inner(*a, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*a, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        setattr(sim, name, timed)
+
+    def ms(self):
+        if self.events:
+            self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def robust_flagship(torch, cb, fa, legs=ROBUST_LEGS, dev=None):
+    """Phase 8 (b): the defended flagship legs. Each leg's step is
+    captured apart, then its rounds run through ``run_rounds_fused``; the
+    device milliseconds of the attack + defense + CDP (and, on the LDP
+    leg, of each client's clip and noise) come from CUDA events around
+    them. Returns {leg: record} and the kernels' launches over the fused
+    leg."""
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    out, fused_launches = {}, None
+    # the legs differ in trust knobs only: one dataset for all of them
+    fed, _ = data.load(Arguments(**legs[0][1]))
+    for leg, cfg, n_rounds in legs:
+        sim = robust_simulator(cfg, dev, fed)
+        server = _DeviceTimer(torch, sim, "_server_aggregate")
+        client = _DeviceTimer(torch, sim, "_client_dp")
+        hyper = TrainHyper(learning_rate=cfg["learning_rate"], epochs=1)
+        reset_launches(cb, fa)
+        capture_s = sim.capture_step(hyper)
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        block = sim.run_rounds_fused(0, n_rounds, hyper)
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize()
+        block_s = time.perf_counter() - t0
+        n = launches(cb, fa)
+        (program,) = sim.programs.values()
+        forwards = program.warmup_steps + program.replays
+        require(all(math.isfinite(m["loss_sum"]) for m in block)
+                and all(torch.isfinite(v).all().item()
+                        for v in sim.params.values()),
+                f"defended flagship {leg}: non-finite metrics or params")
+        if sim.device.type == "cuda":
+            require(sim.dispatch_stats["captures"] == 1
+                    and program.graph_launches.get(cb.fused_block) == 27
+                    and n["conv_block"] == 27 * forwards,
+                    f"defended flagship {leg}: "
+                    f"{sim.dispatch_stats['captures']} captures, B1 "
+                    f"launched {n['conv_block']} times for {forwards} "
+                    f"forward passes (27 each expected)")
+        byz = int(cfg.get("byzantine_client_num", 0) or 0)
+        kept = []
+        for r in range(n_rounds):
+            if not sim.robust_mode:
+                break
+            sampled, v = sim.verdicts[r]
+            flipped = [k for k, c in enumerate(sampled) if c < byz]
+            kept.append(int((v > 0).sum()))
+            require(len(flipped) == byz and not (v[flipped] > 0).any()
+                    and kept[-1] == cfg["krum_param_m"],
+                    f"defended flagship {leg} round {r}: the verdict keeps "
+                    f"{kept[-1]} clients, flipped ones among them: "
+                    f"{[sampled[k] for k in flipped if v[k] > 0]}")
+        round_s = block_s / n_rounds
+        mat = sim._mat
+        out[leg] = {
+            "rounds": n_rounds, "block_s": block_s, "step_time_s": round_s,
+            "rounds_per_hour": 3600.0 / round_s, "capture_s": capture_s,
+            "defense_ms_per_round": (server.ms() + client.ms()) / n_rounds
+            if sim.device.type == "cuda" else None,
+            "server_ms_per_round": server.ms() / n_rounds
+            if sim.device.type == "cuda" else None,
+            "client_dp_ms_per_round": client.ms() / n_rounds
+            if sim.device.type == "cuda" else None,
+            "matrix_bytes": None if mat is None
+            else mat.numel() * mat.element_size(),
+            "verdict_kept": kept, "b1_launches": n["conv_block"],
+            "b1_per_forward": n["conv_block"] / max(forwards, 1),
+            "captures": sim.dispatch_stats["captures"],
+            "hbm_peak_gb": torch.cuda.max_memory_allocated() / 1e9
+            if sim.device.type == "cuda" else None,
+            "dp_epsilon_spent": sim.dp.get_epsilon_spent()
+            if sim.dp.is_dp_enabled() else None}
+        if leg == "fused":
+            fused_launches = n
+        del sim, program, mat
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return out, fused_launches
+
+
+def robust_bench(torch, base=ROBUST_BENCH, benches=ROBUST_BENCHES,
+                 block=ROBUST_BENCH_BLOCK, dev=None):
+    """Phase 8 (c): bench.py's ``bench_robust_defended`` legs on the port:
+    the fused path (``robust_fused: auto``) and the host path (``host``),
+    a warm-up block then two timed blocks each; ``vs_baseline`` = the
+    host path's seconds per round over the fused path's."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    out = {}
+    for metric, kw in benches.items():
+        legs = {}
+        for mode in ("auto", "host"):
+            sim = robust_simulator(dict(base, robust_fused=mode, **kw), dev)
+            hyper = TrainHyper(learning_rate=base["learning_rate"])
+            sim.run_rounds_fused(0, block, hyper)
+            trials = []
+            for i in (1, 2):
+                if sim.device.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sim.run_rounds_fused(i * block, block, hyper)
+                if sim.device.type == "cuda":
+                    torch.cuda.synchronize()
+                trials.append((time.perf_counter() - t0) / block)
+            legs[mode] = (min(trials), trials, sim)
+        (fs, ftr, f), (hs, htr, h) = legs["auto"], legs["host"]
+        require(f.robust_fused and not h.robust_fused,
+                f"{metric}: the legs took the same path")
+        diff = _largest(torch, f.params, h.params)
+        same = sorted(f.verdicts) == sorted(h.verdicts) and all(
+            np.array_equal(f.verdicts[r][1], h.verdicts[r][1])
+            for r in f.verdicts)
+        require(same and diff < 1e-5, f"{metric}: fused and host paths "
+                                      f"differ (params by {diff:.3e})")
+        out[metric] = {
+            "value": 3600.0 / fs, "unit": "defended rounds/hour (16 "
+            f"clients, fused {block}-round block)",
+            "vs_baseline": hs / fs,
+            "host_path_rounds_per_hour": 3600.0 / hs,
+            "step_time_s": fs, "host_path_step_time_s": hs,
+            "fused_trials": ftr, "host_trials": htr,
+            "params_max_abs_diff": diff, "verdicts_identical": same,
+            "n_devices": 1}
+    return out
 
 
 def build_all(build, names):
@@ -2001,6 +2348,50 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "family_agreement_s": family_s, "scaffold": scaffold,
         "fedsgd": fold, "card": card}}), flush=True)
 
+    t_robust = time.perf_counter()
+    agreement = robust_agreement(torch)
+    for label, r in agreement.items():
+        extra = "" if "fused_vs_host" not in r else (
+            f"fused vs host {r['fused_vs_host']:.3e} (verdicts "
+            f"{r['verdict_diff']:.1e}), ")
+        extra += "" if "engine_vs_sp" not in r else (
+            f"engine vs SP loop {r['engine_vs_sp']:.3e}, ")
+        print(f"robust {label:20s} (resnet20, f32, 2 rounds, 4 of 8 "
+              f"clients): {extra}largest update {r['largest_update']:.3e}, "
+              f"{r['captures']} capture(s)", flush=True)
+    normal = device_normal_check(torch)
+    print(f"device normal ({card}): {normal['draws']} draws within "
+          f"{normal['max_ulps']} ulp of the host form, "
+          f"{normal['device_ms']:.3f} ms on the card", flush=True)
+    agreement_s = time.perf_counter() - t_robust
+    defended, robust_launches = robust_flagship(torch, cb, fa)
+    for leg, r in defended.items():
+        print(f"defended flagship {leg:5s} ({card}): "
+              f"{r['rounds_per_hour']:.2f} rounds/hour "
+              f"({r['step_time_s']:.3f} s per round over {r['rounds']}) "
+              f"beside FedAvg's {record['value']:.2f}; attack + defense + "
+              f"DP {r['defense_ms_per_round']:.2f} ms of device time per "
+              f"round (server side {r['server_ms_per_round']:.2f}, clients' "
+              f"DP {r['client_dp_ms_per_round']:.2f}); matrix "
+              f"{r['matrix_bytes']} bytes; verdicts keep {r['verdict_kept']}"
+              f"; B1 {r['b1_launches']} launches = "
+              f"{r['b1_per_forward']:.0f} per forward, {r['captures']} "
+              f"capture; capture {r['capture_s']:.2f} s apart; HBM peak "
+              f"{r['hbm_peak_gb']:.2f} GB", flush=True)
+    benches = robust_bench(torch)
+    for metric, r in benches.items():
+        print(f"{metric} ({card}): fused {r['value']:.1f} rounds/hour, host "
+              f"{r['host_path_rounds_per_hour']:.1f}, vs_baseline "
+              f"{r['vs_baseline']:.3f}, params_max_abs_diff "
+              f"{r['params_max_abs_diff']:.1e}, verdicts identical "
+              f"{r['verdicts_identical']}", flush=True)
+    print(json.dumps({"robust": {
+        "phase_s": time.perf_counter() - t_robust,
+        "agreement_s": agreement_s, "agreement": agreement,
+        "device_normal": normal, "flagship": defended,
+        "fedavg_rounds_per_hour": record["value"], "benches": benches,
+        "card": card}}), flush=True)
+
     export_dir = os.path.join(tmp, "adapters")
     reset_launches(cb, fa)
     t0 = time.time()
@@ -2118,6 +2509,7 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "design": DESIGN["conv_block"],
         "launches": resnet_launches["conv_block"],
         "launches_scaffold": scaffold_launches["conv_block"],
+        "launches_defended_flagship": robust_launches["conv_block"],
         "launches_fedsgd_fold": fold["fold"]["b1_launches"],
         "launches_fedsgd_unfold": fold["unfold"]["b1_launches"],
         "max_abs_err_fold_batch": fold["b1_fold_batch_max_abs_err"],

@@ -67,7 +67,8 @@ def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
     them from a flax tree), instead of a fresh seeded init. Returns
     ``params``, ``history``, ``wall_time_s``, ``final_test_acc``,
     ``final_test_loss`` and ``rounds``, as the JAX engine does (the GPU
-    engine adds its ``dispatch_stats``). ``save_model_path`` writes the
+    engine adds its ``dispatch_stats``; under DP both add
+    ``dp_epsilon_spent``). ``save_model_path`` writes the
     final params there as a serving artifact (the JAX package's bytes);
     ``checkpoint_dir`` / ``checkpoint_every_rounds`` checkpoint the rounds
     and resume from the newest checkpoint."""

@@ -61,6 +61,25 @@ _SCHEMA: Dict[str, Any] = {
     "client_slot_fold": False,
     # rounds run between two device -> host reads (the GPU engine's block)
     "rounds_per_dispatch": 8,
+    # the defended round: auto/fused = no read-back inside a block on the
+    # one-card sharded kernels, host = a verdict read after every round
+    "robust_fused": "auto",
+    # false/host forces FedMLDefender's host kernels (robust_fused: host)
+    "sharded_defense": "auto",
+    # security_args / dp_args (the other knobs, e.g. byzantine_client_num,
+    # krum_param_m, dp_type, dp_epsilon, are read where they are used,
+    # with the JAX package's defaults)
+    "enable_attack": False,
+    "attack_type": None,
+    "enable_defense": False,
+    "defense_type": None,
+    "rfa_iters": 8,              # Weiszfeld iterations for the RFA defense
+    # rfa_tol > 0: stop once the estimate moves less than this (rfa_iters
+    # becomes a budget)
+    "rfa_tol": 0.0,
+    "enable_dp": False,
+    "dp_mechanism": "gaussian",
+    "enable_dp_ldp": False,
     # validation_args
     "frequency_of_the_test": 5,
     # comm_args

@@ -8,11 +8,17 @@ tree's key order and runs the leaf arithmetic as multi-tensor
 leaf would put ~280 small kernels on the card for every line of a server
 step or a client's bookkeeping. The collectives over a mesh axis
 (``psum_tree`` and its kin) wait for multi-GPU.
+
+:class:`FlatLayout` is the JAX package's flat vector of a parameter tree
+(``tree_flatten_to_vector``, ``vector_to_tree_like``, ``stack_to_matrix``):
+what privacy noise, attacks and defenses see. The port's own
+:func:`tree_leaves` keeps insertion order for everything else.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence
+from functools import lru_cache
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -98,11 +104,12 @@ class WeightedSum:
     divide). The GPU engine and the golden loop both use it, so the two
     aggregate with the same arithmetic."""
 
-    def __init__(self, params: PyTree, extras_zero: PyTree):
+    def __init__(self, params: PyTree, extras_zero: PyTree, device=None):
         self.update = tree_zeros_like(params)
         self.extras = extras_zero
-        self.weight = torch.zeros((), dtype=torch.float32,
-                                  device=next(iter(params.values())).device)
+        self.weight = torch.zeros(
+            (), dtype=torch.float32,
+            device=device or next(iter(params.values())).device)
 
     def add(self, out) -> None:
         """Add one ``ClientOutput``'s update and extras at its weight."""
@@ -120,3 +127,130 @@ def weighted_mean(total: PyTree, weight: torch.Tensor) -> PyTree:
     """A weighted sum over its weight: ``total / max(weight, 1e-12)``."""
     denom = torch.clamp(weight, min=1e-12)
     return tree_map(lambda v: v / denom, total)
+
+
+# -- the JAX package's flat layout -------------------------------------------
+
+def _flax_path(key: str, shape) -> Tuple[Tuple[str, ...], bool]:
+    """A state-dict key's flax path, and whether the leaf is a Dense
+    kernel stored ``[out, in]`` here and ``[in, out]`` in flax (the one
+    layout change, ``fedml_tpu_torch.interop``)."""
+    path = key.split(".")
+    dense = (len(path) >= 2 and path[-1] == "weight"
+             and path[-2].startswith("Dense_") and len(shape) == 2)
+    if dense:
+        path[-1] = "kernel"
+    return tuple(path), dense
+
+
+class FlatLayout:
+    """The flat vector ``jax.tree_util.tree_leaves`` makes of the same
+    parameters in flax's tree: leaves in flax path order (dict keys
+    sorted at every level, so ``BasicBlock_10`` comes before
+    ``BasicBlock_2``), each leaf raveled in its flax layout (a Dense
+    kernel as ``[in, out]``). Random draws hash each coordinate's
+    position in this vector, so noise, attacks and defenses built on it
+    touch the coordinates JAX's do at the same key.
+
+    Get one with :meth:`of` (cached per parameter names and shapes)."""
+
+    def __init__(self, shapes: Tuple[Tuple[str, Tuple[int, ...]], ...]):
+        entries = []
+        for key, shape in shapes:
+            path, dense = _flax_path(key, shape)
+            flax_shape = tuple(reversed(shape)) if dense else tuple(shape)
+            entries.append((path, key, dense, flax_shape))
+        entries.sort(key=lambda e: e[0])
+        self.keys = [e[1] for e in entries]           # flax leaf order
+        self.transposed = [e[2] for e in entries]
+        self.flax_shapes = [e[3] for e in entries]
+        self.sizes = [int(torch.Size(s).numel()) for s in self.flax_shapes]
+        self.offsets = [sum(self.sizes[:i]) for i in range(len(entries))]
+        self.size = sum(self.sizes)
+        self.port_keys = [k for k, _ in shapes]       # the tree's own order
+        self._segments: Dict[str, Any] = {}
+
+    @staticmethod
+    def of(tree: Dict[str, torch.Tensor], stacked: bool = False
+           ) -> "FlatLayout":
+        """The layout of a flat parameter dict (``stacked``: leaves carry
+        a leading client axis, ignored)."""
+        lead = 1 if stacked else 0
+        return _layout(tuple((k, tuple(v.shape[lead:]))
+                             for k, v in tree.items()))
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.keys)
+
+    def _leaf(self, tree, i: int, stacked: bool) -> torch.Tensor:
+        v = tree[self.keys[i]]
+        if self.transposed[i]:
+            v = v.transpose(-1, -2)
+        return v.reshape((v.shape[0], -1) if stacked else (-1,))
+
+    def flatten(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """``tree_flatten_to_vector``: the ``[D]`` vector."""
+        return torch.cat([self._leaf(tree, i, False)
+                          for i in range(self.n_leaves)])
+
+    def flatten_into(self, tree: Dict[str, torch.Tensor],
+                     out: torch.Tensor) -> None:
+        """Write :meth:`flatten` of ``tree`` into ``out`` (a contiguous
+        ``[D]`` row, e.g. of the round's update matrix), as float32."""
+        torch.cat([self._leaf(tree, i, False).float()
+                   for i in range(self.n_leaves)], out=out)
+
+    def stack_to_matrix(self, stacked: Dict[str, torch.Tensor]
+                        ) -> torch.Tensor:
+        """``[K, ...]``-leaved tree -> ``[K, D]`` float32 matrix."""
+        return torch.cat([self._leaf(stacked, i, True).float()
+                          for i in range(self.n_leaves)], dim=1)
+
+    def unflatten(self, vec: torch.Tensor,
+                  like: Dict[str, torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """``vector_to_tree_like``: ``[D]`` -> the tree, in the port's key
+        order and layouts (and ``like``'s dtypes when given)."""
+        out = {}
+        for i, key in enumerate(self.keys):
+            o = self.offsets[i]
+            v = vec[o:o + self.sizes[i]].view(self.flax_shapes[i])
+            if self.transposed[i]:
+                v = v.t().contiguous()
+            if like is not None:
+                v = v.to(like[key].dtype)
+            out[key] = v
+        return {k: out[k] for k in self.port_keys}
+
+    def segments(self, device) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """Per-coordinate (leaf index, index within the leaf) on
+        ``device``, and the leaf count: the key row and counter of a
+        per-leaf draw (``prng.normal_segments_t``)."""
+        dev = str(torch.device(device))
+        if dev not in self._segments:
+            from .. import prng
+            self._segments[dev] = prng.segments_t(self.sizes, device)
+        return self._segments[dev]
+
+
+@lru_cache(maxsize=32)
+def _layout(shapes) -> FlatLayout:
+    return FlatLayout(shapes)
+
+
+def tree_flatten_to_vector(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The JAX package's ``tree_flatten_to_vector`` of the same params."""
+    return FlatLayout.of(tree).flatten(tree)
+
+
+def vector_to_tree_like(vec: torch.Tensor, tree: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`tree_flatten_to_vector`, in ``tree``'s dtypes."""
+    return FlatLayout.of(tree).unflatten(vec, like=tree)
+
+
+def stack_to_matrix(stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``[K, ...]``-leaved params -> the ``[K, D]`` matrix of their flat
+    vectors (``fedml_tpu/core/security/defense/__init__.py``)."""
+    return FlatLayout.of(stacked, stacked=True).stack_to_matrix(stacked)

@@ -14,8 +14,6 @@ from .device import get_device
 # with the value(s) that mean "off". A run that sets one otherwise raises
 # NotImplementedError naming it, rather than silently ignoring it.
 UNPORTED_KNOBS: Dict[str, tuple] = {
-    "enable_dp": (None, False), "enable_dp_ldp": (None, False),
-    "enable_attack": (None, False), "enable_defense": (None, False),
     "enable_secure_agg": (None, False), "enable_fhe": (None, False),
     "chaos_dropout_prob": (None, 0, 0.0),
     "chaos_straggler_prob": (None, 0, 0.0),
@@ -28,7 +26,6 @@ UNPORTED_KNOBS: Dict[str, tuple] = {
     "contribution_method": (None, "", "none"),
     "pacer_adapt_cohort": (None, False),
     "selection_adaptive_oversample": (None, False),
-    "robust_fused": (None, "auto"),
     "robust_relayout_quant": (None, "none"),
     "round_mode": (None, "sync"),
     "mesh_shape": (None,),
@@ -62,9 +59,12 @@ def check_ported(args) -> None:
                 f"{knob}={getattr(args, knob)!r} is not ported to "
                 f"fedml_tpu_torch yet (ported: the GPU and SP simulators' "
                 f"rounds with every federated optimizer ({PORTED_OPTIMIZERS})"
-                f" and client_slot_fold, with the CIFAR ResNets, the linear "
-                f"models or the federated LoRA causal LM, their round "
-                f"checkpoints, and serving them)")
+                f" and client_slot_fold, differential privacy (LDP, CDP, "
+                f"NbAFL), the model and data attacks, the 22 defenses and "
+                f"the defended round (robust_fused, sharded_defense), with "
+                f"the CIFAR ResNets, the linear models or the federated "
+                f"LoRA causal LM, their round checkpoints, and serving "
+                f"them)")
 
 
 class FedMLRunner:

@@ -30,11 +30,40 @@ ends. Blocks hold at most ``rounds_per_dispatch`` rounds and end at every
 eval round and every checkpoint round; ``frequency_of_the_test <= 0``
 (timing mode) evaluates nothing, in the loop or after it.
 
+Privacy and robustness act between the local steps and the server step,
+outside the captured step (the program and its key do not change):
+
+* DP (``enable_dp``, ``dp_type``): under LDP and NbAFL each sampled
+  client's update is clipped and noised (key ``fold_in(client_key,
+  DP_LDP_FOLD)``), under CDP it is clipped; under CDP and NbAFL the
+  aggregate is noised (``fold_in(round_key, DP_CDP_FOLD)``). The
+  accountant records every round, and ``run`` returns
+  ``dp_epsilon_spent``.
+* A data attack poisons the byzantine clients' host arrays before they
+  move to the device (``simulation/poisoning.py``).
+* Robust mode (a model attack or a defense): each sampled client's update
+  is written, in sampled order, into row k of a preallocated ``[K, D]``
+  float32 matrix on the device, in the JAX package's flat layout
+  (``core/collectives.py::FlatLayout``). Then come the model attack
+  (``ATTACK_FOLD``), the defense (``DEFENSE_FOLD``) with its cross-round
+  state on the device, CDP and ``server_update``. ``robust_fused``:
+  ``auto``/``fused`` run the one-card kernels of
+  ``core/security/defense/sharded.py`` and read nothing back across a
+  block but the stacked ``[K]`` verdicts at its end; ``host`` runs each
+  round as its own block and reads its verdict back, through the same
+  kernels or, with ``sharded_defense: false``, the ``FedMLDefender`` host
+  kernels. An attack with no defense runs on the host path, as in JAX.
+  The verdicts land in ``self.verdicts`` (the JAX engine hands them to
+  participant selection, which is not ported).
+
 Round checkpoints (``checkpoint_dir`` / ``checkpoint_every_rounds``,
 ``core/checkpoint.py``) hold ``params``, ``server_state``, the round
-``rng`` and, for an optimizer with per-client state, ``client_states``: the
-part of the JAX engine's checkpoint state this engine has. ``run`` resumes
-from the newest one at the round after it.
+``rng``, under DP the accountant's state (``dp``), for an optimizer with
+per-client state ``client_states`` and for a stateful defense on the
+device its ``defense_state``: the part of the JAX engine's checkpoint state this
+engine has. ``run`` resumes from the newest one at the round after it; a
+checkpoint without ``defense_state`` restores without it (with a
+warning), the defense then starts cold.
 """
 
 from __future__ import annotations
@@ -53,13 +82,84 @@ from ...core.algframe.local_training import (METRICS, GradProgram,
                                              evaluate)
 from ...core.algframe.types import ClientData, Params, TrainHyper
 from ...core.checkpoint import RoundCheckpointer
-from ...core.collectives import (WeightedSum, stack_trees, tree_copy_,
-                                 tree_map, weighted_mean)
+from ...core.collectives import (FlatLayout, WeightedSum, stack_trees,
+                                 tree_copy_, tree_leaves, tree_map,
+                                 weighted_mean)
+from ...core.dp import FedMLDifferentialPrivacy
 from ...core.obs import profiler as obs_profiler
 from ...core.obs import trace as obs_trace
+from ...core.security import FedMLAttacker, FedMLDefender
+from ...core.security.defense import robust_agg, verdict_from_info
+from ...core.security.defense import sharded as sharded_defense
 from ..sampling import client_sampling, sampling_stream_from_args
 
 logger = logging.getLogger(__name__)
+
+# PRNG fold tags of the DP noise, attack and defense streams (the JAX
+# engine's, shared with the SP golden loop)
+DP_LDP_FOLD = 999983
+DP_CDP_FOLD = 999979
+ATTACK_FOLD = 1000003
+DEFENSE_FOLD = 1000033
+
+
+def check_extras_compat(opt, params, dp, robust_mode: bool) -> None:
+    """Optimizers whose extras ride the aggregation (SCAFFOLD delta_c, Mime
+    full-batch grads, FedNova a_i) leak through side channels that LDP noise
+    and robust defenses do not cover — combining them would silently void
+    the privacy/robustness guarantee, so refuse loudly."""
+    if not tree_leaves(opt.server_extras_zero(params)):
+        return
+    if dp.is_dp_enabled():
+        raise ValueError(
+            f"{opt.name}: DP cannot cover this optimizer's extras (they "
+            "would be aggregated un-noised and leak client data); use a "
+            "stateless-extras optimizer (FedAvg/FedProx/FedOpt/FedDyn) "
+            "with DP.")
+    if robust_mode:
+        raise ValueError(
+            f"{opt.name}: robust aggregation defends only model updates; "
+            "this optimizer's extras would bypass the defense. Use a "
+            "stateless-extras optimizer (FedAvg/FedProx/FedOpt/FedDyn) "
+            "with attacks/defenses.")
+
+
+def dp_client_update(dp: FedMLDifferentialPrivacy, update: Params,
+                     client_key: np.ndarray) -> Params:
+    """A client's update as DP sends it: clipped and noised under LDP and
+    NbAFL, clipped under CDP."""
+    if dp.is_local_dp_enabled():
+        return dp.add_local_noise(update, prng.fold_in(client_key,
+                                                       DP_LDP_FOLD))
+    if dp.is_global_dp_enabled():
+        return dp.clip_update(update)
+    return update
+
+
+def dp_server_noise(dp: FedMLDifferentialPrivacy, agg: Params,
+                    round_key: np.ndarray) -> Params:
+    """The aggregate as CDP and NbAFL apply it."""
+    if dp.is_global_dp_enabled():
+        return dp.add_global_noise(agg, prng.fold_in(round_key, DP_CDP_FOLD))
+    return agg
+
+
+def host_robust_aggregate(attacker: FedMLAttacker, defender: FedMLDefender,
+                          mat: torch.Tensor, w: torch.Tensor, sampled,
+                          round_key: np.ndarray):
+    """The host kernels' attack -> defense on the round's ``[K, D]``
+    matrix (the SP golden loop's ``_aggregate_robust``, and the engine's
+    ``sharded_defense: false`` path): ``(aggregate [D], [K] verdict or
+    None)``."""
+    ids = np.asarray(sampled)
+    if attacker.is_model_attack():
+        mat = attacker.poison_updates(mat, ids,
+                                      prng.fold_in(round_key, ATTACK_FOLD))
+    if not defender.is_defense_enabled():
+        return robust_agg.weighted_mean(mat, w), None
+    vec, info = defender.defend_matrix(
+        mat, w, prng.fold_in(round_key, DEFENSE_FOLD), ids)
+    return vec, verdict_from_info(info, len(ids))
 
 
 class GPUSimulator:
@@ -88,6 +188,13 @@ class GPUSimulator:
         # parameter init here draws from a torch.Generator instead, so only
         # the round stream is kept
         self.rng = prng.split(prng.PRNGKey(seed))[1]
+        self.attacker = FedMLAttacker(args)
+        self.defender = FedMLDefender(args)
+        self.dp = FedMLDifferentialPrivacy(args)
+        if self.attacker.is_data_attack():
+            from ..poisoning import poison_dataset
+            fed_dataset = poison_dataset(fed_dataset, self.attacker)
+            self.fed = fed_dataset
         # [clients, n_batches] host bools, read once here rather than from
         # the device every round
         self.batch_real = batch_real_of(fed_dataset.train.mask)
@@ -104,6 +211,23 @@ class GPUSimulator:
             stack_trees(optimizer.client_state_init(self.params),
                         fed_dataset.num_clients)
             if optimizer.has_client_state else {})
+        self.robust_mode = (self.attacker.is_model_attack()
+                            or self.defender.is_defense_enabled())
+        check_extras_compat(optimizer, self.params, self.dp, self.robust_mode)
+        self.layout = FlatLayout.of(self.params)
+        self._sharded = self._use_sharded_defense()
+        self.robust_fused = self._resolve_robust_fused()
+        self.verdicts: Dict[int, Tuple[List[int], np.ndarray]] = {}
+        self._mat: Optional[torch.Tensor] = None
+        # a stateful defense on the device keeps its cross-round state
+        # (foolsgold's history, cclip's momentum, ...) here, in the
+        # checkpoint, and in place across the rounds of a block
+        self._defense_state = None
+        if (self._sharded
+                and sharded_defense.is_stateful(self.defender.defense_type)):
+            self._defense_state = sharded_defense.defense_state_init(
+                self.defender.defense_type, int(fed_dataset.num_clients),
+                self.layout.size, device)
         self._slot_fold = self._resolve_slot_fold()
         self.history: List[Dict[str, Any]] = []
         # one step program per (model, dtype, batch shape, inner optimizer,
@@ -119,28 +243,60 @@ class GPUSimulator:
         self.ckpt = RoundCheckpointer(
             getattr(args, "checkpoint_dir", None),
             int(getattr(args, "checkpoint_every_rounds", 0) or 0))
+        if (self.ckpt.enabled and self.defender.is_defense_enabled()
+                and sharded_defense.is_stateful(self.defender.defense_type)
+                and self._defense_state is None):
+            logger.warning(
+                "%s keeps cross-round state, but the host-kernel path "
+                "does not checkpoint it — crash-resume restarts the "
+                "defense state cold; use the default sharded path for "
+                "checkpointed defense state", self.defender.defense_type)
 
     # -- checkpoints --------------------------------------------------------
     def ckpt_state(self) -> Dict[str, Any]:
         st = {"params": self.params, "server_state": self.server_state,
               "rng": self.rng}
+        if self.dp.is_dp_enabled():
+            # the accountant's RDP: a resumed run reports the epsilon of
+            # every round, not of the rounds since the resume
+            st["dp"] = self.dp.state_dict()
         if self.opt.has_client_state:
             st["client_states"] = self.client_states
+        if getattr(self, "_defense_state", None) is not None:
+            st["defense_state"] = self._defense_state
         return st
 
     def restore(self) -> int:
         """Load the newest checkpoint, if any; returns the round to start
-        at. A step program built before this (``capture_step``) takes the
-        restored params at its next client: it copies the start params
-        into its own tensors then."""
-        restored = self.ckpt.latest(self.ckpt_state())
+        at. A checkpoint written without ``defense_state`` (the defense
+        was configured later) restores without it, loudly: the defense
+        state then starts cold. A step program built before this
+        (``capture_step``) takes the restored params at its next client:
+        it copies the start params into its own tensors then."""
+        template = self.ckpt_state()
+        try:
+            restored = self.ckpt.latest(template)
+        except ValueError as e:
+            if "defense_state" not in template:
+                raise
+            template.pop("defense_state")
+            restored = self.ckpt.latest(template)
+            if restored is not None:
+                logger.warning(
+                    "checkpoint restore succeeded only without the "
+                    "defense_state leaf (%s) — the defense state resumes "
+                    "cold", e)
         if restored is None:
             return 0
         step, st = restored
         self.params, self.server_state = st["params"], st["server_state"]
         self.rng = st["rng"]
+        if "dp" in st:
+            self.dp.load_state_dict(st["dp"])
         if self.opt.has_client_state:
             self.client_states = st["client_states"]
+        if "defense_state" in st:
+            self._defense_state = st["defense_state"]
         logger.info("resumed from checkpoint at round %d", step)
         return step + 1
 
@@ -197,56 +353,181 @@ class GPUSimulator:
 
     def _resolve_slot_fold(self) -> bool:
         """``client_slot_fold``: folding is exact only when every sampled
-        client evaluates the SHARED params; refuse loudly otherwise (a
-        silent fallback would misreport the measured mode). The JAX
-        engine's other refusals (robust mode, DP, per-slot selection
-        metrics) belong to knobs that raise earlier here
+        client evaluates the SHARED params and nothing downstream needs
+        per-client updates; refuse loudly otherwise, naming every reason
+        (a silent fallback would misreport the measured mode): an
+        optimizer with per-client trajectories, robust mode (it needs the
+        per-client update matrix) and DP (it clips and noises per-client
+        updates). The JAX engine's last reason, a selection strategy that
+        reads per-slot metrics, belongs to a knob that raises earlier here
         (``runner.UNPORTED_KNOBS``)."""
         pref = getattr(self.args, "client_slot_fold", False)
         if not pref or str(pref).lower() in ("false", "0", "no", "none",
                                              "off"):
             return False
+        reasons = []
         if not getattr(self.opt, "folds_client_slots", False):
+            reasons.append(
+                f"optimizer {type(self.opt).__name__} runs per-client "
+                "local trajectories (only optimizers declaring "
+                "folds_client_slots=True, e.g. FedSGD, evaluate shared "
+                "params on a sample-additive objective)")
+        if self.robust_mode:
+            reasons.append("robust mode needs the per-client update stack")
+        if self.dp.is_local_dp_enabled() or self.dp.is_global_dp_enabled():
+            reasons.append("DP clips/noises per-client updates")
+        if reasons:
             raise ValueError(
                 "client_slot_fold: this config cannot fold client slots "
-                f"into the batch axis: optimizer {type(self.opt).__name__} "
-                "runs per-client local trajectories (only optimizers "
-                "declaring folds_client_slots=True, e.g. FedSGD, evaluate "
-                "shared params on a sample-additive objective)")
+                "into the batch axis: " + "; ".join(reasons))
         return True
 
+    # -- robust mode --------------------------------------------------------
+    def _resolve_robust_fused(self) -> bool:
+        """``robust_fused``: ``auto`` (default) runs the defended round on
+        the one-card sharded kernels with no read-back inside a block
+        whenever a defense is configured and ``sharded_defense`` is not
+        off; ``host`` reads the verdict back after every round; ``fused``
+        demands the first and refuses a config that cannot have it (an
+        attack with no defense, ``sharded_defense: false``)."""
+        pref = str(getattr(self.args, "robust_fused", "auto")
+                   or "auto").lower()
+        if pref in ("false", "0", "no", "host"):
+            if self.robust_mode:
+                logger.info("robust rounds take the HOST-dispatch path: "
+                            "robust_fused: %r", pref)
+            return False
+        ok = self.robust_mode and self._sharded
+        if pref in ("true", "1", "yes", "fused") and self.robust_mode \
+                and not ok:
+            raise ValueError(
+                "robust_fused: this config cannot fuse the robust round "
+                "(it needs the sharded defense path — no user "
+                "ServerAggregator, sharded_defense not forced off); use "
+                "robust_fused: auto or host")
+        return ok
+
+    def _use_sharded_defense(self) -> bool:
+        """The sharded kernels are the default whenever a defense is
+        configured; ``sharded_defense: false`` forces the host kernels."""
+        if not self.defender.is_defense_enabled():
+            return False
+        pref = str(getattr(self.args, "sharded_defense", "auto")
+                   or "auto").lower()
+        if pref in ("false", "0", "no", "host"):
+            logger.info("robust rounds take the HOST-dispatch path: "
+                        "sharded_defense: %r forces the host kernels", pref)
+            return False
+        return sharded_defense.supports_sharded(self.defender.defense_type)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the device. On a card it goes through
+        pinned memory: a copy from pageable memory would first wait for
+        everything queued on the card, ending the block's overlap of host
+        and device."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _matrix(self, k: int) -> torch.Tensor:
+        """The round's ``[K, D]`` update matrix, allocated once per run."""
+        if self._mat is None or self._mat.shape[0] != k:
+            self._mat = torch.empty((k, self.layout.size),
+                                    dtype=torch.float32, device=self.device)
+        return self._mat
+
+    def _defend(self, mat: torch.Tensor, w: torch.Tensor, sampled,
+                round_key: np.ndarray):
+        """Attack -> defense on the round's matrix: ``(aggregate [D],
+        [K] verdict or None)``. On the sharded kernels the verdict stays
+        on the device; the host kernels' comes back as numpy."""
+        if not self._sharded:
+            return host_robust_aggregate(self.attacker, self.defender, mat,
+                                         w, sampled, round_key)
+        ids = self._to_device(np.asarray(sampled, np.int64))
+        if self.attacker.is_model_attack():
+            byz = self._to_device(self.attacker.byzantine_mask(sampled))
+            mat = sharded_defense.apply_attack(
+                self.attacker.attack_type, mat, byz,
+                prng.fold_in(round_key, ATTACK_FOLD),
+                self.attacker.attack_scale)
+        vec, state, verdict = sharded_defense.defend_shard_stateful(
+            mat, w, self.defender.defense_type,
+            sharded_defense.DefenseHP.from_defender(self.defender),
+            state=self._defense_state, ids=ids,
+            key=prng.fold_in(round_key, DEFENSE_FOLD))
+        if self._defense_state is not None:
+            self._defense_state = state
+        return vec, verdict
+
     # -- rounds -------------------------------------------------------------
-    def _round(self, round_idx: int, hyper: TrainHyper
-               ) -> Tuple[Dict[str, torch.Tensor], int]:
+    def _round(self, round_idx: int, hyper: TrainHyper):
         """One round; returns (summed metrics on the device, local steps
-        run). Reads nothing back from the device."""
-        sampled = client_sampling(
+        run, the defense's [K] verdict or None, the sampled ids). Reads
+        nothing back from the device, except on the host-kernel robust
+        path."""
+        sampled = [int(c) for c in client_sampling(
             round_idx, self.fed.num_clients,
             int(self.args.client_num_per_round), random_seed=self.seed,
-            stream=self.stream)
+            stream=self.stream)]
         round_key = prng.fold_in(self.rng, round_idx)
+        self.dp.record_round(len(sampled) / max(self.fed.num_clients, 1))
         if self._slot_fold:
-            return self._folded_round(round_idx, sampled, round_key)
-        acc = WeightedSum(self.params,
-                          self.opt.server_extras_zero(self.params))
+            return self._folded_round(round_idx, sampled, round_key) + (
+                None, sampled)
+        robust = self.robust_mode
+        mat = self._matrix(len(sampled)) if robust else None
+        w = (torch.empty(len(sampled), dtype=torch.float32,
+                         device=self.device) if robust else None)
+        # robust mode sums only the extras and the weight here: the
+        # updates go to the matrix
+        acc = WeightedSum({} if robust else self.params,
+                          self.opt.server_extras_zero(self.params),
+                          device=self.device)
         acc_m: Dict[str, torch.Tensor] = {}
         steps = 0
-        for cid in sampled:
-            cid = int(cid)
+        for k, cid in enumerate(sampled):
             # views of the client's rows: written back in place below
             cstate = tree_map(lambda a: a[cid], self.client_states)
+            ckey = prng.fold_in(round_key, cid)
             out, n_steps = self.opt.local_train(
                 self.params, self.server_state, cstate,
-                self.train.client(cid), prng.fold_in(round_key, cid), hyper,
+                self.train.client(cid), ckey, hyper,
                 batch_real=self.batch_real[cid], programs=self)
             steps += n_steps
-            acc.add(out)
+            update = self._client_dp(out.update, ckey)
+            if robust:
+                # row k of the matrix, in the JAX package's flat layout
+                self.layout.flatten_into(update, mat[k])
+                w[k] = out.weight
+                update = {}
+            acc.add(out.replace(update=update))
             if self.opt.has_client_state:
                 tree_copy_(cstate, out.client_state)
-            for k, m in out.metrics.items():
-                acc_m[k] = acc_m[k] + m if k in acc_m else m
-        self._server_step(round_idx, *acc.mean())
-        return acc_m, steps
+            for name, m in out.metrics.items():
+                acc_m[name] = acc_m[name] + m if name in acc_m else m
+        agg, agg_ex = acc.mean()
+        agg, verdict = self._server_aggregate(agg, mat, w, sampled,
+                                              round_key)
+        self._server_step(round_idx, agg, agg_ex)
+        return acc_m, steps, verdict, sampled
+
+    def _client_dp(self, update: Params, client_key: np.ndarray) -> Params:
+        """A client's update as DP sends it (LDP noise, or the CDP clip)."""
+        return dp_client_update(self.dp, update, client_key)
+
+    def _server_aggregate(self, agg: Params, mat, w, sampled,
+                          round_key: np.ndarray):
+        """The server's side of the round before its step: in robust mode
+        the attack and the defense on the matrix (``agg`` is then
+        empty), then CDP's noise. Returns (aggregate update, verdict or
+        None)."""
+        verdict = None
+        if mat is not None:
+            vec, verdict = self._defend(mat, w, sampled, round_key)
+            agg = self.layout.unflatten(vec)
+        return dp_server_noise(self.dp, agg, round_key), verdict
 
     def _fold(self, sampled) -> ClientData:
         """The sampled clients' data folded into the batch axis:
@@ -290,18 +571,33 @@ class GPUSimulator:
             out = self._traced(name, n_rounds, lambda: [
                 self._round(start_round + i, hyper)
                 for i in range(n_rounds)])
-            # the block's one device -> host read
-            host = torch.stack([torch.stack([m[k] for k in METRICS])
-                                for m, _ in out]).cpu().numpy()
+            # the block's one device -> host read (and its stacked
+            # verdicts, on the fused robust path)
+            host = torch.stack([torch.stack([o[0][k] for k in METRICS])
+                                for o in out]).cpu().numpy()
+            verdicts = [o[2] for o in out]
+            if verdicts and torch.is_tensor(verdicts[0]):
+                verdicts = list(torch.stack(verdicts).cpu().numpy())
+        for i, (o, v) in enumerate(zip(out, verdicts)):
+            if v is not None:
+                self.verdicts[start_round + i] = (o[3], np.asarray(v))
+                logger.info("round %d: defense verdict %s", start_round + i,
+                            np.round(np.asarray(v), 4).tolist())
         return [dict({k: float(v) for k, v in zip(METRICS, row)},
-                     local_steps=steps)
-                for row, (_, steps) in zip(host, out)]
+                     local_steps=o[1])
+                for row, o in zip(host, out)]
 
     def run_rounds_fused(self, start_round: int, n_rounds: int,
                          hyper: TrainHyper) -> List[Dict[str, float]]:
         """Run ``n_rounds`` rounds with no device -> host read between them
         (one at the block's end). Returns each round's summed metrics
-        (``loss_sum``, ``correct``, ``count``) and ``local_steps``."""
+        (``loss_sum``, ``correct``, ``count``) and ``local_steps``. Robust
+        rounds on the host path (``robust_fused: host``, an attack with no
+        defense) run as blocks of one round each: each reads its verdict
+        back."""
+        if self.robust_mode and not self.robust_fused and n_rounds > 1:
+            return [self.run_round(start_round + i, hyper)
+                    for i in range(n_rounds)]
         return self._block("rounds_fused", start_round, n_rounds, hyper)
 
     def run_round(self, round_idx: int, hyper: TrainHyper
@@ -461,10 +757,15 @@ class GPUSimulator:
         if last_eval is None:
             last_eval = ({"test_acc": None} if freq <= 0
                          else self.evaluate())
-        return {"params": self.params, "history": self.history,
-                "wall_time_s": wall, "final_test_acc": last_eval["test_acc"],
-                "final_test_loss": last_eval.get("test_loss"),
-                "rounds": rounds, "dispatch_stats": dict(self.dispatch_stats)}
+        result = {"params": self.params, "history": self.history,
+                  "wall_time_s": wall,
+                  "final_test_acc": last_eval["test_acc"],
+                  "final_test_loss": last_eval.get("test_loss"),
+                  "rounds": rounds,
+                  "dispatch_stats": dict(self.dispatch_stats)}
+        if self.dp.is_dp_enabled():
+            result["dp_epsilon_spent"] = self.dp.get_epsilon_spent()
+        return result
 
 
 def load_params(bundle, init_params: Dict[str, Any],

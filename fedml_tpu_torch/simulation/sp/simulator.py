@@ -11,11 +11,18 @@ applied by the optimizer's server step. It is the semantic reference the GPU eng
 is held to, and the eager baseline of the flagship benchmark's
 ``vs_baseline``.
 
-The JAX golden loop also runs DP, attacks, defenses, contribution
-assessment, participant selection and the pacer; their knobs raise in the
-port (``runner.UNPORTED_KNOBS``), so here each round is uniform sampling
-and the weighted average. Round checkpoints (``checkpoint_dir`` /
-``checkpoint_every_rounds``) hold what the GPU engine's hold.
+DP, attacks and defenses run as in the JAX golden loop: each client's
+update is clipped and noised (LDP, NbAFL) or clipped (CDP) as it comes
+back, a data attack poisons the clients' host arrays at construction, and
+with a model attack or a defense the round's updates become the ``[K, D]``
+matrix of the JAX package's flat layout, which the host kernels
+(``FedMLAttacker.poison_updates``, ``FedMLDefender.defend_matrix``)
+attack and defend (``_aggregate_robust``); CDP noises the aggregate. The
+JAX loop's contribution assessment, participant selection and pacer raise
+in the port (``runner.UNPORTED_KNOBS``), so sampling is uniform. Round
+checkpoints (``checkpoint_dir`` / ``checkpoint_every_rounds``) hold what
+the GPU engine's hold; the host kernels' cross-round state is not in
+them, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,8 +38,12 @@ from ... import prng
 from ...core.algframe.local_training import batch_real_of, evaluate
 from ...core.algframe.types import TrainHyper
 from ...core.checkpoint import RoundCheckpointer
-from ...core.collectives import WeightedSum
-from ..gpu.engine import GPUSimulator, load_params
+from ...core.collectives import FlatLayout, WeightedSum
+from ...core.dp import FedMLDifferentialPrivacy
+from ...core.security import FedMLAttacker, FedMLDefender
+from ..gpu.engine import (GPUSimulator, check_extras_compat,
+                          dp_client_update, dp_server_noise,
+                          host_robust_aggregate, load_params)
 from ..sampling import client_sampling, sampling_stream_from_args
 
 logger = logging.getLogger(__name__)
@@ -56,6 +67,13 @@ class SPSimulator:
         self.stream = sampling_stream_from_args(args)
         # split(PRNGKey(seed)) = (init, round stream), as the JAX loop
         self.rng = prng.split(prng.PRNGKey(seed))[1]
+        self.attacker = FedMLAttacker(args)
+        self.defender = FedMLDefender(args)
+        self.dp = FedMLDifferentialPrivacy(args)
+        if self.attacker.is_data_attack():
+            from ..poisoning import poison_dataset
+            fed_dataset = poison_dataset(fed_dataset, self.attacker)
+            self.fed = fed_dataset
         self.batch_real = batch_real_of(fed_dataset.train.mask)
         self.train = fed_dataset.train.to(device)
         self.test = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
@@ -68,6 +86,11 @@ class SPSimulator:
         self.server_state = optimizer.server_init(self.params)
         self.client_states = [optimizer.client_state_init(self.params)
                               for _ in range(fed_dataset.num_clients)]
+        self.robust_mode = (self.attacker.is_model_attack()
+                            or self.defender.is_defense_enabled())
+        check_extras_compat(optimizer, self.params, self.dp, self.robust_mode)
+        self.layout = FlatLayout.of(self.params)
+        self.verdicts = {}
         self.history: List[Dict[str, Any]] = []
         self.ckpt = RoundCheckpointer(
             getattr(args, "checkpoint_dir", None),
@@ -98,21 +121,34 @@ class SPSimulator:
                 round_idx, self.fed.num_clients,
                 int(args.client_num_per_round), random_seed=self.seed,
                 stream=self.stream)
+            sampled = [int(c) for c in sampled]
             round_key = prng.fold_in(self.rng, round_idx)
             acc = WeightedSum(self.params,
                               self.opt.server_extras_zero(self.params))
-            metrics = []
+            metrics, updates, weights = [], [], []
             for cid in sampled:
-                cid = int(cid)
+                ckey = prng.fold_in(round_key, cid)
                 out, _ = self.opt.local_train(
                     self.params, self.server_state, self.client_states[cid],
-                    self.train.client(cid), prng.fold_in(round_key, cid),
-                    hyper, batch_real=self.batch_real[cid])
+                    self.train.client(cid), ckey, hyper,
+                    batch_real=self.batch_real[cid])
+                out = out.replace(update=dp_client_update(
+                    self.dp, out.update, ckey))
                 acc.add(out)
+                if self.robust_mode:
+                    updates.append(self.layout.flatten(out.update))
+                    weights.append(out.weight)
                 metrics.append(out.metrics)
                 if self.opt.has_client_state:
                     self.client_states[cid] = out.client_state
             agg, agg_extras = acc.mean()
+            if self.robust_mode:
+                agg = self._aggregate_robust(torch.stack(updates),
+                                             torch.stack(weights), sampled,
+                                             round_key, round_idx)
+            agg = dp_server_noise(self.dp, agg, round_key)
+            self.dp.record_round(len(sampled)
+                                 / max(self.fed.num_clients, 1))
             self.params, self.server_state = self.opt.server_update(
                 self.params, self.server_state, agg, agg_extras, round_idx)
             rec: Dict[str, Any] = {"round": round_idx}
@@ -137,7 +173,22 @@ class SPSimulator:
             # timing mode: no eval, in the loop or here
             last_eval = ({"test_acc": None} if freq <= 0
                          else self._evaluate())
-        return {"params": self.params, "history": self.history,
-                "wall_time_s": wall, "final_test_acc": last_eval["test_acc"],
-                "final_test_loss": last_eval.get("test_loss"),
-                "rounds": rounds}
+        result = {"params": self.params, "history": self.history,
+                  "wall_time_s": wall,
+                  "final_test_acc": last_eval["test_acc"],
+                  "final_test_loss": last_eval.get("test_loss"),
+                  "rounds": rounds}
+        if self.dp.is_dp_enabled():
+            result["dp_epsilon_spent"] = self.dp.get_epsilon_spent()
+        return result
+
+    def _aggregate_robust(self, mat: torch.Tensor, w: torch.Tensor, sampled,
+                          round_key, round_idx: int):
+        """The attack -> defense pipeline on the round's ``[K, D]`` matrix
+        through the host kernels (the JAX loop's ``_aggregate_robust``);
+        returns the aggregate update."""
+        vec, verdict = host_robust_aggregate(self.attacker, self.defender,
+                                             mat, w, sampled, round_key)
+        if verdict is not None:
+            self.verdicts[round_idx] = (list(sampled), verdict)
+        return self.layout.unflatten(vec)

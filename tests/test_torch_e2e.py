@@ -106,8 +106,8 @@ def test_fresh_init_is_seeded_and_runs():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("enable_secure_agg", True), ("enable_dp", True),
-    ("enable_attack", True), ("enable_defense", True),
+    ("enable_secure_agg", True), ("contribution_method", "loo"),
+    ("pacer_adapt_cohort", True), ("chaos_crash_at_round", 1),
     ("chaos_dropout_prob", 0.2), ("client_selection", "oort"),
     ("mesh_shape", (2, 2)), ("chaos_straggler_prob", 0.1),
     ("robust_relayout_quant", "int8"), ("obs_roofline", True),
@@ -119,3 +119,16 @@ def test_unported_knobs_raise(knob, value):
     # the refusal names what is ported
     assert "SCAFFOLD" in str(ei.value) and "client_slot_fold" in str(
         ei.value)
+    assert "22 defenses" in str(ei.value) and "NbAFL" in str(ei.value)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("enable_dp", True), ("enable_dp_ldp", True), ("enable_attack", True),
+    ("enable_defense", True), ("robust_fused", "host")])
+def test_trust_knobs_are_ported(knob, value):
+    """The knobs of DP, attacks, defenses and the defended round run (on
+    their own they switch nothing on but DP's default LDP frame)."""
+    cfg = dict(CFG, comm_round=1, max_total_samples=16, **{knob: value})
+    r = fedml_tpu_torch.run_simulation(device="cpu", **cfg)
+    assert np.isfinite(r["history"][0]["train_loss"])
+    assert ("dp_epsilon_spent" in r) == (knob == "enable_dp")

@@ -1,9 +1,12 @@
-"""The port's host-side threefry keys against ``jax.random``, bit for bit.
+"""The port's threefry keys and draws against ``jax.random``, bit for bit.
 
 ``fedml_tpu_torch.prng`` reproduces the three draws the FedAvg round takes
 from JAX's generator (the per-client ``fold_in``, the loop's ``split`` and
 the epoch order's ``uniform`` + ``argsort``); any bit that differs would
-send a client through its batches in another order.
+send a client through its batches in another order. ``normal`` and
+``laplace`` (the noise of DP, attacks and defenses) are held bit for bit
+too, and their torch form (the one that runs on the card) to the numpy
+form.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from fedml_tpu_torch import prng
 
@@ -97,3 +101,66 @@ def test_categorical_matches_jax(temp):
         scaled = row / np.float32(temp)
         assert prng.categorical(key, scaled) == int(
             jax.random.categorical(kj, jnp.asarray(scaled)))
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("dist", ["normal", "laplace"])
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 5), (2, 3, 4), (20000,)])
+def test_normal_laplace_bit_equal(dist, seed, shape):
+    """``jax.random.normal``/``laplace`` (the DP noise, the stochastic
+    attacks' and defenses'): the numpy form bit for bit, and the torch
+    form bit for bit with the numpy form on the CPU."""
+    key = prng.fold_in(prng.split(prng.PRNGKey(seed))[1], 999983)
+    kj = jax.random.fold_in(jax.random.split(jax.random.PRNGKey(seed))[1],
+                            999983)
+    got = getattr(prng, dist)(key, shape)
+    want = np.asarray(getattr(jax.random, dist)(kj, shape))
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    tgot = getattr(prng, f"{dist}_t")(key, shape, "cpu")
+    assert tgot.dtype == torch.float32 and tuple(tgot.shape) == shape
+    np.testing.assert_array_equal(_bits(tgot.numpy()), _bits(got))
+
+
+def test_normal_edge_of_the_uniform():
+    """``u = nextafter(-1, 0)`` (normal's minval, the largest magnitude a
+    draw reaches), ``u`` = 0 and the Giles polynomial's two branches,
+    against XLA's ``erf_inv`` on the same float32 inputs."""
+    u = np.array([np.nextafter(np.float32(-1), np.float32(0)), 0.0, -0.5,
+                  0.3, 0.9, 0.99, 0.999, 0.9999999, 1e-7, -1e-30],
+                 np.float32)
+    want = np.asarray(jax.scipy.special.erfinv(jnp.asarray(u))
+                      * np.float32(np.sqrt(2.0)))
+    np.testing.assert_array_equal(
+        _bits(prng._normal_of(prng._NumpyOps, u)), _bits(want))
+    np.testing.assert_array_equal(
+        _bits(prng._normal_of(prng._TorchOps, torch.from_numpy(u)).numpy()),
+        _bits(want))
+    lo = np.float32(-1) + np.float32(2.0 ** -24)
+    ul = np.array([lo, 0.0, 0.5, -0.25, 0.9999999], np.float32)
+    want_l = np.asarray(jnp.sign(ul) * jnp.log1p(-jnp.abs(ul)))
+    np.testing.assert_array_equal(
+        _bits(prng._laplace_of(prng._NumpyOps, ul)), _bits(want_l))
+
+
+def test_segments_draw_is_per_leaf_split():
+    """``normal_segments_t``: one pass that equals ``normal(split(rng,
+    n)[i], sizes[i])`` concatenated (the DP noise of a parameter tree),
+    its keys split on the device as ``split`` does on the host."""
+    rng = prng.PRNGKey(5)
+    keys = prng.split(rng, 4)
+    np.testing.assert_array_equal(prng.split_t(rng, 4, "cpu").numpy(),
+                                  keys.astype(np.int64))
+    sizes = [3, 1, 700, 40]
+    got = prng.normal_segments_t(rng, prng.segments_t(sizes, "cpu"))
+    want = np.concatenate([np.asarray(jax.random.normal(jnp.asarray(k),
+                                                        (n,)))
+                           for k, n in zip(keys, sizes)])
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    got_l = prng.laplace_segments_t(rng, prng.segments_t(sizes, "cpu"))
+    want_l = np.concatenate([prng.laplace(k, n) for k, n in zip(keys, sizes)])
+    np.testing.assert_array_equal(_bits(got_l.numpy()), _bits(want_l))
