@@ -75,7 +75,28 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    configuration (16 clients, lr, blocks of 8): fused and host
    rounds/hour, ``vs_baseline``, ``params_max_abs_diff``,
    ``verdicts_identical``; a ``{"robust": ...}`` line;
-9. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
+9. the round under faults and selection: (a) ResNet-20 runs (f32, 2-3
+   rounds of 4 of 8 clients, cuDNN on deterministic algorithms): chaos
+   (dropout and stragglers, tolerance on and off) on the card against
+   the CPU within the house tolerance with the fault ledgers equal, and
+   at probability 0 bitwise equal to a chaos-free run; oort,
+   power-of-choice and reputation (beside byzantine_flip + multi_krum)
+   with adaptive over-sampling on the host robust path, cohorts equal to
+   the CPU run's round for round; LOO and GTG-Shapley fused against
+   host, bitwise; a user ServerAggregator (the coordinate_median host
+   kernel) against the built-in defense, bitwise; the int8 and bf16
+   relayout under multi-krum, card against CPU (the defense's input
+   level by level, then the run); a crash at round 1 of 3
+   resumed to the end, bitwise; (b) MAIN_PATH at 64 of 128 clients: leg
+   0 FedAvg, leg 1 bench_chaos_selection's knobs (20 % dropout, 10 %
+   stragglers at half work, oort, adaptive over-sampling), one block of
+   2 rounds each, leg 2 leg 1 with LOO for 1 round (the fused robust path
+   pins the cohort): rounds/hour, cohorts, dropped and straggling counts,
+   summed work, B1 at 27 launches per forward with one capture, a
+   dropped client's empty slot, the oort store's clients equal to those
+   that trained, the LOO values, seconds and evaluations (K + 1); a
+   ``{"chaos_selection": ...}`` line;
+10. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
    ``bench.py``'s ``bench_federated_lora`` configuration (d 512, 4 layers,
    seq 256, bf16, LoRA r8, 2 silos, Shakespeare), 2 rounds with eval after
    each, its local step captured, B2 launches held to 4 per forward and
@@ -83,8 +104,8 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    personalisation steps included); the adapters exported
    (``llm_adapter_export_dir``: ``global``, ``silo_0``, ``silo_1``) and
    reloaded bitwise;
-10. the serving path: the FedLLM main path's model, base weights frozen
-   and the adapter the run of phase 9 trained, served through
+11. the serving path: the FedLLM main path's model, base weights frozen
+   and the adapter the run of phase 10 trained, served through
    ``fedml_tpu_torch.serving.llm_template.CausalLMPredictor`` with
    ``bench.py``'s ``bench_llm_serving`` traffic (24 new tokens, concurrency
    1 / 8 / 64): single mode as the sequential baseline (B2 per layer per
@@ -99,11 +120,11 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    against the full forward (f32 tiny, bf16 full width), greedy parity
    single vs batch on a full fine-tune, adapter isolation; a
    ``{"serving": ...}`` line;
-11. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
+12. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
    bf16, full parameters), 8 launches of each attention kernel per step;
    then ``save_model`` / ``load_model`` of its params (the codec's MB/s,
    round trip bitwise);
-12. one JSON line describing each kernel, then the card line, then
+13. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -319,6 +340,63 @@ ROBUST_BENCHES = {
     "fedavg_robust_krum_rounds_per_hour": dict(defense_type="multi_krum",
                                                krum_param_m=5),
     "fedavg_robust_rfa_rounds_per_hour": dict(defense_type="rfa")}
+
+# The round under faults and selection (phase 9). (a) FAMILY_CFG's ResNet-20
+# run (f32, cuDNN on deterministic algorithms): chaos (a quarter of the
+# clients dropped, a quarter straggling at half their steps), tolerance on
+# and off, on the card against the same run on the CPU within the house
+# tolerance (HOUSE_TOL, |card - cpu| <= atol + rtol |cpu|), ledgers equal;
+# the chaos knobs at probability 0 with the plan built (a crash round past
+# the run) bitwise equal to a chaos-free run; three strategies with adaptive
+# over-sampling on the host robust path (reputation beside a flip attack
+# and multi-krum on 2 of 8), blocks of 1 round, their cohorts equal to the
+# CPU run's round for round; LOO and GTG fused against host, bitwise; a
+# user ServerAggregator that calls the coordinate_median host kernel
+# against the built-in defense on the host kernels, bitwise; the int8 and
+# bf16 relayout under multi-krum, card against CPU within the house
+# tolerance plus one quantum of the matrix (an entry within float32
+# rounding of a rounding boundary lands on the neighbouring level on one
+# side: largest entry / 127 for int8, 2^-8 of it for bf16), its defense
+# input the rounding of its own rows bitwise and round 0's within
+# RELAYOUT_FLIP_SHARE of the CPU's levels; a crash at round 1 of 3
+# (checkpoint every round) resumed to the end, bitwise.
+HOUSE_TOL = (2e-4, 2e-5)
+FAULTS_CHAOS = dict(chaos_dropout_prob=0.25, chaos_straggler_prob=0.25,
+                    chaos_straggler_work=0.5, chaos_seed=5)
+FAULTS_SELECTION = {
+    "oort": dict(client_selection="oort"),
+    "power_of_choice": dict(client_selection="power_of_choice"),
+    "reputation": dict(client_selection="reputation", enable_attack=True,
+                       attack_type="byzantine_flip", byzantine_client_num=2,
+                       attack_scale=5.0, enable_defense=True,
+                       defense_type="multi_krum", krum_param_m=4)}
+FAULTS_SELECTION_CFG = dict(comm_round=3, rounds_per_dispatch=1,
+                            selection_adaptive_oversample=True,
+                            robust_fused="host")
+RELAYOUT_QUANTUM = {"int8": 1.0 / 127.0, "bf16": 2.0 ** -8}
+# the share of round 0's quantized entries that may sit on another level,
+# card vs CPU: an update entry within the two devices' float32 gap of a
+# rounding boundary
+RELAYOUT_FLIP_SHARE = 0.01
+# (b) the full-width leg: MAIN_PATH at partial participation (128 clients,
+# 64 a round: bench_chaos_selection's "half of the clients per round" at
+# the flagship's width). Leg 0 FedAvg, one block of FLAGSHIP_BLOCK rounds;
+# leg 1 bench_chaos_selection's knobs (20 % dropout, 10 % stragglers at
+# half work, seed 7, tolerance on, oort, adaptive over-sampling capped at
+# 1.0), one block of FLAGSHIP_BLOCK rounds; leg 2 leg 1 with LOO, 1 round
+# (the fused robust path pins the adaptive cohort at 64).
+FAULTS_PATH = dict(MAIN_PATH, client_num_in_total=128,
+                   client_num_per_round=64)
+FAULTS_KNOBS = dict(chaos_dropout_prob=0.2, chaos_straggler_prob=0.1,
+                    chaos_straggler_work=0.5, chaos_seed=7,
+                    chaos_tolerance=True, client_selection="oort",
+                    selection_adaptive_oversample=True,
+                    selection_max_over_sample=1.0)
+FAULTS_LEGS = (("fedavg", FAULTS_PATH, FLAGSHIP_BLOCK),
+               ("chaos_oort", dict(FAULTS_PATH, **FAULTS_KNOBS),
+                FLAGSHIP_BLOCK),
+               ("chaos_oort_loo", dict(FAULTS_PATH, contribution_method="loo",
+                                       **FAULTS_KNOBS), 1))
 
 # The FedLLM hot loop: bench.py's _llm_train_step_timing model (~111M
 # params) at bench_llm_mfu's bs 8 x seq 1024, bf16, flash attention.
@@ -1337,6 +1415,408 @@ def robust_flagship(torch, cb, fa, legs=ROBUST_LEGS, dev=None):
     return out, fused_launches
 
 
+def _house_ratio(torch, card, cpu, extra_atol=0.0):
+    """The largest |card - cpu| over ``atol + extra_atol + rtol |cpu|``
+    (HOUSE_TOL) across the params: at most 1 passes."""
+    rtol, atol = HOUSE_TOL
+    worst = 0.0
+    for k, v in cpu.items():
+        v = v.detach().float().cpu()
+        g = card[k].detach().float().cpu()
+        worst = max(worst, ((g - v).abs()
+                            / (atol + extra_atol + rtol * v.abs()))
+                    .max().item())
+    return worst
+
+
+def _cohorts(run):
+    """Run ``run()`` with the obs sink catching the selection records;
+    returns its result and the cohort of every round."""
+    from fedml_tpu_torch.core.obs import sink
+    got = []
+    sink.set_sink(got.append)
+    try:
+        out = run()
+    finally:
+        sink.set_sink(None)
+    return out, [r["sampled"] for r in got if r["kind"] == "selection"]
+
+
+def _defense_inputs(run):
+    """Run ``run()`` and return, per round, the ``[K, D]`` rows the GPU
+    engine handed ``quantize_rows`` and the matrix its defense then saw,
+    both copied to the CPU."""
+    import fedml_tpu_torch.simulation.gpu.engine as eng
+    sharded = eng.sharded_defense
+    quant, defend = eng.quantize_rows, sharded.defend_shard_stateful
+    rec = []
+
+    def record_quant(mat, mode):
+        rec.append([mat.detach().cpu().clone()])
+        return quant(mat, mode)
+
+    def record_defend(mat, *a, **kw):
+        rec[-1].append(mat.detach().cpu().clone())
+        return defend(mat, *a, **kw)
+
+    eng.quantize_rows, sharded.defend_shard_stateful = (record_quant,
+                                                        record_defend)
+    try:
+        run()
+    finally:
+        eng.quantize_rows, sharded.defend_shard_stateful = quant, defend
+    return rec
+
+
+def _relayout_matrix_check(torch, mode, rec_card, rec_cpu):
+    """The relayout's rounding on the card, held at the defense's input.
+    Every round: the card's defense input is ``quantize_rows`` of its own
+    rows on the CPU, bitwise (the CPU rounding is the JAX formula's,
+    bitwise, in the tests). Round 0 (same start parameters), card vs CPU:
+    at most RELAYOUT_FLIP_SHARE of the entries on another level, int8
+    codes at most one level apart and the per-row scales within the house
+    rtol; bf16 entries within one level (``rtol=2**-7``) or, where the
+    raw rows' card-vs-CPU gap spans several levels of a tiny entry,
+    within the house atol."""
+    from fedml_tpu_torch.simulation.gpu.engine import quantize_rows
+    require(len(rec_card) == len(rec_cpu) == FAMILY_CFG["comm_round"]
+            and all(len(r) == 2 for r in rec_card + rec_cpu),
+            f"relayout {mode}: {len(rec_card)} / {len(rec_cpu)} rounds "
+            f"recorded")
+    for raw, seen in rec_card:
+        require(torch.equal(seen, quantize_rows(raw, mode))
+                and not torch.equal(seen, raw),
+                f"relayout {mode}: the card's defense input is not the "
+                f"rounding of its rows")
+    a, b = rec_card[0][1], rec_cpu[0][1]
+    rtol, atol = HOUSE_TOL
+    if mode == "int8":
+        sa = a.abs().amax(dim=1, keepdim=True) / 127.0
+        sb = b.abs().amax(dim=1, keepdim=True) / 127.0
+        la = torch.round(a / torch.where(sa > 0, sa, 1.0 / 127.0))
+        lb = torch.round(b / torch.where(sb > 0, sb, 1.0 / 127.0))
+        flips = int((la != lb).sum())
+        within = (bool((la - lb).abs().max() <= 1)
+                  and bool(((sa - sb).abs() <= rtol * sb.abs()).all()))
+    else:
+        la = a.view(torch.int32) >> 16
+        lb = b.view(torch.int32) >> 16
+        flips = int((la != lb).sum())
+        within = bool(((a - b).abs() <= torch.maximum(
+            2.0 ** -7 * b.abs(), torch.full_like(b, atol))).all())
+    share = flips / a.numel()
+    require(within and share <= RELAYOUT_FLIP_SHARE,
+            f"relayout {mode}: round 0's defense input, card vs CPU: "
+            f"{flips} of {a.numel()} entries on another level "
+            f"({share:.2e}), within one level: {within}")
+    return {"round0_flips": flips, "round0_entries": a.numel()}
+
+
+def faults_agreement(torch, dev=None, cpu="cpu"):
+    """Phase 9 (a): chaos, selection, contribution, the user aggregator,
+    the relayout quantization and crash-resume on ResNet-20 runs (cuDNN
+    on deterministic algorithms). ``dev`` None is the card; ``cpu`` the
+    reference device. Returns {check: record}."""
+    import tempfile
+
+    import numpy as np
+    from fedml_tpu_torch.core.algframe.server_aggregator import \
+        ServerAggregator
+    from fedml_tpu_torch.core.chaos import ChaosCrash
+    from fedml_tpu_torch.core.checkpoint import RoundCheckpointer
+    from fedml_tpu_torch.core.security.defense import robust_agg
+
+    class Median(ServerAggregator):
+        calls = 0
+
+        def aggregate(self, update_matrix, weights):
+            Median.calls += 1
+            return robust_agg.coordinate_median(update_matrix, weights)[0]
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        chaos_cfg = dict(FAMILY_CFG, **FAULTS_CHAOS)
+        for tol in (True, False):
+            cfg = dict(chaos_cfg, chaos_tolerance=tol)
+            card = robust_simulator(cfg, dev)
+            card.run()
+            ref = robust_simulator(cfg, cpu)
+            ref.run()
+            ratio = _house_ratio(torch, card.params, ref.params)
+            ledger = card.chaos_ledger.rounds()
+            require(ledger == ref.chaos_ledger.rounds() and len(ledger) == 2,
+                    f"chaos tolerance={tol}: the ledgers differ: {ledger} vs "
+                    f"{ref.chaos_ledger.rounds()}")
+            require(ratio <= 1.0, f"chaos tolerance={tol}: card vs CPU "
+                                  f"{ratio:.2f}x the house tolerance")
+            out[f"chaos_tolerance_{'on' if tol else 'off'}"] = {
+                "house_ratio": ratio,
+                "dropped": sum(len(r["injected"]["dropped"])
+                               for r in ledger),
+                "stragglers": sum(len(r["injected"]["stragglers"])
+                                  for r in ledger)}
+        plain = robust_simulator(FAMILY_CFG, dev)
+        plain.run()
+        zero = robust_simulator(dict(FAMILY_CFG, chaos_dropout_prob=0.0,
+                                     chaos_straggler_prob=0.0, chaos_seed=5,
+                                     chaos_crash_at_round=99), dev)
+        require(zero.chaos.enabled, "chaos zero: the plan is not built")
+        zero.run()
+        require(all(torch.equal(plain.params[k], zero.params[k])
+                    for k in plain.params),
+                "chaos at probability 0 differs from the chaos-free run")
+        out["chaos_zero_bitwise"] = True
+
+        for label, kw in FAULTS_SELECTION.items():
+            cfg = dict(FAMILY_CFG, **FAULTS_SELECTION_CFG, **kw)
+            card = robust_simulator(cfg, dev)
+            _, c_card = _cohorts(card.run)
+            ref = robust_simulator(cfg, cpu)
+            _, c_ref = _cohorts(ref.run)
+            if c_card != c_ref:
+                margin = float(abs(card.selection.store.losses
+                                   - ref.selection.store.losses).max())
+                print(f"selection {label}: cohorts differ (card {c_card}, "
+                      f"CPU {c_ref}); largest loss difference between the "
+                      f"two stores {margin:.3e}", flush=True)
+            require(c_card == c_ref and len(c_card) == 3,
+                    f"selection {label}: cohorts differ from the CPU run's")
+            out[f"selection_{label}"] = {
+                "cohorts": c_card,
+                "house_ratio": _house_ratio(torch, card.params, ref.params),
+                "benched": sorted(int(c) for c in np.flatnonzero(
+                    card.selection.store.reputation < 0.3))
+                if label == "reputation" else []}
+
+        for method in ("loo", "gtg"):
+            cfg = dict(FAMILY_CFG, contribution_method=method)
+            fused = robust_simulator(cfg, dev)
+            fused.run()
+            host = robust_simulator(dict(cfg, robust_fused="host"), dev)
+            host.run()
+            require(fused.robust_fused and not host.robust_fused
+                    and fused.contribution.history
+                    == host.contribution.history
+                    and fused.contribution.evaluations
+                    == host.contribution.evaluations
+                    and all(torch.equal(fused.params[k], host.params[k])
+                            for k in host.params),
+                    f"contribution {method}: fused and host differ")
+            out[f"contribution_{method}"] = {
+                "values": [h["contributions"]
+                           for h in fused.contribution.history],
+                "evaluations": fused.contribution.evaluations}
+
+        agg = Median()
+        from fedml_tpu_torch import data, model
+        from fedml_tpu_torch.arguments import Arguments
+        from fedml_tpu_torch.runner import FedMLRunner
+        args = Arguments(**FAMILY_CFG)
+        fed, _ = data.load(args)
+        user = FedMLRunner(args, device=dev, dataset=fed,
+                           model=model.create(args, fed.num_classes,
+                                              fed.input_shape),
+                           server_aggregator=agg).runner
+        user.run()
+        builtin = robust_simulator(dict(FAMILY_CFG, enable_defense=True,
+                                        defense_type="coordinate_median",
+                                        sharded_defense=False), dev)
+        builtin.run()
+        require(Median.calls == FAMILY_CFG["comm_round"]
+                and all(torch.equal(user.params[k], builtin.params[k])
+                        for k in user.params),
+                f"user aggregator: {Median.calls} calls, or it differs from "
+                f"the built-in coordinate_median")
+        out["user_aggregator_bitwise"] = True
+
+        for mode in ("int8", "bf16"):
+            cfg = dict(FAMILY_CFG, enable_defense=True,
+                       defense_type="multi_krum", krum_param_m=2,
+                       robust_relayout_quant=mode)
+            card = robust_simulator(cfg, dev)
+            rec_card = _defense_inputs(card.run)
+            ref = robust_simulator(cfg, cpu)
+            rec_ref = _defense_inputs(ref.run)
+            out[f"relayout_{mode}"] = matrix = _relayout_matrix_check(
+                torch, mode, rec_card, rec_ref)
+            quantum = float(card._mat.abs().max()) * RELAYOUT_QUANTUM[mode]
+            ratio = _house_ratio(torch, card.params, ref.params, quantum)
+            require(card._relayout_quant == mode and ratio <= 1.0,
+                    f"relayout {mode}: card vs CPU {ratio:.2f}x the house "
+                    f"tolerance plus one quantum ({quantum:.2e})")
+            matrix.update(ratio=ratio, quantum=quantum,
+                          house_ratio=_house_ratio(torch, card.params,
+                                                   ref.params))
+
+        cfg = dict(FAMILY_CFG, comm_round=3, checkpoint_every_rounds=1,
+                   **FAULTS_CHAOS)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_crash_") as d:
+            full = robust_simulator(dict(cfg, checkpoint_dir=f"{d}/full"),
+                                    dev)
+            full.run()
+            crash = dict(cfg, checkpoint_dir=f"{d}/crash",
+                         chaos_crash_at_round=1)
+            try:
+                robust_simulator(crash, dev).run()
+                crashed = None
+            except ChaosCrash as e:
+                crashed = e.round_idx
+            steps = RoundCheckpointer(f"{d}/crash", 1).steps()
+            require(crashed == 1 and steps[-1] == 1,
+                    f"crash: raised at {crashed}, checkpoints {steps}")
+            resumed = robust_simulator(crash, dev)
+            r = resumed.run()
+            require([h["round"] for h in r["history"]] == [2]
+                    and all(torch.equal(full.params[k], resumed.params[k])
+                            for k in full.params),
+                    "crash: the resumed run differs from the uninterrupted")
+        out["crash_resume_bitwise"] = True
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def faults_flagship(torch, cb, fa, legs=FAULTS_LEGS, dev=None):
+    """Phase 9 (b): the round under faults and selection at full width.
+    Each leg's step is captured apart, then its rounds run through
+    ``run_rounds_fused`` (selection records through the obs sink, the LOO
+    assessment timed). Returns {leg: record} and the kernels' launches
+    over leg 1."""
+    import numpy as np
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.local_training import step_count
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    out, chaos_launches = {}, None
+    # the legs differ in round knobs only: one dataset for all of them
+    fed, _ = data.load(Arguments(**legs[0][1]))
+    for leg, cfg, n_rounds in legs:
+        sim = robust_simulator(cfg, dev, fed)
+        cuda = sim.device.type == "cuda"
+        hyper = TrainHyper(learning_rate=cfg["learning_rate"], epochs=1)
+        assess = sim._assess_contribution
+        loo_s = []
+
+        def timed(*a, _inner=assess, **kw):
+            t0 = time.perf_counter()
+            _inner(*a, **kw)
+            loo_s.append(time.perf_counter() - t0)
+
+        sim._assess_contribution = timed
+        cohorts = []
+        schedule = sim._schedule_for
+
+        def noted(r, _inner=schedule):
+            sampled, works = _inner(r)
+            cohorts.append(list(sampled))
+            return sampled, works
+
+        sim._schedule_for = noted
+        reset_launches(cb, fa)
+        capture_s = sim.capture_step(hyper)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block = sim.run_rounds_fused(0, n_rounds, hyper)
+        if cuda:
+            torch.cuda.synchronize()
+        block_s = time.perf_counter() - t0
+        n = launches(cb, fa)
+        (program,) = sim.programs.values()
+        require(all(math.isfinite(m["loss_sum"]) for m in block)
+                and all(torch.isfinite(v).all().item()
+                        for v in sim.params.values()),
+                f"faults flagship {leg}: non-finite metrics or params")
+        ledger = sim.chaos_ledger.rounds()
+        works, trained = [], set()
+        for r in range(n_rounds):
+            faults = ledger[r]["injected"] if ledger else {
+                "dropped": [], "stragglers": {}}
+            ws = {c: 0.0 if c in faults["dropped"]
+                  else float(faults["stragglers"].get(c, 1.0))
+                  for c in cohorts[r]}
+            works.append(sum(ws.values()))
+            want = sum(step_count(sim.batch_real[c], TrainHyper(
+                cfg["learning_rate"], 1, w)) for c, w in ws.items() if w > 0)
+            require(block[r]["local_steps"] == want,
+                    f"faults flagship {leg} round {r}: "
+                    f"{block[r]['local_steps']} local steps, the plan's "
+                    f"work gives {want}: a dropped client ran a step")
+            trained |= {c for c, w in ws.items() if w > 0}
+            if sim.selection.track and sim.selection._pending:
+                # a dropped client reported nothing (count 0): its slot
+                # is empty, still queued on the device
+                rec = sim.selection._pending[r]
+                cnt = rec["slot_metrics"]["count"][0].cpu()
+                require(all(float(cnt[k]) == 0.0 for k, c in
+                            enumerate(rec["sampled"]) if ws[c] == 0.0),
+                        f"faults flagship {leg} round {r}: a dropped "
+                        f"client reported metrics")
+        if sim.selection.track:
+            sim.selection.flush()
+            seen = {int(c) for c in np.flatnonzero(
+                sim.selection.store.loss_count > 0)}
+            require(seen == trained, f"faults flagship {leg}: the oort "
+                                     f"store saw {len(seen)} clients, "
+                                     f"{len(trained)} trained")
+        evals = sim.contribution.evaluations
+        n_eval = int(sim.test["x"].shape[0])
+        forwards = program.warmup_steps + program.replays + evals * n_eval
+        steps = sum(m["local_steps"] for m in block)
+        if cuda:
+            require(sim.dispatch_stats["captures"] == 1
+                    and program.replays == steps
+                    and program.graph_launches.get(cb.fused_block) == 27
+                    and n["conv_block"] == 27 * forwards,
+                    f"faults flagship {leg}: "
+                    f"{sim.dispatch_stats['captures']} captures, "
+                    f"{program.replays} replays for {steps} steps, B1 "
+                    f"launched {n['conv_block']} times for {forwards} "
+                    f"forward passes (27 each expected)")
+        round_s = block_s / n_rounds
+        rec = {"rounds": n_rounds, "block_s": block_s, "step_time_s": round_s,
+               "rounds_per_hour": 3600.0 / round_s, "capture_s": capture_s,
+               "local_steps": steps,
+               "ms_per_local_step": block_s / max(steps, 1) * 1e3,
+               "cohorts": [len(c) for c in cohorts],
+               "dropped": [len(r["injected"]["dropped"]) for r in ledger],
+               "stragglers": [len(r["injected"]["stragglers"])
+                              for r in ledger],
+               "work_sum": works, "b1_launches": n["conv_block"],
+               "b1_per_forward": n["conv_block"] / max(forwards, 1),
+               "forwards": forwards,
+               "captures": sim.dispatch_stats["captures"],
+               "adaptive": sim.selection.adaptive,
+               "sample_cap": sim._sample_n}
+        if sim.contribution.enabled:
+            (hist,) = sim.contribution.history
+            vals = hist["contributions"]
+            require(len(vals) == len(cohorts[0])
+                    and hist["client_ids"] == cohorts[0]
+                    and math.isfinite(sum(vals))
+                    and evals == len(vals) + 1,
+                    f"faults flagship {leg}: LOO gave {len(vals)} values "
+                    f"for {len(cohorts[0])} clients in {evals} evaluations")
+            require(not sim.selection.adaptive
+                    and sim._sample_n == cfg["client_num_per_round"],
+                    f"faults flagship {leg}: the adaptive cohort is not "
+                    f"pinned on the fused robust path")
+            mat = sim._mat
+            rec.update({"matrix_bytes": mat.numel() * mat.element_size(),
+                        "loo_s": sum(loo_s), "evaluations": evals,
+                        "loo_sum": sum(vals),
+                        "loo_max": max(vals), "loo_min": min(vals),
+                        "pinned": True})
+        out[leg] = rec
+        if leg == "chaos_oort":
+            chaos_launches = n
+        del sim, program
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return out, chaos_launches
+
+
 def robust_bench(torch, base=ROBUST_BENCH, benches=ROBUST_BENCHES,
                  block=ROBUST_BENCH_BLOCK, dev=None):
     """Phase 8 (c): bench.py's ``bench_robust_defended`` legs on the port:
@@ -1744,7 +2224,7 @@ def hot_loop(torch, llm, cb, fa):
 
 
 def codec_speed(torch, params, tmp):
-    """Phase 9: ``save_model`` then ``load_model`` of the hot loop's
+    """Phase 12, after the hot loop: ``save_model`` then ``load_model`` of the hot loop's
     params (f32, on the card): seconds and MB/s of each direction (the
     device-to-host copy inside the save), the round trip bitwise."""
     from fedml_tpu_torch.core.distributed.communication.message import \
@@ -2392,6 +2872,34 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "fedavg_rounds_per_hour": record["value"], "benches": benches,
         "card": card}}), flush=True)
 
+    t_faults = time.perf_counter()
+    faults = faults_agreement(torch)
+    for label, r in faults.items():
+        print(f"faults {label:24s} (resnet20, f32): {json.dumps(r)}",
+              flush=True)
+    faults_agreement_s = time.perf_counter() - t_faults
+    faults_legs, faults_launches = faults_flagship(torch, cb, fa)
+    base = faults_legs["fedavg"]
+    for leg, r in faults_legs.items():
+        extra = "" if "loo_s" not in r else (
+            f"; LOO {r['loo_s']:.2f} s, {r['evaluations']} evaluations, "
+            f"matrix {r['matrix_bytes']} bytes, cohort pinned at "
+            f"{r['sample_cap']}")
+        print(f"faults flagship {leg:14s} ({card}): "
+              f"{r['rounds_per_hour']:.2f} rounds/hour ({r['step_time_s']:.3f}"
+              f" s per round over {r['rounds']}, {r['ms_per_local_step']:.2f}"
+              f" ms per local step) beside FedAvg's "
+              f"{base['rounds_per_hour']:.2f} at 64 of 128; cohorts "
+              f"{r['cohorts']}, dropped {r['dropped']}, stragglers "
+              f"{r['stragglers']}, work {r['work_sum']}; B1 "
+              f"{r['b1_launches']} launches = {r['b1_per_forward']:.0f} per "
+              f"forward, {r['captures']} capture{extra}", flush=True)
+    print(json.dumps({"chaos_selection": {
+        "phase_s": time.perf_counter() - t_faults,
+        "agreement_s": faults_agreement_s, "agreement": faults,
+        "legs": faults_legs, "flagship_rounds_per_hour": record["value"],
+        "card": card}}), flush=True)
+
     export_dir = os.path.join(tmp, "adapters")
     reset_launches(cb, fa)
     t0 = time.time()
@@ -2510,6 +3018,7 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "launches": resnet_launches["conv_block"],
         "launches_scaffold": scaffold_launches["conv_block"],
         "launches_defended_flagship": robust_launches["conv_block"],
+        "launches_chaos_selection": faults_launches["conv_block"],
         "launches_fedsgd_fold": fold["fold"]["b1_launches"],
         "launches_fedsgd_unfold": fold["unfold"]["b1_launches"],
         "max_abs_err_fold_batch": fold["b1_fold_batch_max_abs_err"],

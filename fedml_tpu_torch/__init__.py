@@ -11,7 +11,10 @@ the causal LM (:mod:`fedml_tpu_torch.llm`), with flash attention's forward
 and backward as CUDA kernels (``core/kernels/csrc/flash_attention.cu``),
 and continuous-batching serving of the LM and its adapters
 (:mod:`fedml_tpu_torch.serving`: paged KV cache, decode scheduler,
-batching engine, multi-LoRA adapter bank, HTTP runner).
+batching engine, multi-LoRA adapter bank, HTTP runner). Around the
+simulated round: differential privacy, attacks and defenses, chaos
+(dropout, stragglers, crash-at-round), participant selection,
+contribution assessment and a user ``ServerAggregator``.
 Modules follow the JAX package's paths. Nothing here imports JAX or
 ``fedml_tpu``.
 
@@ -55,6 +58,7 @@ def init(args: Optional[Arguments] = None, **overrides: Any) -> Arguments:
 
 def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
                    device=None, init_params: Optional[Dict[str, Any]] = None,
+                   server_aggregator=None,
                    **overrides: Any) -> Dict[str, Any]:
     """One-call FedAvg simulation on ``device`` (CUDA unless ``"cpu"``):
     ``backend="gpu"`` (aliases ``cuda``, ``tpu``, ``mesh``, ``nccl``,
@@ -71,7 +75,9 @@ def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
     ``dp_epsilon_spent``). ``save_model_path`` writes the
     final params there as a serving artifact (the JAX package's bytes);
     ``checkpoint_dir`` / ``checkpoint_every_rounds`` checkpoint the rounds
-    and resume from the newest checkpoint."""
+    and resume from the newest checkpoint. ``server_aggregator`` (a
+    :class:`~fedml_tpu_torch.core.algframe.server_aggregator.ServerAggregator`)
+    aggregates the GPU engine's rounds through its hooks."""
     from . import data as data_mod
     from . import model as model_mod
     from .device import get_device
@@ -82,6 +88,7 @@ def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
     fed, output_dim = data_mod.load(args)
     bundle = model_mod.create(args, output_dim, fed.input_shape)
     runner = FedMLRunner(args, device=device, dataset=fed, model=bundle,
+                         server_aggregator=server_aggregator,
                          init_params=init_params)
     result = runner.run()
     save_path = getattr(args, "save_model_path", None)

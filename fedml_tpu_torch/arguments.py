@@ -80,6 +80,46 @@ _SCHEMA: Dict[str, Any] = {
     "enable_dp": False,
     "dp_mechanism": "gaussian",
     "enable_dp_ldp": False,
+    # quantize the fused robust path's [K, D] update matrix before the
+    # attack and the defense: int8 rows with per-row scales, or a bf16
+    # round trip (None keeps it f32)
+    "robust_relayout_quant": None,
+    # chaos_args: seeded availability faults (core/chaos); all off
+    "chaos_seed": None,              # falls back to random_seed
+    "chaos_dropout_prob": 0.0,       # per-(round, client) dropout
+    "chaos_straggler_prob": 0.0,     # per-(round, client) straggler
+    "chaos_straggler_work": 0.5,     # fraction of local work a straggler runs
+    "chaos_crash_at_round": None,    # raise ChaosCrash after this round
+    # dropped clients leave the weighted average's denominator (off: their
+    # scheduled weight stays and dilutes the aggregate)
+    "chaos_tolerance": True,
+    # sample ceil(client_num_per_round * (1 + frac)) clients
+    "chaos_over_sample": 0.0,
+    # selection_args (core/selection); the defaults are uniform selection
+    # on the sampling stream, bit-identical schedules
+    "client_selection": "uniform",   # uniform|power_of_choice|oort|reputation
+    # size the cohort from the observed Beta-posterior dropout rate,
+    # capped at (1 + selection_max_over_sample) * client_num_per_round
+    "selection_adaptive_oversample": False,
+    "selection_max_over_sample": 1.0,
+    "selection_loss_window": 8,      # last-K training losses per client
+    "selection_ema_alpha": 0.2,      # latency / work-fraction EMA weight
+    "selection_rep_threshold": 0.3,  # reputation below this is benched
+    "selection_min_keep_frac": 0.5,  # never bench past this cohort share
+    "poc_d_factor": 2.0,             # power-of-choice candidate multiplier
+    "oort_explore_frac": 0.1,        # cohort fraction exploring new clients
+    "oort_alpha": 2.0,               # system-utility latency exponent
+    "oort_pref_latency_s": 0.0,      # 0 = observed median latency
+    # pacer-driven cohort sizing of the SP loop (grow k when the cohort's
+    # summed loss utility saturates)
+    "pacer_adapt_cohort": False,
+    "pacer_util_window": 4,          # rounds per utility comparison window
+    "pacer_util_saturation": 0.05,   # relative improvement below = plateau
+    "pacer_min_cohort_scale": 1.0,   # k multiplier bounds
+    "pacer_max_cohort_scale": 4.0,
+    # contribution assessment: loo | gtg (None = off)
+    "contribution_method": None,
+    "shapley_max_perms": 20,         # GTG-Shapley permutation budget
     # validation_args
     "frequency_of_the_test": 5,
     # comm_args

@@ -117,6 +117,11 @@ class WeightedSum:
         tree_add_scaled_(self.extras, out.extras, out.weight)
         self.weight = self.weight + out.weight
 
+    def add_weight(self, w: torch.Tensor) -> None:
+        """Add ``w`` to the denominator alone: a chaos-dropped client's
+        scheduled weight when ``chaos_tolerance`` is off."""
+        self.weight = self.weight + w
+
     def mean(self):
         """``(update, extras)`` over ``max(Σw, 1e-12)``."""
         return weighted_mean(self.update, self.weight), weighted_mean(

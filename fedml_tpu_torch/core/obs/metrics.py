@@ -3,7 +3,8 @@
 path, the engine's profiling plane, the wire codec and the round
 checkpoints use it: the registry, the ``record_llm_*`` hooks, the watchdog
 counter, ``record_round_mfu`` / ``record_hbm_peak``, ``record_wire`` /
-``record_wire_stage``, ``record_checkpoint_flush``, :class:`LatencyWindow`
+``record_wire_stage``, ``record_checkpoint_flush``, the selection hooks
+``record_selection`` / ``record_cohort_assembly``, :class:`LatencyWindow`
 and :func:`flush_final`).
 
 Two readouts:
@@ -585,6 +586,47 @@ def record_round_mfu(mfu: float, tflops: Optional[float] = None) -> None:
     if tflops is not None:
         REGISTRY.gauge("fed_round_tflops",
                        "achieved TFLOP/s over the round").set(float(tflops))
+
+
+def record_selection(strategy: str, sampled: int, excluded: int) -> None:
+    """Selection seam: scheduled vs benched decisions per strategy."""
+    if not _cfg["enabled"]:
+        return
+    c = REGISTRY.counter("fed_selection_decisions_total",
+                         "participant-selection decisions",
+                         labels=("strategy", "outcome"))
+    c.inc(int(sampled), strategy=str(strategy), outcome="sampled")
+    if excluded:
+        c.inc(int(excluded), strategy=str(strategy), outcome="excluded")
+
+
+def record_cohort_assembly(wall_s: float, scanned: int, eligible: int,
+                           cohort: int, deadline_s: Optional[float] = None,
+                           over_sample: Optional[float] = None) -> None:
+    """Cross-device cohort-assembly seam (streaming eligibility scan +
+    partial top-k + pacer): per-assembly wall histogram, scan/eligible
+    counters, cohort-size gauge, and the pacer's live deadline /
+    over-sample knobs. Round-less cross-device servers surface these via
+    the wall-clock flusher (``obs_metrics_flush_s``)."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.histogram("fed_cohort_assembly_seconds",
+                       "streaming cohort-assembly wall time",
+                       buckets=WALL_BUCKETS).observe(float(wall_s))
+    c = REGISTRY.counter("fed_cohort_candidates_total",
+                         "candidate ids seen by cohort assembly",
+                         labels=("outcome",))
+    c.inc(int(scanned), outcome="scanned")
+    c.inc(int(eligible), outcome="eligible")
+    REGISTRY.gauge("fed_cohort_size",
+                   "devices in the most recent cohort").set(int(cohort))
+    if deadline_s is not None:
+        REGISTRY.gauge("fed_cohort_pacer_deadline_seconds",
+                       "pacer round deadline").set(float(deadline_s))
+    if over_sample is not None:
+        REGISTRY.gauge("fed_cohort_pacer_over_sample",
+                       "pacer cohort over-sample factor").set(
+                           float(over_sample))
 
 
 class LatencyWindow:

@@ -1,5 +1,6 @@
 """Where the obs planes' records go (the port's stand-in for the JAX
-package's ``mlops._emit``, which this package does not port yet).
+package's ``mlops._emit``, which this package does not port yet, and for
+its ``log_chaos`` / ``log_selection`` records).
 
 Spans, metric snapshots and watchdog health records are dicts handed to
 :func:`emit`. Nothing is written until a caller installs a sink with
@@ -34,3 +35,46 @@ def emit(kind: str, payload: Dict[str, Any]) -> None:
     rec = dict(payload)
     rec.update({"kind": kind, "ts": time.time(), "run_id": _state["run_id"]})
     sink(rec)
+
+
+def log_chaos(round_idx: Optional[int] = None,
+              injected: Optional[Dict[str, Any]] = None,
+              observed: Optional[Dict[str, Any]] = None) -> None:
+    """A ``kind: chaos`` record of the fault ledger (the JAX package's
+    ``mlops.log_chaos``): what the ``FaultPlan`` injected against what the
+    round observed."""
+    rec: Dict[str, Any] = {}
+    if round_idx is not None:
+        rec["round_idx"] = int(round_idx)
+    if injected is not None:
+        rec["injected"] = injected
+    if observed is not None:
+        rec["observed"] = observed
+    emit("chaos", rec)
+
+
+def log_selection(round_idx: int, strategy: str,
+                  sampled: Optional[list] = None,
+                  excluded: Optional[list] = None,
+                  target_n: Optional[int] = None,
+                  dropout_posterior: Optional[float] = None,
+                  **extra: Any) -> None:
+    """A ``kind: selection`` record of one participant-selection decision
+    (the JAX package's ``mlops.log_selection``): the clients scheduled,
+    the ones benched, the cohort target and the pooled dropout posterior
+    that sized it."""
+    from . import metrics as obs_metrics
+    rec: Dict[str, Any] = {"round_idx": int(round_idx),
+                           "strategy": str(strategy)}
+    if sampled is not None:
+        rec["sampled"] = [int(c) for c in sampled]
+    if excluded is not None:
+        rec["excluded"] = [int(c) for c in excluded]
+    if target_n is not None:
+        rec["target_n"] = int(target_n)
+    if dropout_posterior is not None:
+        rec["dropout_posterior"] = float(dropout_posterior)
+    rec.update(extra)
+    obs_metrics.record_selection(strategy, len(sampled or ()),
+                                 len(excluded or ()))
+    emit("selection", rec)

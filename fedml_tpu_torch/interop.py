@@ -1,4 +1,5 @@
-"""Parameters between the JAX package and the port.
+"""Parameters, and the selection store's state, between the JAX package
+and the port.
 
 A flax parameter tree (nested dicts of numpy arrays, e.g.
 ``{"BasicBlock_3": {"Conv_1": {"kernel": ...}}}``) maps onto the port's
@@ -11,6 +12,13 @@ out]`` in flax and ``[out, in]`` (``Dense_0.weight``) in
 (``layer_0.attn.q.kernel`` ``[h, heads, head_dim]``, ``embed.embedding``,
 ...), and so do its LoRA adapters (``layer_0.attn.q.lora_a`` ``[in, r]``,
 ``lora_b`` ``[r, prod(out)]``): they cross path for path, unchanged.
+
+The participant-selection store's state dict (``ClientStatsStore`` /
+``SparseClientStatsStore.state_dict()``) has the same keys and numpy
+arrays in both packages (the port's store is a copy):
+:func:`selection_state_from_jax` only takes each field to numpy, so a
+port engine resumes a JAX run's selection history
+(``sim.selection.load_state_dict``).
 
 Neither direction imports JAX: both sides are numpy.
 """
@@ -60,3 +68,10 @@ def state_dict_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[path[-1]] = a
     return tree
+
+
+def selection_state_from_jax(state: Mapping[str, Any]
+                             ) -> Dict[str, np.ndarray]:
+    """A JAX selection store's ``state_dict()`` (jax or numpy arrays) as
+    the port's: the same keys, numpy arrays of the same dtypes."""
+    return {str(k): np.array(v, copy=True) for k, v in state.items()}

@@ -1,6 +1,7 @@
 """FedMLRunner façade (counterpart of ``fedml_tpu/runner.py``): builds the
-GPU simulator or the SP golden loop for the ported slices and refuses what
-they have not ported."""
+GPU simulator or the SP golden loop for the ported slices, hands a user
+``ServerAggregator`` to the GPU engine, and refuses what they have not
+ported."""
 
 from __future__ import annotations
 
@@ -15,18 +16,12 @@ from .device import get_device
 # NotImplementedError naming it, rather than silently ignoring it.
 UNPORTED_KNOBS: Dict[str, tuple] = {
     "enable_secure_agg": (None, False), "enable_fhe": (None, False),
-    "chaos_dropout_prob": (None, 0, 0.0),
-    "chaos_straggler_prob": (None, 0, 0.0),
+    # link faults act only through the transport interceptor
+    # (core/chaos's ChaosCommManager), which waits for the distributed
+    # runtimes
     "chaos_link_loss_prob": (None, 0, 0.0),
     "chaos_link_dup_prob": (None, 0, 0.0),
     "chaos_link_delay_prob": (None, 0, 0.0),
-    "chaos_crash_at_round": (None,),
-    "chaos_over_sample": (None, 0, 0.0),
-    "client_selection": (None, "uniform"),
-    "contribution_method": (None, "", "none"),
-    "pacer_adapt_cohort": (None, False),
-    "selection_adaptive_oversample": (None, False),
-    "robust_relayout_quant": (None, "none"),
     "round_mode": (None, "sync"),
     "mesh_shape": (None,),
     "obs_roofline": (None, False),
@@ -42,29 +37,55 @@ UNPORTED_KNOBS: Dict[str, tuple] = {
     "llm_attention_impl": (None, "", "dense", "flash"),
 }
 
+# the GPU engine's availability faults: the SP golden loop has none, as in
+# the JAX package, so backend="sp" refuses them rather than ignore them
+ENGINE_CHAOS_KNOBS: Dict[str, tuple] = {
+    "chaos_dropout_prob": (None, 0, 0.0),
+    "chaos_straggler_prob": (None, 0, 0.0),
+    "chaos_crash_at_round": (None,),
+    "chaos_over_sample": (None, 0, 0.0),
+}
+
 
 PORTED_OPTIMIZERS = ("FedAvg, FedProx, FedOpt (sgd, adam, adagrad, yogi), "
                      "FedSGD, FedLocalSGD, SCAFFOLD, FedNova, FedDyn, Mime")
 
 
+def _knob_on(args, knob: str, off: tuple) -> bool:
+    v = getattr(args, knob, None)
+    if isinstance(v, str):
+        v = v.lower()
+    return v not in off
+
+
 def check_ported(args) -> None:
     """Raise NotImplementedError for the first knob of an unported
-    feature that ``args`` turns on."""
+    feature that ``args`` turns on, and for the engine's chaos knobs on
+    the SP backend."""
     for knob, off in UNPORTED_KNOBS.items():
-        v = getattr(args, knob, None)
-        if isinstance(v, str):
-            v = v.lower()
-        if v not in off:
+        if _knob_on(args, knob, off):
             raise NotImplementedError(
                 f"{knob}={getattr(args, knob)!r} is not ported to "
                 f"fedml_tpu_torch yet (ported: the GPU and SP simulators' "
                 f"rounds with every federated optimizer ({PORTED_OPTIMIZERS})"
                 f" and client_slot_fold, differential privacy (LDP, CDP, "
                 f"NbAFL), the model and data attacks, the 22 defenses and "
-                f"the defended round (robust_fused, sharded_defense), with "
-                f"the CIFAR ResNets, the linear models or the federated "
-                f"LoRA causal LM, their round checkpoints, and serving "
-                f"them)")
+                f"the defended round (robust_fused, sharded_defense, "
+                f"robust_relayout_quant), chaos (dropout, stragglers, "
+                f"crash-at-round, over-sampling; the GPU engine), "
+                f"participant selection (client_selection, "
+                f"selection_adaptive_oversample, pacer_adapt_cohort), "
+                f"contribution assessment (LOO, GTG-Shapley) and a user "
+                f"ServerAggregator, with the CIFAR ResNets, the linear "
+                f"models or the federated LoRA causal LM, their round "
+                f"checkpoints, and serving them)")
+    if getattr(args, "backend", None) == FEDML_SIMULATION_TYPE_SP:
+        for knob, off in ENGINE_CHAOS_KNOBS.items():
+            if _knob_on(args, knob, off):
+                raise NotImplementedError(
+                    f"{knob}={getattr(args, knob)!r}: the SP golden loop "
+                    f"injects no chaos (neither does the JAX package's); "
+                    f"run it on backend='gpu'")
 
 
 class FedMLRunner:
@@ -72,9 +93,10 @@ class FedMLRunner:
     the simulation platform on the GPU and SP backends."""
 
     def __init__(self, args, device=None, dataset=None, model=None,
-                 client_trainer=None,
+                 client_trainer=None, server_aggregator=None,
                  init_params: Optional[Dict[str, Any]] = None):
         self.args = args
+        self.server_aggregator = server_aggregator
         check_ported(args)
         ttype = getattr(args, "training_type",
                         FEDML_TRAINING_PLATFORM_SIMULATION)
@@ -96,8 +118,17 @@ class FedMLRunner:
         spec = (client_trainer if client_trainer is not None
                 else make_trainer_spec(dataset, model))
         opt = create_optimizer(args, spec)
+        kw = {}
+        if server_aggregator is not None:
+            if backend == FEDML_SIMULATION_TYPE_SP:
+                raise NotImplementedError(
+                    "server_aggregator: the SP golden loop runs no user "
+                    "ServerAggregator (neither does the JAX package's); "
+                    "run it on backend='gpu'")
+            kw["server_aggregator"] = server_aggregator
         self.runner = Simulator(args, dataset, model, opt, spec,
-                                get_device(device), init_params=init_params)
+                                get_device(device), init_params=init_params,
+                                **kw)
 
     def run(self, comm_round: Optional[int] = None) -> Any:
         return self.runner.run(comm_round)

@@ -53,25 +53,41 @@ outside the captured step (the program and its key do not change):
   round as its own block and reads its verdict back, through the same
   kernels or, with ``sharded_defense: false``, the ``FedMLDefender`` host
   kernels. An attack with no defense runs on the host path, as in JAX.
-  The verdicts land in ``self.verdicts`` (the JAX engine hands them to
-  participant selection, which is not ported).
+  The verdicts land in ``self.verdicts`` and in the selection store.
+  Contribution assessment (``contribution_method``) and a user
+  ``ServerAggregator`` put the run in robust mode too: contribution reads
+  the post-attack matrix (a contribution-only run fuses through the
+  ``mean`` kernel, in rounds of one); the aggregator's hooks aggregate on
+  the host path, unless a defense is configured. ``robust_relayout_quant``
+  rounds the fused path's matrix (int8 rows, or bf16) before the attack.
+
+Chaos and selection are host-side policy riding the rounds as data. Each
+round's cohort comes from ``core/selection`` (uniform by default: the
+sampling stream's draw), every round of a block chosen before the block
+runs; each client's work fraction from ``core/chaos``'s plan (0 for a
+dropped or benched client) sets how many times it replays the captured
+step. The per-client losses selection reads stay on the device, queued,
+until the next selection query. ``chaos_crash_at_round`` raises
+``ChaosCrash`` after the round's record and flushed checkpoint.
 
 Round checkpoints (``checkpoint_dir`` / ``checkpoint_every_rounds``,
 ``core/checkpoint.py``) hold ``params``, ``server_state``, the round
 ``rng``, under DP the accountant's state (``dp``), for an optimizer with
-per-client state ``client_states`` and for a stateful defense on the
-device its ``defense_state``: the part of the JAX engine's checkpoint state this
+per-client state ``client_states``, for a stateful defense on the
+device its ``defense_state`` and for a tracking selection strategy its
+store (``selection``): the part of the JAX engine's checkpoint state this
 engine has. ``run`` resumes from the newest one at the round after it; a
-checkpoint without ``defense_state`` restores without it (with a
-warning), the defense then starts cold.
+checkpoint without an optional leaf restores without it (with a
+warning), that state then starts cold.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import logging
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,17 +97,19 @@ from ...core.algframe.local_training import (METRICS, GradProgram,
                                              StepProgram, batch_real_of,
                                              evaluate)
 from ...core.algframe.types import ClientData, Params, TrainHyper
+from ...core.chaos import ChaosCrash, FaultLedger, FaultPlan
 from ...core.checkpoint import RoundCheckpointer
 from ...core.collectives import (FlatLayout, WeightedSum, stack_trees,
                                  tree_copy_, tree_leaves, tree_map,
                                  weighted_mean)
+from ...core.contribution import ContributionAssessorManager
 from ...core.dp import FedMLDifferentialPrivacy
 from ...core.obs import profiler as obs_profiler
 from ...core.obs import trace as obs_trace
 from ...core.security import FedMLAttacker, FedMLDefender
 from ...core.security.defense import robust_agg, verdict_from_info
 from ...core.security.defense import sharded as sharded_defense
-from ..sampling import client_sampling, sampling_stream_from_args
+from ...core.selection import SelectionManager, slot_placement
 
 logger = logging.getLogger(__name__)
 
@@ -146,20 +164,65 @@ def dp_server_noise(dp: FedMLDifferentialPrivacy, agg: Params,
 
 def host_robust_aggregate(attacker: FedMLAttacker, defender: FedMLDefender,
                           mat: torch.Tensor, w: torch.Tensor, sampled,
-                          round_key: np.ndarray):
+                          round_key: np.ndarray, server_aggregator=None,
+                          assess: Optional[Callable] = None):
     """The host kernels' attack -> defense on the round's ``[K, D]``
     matrix (the SP golden loop's ``_aggregate_robust``, and the engine's
-    ``sharded_defense: false`` path): ``(aggregate [D], [K] verdict or
-    None)``."""
+    host path): ``(aggregate [D], [K] verdict or None)``. ``assess(mat)``
+    sees the post-attack matrix (contribution assessment). With no
+    defense, a user ``ServerAggregator``'s hook chain aggregates, else the
+    weighted mean."""
     ids = np.asarray(sampled)
     if attacker.is_model_attack():
         mat = attacker.poison_updates(mat, ids,
                                       prng.fold_in(round_key, ATTACK_FOLD))
-    if not defender.is_defense_enabled():
-        return robust_agg.weighted_mean(mat, w), None
-    vec, info = defender.defend_matrix(
-        mat, w, prng.fold_in(round_key, DEFENSE_FOLD), ids)
-    return vec, verdict_from_info(info, len(ids))
+    if assess is not None:
+        assess(mat)
+    if defender.is_defense_enabled():
+        vec, info = defender.defend_matrix(
+            mat, w, prng.fold_in(round_key, DEFENSE_FOLD), ids)
+        return vec, verdict_from_info(info, len(ids))
+    if server_aggregator is not None:
+        # the user hook chain (reference server_aggregator.py :44/:75/:90)
+        mat2, w2 = server_aggregator.on_before_aggregation(mat, w)
+        return server_aggregator.on_after_aggregation(
+            server_aggregator.aggregate(mat2, w2)), None
+    return robust_agg.weighted_mean(mat, w), None
+
+
+def assess_contribution(manager: ContributionAssessorManager, spec,
+                        layout: FlatLayout, params: Params,
+                        test: Dict[str, torch.Tensor], mat: torch.Tensor,
+                        w: torch.Tensor, sampled, round_idx: int) -> None:
+    """Contribution of the round's clients from its post-attack ``[K, D]``
+    matrix (both simulators): a coalition's value is the eval accuracy of
+    the round-start ``params`` plus the masked weighted mean of its rows,
+    one function on the matrix's device for every coalition; each value
+    is one scalar read."""
+    def eval_fn(p):
+        stats = evaluate(spec, layout.unflatten(p["v"], like=params),
+                         test["x"], test["y"], test["mask"])
+        return stats["correct"] / torch.clamp(stats["count"], min=1.0)
+
+    manager.assess({"v": layout.flatten(params)}, {"v": mat}, w, eval_fn,
+                   client_ids=list(sampled), round_idx=round_idx)
+
+
+def quantize_rows(mat: torch.Tensor, mode: Optional[str]) -> torch.Tensor:
+    """The JAX engine's quantized relayout of the ``[K, D]`` matrix, as
+    the rows come out of it (``robust_relayout_quant``). On one card the
+    ``all_to_all`` moving the rows is the identity; what stays is the
+    rounding the defense sees: ``int8`` rows with per-row float32 scales
+    ``where(amax > 0, amax, 1) / 127`` (round half to even, then
+    ``q * scale``), or a bfloat16 round trip. None returns ``mat``."""
+    if mode == "bf16":
+        return mat.to(torch.bfloat16).to(torch.float32)
+    if mode == "int8":
+        amax = torch.amax(torch.abs(mat), dim=1, keepdim=True)
+        scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / 127.0
+        q = torch.round(mat / scale).to(torch.int8)
+        return q.to(torch.float32) * scale
+    return mat
 
 
 class GPUSimulator:
@@ -174,20 +237,55 @@ class GPUSimulator:
 
     def __init__(self, args, fed_dataset, bundle, optimizer, spec,
                  device: torch.device,
-                 init_params: Optional[Dict[str, Any]] = None):
+                 init_params: Optional[Dict[str, Any]] = None,
+                 server_aggregator=None):
         self.args = args
         self.fed = fed_dataset
         self.bundle = bundle
         self.opt = optimizer
         self.spec = spec
         self.device = device
+        self.server_aggregator = server_aggregator
         seed = int(getattr(args, "random_seed", 0))
-        self.seed = seed
-        self.stream = sampling_stream_from_args(args)
         # the JAX engine splits PRNGKey(seed) into (init, round stream);
         # parameter init here draws from a torch.Generator instead, so only
         # the round stream is kept
         self.rng = prng.split(prng.PRNGKey(seed))[1]
+        n_clients = int(fed_dataset.num_clients)
+        # chaos: each client's work fraction (0 dropped, (0, 1) straggler)
+        # sets its local step count; chaos_tolerance picks the denominator
+        self.chaos = FaultPlan.from_args(args)
+        self.chaos_ledger = FaultLedger()
+        self.chaos_tolerance = bool(getattr(args, "chaos_tolerance", True))
+        # participant selection: passive at the default knobs (uniform
+        # strategy on the sampling stream, nothing observed or saved)
+        self.selection = SelectionManager(args, n_clients)
+        if (self.selection.strategy_name == "reputation"
+                and not self.chaos_tolerance):
+            # benched clients ride the work-0 dropout channel, which only
+            # leaves the denominator under tolerance
+            raise ValueError(
+                "client_selection: reputation requires chaos_tolerance "
+                "(benched clients are renormalized out of the weighted "
+                "average); with chaos_tolerance: false they would dilute "
+                "every round's aggregate instead")
+        over = float(getattr(args, "chaos_over_sample", 0.0) or 0.0)
+        base_n = int(args.client_num_per_round)
+        self._base_n = base_n
+        # static over-sampling: extra clients so the post-dropout cohort
+        # still hits the configured size in expectation
+        self._static_n = min(n_clients,
+                             int(np.ceil(base_n * (1.0 + max(over, 0.0)))))
+        # the cohort cap: adaptive over-sampling sizes each round's draw
+        # between base_n and this
+        if self.selection.adaptive:
+            cap = float(getattr(args, "selection_max_over_sample", 1.0)
+                        or 0.0)
+            self._sample_n = min(
+                n_clients, int(np.ceil(base_n * (1.0 + max(cap, over,
+                                                            0.0)))))
+        else:
+            self._sample_n = self._static_n
         self.attacker = FedMLAttacker(args)
         self.defender = FedMLDefender(args)
         self.dp = FedMLDifferentialPrivacy(args)
@@ -211,12 +309,30 @@ class GPUSimulator:
             stack_trees(optimizer.client_state_init(self.params),
                         fed_dataset.num_clients)
             if optimizer.has_client_state else {})
-        self.robust_mode = (self.attacker.is_model_attack()
-                            or self.defender.is_defense_enabled())
-        check_extras_compat(optimizer, self.params, self.dp, self.robust_mode)
+        self.contribution = ContributionAssessorManager(args)
+        defended = (self.attacker.is_model_attack()
+                    or self.defender.is_defense_enabled())
+        self.robust_mode = (defended or self.contribution.enabled
+                            or server_aggregator is not None)
+        if server_aggregator is not None and \
+                self.defender.is_defense_enabled():
+            logger.warning(
+                "both a defense (%s) and a user ServerAggregator are "
+                "configured: the defense takes precedence and the user "
+                "aggregator is SKIPPED", self.defender.defense_type)
+        check_extras_compat(optimizer, self.params, self.dp, defended)
         self.layout = FlatLayout.of(self.params)
         self._sharded = self._use_sharded_defense()
         self.robust_fused = self._resolve_robust_fused()
+        if self.robust_fused and self.selection.adaptive:
+            # the fused robust path stacks [K] verdicts across a block;
+            # the cohort size stays constant there
+            self.selection.pin_adaptive(
+                "the fused robust program needs a constant [K] cohort "
+                "shape (compile-once); use robust_fused: host for a "
+                "per-round adaptive cohort under defenses")
+            self._sample_n = self._static_n
+        self._relayout_quant = self._resolve_relayout_quant()
         self.verdicts: Dict[int, Tuple[List[int], np.ndarray]] = {}
         self._mat: Optional[torch.Tensor] = None
         # a stateful defense on the device keeps its cross-round state
@@ -253,6 +369,10 @@ class GPUSimulator:
                 "checkpointed defense state", self.defender.defense_type)
 
     # -- checkpoints --------------------------------------------------------
+    # leaves whose presence can flip between a save and a resume (a knob
+    # set later): restored without them, loudly, rather than refused
+    _OPTIONAL_CKPT_KEYS = ("selection", "defense_state")
+
     def ckpt_state(self) -> Dict[str, Any]:
         st = {"params": self.params, "server_state": self.server_state,
               "rng": self.rng}
@@ -264,31 +384,57 @@ class GPUSimulator:
             st["client_states"] = self.client_states
         if getattr(self, "_defense_state", None) is not None:
             st["defense_state"] = self._defense_state
+        if self.selection.stateful:
+            # the observed history the strategies select from: a resumed
+            # run selects the cohorts the uninterrupted one does
+            st["selection"] = self.selection.state_dict()
         return st
 
     def restore(self) -> int:
         """Load the newest checkpoint, if any; returns the round to start
-        at. A checkpoint written without ``defense_state`` (the defense
-        was configured later) restores without it, loudly: the defense
-        state then starts cold. A step program built before this
-        (``capture_step``) takes the restored params at its next client:
-        it copies the start params into its own tensors then."""
-        template = self.ckpt_state()
-        try:
-            restored = self.ckpt.latest(template)
-        except ValueError as e:
-            if "defense_state" not in template:
-                raise
-            template.pop("defense_state")
-            restored = self.ckpt.latest(template)
-            if restored is not None:
-                logger.warning(
-                    "checkpoint restore succeeded only without the "
-                    "defense_state leaf (%s) — the defense state resumes "
-                    "cold", e)
+        at. A checkpoint written without an optional leaf
+        (``_OPTIONAL_CKPT_KEYS``: the knob was set later) restores
+        without it, loudly: that state then starts cold. A step program
+        built before this (``capture_step``) takes the restored params at
+        its next client: it copies the start params into its own tensors
+        then."""
+        restored = self._ckpt_latest()
         if restored is None:
             return 0
         step, st = restored
+        self._load_ckpt_state(st)
+        logger.info("resumed from checkpoint at round %d", step)
+        return step + 1
+
+    def _ckpt_latest(self):
+        """The newest checkpoint as ``(step, state)`` or None, retried
+        without the optional leaves it lacks."""
+        template = self.ckpt_state()
+        opts = [k for k in self._OPTIONAL_CKPT_KEYS if k in template]
+        # least state lost first: the full template, each optional leaf
+        # dropped alone, then all of them
+        candidates = [()] + [(k,) for k in opts]
+        if len(opts) > 1:
+            candidates.append(tuple(opts))
+        restored, err = None, None
+        for drop in candidates:
+            try:
+                restored = self.ckpt.latest(
+                    {k: v for k, v in template.items() if k not in drop})
+            except ValueError as e:
+                err = e
+                continue
+            if drop and restored is not None:
+                logger.warning(
+                    "checkpoint restore succeeded only without the %s "
+                    "leaf (%s) — that state resumes cold", "/".join(drop),
+                    err)
+            break
+        else:
+            raise err
+        return restored
+
+    def _load_ckpt_state(self, st: Dict[str, Any]) -> None:
         self.params, self.server_state = st["params"], st["server_state"]
         self.rng = st["rng"]
         if "dp" in st:
@@ -297,8 +443,8 @@ class GPUSimulator:
             self.client_states = st["client_states"]
         if "defense_state" in st:
             self._defense_state = st["defense_state"]
-        logger.info("resumed from checkpoint at round %d", step)
-        return step + 1
+        if "selection" in st:
+            self.selection.load_state_dict(st["selection"])
 
     # -- the local step -----------------------------------------------------
     def step_program(self, hyper: TrainHyper) -> StepProgram:
@@ -357,10 +503,9 @@ class GPUSimulator:
         per-client updates; refuse loudly otherwise, naming every reason
         (a silent fallback would misreport the measured mode): an
         optimizer with per-client trajectories, robust mode (it needs the
-        per-client update matrix) and DP (it clips and noises per-client
-        updates). The JAX engine's last reason, a selection strategy that
-        reads per-slot metrics, belongs to a knob that raises earlier here
-        (``runner.UNPORTED_KNOBS``)."""
+        per-client update matrix), DP (it clips and noises per-client
+        updates) and a selection strategy that reads per-client
+        metrics."""
         pref = getattr(self.args, "client_slot_fold", False)
         if not pref or str(pref).lower() in ("false", "0", "no", "none",
                                              "off"):
@@ -376,6 +521,9 @@ class GPUSimulator:
             reasons.append("robust mode needs the per-client update stack")
         if self.dp.is_local_dp_enabled() or self.dp.is_global_dp_enabled():
             reasons.append("DP clips/noises per-client updates")
+        if self.selection.track:
+            reasons.append("the selection strategy consumes per-slot "
+                           "metrics, which a folded pass cannot produce")
         if reasons:
             raise ValueError(
                 "client_slot_fold: this config cannot fold client slots "
@@ -387,9 +535,11 @@ class GPUSimulator:
         """``robust_fused``: ``auto`` (default) runs the defended round on
         the one-card sharded kernels with no read-back inside a block
         whenever a defense is configured and ``sharded_defense`` is not
-        off; ``host`` reads the verdict back after every round; ``fused``
-        demands the first and refuses a config that cannot have it (an
-        attack with no defense, ``sharded_defense: false``)."""
+        off, or the run is contribution-only (the ``mean`` kernel
+        aggregates); ``host`` reads the verdict back after every round;
+        ``fused`` demands the first and refuses a config that cannot have
+        it (an attack with no defense, ``sharded_defense: false``, a user
+        ``ServerAggregator``)."""
         pref = str(getattr(self.args, "robust_fused", "auto")
                    or "auto").lower()
         if pref in ("false", "0", "no", "host"):
@@ -397,7 +547,8 @@ class GPUSimulator:
                 logger.info("robust rounds take the HOST-dispatch path: "
                             "robust_fused: %r", pref)
             return False
-        ok = self.robust_mode and self._sharded
+        ok = self.robust_mode and (self._sharded
+                                   or self._fusable_without_defense())
         if pref in ("true", "1", "yes", "fused") and self.robust_mode \
                 and not ok:
             raise ValueError(
@@ -407,9 +558,19 @@ class GPUSimulator:
                 "robust_fused: auto or host")
         return ok
 
+    def _fusable_without_defense(self) -> bool:
+        """A contribution-only robust run (no defense, no model attack, no
+        user aggregator) fuses through the ``mean`` kernel."""
+        return (self.contribution.enabled
+                and not self.defender.is_defense_enabled()
+                and not self.attacker.is_model_attack()
+                and self.server_aggregator is None)
+
     def _use_sharded_defense(self) -> bool:
         """The sharded kernels are the default whenever a defense is
-        configured; ``sharded_defense: false`` forces the host kernels."""
+        configured; ``sharded_defense: false`` forces the host kernels,
+        and so does a user ``ServerAggregator`` (it takes the host-ordered
+        matrix)."""
         if not self.defender.is_defense_enabled():
             return False
         pref = str(getattr(self.args, "sharded_defense", "auto")
@@ -418,7 +579,36 @@ class GPUSimulator:
             logger.info("robust rounds take the HOST-dispatch path: "
                         "sharded_defense: %r forces the host kernels", pref)
             return False
+        if self.server_aggregator is not None:
+            logger.info("robust rounds take the HOST-dispatch path: a user "
+                        "ServerAggregator consumes the host-ordered update "
+                        "matrix")
+            return False
         return sharded_defense.supports_sharded(self.defender.defense_type)
+
+    def _resolve_relayout_quant(self) -> Optional[str]:
+        """``robust_relayout_quant`` -> None | 'int8' | 'bf16'. Only the
+        fused robust path quantizes its matrix (the JAX engine's quantized
+        ``all_to_all``); on the host path the knob warns and stays off."""
+        pref = getattr(self.args, "robust_relayout_quant", None)
+        if pref is None or str(pref).lower() in ("none", "off", "false",
+                                                 "0", ""):
+            return None
+        mode = str(pref).lower()
+        if mode == "bfloat16":
+            mode = "bf16"
+        if mode not in ("int8", "bf16"):
+            raise ValueError(
+                f"unknown robust_relayout_quant {pref!r} "
+                "(none|int8|bf16)")
+        if self.robust_mode and not self.robust_fused:
+            logger.warning(
+                "robust_relayout_quant: %s requested but the robust path "
+                "is host-dispatch (robust_fused off) — the dense f32 "
+                "matrix is kept; use robust_fused: auto/fused for the "
+                "quantized rows", mode)
+            return None
+        return mode
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A small host array on the device. On a card it goes through
@@ -438,13 +628,18 @@ class GPUSimulator:
         return self._mat
 
     def _defend(self, mat: torch.Tensor, w: torch.Tensor, sampled,
-                round_key: np.ndarray):
+                round_key: np.ndarray, assess: Optional[Callable] = None):
         """Attack -> defense on the round's matrix: ``(aggregate [D],
-        [K] verdict or None)``. On the sharded kernels the verdict stays
-        on the device; the host kernels' comes back as numpy."""
-        if not self._sharded:
-            return host_robust_aggregate(self.attacker, self.defender, mat,
-                                         w, sampled, round_key)
+        [K] verdict or None)``; ``assess(mat)`` sees the post-attack
+        matrix. On the one-card kernels (the fused path, or a defense on
+        the sharded kernels) the verdict stays on the device, and the
+        fused path first rounds the rows as ``robust_relayout_quant``
+        says; the host kernels' verdict comes back as numpy."""
+        if not (self._sharded or self.robust_fused):
+            return host_robust_aggregate(
+                self.attacker, self.defender, mat, w, sampled, round_key,
+                server_aggregator=self.server_aggregator, assess=assess)
+        mat = quantize_rows(mat, self._relayout_quant)
         ids = self._to_device(np.asarray(sampled, np.int64))
         if self.attacker.is_model_attack():
             byz = self._to_device(self.attacker.byzantine_mask(sampled))
@@ -452,8 +647,13 @@ class GPUSimulator:
                 self.attacker.attack_type, mat, byz,
                 prng.fold_in(round_key, ATTACK_FOLD),
                 self.attacker.attack_scale)
+        if assess is not None:
+            assess(mat)
+        # a contribution-only run aggregates with the mean kernel
+        defense = (self.defender.defense_type
+                   if self.defender.is_defense_enabled() else "mean")
         vec, state, verdict = sharded_defense.defend_shard_stateful(
-            mat, w, self.defender.defense_type,
+            mat, w, defense,
             sharded_defense.DefenseHP.from_defender(self.defender),
             state=self._defense_state, ids=ids,
             key=prng.fold_in(round_key, DEFENSE_FOLD))
@@ -461,21 +661,96 @@ class GPUSimulator:
             self._defense_state = state
         return vec, verdict
 
+    # -- chaos and selection ------------------------------------------------
+    def _schedule_for(self, round_idx: int) -> Tuple[List[int], List[float]]:
+        """The round's cohort and each client's work fraction (the JAX
+        engine's ``_schedule_for`` on one device): the strategy draws
+        ``round_target`` clients; a chaos-dropped or reputation-benched
+        client gets work 0, a straggler ``chaos_straggler_work``, the rest
+        1. Records the schedule in the selection store and the fault
+        ledger. Reads nothing from the device but the store's queue."""
+        # adaptive sizing replaces the static chaos_over_sample factor:
+        # its base is the raw per-round target
+        base = (self._base_n if self.selection.adaptive
+                else self._static_n)
+        target_n = self.selection.round_target(round_idx, base,
+                                               self._sample_n)
+        sampled, excluded = self.selection.select(round_idx, target_n)
+        sampled = [int(c) for c in sampled]
+        excl = set(int(c) for c in excluded)
+        faults = (self.chaos.round_faults(round_idx, sampled)
+                  if self.chaos.injects_availability else None)
+        works = [0.0 if c in excl else
+                 (faults.scale_for(c) if faults is not None else 1.0)
+                 for c in sampled]
+        self.selection.note_schedule(round_idx, sampled, excluded,
+                                     dict(zip(sampled, works)), target_n)
+        if faults is not None:
+            # injected against observed, at the aggregation seam
+            self.chaos_ledger.record_round(
+                round_idx,
+                injected={"dropped": list(faults.dropped),
+                          "stragglers": dict(faults.work_scale)},
+                observed={"sampled": len(sampled),
+                          "participating": sum(w > 0 for w in works),
+                          "tolerance": self.chaos_tolerance})
+        return sampled, works
+
+    def _slot_metrics(self, slots) -> Optional[Dict[str, torch.Tensor]]:
+        """The per-client ``loss_sum`` / ``count`` of a round as ``[1, K]``
+        device tensors (the JAX engine's per-slot metrics on one device);
+        a client that reported nothing has zeros."""
+        if slots is None:
+            return None
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        return {k: torch.stack([zero if m is None else m[k].float()
+                                for m in slots]).view(1, -1)
+                for k in ("loss_sum", "count")}
+
+    # -- contribution -------------------------------------------------------
+    def _assess_contribution(self, mat: torch.Tensor, w: torch.Tensor,
+                             sampled, round_idx: int) -> None:
+        """LOO / GTG-Shapley on the round's post-attack ``[K, D]`` matrix:
+        a coalition's value is the eval accuracy of the round-start params
+        plus the masked weighted mean of its rows, one function on the
+        device for every coalition (``core/contribution``); each value is
+        one scalar read. The host path keeps the JAX engine's guard: a
+        matrix over ``CONTRIBUTION_HOST_GUARD_BYTES`` is not assessed."""
+        nbytes = int(mat.numel()) * mat.element_size()
+        if not self.robust_fused and nbytes > CONTRIBUTION_HOST_GUARD_BYTES:
+            logger.error(
+                "contribution assessment skipped: update matrix is %.1f "
+                "GiB (> 2 GiB host guard) — Shapley/LOO on a model this "
+                "size would OOM the host; use a smaller model or disable "
+                "contribution assessment", nbytes / 2**30)
+            return
+        assess_contribution(self.contribution, self.spec, self.layout,
+                            self.params, self.test, mat, w, sampled,
+                            round_idx)
+
     # -- rounds -------------------------------------------------------------
-    def _round(self, round_idx: int, hyper: TrainHyper):
-        """One round; returns (summed metrics on the device, local steps
-        run, the defense's [K] verdict or None, the sampled ids). Reads
-        nothing back from the device, except on the host-kernel robust
-        path."""
-        sampled = [int(c) for c in client_sampling(
-            round_idx, self.fed.num_clients,
-            int(self.args.client_num_per_round), random_seed=self.seed,
-            stream=self.stream)]
+    def _round(self, round_idx: int, hyper: TrainHyper, sched):
+        """One round of the cohort ``sched`` (``(sampled, works)``, from
+        :meth:`_schedule_for`); returns (summed metrics on the device,
+        local steps run, the defense's [K] verdict or None, the per-client
+        metrics selection reads or None). Reads nothing back from the
+        device, except on the host-kernel robust path and for
+        contribution values.
+
+        Chaos: a client of work fraction ``ws`` runs ``ceil(epochs *
+        real_batches * ws)`` steps of the one captured step. A dropped
+        client (``ws`` 0) runs none and reports nothing: no update, no
+        metrics, no state write; in robust mode its row is its zero-step
+        update at weight 0. Under ``chaos_tolerance`` its weight leaves
+        the denominator; without it, its scheduled weight stays: the
+        optimizer's weight from its zero-step ``local_train`` (FedLocalSGD
+        weighs a client 1, not by its samples)."""
+        sampled, works = sched
         round_key = prng.fold_in(self.rng, round_idx)
         self.dp.record_round(len(sampled) / max(self.fed.num_clients, 1))
         if self._slot_fold:
-            return self._folded_round(round_idx, sampled, round_key) + (
-                None, sampled)
+            return self._folded_round(round_idx, sampled, works,
+                                      round_key) + (None, None)
         robust = self.robust_mode
         mat = self._matrix(len(sampled)) if robust else None
         w = (torch.empty(len(sampled), dtype=torch.float32,
@@ -486,75 +761,110 @@ class GPUSimulator:
                           self.opt.server_extras_zero(self.params),
                           device=self.device)
         acc_m: Dict[str, torch.Tensor] = {}
+        slots: Optional[list] = [] if self.selection.track else None
         steps = 0
-        for k, cid in enumerate(sampled):
+        for k, (cid, ws) in enumerate(zip(sampled, works)):
+            if ws <= 0.0 and not robust and self.chaos_tolerance:
+                if slots is not None:
+                    slots.append(None)
+                continue
             # views of the client's rows: written back in place below
             cstate = tree_map(lambda a: a[cid], self.client_states)
             ckey = prng.fold_in(round_key, cid)
             out, n_steps = self.opt.local_train(
                 self.params, self.server_state, cstate,
-                self.train.client(cid), ckey, hyper,
+                self.train.client(cid), ckey,
+                hyper if ws == 1.0 else dataclasses.replace(
+                    hyper, work_scale=ws),
                 batch_real=self.batch_real[cid], programs=self)
             steps += n_steps
             update = self._client_dp(out.update, ckey)
             if robust:
                 # row k of the matrix, in the JAX package's flat layout
                 self.layout.flatten_into(update, mat[k])
-                w[k] = out.weight
+                w[k] = out.weight if ws > 0.0 else 0.0
                 update = {}
+            if ws <= 0.0:
+                if not self.chaos_tolerance:
+                    acc.add_weight(out.weight)
+                if slots is not None:
+                    slots.append(None)
+                continue
             acc.add(out.replace(update=update))
             if self.opt.has_client_state:
                 tree_copy_(cstate, out.client_state)
             for name, m in out.metrics.items():
                 acc_m[name] = acc_m[name] + m if name in acc_m else m
+            if slots is not None:
+                slots.append(out.metrics)
+        for name in METRICS:    # a round whose clients all dropped
+            acc_m.setdefault(name, torch.zeros(
+                (), dtype=torch.float32, device=self.device))
         agg, agg_ex = acc.mean()
-        agg, verdict = self._server_aggregate(agg, mat, w, sampled,
-                                              round_key)
+        agg, verdict = self._server_aggregate(round_idx, agg, mat, w,
+                                              sampled, round_key)
         self._server_step(round_idx, agg, agg_ex)
-        return acc_m, steps, verdict, sampled
+        return acc_m, steps, verdict, self._slot_metrics(slots)
 
     def _client_dp(self, update: Params, client_key: np.ndarray) -> Params:
         """A client's update as DP sends it (LDP noise, or the CDP clip)."""
         return dp_client_update(self.dp, update, client_key)
 
-    def _server_aggregate(self, agg: Params, mat, w, sampled,
-                          round_key: np.ndarray):
+    def _server_aggregate(self, round_idx: int, agg: Params, mat, w,
+                          sampled, round_key: np.ndarray):
         """The server's side of the round before its step: in robust mode
-        the attack and the defense on the matrix (``agg`` is then
-        empty), then CDP's noise. Returns (aggregate update, verdict or
-        None)."""
+        the attack, contribution assessment and the defense on the matrix
+        (``agg`` is then empty), then CDP's noise. Returns (aggregate
+        update, verdict or None)."""
         verdict = None
         if mat is not None:
-            vec, verdict = self._defend(mat, w, sampled, round_key)
+            assess = None
+            if self.contribution.enabled:
+                assess = lambda m: self._assess_contribution(  # noqa: E731
+                    m, w, sampled, round_idx)
+            vec, verdict = self._defend(mat, w, sampled, round_key, assess)
             agg = self.layout.unflatten(vec)
         return dp_server_noise(self.dp, agg, round_key), verdict
 
-    def _fold(self, sampled) -> ClientData:
+    def _fold(self, sampled, report: Optional[np.ndarray] = None
+              ) -> ClientData:
         """The sampled clients' data folded into the batch axis:
         ``[clients, n_batches, bs, ...]`` -> ``[n_batches, n * bs, ...]``,
-        batch i holding each client's batch i in schedule order."""
+        batch i holding each client's batch i in schedule order. A client
+        whose ``report`` is 0 keeps its place with its samples masked."""
         idx = torch.as_tensor(np.asarray(list(sampled), np.int64),
                               device=self.device)
 
         def fold(a):
-            a = a[idx].transpose(0, 1)
+            a = a.transpose(0, 1)
             return a.reshape((a.shape[0], -1) + tuple(a.shape[3:]))
 
         t = self.train
-        return ClientData(fold(t.x), fold(t.y), fold(t.mask),
-                          t.num_samples[idx].float().sum())
+        mask, n = t.mask[idx], t.num_samples[idx].float()
+        if report is not None:
+            r = self._to_device(report)
+            mask = mask * r.view((-1,) + (1,) * (mask.dim() - 1)).to(
+                mask.dtype)
+            n = n * r
+        return ClientData(fold(t.x[idx]), fold(t.y[idx]), fold(mask),
+                          n.sum())
 
-    def _folded_round(self, round_idx: int, sampled, round_key
+    def _folded_round(self, round_idx: int, sampled, works, round_key
                       ) -> Tuple[Dict[str, torch.Tensor], int]:
         """One folded round: one full-batch pass over the folded clients
-        gives the weight-scaled update sum directly."""
-        folded = self._fold(sampled)
+        gives the weight-scaled update sum directly. A dropped client's
+        samples are masked (the JAX engine's fold); a straggler reports
+        its whole gradient."""
+        report = np.asarray([w > 0.0 for w in works], np.float32)
+        folded = self._fold(sampled, None if report.all() else report)
+        den = folded.num_samples
+        if not self.chaos_tolerance and not report.all():
+            den = self._fold(sampled).num_samples
         acc_u, acc_m = self.opt.local_train_folded(
             self.params, folded, round_key, programs=self)
         self._server_step(
-            round_idx, weighted_mean(acc_u, folded.num_samples),
-            weighted_mean(self.opt.server_extras_zero(self.params),
-                          folded.num_samples))
+            round_idx, weighted_mean(acc_u, den),
+            weighted_mean(self.opt.server_extras_zero(self.params), den))
         return acc_m, 0
 
     def _server_step(self, round_idx: int, agg: Params, agg_ex) -> None:
@@ -568,8 +878,13 @@ class GPUSimulator:
                             attrs={"role": "engine",
                                    "start_round": int(start_round),
                                    "rounds": int(n_rounds)}):
+            # every round's cohort is chosen before the block runs (the
+            # JAX engine's fused block): nothing inside it waits for the
+            # device
+            scheds = [self._schedule_for(start_round + i)
+                      for i in range(n_rounds)]
             out = self._traced(name, n_rounds, lambda: [
-                self._round(start_round + i, hyper)
+                self._round(start_round + i, hyper, scheds[i])
                 for i in range(n_rounds)])
             # the block's one device -> host read (and its stacked
             # verdicts, on the fused robust path)
@@ -578,11 +893,18 @@ class GPUSimulator:
             verdicts = [o[2] for o in out]
             if verdicts and torch.is_tensor(verdicts[0]):
                 verdicts = list(torch.stack(verdicts).cpu().numpy())
+        n = self.fed.num_clients
         for i, (o, v) in enumerate(zip(out, verdicts)):
-            if v is not None:
-                self.verdicts[start_round + i] = (o[3], np.asarray(v))
-                logger.info("round %d: defense verdict %s", start_round + i,
+            r, sampled = start_round + i, scheds[i][0]
+            if v is not None and self.defender.is_defense_enabled():
+                self.verdicts[r] = (sampled, np.asarray(v))
+                logger.info("round %d: defense verdict %s", r,
                             np.round(np.asarray(v), 4).tolist())
+            # per-client losses stay on the device, queued until the
+            # next selection query
+            self.selection.note_results(
+                r, sampled, slot_placement(sampled, 1, n),
+                slot_metrics=o[3], verdict=v)
         return [dict({k: float(v) for k, v in zip(METRICS, row)},
                      local_steps=o[1])
                 for row, o in zip(host, out)]
@@ -593,9 +915,11 @@ class GPUSimulator:
         (one at the block's end). Returns each round's summed metrics
         (``loss_sum``, ``correct``, ``count``) and ``local_steps``. Robust
         rounds on the host path (``robust_fused: host``, an attack with no
-        defense) run as blocks of one round each: each reads its verdict
-        back."""
-        if self.robust_mode and not self.robust_fused and n_rounds > 1:
+        defense, a user aggregator) and contribution runs run as blocks of
+        one round each: each reads its verdict or its values back."""
+        if n_rounds > 1 and (
+                (self.robust_mode and not self.robust_fused)
+                or self.contribution.enabled):
             return [self.run_round(start_round + i, hyper)
                     for i in range(n_rounds)]
         return self._block("rounds_fused", start_round, n_rounds, hyper)
@@ -686,7 +1010,11 @@ class GPUSimulator:
         per_batch = float(counter.get_total_flops())
         n_sampled = int(self.args.client_num_per_round)
         mean_real = float(np.mean(np.sum(self.batch_real, axis=-1)))
-        return per_batch * n_sampled * int(hyper.epochs) * mean_real
+        steps = n_sampled * int(hyper.epochs) * mean_real
+        if self.chaos.injects_availability:
+            # dropped clients run no step, stragglers a fraction
+            steps *= self.chaos.expected_work_fraction
+        return per_batch * steps
 
     # -- eval and the run ---------------------------------------------------
     def evaluate(self) -> Dict[str, float]:
@@ -747,6 +1075,12 @@ class GPUSimulator:
                                         attrs={"role": "engine",
                                                "round_idx": r}):
                         self.ckpt.maybe_save(r, self.ckpt_state())
+                if self.chaos.crash_due(r):
+                    # the injected crash comes after the round's record
+                    # and its checkpoint, flushed, so a resume restores a
+                    # consistent trajectory
+                    self.ckpt.flush()
+                    raise ChaosCrash(r)
             round_idx = stop + 1
         # the writes must be on disk before the run returns: the next
         # run's checkpointer cannot wait on this one's
@@ -766,6 +1100,11 @@ class GPUSimulator:
         if self.dp.is_dp_enabled():
             result["dp_epsilon_spent"] = self.dp.get_epsilon_spent()
         return result
+
+
+#: the host path's bound on the matrix contribution assessment takes (the
+#: JAX engine's 2 GiB host guard)
+CONTRIBUTION_HOST_GUARD_BYTES = 2 << 30
 
 
 def load_params(bundle, init_params: Dict[str, Any],

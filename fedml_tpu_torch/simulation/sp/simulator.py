@@ -14,15 +14,23 @@ is held to, and the eager baseline of the flagship benchmark's
 DP, attacks and defenses run as in the JAX golden loop: each client's
 update is clipped and noised (LDP, NbAFL) or clipped (CDP) as it comes
 back, a data attack poisons the clients' host arrays at construction, and
-with a model attack or a defense the round's updates become the ``[K, D]``
-matrix of the JAX package's flat layout, which the host kernels
-(``FedMLAttacker.poison_updates``, ``FedMLDefender.defend_matrix``)
-attack and defend (``_aggregate_robust``); CDP noises the aggregate. The
-JAX loop's contribution assessment, participant selection and pacer raise
-in the port (``runner.UNPORTED_KNOBS``), so sampling is uniform. Round
-checkpoints (``checkpoint_dir`` / ``checkpoint_every_rounds``) hold what
-the GPU engine's hold; the host kernels' cross-round state is not in
-them, as in JAX.
+with a model attack, a defense or contribution assessment the round's
+updates become the ``[K, D]`` matrix of the JAX package's flat layout,
+which the host kernels (``FedMLAttacker.poison_updates``,
+``FedMLDefender.defend_matrix``) attack and defend (``_aggregate_robust``);
+contribution (LOO, GTG-Shapley) is assessed on the post-attack matrix
+before the defense; CDP noises the aggregate.
+
+Participant selection runs as in the JAX loop: the strategy draws each
+round's cohort (uniform at the defaults: the sampling stream's draw), a
+reputation-benched client is not trained, each trained client's loss goes
+straight to the stats store and each defense verdict to its reputation.
+``pacer_adapt_cohort`` sizes the cohort with the ``DeadlinePacer`` from
+the summed per-client loss. The SP loop injects no chaos (as in JAX; the
+runner refuses its knobs here). Round checkpoints
+(``checkpoint_dir`` / ``checkpoint_every_rounds``) hold what the GPU
+engine's hold, and the pacer's state; the host kernels' cross-round state
+is not in them, as in JAX.
 """
 
 from __future__ import annotations
@@ -39,12 +47,14 @@ from ...core.algframe.local_training import batch_real_of, evaluate
 from ...core.algframe.types import TrainHyper
 from ...core.checkpoint import RoundCheckpointer
 from ...core.collectives import FlatLayout, WeightedSum
+from ...core.contribution import ContributionAssessorManager
 from ...core.dp import FedMLDifferentialPrivacy
 from ...core.security import FedMLAttacker, FedMLDefender
-from ..gpu.engine import (GPUSimulator, check_extras_compat,
-                          dp_client_update, dp_server_noise,
-                          host_robust_aggregate, load_params)
-from ..sampling import client_sampling, sampling_stream_from_args
+from ...core.selection import DeadlinePacer, SelectionManager
+from ..gpu.engine import (GPUSimulator, assess_contribution,
+                          check_extras_compat, dp_client_update,
+                          dp_server_noise, host_robust_aggregate,
+                          load_params)
 
 logger = logging.getLogger(__name__)
 
@@ -63,8 +73,6 @@ class SPSimulator:
         self.spec = spec
         self.device = device
         seed = int(getattr(args, "random_seed", 0))
-        self.seed = seed
-        self.stream = sampling_stream_from_args(args)
         # split(PRNGKey(seed)) = (init, round stream), as the JAX loop
         self.rng = prng.split(prng.PRNGKey(seed))[1]
         self.attacker = FedMLAttacker(args)
@@ -86,9 +94,18 @@ class SPSimulator:
         self.server_state = optimizer.server_init(self.params)
         self.client_states = [optimizer.client_state_init(self.params)
                               for _ in range(fed_dataset.num_clients)]
-        self.robust_mode = (self.attacker.is_model_attack()
-                            or self.defender.is_defense_enabled())
-        check_extras_compat(optimizer, self.params, self.dp, self.robust_mode)
+        defended = (self.attacker.is_model_attack()
+                    or self.defender.is_defense_enabled())
+        check_extras_compat(optimizer, self.params, self.dp, defended)
+        self.contribution = ContributionAssessorManager(args)
+        self.robust_mode = defended or self.contribution.enabled
+        # participant selection (the engine's subsystem, same knobs):
+        # passive at the defaults
+        self.selection = SelectionManager(args, fed_dataset.num_clients)
+        # pacer-driven cohort sizing (off = client_num_per_round)
+        self.pacer = (DeadlinePacer.from_args(args)
+                      if bool(getattr(args, "pacer_adapt_cohort", False))
+                      else None)
         self.layout = FlatLayout.of(self.params)
         self.verdicts = {}
         self.history: List[Dict[str, Any]] = []
@@ -96,10 +113,21 @@ class SPSimulator:
             getattr(args, "checkpoint_dir", None),
             int(getattr(args, "checkpoint_every_rounds", 0) or 0))
 
-    # the same checkpoint state as the GPU engine's, saved and restored
-    # the same way
-    ckpt_state = GPUSimulator.ckpt_state
+    # the GPU engine's checkpoint state and its restore, plus the pacer's
+    _OPTIONAL_CKPT_KEYS = GPUSimulator._OPTIONAL_CKPT_KEYS + ("pacer",)
     restore = GPUSimulator.restore
+    _ckpt_latest = GPUSimulator._ckpt_latest
+
+    def ckpt_state(self) -> Dict[str, Any]:
+        st = GPUSimulator.ckpt_state(self)
+        if self.pacer is not None:
+            st["pacer"] = self.pacer.state_dict()
+        return st
+
+    def _load_ckpt_state(self, st: Dict[str, Any]) -> None:
+        GPUSimulator._load_ckpt_state(self, st)
+        if "pacer" in st:
+            self.pacer.load_state_dict(st["pacer"])
 
     def _evaluate(self) -> Dict[str, float]:
         stats = evaluate(self.spec, self.params, self.test["x"],
@@ -117,11 +145,19 @@ class SPSimulator:
         freq = int(getattr(args, "frequency_of_the_test", 5) or 5)
         t0 = time.time()
         for round_idx in range(self.restore(), rounds):
-            sampled = client_sampling(
-                round_idx, self.fed.num_clients,
-                int(args.client_num_per_round), random_seed=self.seed,
-                stream=self.stream)
-            sampled = [int(c) for c in sampled]
+            # a reputation strategy's benched clients are not trained here:
+            # the SP loop has no work-0 slot to renormalize
+            k_round = int(args.client_num_per_round)
+            if self.pacer is not None:
+                k_round = min(self.pacer.paced_cohort(k_round),
+                              self.fed.num_clients)
+            full_sampled, excluded = self.selection.select(round_idx,
+                                                           k_round)
+            excl = set(int(c) for c in excluded)
+            sampled = [int(c) for c in full_sampled if int(c) not in excl]
+            self.selection.note_schedule(
+                round_idx, full_sampled, excluded,
+                {c: 1.0 for c in sampled}, target_n=len(full_sampled))
             round_key = prng.fold_in(self.rng, round_idx)
             acc = WeightedSum(self.params,
                               self.opt.server_extras_zero(self.params))
@@ -141,6 +177,18 @@ class SPSimulator:
                 metrics.append(out.metrics)
                 if self.opt.has_client_state:
                     self.client_states[cid] = out.client_state
+            if self.selection.track or self.pacer is not None:
+                # per-client mean losses: the stats store's loss ring, and
+                # their sum the round's utility for the pacer
+                mean_loss = [float(m["loss_sum"]) / max(float(m["count"]),
+                                                        1.0)
+                             for m in metrics]
+                if self.selection.track:
+                    for cid, m, ml in zip(sampled, metrics, mean_loss):
+                        if float(m["count"]) > 0:
+                            self.selection.store.record_loss(cid, ml)
+                if self.pacer is not None:
+                    self.pacer.observe_utility(sum(mean_loss))
             agg, agg_extras = acc.mean()
             if self.robust_mode:
                 agg = self._aggregate_robust(torch.stack(updates),
@@ -184,11 +232,21 @@ class SPSimulator:
 
     def _aggregate_robust(self, mat: torch.Tensor, w: torch.Tensor, sampled,
                           round_key, round_idx: int):
-        """The attack -> defense pipeline on the round's ``[K, D]`` matrix
-        through the host kernels (the JAX loop's ``_aggregate_robust``);
-        returns the aggregate update."""
+        """The attack -> contribution -> defense pipeline on the round's
+        ``[K, D]`` matrix through the host kernels (the JAX loop's
+        ``_aggregate_robust``); returns the aggregate update. The verdict
+        feeds the selection store's reputation."""
+        assess = None
+        if self.contribution.enabled:
+            assess = lambda m: assess_contribution(  # noqa: E731
+                self.contribution, self.spec, self.layout, self.params,
+                self.test, m, w, sampled, round_idx)
         vec, verdict = host_robust_aggregate(self.attacker, self.defender,
-                                             mat, w, sampled, round_key)
+                                             mat, w, sampled, round_key,
+                                             assess=assess)
         if verdict is not None:
             self.verdicts[round_idx] = (list(sampled), verdict)
+            if self.selection.track:
+                self.selection.store.record_verdict(sampled,
+                                                    np.asarray(verdict))
         return self.layout.unflatten(vec)

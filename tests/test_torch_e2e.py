@@ -106,12 +106,14 @@ def test_fresh_init_is_seeded_and_runs():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("enable_secure_agg", True), ("contribution_method", "loo"),
-    ("pacer_adapt_cohort", True), ("chaos_crash_at_round", 1),
-    ("chaos_dropout_prob", 0.2), ("client_selection", "oort"),
-    ("mesh_shape", (2, 2)), ("chaos_straggler_prob", 0.1),
-    ("robust_relayout_quant", "int8"), ("obs_roofline", True),
-    ("round_mode", "async_buffered")])
+    ("enable_secure_agg", True), ("enable_fhe", True),
+    ("chaos_link_loss_prob", 0.2), ("chaos_link_dup_prob", 0.2),
+    ("chaos_link_delay_prob", 0.2), ("mesh_shape", (2, 2)),
+    ("obs_roofline", True), ("round_mode", "async_buffered"),
+    ("chaos_serving_stall_prob", 0.1), ("chaos_serving_stall_s", 0.5),
+    ("chaos_serving_stall_at_step", 3), ("chaos_serving_nan_prob", 0.1),
+    ("chaos_serving_nan_at_step", 2), ("chaos_serving_conn_drop_prob", 0.1),
+    ("chaos_serving_crash_at_request", 1)])
 def test_unported_knobs_raise(knob, value):
     cfg = dict(CFG, comm_round=1, max_total_samples=16, **{knob: value})
     with pytest.raises(NotImplementedError, match=knob) as ei:
@@ -120,6 +122,27 @@ def test_unported_knobs_raise(knob, value):
     assert "SCAFFOLD" in str(ei.value) and "client_slot_fold" in str(
         ei.value)
     assert "22 defenses" in str(ei.value) and "NbAFL" in str(ei.value)
+    assert "participant selection" in str(ei.value)
+    assert "contribution assessment" in str(ei.value)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("chaos_dropout_prob", 0.2), ("chaos_straggler_prob", 0.1),
+    ("chaos_crash_at_round", 5), ("chaos_over_sample", 0.5),
+    ("client_selection", "oort"), ("contribution_method", "loo"),
+    ("pacer_adapt_cohort", True), ("selection_adaptive_oversample", True),
+    ("robust_relayout_quant", "int8")])
+def test_fault_and_selection_knobs_are_ported(knob, value):
+    """The knobs of chaos, selection, contribution and the quantized
+    relayout run on the GPU engine (and, where the JAX SP loop has the
+    feature, on the SP loop)."""
+    cfg = dict(CFG, dataset="synthetic_mnist", model="lr", comm_round=1,
+               max_total_samples=64, **{knob: value})
+    r = fedml_tpu_torch.run_simulation(device="cpu", **cfg)
+    assert np.isfinite(r["history"][0]["train_loss"])
+    if not knob.startswith("chaos_"):
+        r = fedml_tpu_torch.run_simulation(backend="sp", device="cpu", **cfg)
+        assert np.isfinite(r["history"][0]["train_loss"])
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -148,9 +148,11 @@ def test_linear_models_match_flax(model):
 def test_sp_backend_aliases_and_refusals():
     assert Arguments(backend="single_process").backend == "sp"
     assert Arguments(backend="mesh").backend == "gpu"
-    with pytest.raises(NotImplementedError, match="pacer_adapt_cohort"):
-        _run("sp", pacer_adapt_cohort=True)
-    with pytest.raises(NotImplementedError, match="contribution_method"):
-        _run("sp", contribution_method="loo")
+    # the SP loop has no chaos (as in the JAX package), and the async
+    # rounds are not ported; its pacer and contribution run
+    with pytest.raises(NotImplementedError, match="chaos_dropout_prob"):
+        _run("sp", chaos_dropout_prob=0.2)
+    with pytest.raises(NotImplementedError, match="round_mode"):
+        _run("sp", round_mode="async_buffered")
     with pytest.raises(NotImplementedError, match="backend"):
         _run("fedml_native")
