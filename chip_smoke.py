@@ -96,7 +96,22 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    dropped client's empty slot, the oort store's clients equal to those
    that trained, the LOO values, seconds and evaluations (K + 1); a
    ``{"chaos_selection": ...}`` line;
-10. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
+10. buffered-async rounds (``round_mode: async_buffered``): (a) ResNet-20
+   runs (f32, all 8 clients in flight, K 4, 3 pours after the bootstrap,
+   ``bench_async_chaos``'s chaos, cuDNN on deterministic algorithms): the
+   card against the CPU within the house tolerance with the pour records
+   and the ledger equal, for FedAvg, SCAFFOLD and defended pours (krum,
+   foolsgold) under byzantine_random x10; a crash at pour 1 of 3
+   resumed to the end, bitwise; (b) MAIN_PATH at 64 of 128 clients in
+   flight, K 32, ``bench_async_chaos``'s chaos: leg 1 the bootstrap then
+   4 timed pours, leg 2 with ``bench_async_robust``'s attack (26 of 128
+   byzantine_random x10) and krum, the bootstrap then 2 timed pours:
+   seconds per pour, pours and updates per wall hour (beside phase 9's
+   sync FedAvg at 64 of 128), updates per simulated hour, staleness,
+   steps, dropped and straggling counts, B1 at 27 launches per forward
+   with one capture, the defended pour's device ms, its matrix and ring
+   bytes and every byzantine row excluded; an ``{"async": ...}`` line;
+11. the FedLLM main path: ``fedml_tpu_torch.llm.run_federated_llm`` at
    ``bench.py``'s ``bench_federated_lora`` configuration (d 512, 4 layers,
    seq 256, bf16, LoRA r8, 2 silos, Shakespeare), 2 rounds with eval after
    each, its local step captured, B2 launches held to 4 per forward and
@@ -104,8 +119,8 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    personalisation steps included); the adapters exported
    (``llm_adapter_export_dir``: ``global``, ``silo_0``, ``silo_1``) and
    reloaded bitwise;
-11. the serving path: the FedLLM main path's model, base weights frozen
-   and the adapter the run of phase 10 trained, served through
+12. the serving path: the FedLLM main path's model, base weights frozen
+   and the adapter the run of phase 11 trained, served through
    ``fedml_tpu_torch.serving.llm_template.CausalLMPredictor`` with
    ``bench.py``'s ``bench_llm_serving`` traffic (24 new tokens, concurrency
    1 / 8 / 64): single mode as the sequential baseline (B2 per layer per
@@ -120,11 +135,11 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    against the full forward (f32 tiny, bf16 full width), greedy parity
    single vs batch on a full fine-tune, adapter isolation; a
    ``{"serving": ...}`` line;
-12. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
+13. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
    bf16, full parameters), 8 launches of each attention kernel per step;
    then ``save_model`` / ``load_model`` of its params (the codec's MB/s,
    round trip bitwise);
-13. one JSON line describing each kernel, then the card line, then
+14. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -397,6 +412,43 @@ FAULTS_LEGS = (("fedavg", FAULTS_PATH, FLAGSHIP_BLOCK),
                 FLAGSHIP_BLOCK),
                ("chaos_oort_loo", dict(FAULTS_PATH, contribution_method="loo",
                                        **FAULTS_KNOBS), 1))
+
+# Buffered-async rounds (phase 10). (a) FAMILY_CFG's ResNet-20 run (f32,
+# cuDNN on deterministic algorithms) in round_mode async_buffered: all 8
+# clients in flight, K 4 (half the concurrency), 3 pours after the
+# bootstrap, bench_async_chaos's chaos (10 % dropout, 20 % stragglers whose
+# full work arrives at 0.4 speed, seed 7); the card against the CPU within
+# HOUSE_TOL with the history's poured / staleness / virtual_t and the
+# ledger's pour records equal: FedAvg, SCAFFOLD (its extras ride the
+# buffer), and defended pours under byzantine_random x10 on 2 of 8 with
+# krum and foolsgold (stateful; verdicts within 1e-3); a crash at pour 1
+# of 3 (checkpoint every pour) resumed to the end, bitwise.
+ASYNC_CHAOS = dict(chaos_dropout_prob=0.1, chaos_straggler_prob=0.2,
+                   chaos_straggler_work=0.4, chaos_seed=7)
+ASYNC_CFG = dict(FAMILY_CFG, client_num_per_round=8, comm_round=3,
+                 round_mode="async_buffered", async_buffer_k=4,
+                 **ASYNC_CHAOS)
+ASYNC_BYZ = dict(enable_attack=True, attack_type="byzantine_random",
+                 attack_scale=10.0, byzantine_client_num=2)
+ASYNC_CHECKS = {
+    "fedavg": {}, "scaffold": dict(federated_optimizer="SCAFFOLD"),
+    "krum": dict(ASYNC_BYZ, enable_defense=True, defense_type="krum"),
+    "foolsgold": dict(ASYNC_BYZ, enable_defense=True,
+                      defense_type="foolsgold")}
+# (b) the full-width legs on FAULTS_PATH (ResNet-56, synthetic CIFAR-10
+# 50,000, bf16, fused conv block, 128 clients, batch 32) with 64 clients in
+# flight and K 32 under bench_async_chaos's chaos. Leg 1: the bootstrap (64
+# clients), then 4 timed pours. Leg 2: leg 1 plus bench_async_robust's
+# attack scaled to 128 clients (byzantine_random x10 on 26, its 20 %) and
+# krum; the bootstrap, then 2 timed pours.
+ASYNC_PATH = dict(FAULTS_PATH, round_mode="async_buffered",
+                  async_buffer_k=32, **ASYNC_CHAOS)
+ASYNC_LEGS = (("async", ASYNC_PATH, 4),
+              ("async_krum", dict(ASYNC_PATH, enable_attack=True,
+                                  attack_type="byzantine_random",
+                                  attack_scale=10.0, byzantine_client_num=26,
+                                  enable_defense=True, defense_type="krum"),
+               2))
 
 # The FedLLM hot loop: bench.py's _llm_train_step_timing model (~111M
 # params) at bench_llm_mfu's bs 8 x seq 1024, bf16, flash attention.
@@ -1817,6 +1869,209 @@ def faults_flagship(torch, cb, fa, legs=FAULTS_LEGS, dev=None):
     return out, chaos_launches
 
 
+def async_agreement(torch, dev=None, cpu="cpu", checks=None, base=None):
+    """Phase 10 (a): the async engine on ResNet-20 (cuDNN on
+    deterministic algorithms), each ASYNC_CHECKS configuration on the card
+    against the CPU, then crash-resume. ``dev`` None is the card; ``cpu``
+    the reference device. Returns {check: record}."""
+    import tempfile
+
+    import numpy as np
+    from fedml_tpu_torch.core.chaos import ChaosCrash
+    from fedml_tpu_torch.core.checkpoint import RoundCheckpointer
+    checks = ASYNC_CHECKS if checks is None else checks
+    base = ASYNC_CFG if base is None else base
+    keys = ("round", "poured", "staleness_mean", "staleness_max",
+            "virtual_t")
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, kw in checks.items():
+            cfg = dict(base, **kw)
+            card = robust_simulator(cfg, dev)
+            r_card = card.run()
+            ref = robust_simulator(cfg, cpu)
+            r_ref = ref.run()
+            hist = [{k: h[k] for k in keys} for h in r_card["history"]]
+            require(hist == [{k: h[k] for k in keys}
+                             for h in r_ref["history"]]
+                    and len(hist) == cfg["comm_round"]
+                    and card.chaos_ledger.pours()
+                    == ref.chaos_ledger.pours(),
+                    f"async {label}: the pour records differ from the "
+                    f"CPU's: {hist} vs {r_ref['history']}")
+            ratio = _house_ratio(torch, card.params, ref.params)
+            require(ratio <= 1.0, f"async {label}: card vs CPU {ratio:.2f}x "
+                                  f"the house tolerance")
+            rec = {"house_ratio": ratio,
+                   "poured": [h["poured"] for h in hist],
+                   "staleness_max": max(h["staleness_max"] for h in hist),
+                   "virtual_t": r_card["virtual_time_s"],
+                   **{k: card.async_stats[k]
+                      for k in ("dropped", "stragglers", "local_steps")}}
+            if card.verdicts:
+                worst = max(float(np.max(np.abs(
+                    card.verdicts[v][1].cpu().numpy()
+                    - ref.verdicts[v][1].numpy()))) for v in card.verdicts)
+                require(sorted(card.verdicts) == sorted(ref.verdicts)
+                        and all(card.verdicts[v][0] == ref.verdicts[v][0]
+                                for v in card.verdicts)
+                        and worst <= 1e-3,
+                        f"async {label}: verdicts differ from the CPU's "
+                        f"(largest difference {worst:.2e})")
+                rec["verdict_max_diff"] = worst
+                rec["kept"] = [float(card.verdicts[v][1].sum().item())
+                               for v in sorted(card.verdicts)]
+            out[label] = rec
+
+        cfg = dict(base, checkpoint_every_rounds=1)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_async_") as d:
+            full = robust_simulator(dict(cfg, checkpoint_dir=f"{d}/full"),
+                                    dev)
+            full.run()
+            crash = dict(cfg, checkpoint_dir=f"{d}/crash",
+                         chaos_crash_at_round=1)
+            try:
+                robust_simulator(crash, dev).run()
+                crashed = None
+            except ChaosCrash as e:
+                crashed = e.round_idx
+            steps = RoundCheckpointer(f"{d}/crash", 1).steps()
+            require(crashed == 1 and steps[-1] == 1,
+                    f"async crash: raised at {crashed}, checkpoints {steps}")
+            resumed = robust_simulator(crash, dev)
+            r = resumed.run()
+            require([h["round"] for h in r["history"]] == [2]
+                    and all(torch.equal(full.params[k], resumed.params[k])
+                            for k in full.params)
+                    and full.virtual_t == resumed.virtual_t,
+                    "async crash: the resumed run differs from the "
+                    "uninterrupted one")
+        out["crash_resume_bitwise"] = True
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def async_flagship(torch, cb, fa, legs=ASYNC_LEGS, dev=None):
+    """Phase 10 (b): the async engine at full width. Each leg's step is
+    captured apart, the bootstrap pour (the first in-flight cohort) is
+    timed apart, then its pours run through ``_pour_step`` (a defended
+    pour's re-base + attack + defense between CUDA events). Returns {leg:
+    record} and the kernels' launches per leg."""
+    import numpy as np
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    out, per_leg = {}, {}
+    fed, _ = data.load(Arguments(**legs[0][1]))
+    for leg, cfg, n_pours in legs:
+        sim = robust_simulator(cfg, dev, fed)
+        cuda = sim.device.type == "cuda"
+        hyper = TrainHyper(learning_rate=cfg["learning_rate"], epochs=1)
+        events = []
+        if sim._defended:
+            inner = sim._defended_aggregate
+
+            def timed(*a, _inner=inner, **kw):
+                if not cuda:
+                    return _inner(*a, **kw)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                res = _inner(*a, **kw)
+                end.record()
+                events.append((start, end))
+                return res
+
+            sim._defended_aggregate = timed
+        reset_launches(cb, fa)
+        capture_s = sim.capture_step(hyper)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim._bootstrap(hyper)
+        if cuda:
+            torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        boot_steps = sim.async_stats["local_steps"]
+        t0 = time.perf_counter()
+        recs = [sim._pour_step(hyper) for _ in range(n_pours)]
+        if cuda:
+            torch.cuda.synchronize()
+        pours_s = time.perf_counter() - t0
+        n = launches(cb, fa)
+        (program,) = sim.programs.values()
+        steps = sim.async_stats["local_steps"]
+        timed_steps = steps - boot_steps
+        poured = [r["poured"] for r in recs]
+        require(all(p > 0 for p in poured) and sim.version == n_pours
+                and all(torch.isfinite(v).all().item()
+                        for v in sim.params.values())
+                and all(math.isfinite(float(r["metrics"]["loss_sum"]))
+                        for r in recs),
+                f"async flagship {leg}: poured {poured} in {n_pours} pours, "
+                f"or non-finite params / metrics")
+        forwards = program.warmup_steps + steps
+        if cuda:
+            require(sim.dispatch_stats["captures"] == 1
+                    and program.replays == steps
+                    and program.graph_launches.get(cb.fused_block) == 27
+                    and n["conv_block"] == 27 * forwards,
+                    f"async flagship {leg}: "
+                    f"{sim.dispatch_stats['captures']} captures, "
+                    f"{program.replays} replays for {steps} steps, B1 "
+                    f"launched {n['conv_block']} times for {forwards} "
+                    f"forward passes (27 each expected)")
+        st = sim.async_stats
+        rec = {"pours": n_pours, "pours_s": pours_s,
+               "s_per_pour": pours_s / n_pours,
+               "pours_per_hour": 3600.0 * n_pours / pours_s,
+               "updates_per_wall_hour": 3600.0 * sum(poured) / pours_s,
+               "updates_per_sim_hour": (3600.0 * sim.updates_aggregated
+                                        / sim.virtual_t),
+               "virtual_t": sim.virtual_t, "poured": poured,
+               "staleness_mean": float(np.mean([r["staleness_mean"]
+                                                for r in recs])),
+               "staleness_max": max(r["staleness_max"] for r in recs),
+               "capture_s": capture_s, "bootstrap_s": boot_s,
+               "bootstrap_steps": boot_steps, "timed_steps": timed_steps,
+               "ms_per_local_step": pours_s / max(timed_steps, 1) * 1e3,
+               "dispatched": st["dispatched"], "dropped": st["dropped"],
+               "stragglers": st["stragglers"], "local_steps": steps,
+               "b1_launches": n["conv_block"],
+               "b1_per_forward": n["conv_block"] / max(forwards, 1),
+               "forwards": forwards,
+               "captures": sim.dispatch_stats["captures"]}
+        if sim._defended:
+            excluded = True
+            for v, (ids, verdict) in sim.verdicts.items():
+                byz = np.asarray(sim.attacker.byzantine_mask(
+                    np.asarray(ids)), np.float32) > 0
+                excluded &= bool(np.all(verdict.cpu().numpy()[byz] == 0.0))
+            require(excluded and len(sim.verdicts) == n_pours,
+                    f"async flagship {leg}: a byzantine row was kept "
+                    f"({len(sim.verdicts)} verdicts)")
+            if cuda:
+                torch.cuda.synchronize()
+            ms = [s.elapsed_time(e) for s, e in events]
+            rec.update({
+                "defense_ms_per_pour": (sum(ms) / len(ms)) if ms else None,
+                "defense_ms": ms,
+                "matrix_bytes": sim.k * sim._true_d * 4,
+                "ring_bytes": sim._ring.numel() * sim._ring.element_size(),
+                "ring_slots": sim._ring_r, "byzantine_excluded": excluded,
+                "byzantine_poured": sum(
+                    int(np.sum(np.asarray(sim.attacker.byzantine_mask(
+                        np.asarray(ids))) > 0))
+                    for ids, _ in sim.verdicts.values())})
+        out[leg], per_leg[leg] = rec, n
+        del sim, program
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return out, per_leg
+
+
 def robust_bench(torch, base=ROBUST_BENCH, benches=ROBUST_BENCHES,
                  block=ROBUST_BENCH_BLOCK, dev=None):
     """Phase 8 (c): bench.py's ``bench_robust_defended`` legs on the port:
@@ -2224,7 +2479,7 @@ def hot_loop(torch, llm, cb, fa):
 
 
 def codec_speed(torch, params, tmp):
-    """Phase 12, after the hot loop: ``save_model`` then ``load_model`` of the hot loop's
+    """Phase 13, after the hot loop: ``save_model`` then ``load_model`` of the hot loop's
     params (f32, on the card): seconds and MB/s of each direction (the
     device-to-host copy inside the save), the round trip bitwise."""
     from fedml_tpu_torch.core.distributed.communication.message import \
@@ -2900,6 +3155,42 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "legs": faults_legs, "flagship_rounds_per_hour": record["value"],
         "card": card}}), flush=True)
 
+    t_async = time.perf_counter()
+    agreement = async_agreement(torch)
+    for label, r in agreement.items():
+        print(f"async {label:20s} (resnet20, f32): {json.dumps(r)}",
+              flush=True)
+    async_agreement_s = time.perf_counter() - t_async
+    async_legs, async_launches = async_flagship(torch, cb, fa)
+    # sync FedAvg at 64 of 128 (phase 9's leg 0): 64 updates a round
+    sync_updates = 64 * base["rounds_per_hour"]
+    for leg, r in async_legs.items():
+        extra = "" if "defense_ms_per_pour" not in r else (
+            f"; re-base + attack + defense {r['defense_ms_per_pour']:.2f} "
+            f"ms of device time per pour, [K, D] {r['matrix_bytes']} bytes,"
+            f" ring {r['ring_bytes']} bytes ({r['ring_slots']} slots), "
+            f"byzantine rows poured {r['byzantine_poured']}, all excluded "
+            f"{r['byzantine_excluded']}")
+        print(f"async flagship {leg:10s} ({card}): {r['s_per_pour']:.3f} s "
+              f"per pour over {r['pours']} ({r['pours_per_hour']:.2f} "
+              f"pours/hour, {r['updates_per_wall_hour']:.1f} updates per "
+              f"wall hour beside sync FedAvg's {sync_updates:.1f} at 64 of "
+              f"128), {r['updates_per_sim_hour']:.1f} updates per simulated"
+              f" hour, staleness mean {r['staleness_mean']:.2f} max "
+              f"{r['staleness_max']}; capture {r['capture_s']:.2f} s and "
+              f"bootstrap {r['bootstrap_s']:.2f} s ({r['bootstrap_steps']} "
+              f"steps) apart; {r['timed_steps']} timed steps "
+              f"({r['ms_per_local_step']:.2f} ms each), dispatched "
+              f"{r['dispatched']}, dropped {r['dropped']}, stragglers "
+              f"{r['stragglers']}; B1 {r['b1_launches']} launches = "
+              f"{r['b1_per_forward']:.0f} per forward, {r['captures']} "
+              f"capture{extra}", flush=True)
+    print(json.dumps({"async": {
+        "phase_s": time.perf_counter() - t_async,
+        "agreement_s": async_agreement_s, "agreement": agreement,
+        "legs": async_legs, "sync_fedavg_updates_per_wall_hour": sync_updates,
+        "card": card}}), flush=True)
+
     export_dir = os.path.join(tmp, "adapters")
     reset_launches(cb, fa)
     t0 = time.time()
@@ -3019,6 +3310,8 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "launches_scaffold": scaffold_launches["conv_block"],
         "launches_defended_flagship": robust_launches["conv_block"],
         "launches_chaos_selection": faults_launches["conv_block"],
+        "launches_async": async_launches["async"]["conv_block"],
+        "launches_async_defended": async_launches["async_krum"]["conv_block"],
         "launches_fedsgd_fold": fold["fold"]["b1_launches"],
         "launches_fedsgd_unfold": fold["unfold"]["b1_launches"],
         "max_abs_err_fold_batch": fold["b1_fold_batch_max_abs_err"],

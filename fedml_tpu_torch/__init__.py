@@ -14,13 +14,17 @@ and continuous-batching serving of the LM and its adapters
 batching engine, multi-LoRA adapter bank, HTTP runner). Around the
 simulated round: differential privacy, attacks and defenses, chaos
 (dropout, stragglers, crash-at-round), participant selection,
-contribution assessment and a user ``ServerAggregator``.
+contribution assessment and a user ``ServerAggregator``; buffered-async
+rounds (``round_mode: async_buffered`` on the GPU engine, with defended
+pours, and the SP ``federated_optimizer: Async_FedAvg`` loop).
 Modules follow the JAX package's paths. Nothing here imports JAX or
 ``fedml_tpu``.
 
     import fedml_tpu_torch as fedml
     result = fedml.run_simulation(dataset="synthetic_cifar10",
                                   model="resnet56", fused_conv_block="pallas")
+    result = fedml.run_simulation(round_mode="async_buffered",
+                                  async_buffer_k=4)  # synthetic_mnist / lr
     from fedml_tpu_torch.llm import run_federated_llm
     result = run_federated_llm(fedml.Arguments(dataset="llm",
                                                model="causal_lm"))
@@ -43,7 +47,10 @@ __version__ = "0.1.0"
 
 def init(args: Optional[Arguments] = None, **overrides: Any) -> Arguments:
     """Parse config: with no ``args``, reads ``--cf <yaml>`` from the CLI if
-    present; keyword overrides always win."""
+    present; keyword overrides always win. Wires the ``obs_*`` knobs
+    (:func:`fedml_tpu_torch.core.obs.configure`), as the JAX package's
+    ``init`` does through ``mlops.init``."""
+    from .core import obs
     if args is None:
         cli = add_args()
         merged = dict(rank=cli.rank, role=cli.role, run_id=cli.run_id)
@@ -53,6 +60,7 @@ def init(args: Optional[Arguments] = None, **overrides: Any) -> Arguments:
         for k, v in overrides.items():
             setattr(args, k, v)
         args._finalize()
+    obs.configure(args)
     return args
 
 
@@ -64,7 +72,13 @@ def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
     ``backend="gpu"`` (aliases ``cuda``, ``tpu``, ``mesh``, ``nccl``,
     ``mpi``) runs the GPU engine, rounds in blocks of
     ``rounds_per_dispatch`` over a captured local step; ``backend="sp"``
-    the eager golden loop.
+    the eager golden loop. ``round_mode="async_buffered"`` runs the GPU
+    engine's buffered-async pours (``comm_round`` counts pours; the
+    result adds ``virtual_time_s`` and ``updates_aggregated``);
+    ``federated_optimizer="Async_FedAvg"`` the SP loop's
+    staleness-weighted merges. With neither ``dataset`` nor ``model``
+    given it trains ``synthetic_mnist`` / ``lr``, as the JAX package
+    does.
 
     ``init_params`` (optional) starts from given parameters, a state dict
     under the model's names (see :mod:`fedml_tpu_torch.interop` to bring

@@ -24,7 +24,7 @@ _SCHEMA: Dict[str, Any] = {
     "random_seed": 0,
     "run_id": "0",
     # data_args
-    "dataset": "synthetic_cifar10",
+    "dataset": "synthetic_mnist",
     "data_cache_dir": "~/.cache/fedml_tpu/data",
     "partition_method": "hetero",
     "partition_alpha": 0.5,
@@ -33,7 +33,7 @@ _SCHEMA: Dict[str, Any] = {
     "synthetic_test_size": 0,    # stand-in test set size (0 = 1000)
     "max_total_samples": 0,      # cap on the train set (0 = none)
     # model_args
-    "model": "resnet56",
+    "model": "lr",
     "precision": "float32",      # or "bfloat16" for the compute path
     # fused conv->GN->residual->ReLU block for the <= 64-channel ResNet
     # stages: true/pallas = the hand-written CUDA kernel, reference = the
@@ -120,12 +120,34 @@ _SCHEMA: Dict[str, Any] = {
     # contribution assessment: loo | gtg (None = off)
     "contribution_method": None,
     "shapley_max_perms": 20,         # GTG-Shapley permutation budget
+    # async_args: buffered-async rounds (core/async_rounds, FedBuff +
+    # FedAsync staleness decay); `sync` keeps the round barrier
+    "round_mode": "sync",            # sync | async_buffered
+    "async_buffer_k": 0,             # pour trigger; 0 = half the cohort
+    "async_alpha": 0.6,              # FedAsync mixing rate for each pour
+    "async_staleness_weighting": "polynomial",  # constant|polynomial|hinge
+    "async_staleness_poly": 0.5,     # poly decay exponent / hinge slope
+    "async_hinge_b": 4,              # hinge: free staleness up to b versions
+    # staleness clamp before weighting (stale uploads are down-weighted,
+    # never dropped); 0 = adaptive from observed arrival-rate posteriors
+    "async_staleness_cap": 16,
+    # the JAX package's cross-silo pour valve (no cross-silo server here)
+    "async_pour_timeout_s": 0.0,
+    # simulated-arrival heterogeneity (async engine + SP Async_FedAvg)
+    "async_duration_sigma": 0.6,
     # validation_args
     "frequency_of_the_test": 5,
     # comm_args
     "backend": "gpu",
-    # obs_args: host/device split + per-round MFU at the engine's dispatch
-    # seam (waits for the device at every block's end)
+    # obs_args (core/obs.configure): spans and the metrics registry are
+    # on by default; the snapshot cadence in rounds and in wall seconds
+    # (0 = off)
+    "obs_tracing": True,
+    "obs_metrics": True,
+    "obs_metrics_flush_rounds": 10,
+    "obs_metrics_flush_s": 60.0,
+    # host/device split + per-round MFU at the engine's dispatch seam
+    # (waits for the device at every block's end)
     "obs_profile_device": False,
     # the JAX package's per-program roofline capture; not ported (raises)
     "obs_roofline": False,

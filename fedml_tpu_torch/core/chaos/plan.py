@@ -343,8 +343,9 @@ class FaultLedger:
     mirrored to the obs sink. ``injected`` is what the :class:`FaultPlan`
     scheduled; ``observed`` is what the runtime actually saw at the
     aggregation seam — a tolerance bug shows up as the two disagreeing.
-    (The JAX ledger's pour, link and serving records wait for the async
-    engine, the transport interceptor and serving chaos.)"""
+    Buffered-async pours record here too (:meth:`record_pour`). (The JAX
+    ledger's link and serving records wait for the transport interceptor
+    and serving chaos.)"""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -359,6 +360,26 @@ class FaultLedger:
         from ..obs import sink
         sink.log_chaos(round_idx=int(round_idx), injected=injected,
                         observed=observed)
+
+    def record_pour(self, version: int, arrivals: List[Dict[str, Any]],
+                    observed: Dict[str, Any]) -> None:
+        """One buffered-async pour: the per-update arrival records
+        (client, staleness at aggregation, arrival timestamp, dispatch
+        version) plus what the pour observed (count, leftover buffer,
+        staleness cap in force): the arrival distribution a post-mortem
+        reconstructs, balanced against the buffer's add/pour counters."""
+        rec = {"round_idx": int(version), "pour": True,
+               "injected": {"arrivals": list(arrivals)},
+               "observed": dict(observed)}
+        with self._lock:
+            self._rounds.append(rec)
+        from ..obs import sink
+        sink.log_chaos(round_idx=int(version), arrivals=list(arrivals),
+                       observed=dict(observed))
+
+    def pours(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return [r for r in self._rounds if r.get("pour")]
 
     def rounds(self) -> List[Dict[str, Any]]:
         with self._lock:

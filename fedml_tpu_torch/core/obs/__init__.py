@@ -11,8 +11,10 @@ as far as the serving engine, its scheduler and the GPU engine use it):
   table and MFU (``obs_profile_device``);
 - :mod:`.sink`: where records go (nowhere until a caller installs one).
 
+:func:`configure` wires the ``obs_*`` knobs (``fedml_tpu_torch.init`` and
+``run_federated_llm`` call it, as the JAX package's ``mlops.init`` does).
 Not ported yet: ``roofline`` (``obs_roofline`` raises), ``schema`` and
-the mlops plumbing (ROADMAP Queue A item 11).
+the mlops plumbing (ROADMAP Queue A, the record plane).
 """
 
 from __future__ import annotations
@@ -22,3 +24,18 @@ from .flight import FlightRecorder, Watchdog  # noqa: F401
 from .metrics import REGISTRY  # noqa: F401
 from .trace import (NOOP_SPAN, SpanContext, current_span,  # noqa: F401
                     parse_traceparent, span, tracer)
+
+
+def configure(args=None) -> None:
+    """Wire the obs knobs from the flat config (idempotent): spans
+    (``obs_tracing``), the metrics hooks (``obs_metrics``) and the
+    snapshot cadence in rounds and in wall seconds
+    (``obs_metrics_flush_rounds``, ``obs_metrics_flush_s``).
+    ``args=None`` restores the defaults. ``obs_profile_device`` is read
+    by the engine from its args."""
+    trace.set_enabled(bool(getattr(args, "obs_tracing", True)))
+    metrics.set_enabled(bool(getattr(args, "obs_metrics", True)))
+    metrics.set_flush_every(
+        int(getattr(args, "obs_metrics_flush_rounds", 10) or 0))
+    metrics.set_flush_interval(
+        float(getattr(args, "obs_metrics_flush_s", 60.0) or 0.0))

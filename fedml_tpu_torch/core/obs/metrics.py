@@ -4,8 +4,10 @@ path, the engine's profiling plane, the wire codec and the round
 checkpoints use it: the registry, the ``record_llm_*`` hooks, the watchdog
 counter, ``record_round_mfu`` / ``record_hbm_peak``, ``record_wire`` /
 ``record_wire_stage``, ``record_checkpoint_flush``, the selection hooks
-``record_selection`` / ``record_cohort_assembly``, :class:`LatencyWindow`
-and :func:`flush_final`).
+``record_selection`` / ``record_cohort_assembly``, the async engine's
+``record_pour`` / ``record_arrival``, :class:`LatencyWindow`, the
+snapshot cadences :func:`maybe_flush` / :func:`set_flush_interval` and
+:func:`flush_final`).
 
 Two readouts:
 
@@ -32,7 +34,7 @@ import threading
 import time
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
-_cfg = {"enabled": True}
+_cfg = {"enabled": True, "flush_every": 10}
 
 
 def set_enabled(on: bool) -> None:
@@ -41,6 +43,14 @@ def set_enabled(on: bool) -> None:
 
 def is_enabled() -> bool:
     return _cfg["enabled"]
+
+
+def set_flush_every(rounds: int) -> None:
+    """Snapshot cadence of :func:`maybe_flush` in rounds (0 = never).
+    Also resets the per-round dedup, so a new run's round 0 flushes even
+    when an earlier run in this process flushed at round 0."""
+    _cfg["flush_every"] = max(int(rounds), 0)
+    _flush_state["last"] = None
 
 
 class _Instrument:
@@ -588,6 +598,39 @@ def record_round_mfu(mfu: float, tflops: Optional[float] = None) -> None:
                        "achieved TFLOP/s over the round").set(float(tflops))
 
 
+def record_pour(staleness: Sequence[float], buffered: int,
+                poured: int) -> None:
+    """Async pour seam: staleness + buffer occupancy histograms."""
+    if not _cfg["enabled"]:
+        return
+    h = REGISTRY.histogram("fed_pour_staleness",
+                           "per-update staleness (versions) at pour time",
+                           buckets=STALENESS_BUCKETS)
+    for s in staleness:
+        h.observe(float(s))
+    REGISTRY.histogram("fed_buffer_occupancy",
+                       "buffered update count after each pour",
+                       buckets=OCCUPANCY_BUCKETS).observe(int(buffered))
+    REGISTRY.counter("fed_pours_total", "pours executed").inc(1)
+    REGISTRY.counter("fed_updates_poured_total",
+                     "client updates aggregated by pours").inc(int(poured))
+
+
+def record_arrival(latency_s: float, rate_mean: Optional[float] = None
+                   ) -> None:
+    """Async arrival seam: per-update latency histogram + the population
+    arrival-rate gauge the adaptive staleness cap reads."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.histogram("fed_arrival_latency_seconds",
+                       "dispatch-to-arrival latency of client updates",
+                       buckets=LATENCY_BUCKETS).observe(float(latency_s))
+    if rate_mean is not None and rate_mean > 0:
+        REGISTRY.gauge("fed_arrival_rate_mean",
+                       "population-mean client arrival rate "
+                       "(updates/sec)").set(float(rate_mean))
+
+
 def record_selection(strategy: str, sampled: int, excluded: int) -> None:
     """Selection seam: scheduled vs benched decisions per strategy."""
     if not _cfg["enabled"]:
@@ -668,6 +711,76 @@ class LatencyWindow:
             return 0.0, 0.0, 0.0, 0.0, 0
         return (n / self.window_s, sum(lats) / n,
                 self._rank(lats, 0.50), self._rank(lats, 0.99), n)
+
+
+_flush_state = {"last": None}
+
+# wall-clock flusher state: at most one live daemon thread per process —
+# ownership is `_wall_flush["thread"] is current_thread()`, so a
+# re-configure (new interval, or 0 = off) retires the old loop instead
+# of stacking threads
+_wall_flush = {"interval_s": 0.0, "thread": None, "last_ts": 0.0}
+
+
+def set_flush_interval(seconds: float) -> None:
+    """Wall-clock snapshot cadence (``obs_metrics_flush_s``; 0 = off).
+
+    The round-boundary flusher (:func:`maybe_flush`) fires only where a
+    loop crosses rounds; serving never does, so without this its metrics
+    exist only in the final :func:`flush_final` snapshot. The wall-clock
+    loop emits a ``metrics_snapshot`` every ``seconds``, but only when an
+    instrument changed since the last flush (the activity epoch), so an
+    idle process stays silent."""
+    interval = max(float(seconds or 0.0), 0.0)
+    _wall_flush["interval_s"] = interval
+    if interval <= 0:
+        _wall_flush["thread"] = None  # orphan the loop; it exits itself
+        return
+    th = _wall_flush["thread"]
+    if th is not None and th.is_alive():
+        return  # the live loop re-reads interval_s every tick
+
+    def loop() -> None:
+        me = threading.current_thread()
+        while _wall_flush["thread"] is me:
+            ivl = _wall_flush["interval_s"]
+            if ivl <= 0:
+                return
+            time.sleep(min(ivl, 1.0))
+            # re-check after the sleep: a disable (or takeover) during
+            # the nap must not let one more flush slip through
+            if (_wall_flush["thread"] is not me
+                    or _wall_flush["interval_s"] <= 0):
+                return
+            now = time.time()
+            if now - _wall_flush["last_ts"] < _wall_flush["interval_s"]:
+                continue
+            if not _cfg["enabled"]:
+                continue
+            if _activity["epoch"] == _activity["flushed"]:
+                continue  # nothing changed since the last snapshot
+            _wall_flush["last_ts"] = now
+            try:
+                REGISTRY.flush()
+            except Exception:  # pragma: no cover — sink died mid-run
+                pass
+
+    t = threading.Thread(target=loop, daemon=True,
+                         name="obs-metrics-wall-flush")
+    _wall_flush["thread"] = t
+    t.start()
+
+
+def maybe_flush(round_idx: int) -> None:
+    """Round-boundary hook (``sink.log_round_info``): snapshot every
+    ``obs_metrics_flush_rounds`` rounds. Deduped per round — fused blocks
+    replay round boundaries in bursts."""
+    every = _cfg["flush_every"]
+    if not _cfg["enabled"] or every <= 0:
+        return
+    if round_idx % every == 0 and _flush_state["last"] != round_idx:
+        _flush_state["last"] = round_idx
+        REGISTRY.flush(step=round_idx)
 
 
 def flush_final(step: Optional[int] = None) -> None:

@@ -1,6 +1,6 @@
 """Where the obs planes' records go (the port's stand-in for the JAX
 package's ``mlops._emit``, which this package does not port yet, and for
-its ``log_chaos`` / ``log_selection`` records).
+its ``log_round_info`` / ``log_chaos`` / ``log_selection`` records).
 
 Spans, metric snapshots and watchdog health records are dicts handed to
 :func:`emit`. Nothing is written until a caller installs a sink with
@@ -37,12 +37,26 @@ def emit(kind: str, payload: Dict[str, Any]) -> None:
     sink(rec)
 
 
+def log_round_info(total_rounds: int, round_idx: int) -> None:
+    """A ``kind: round`` record (the JAX package's ``mlops.log_round_info``),
+    and the metrics registry's round-boundary clock: the periodic
+    ``metrics_snapshot`` (``obs_metrics_flush_rounds``) rides it."""
+    from . import metrics as obs_metrics
+    emit("round", {"round_idx": int(round_idx),
+                   "total_rounds": int(total_rounds)})
+    obs_metrics.maybe_flush(int(round_idx))
+
+
 def log_chaos(round_idx: Optional[int] = None,
               injected: Optional[Dict[str, Any]] = None,
-              observed: Optional[Dict[str, Any]] = None) -> None:
+              observed: Optional[Dict[str, Any]] = None,
+              arrivals: Optional[list] = None) -> None:
     """A ``kind: chaos`` record of the fault ledger (the JAX package's
     ``mlops.log_chaos``): what the ``FaultPlan`` injected against what the
-    round observed."""
+    round observed. ``arrivals`` carries a buffered-async pour's
+    per-update records (client, staleness at aggregation, arrival time,
+    dispatch version); they also feed the staleness and buffer-occupancy
+    histograms (``metrics.record_pour``)."""
     rec: Dict[str, Any] = {}
     if round_idx is not None:
         rec["round_idx"] = int(round_idx)
@@ -50,6 +64,13 @@ def log_chaos(round_idx: Optional[int] = None,
         rec["injected"] = injected
     if observed is not None:
         rec["observed"] = observed
+    if arrivals is not None:
+        from . import metrics as obs_metrics
+        rec["arrivals"] = arrivals
+        stal = [a.get("staleness", 0) for a in arrivals
+                if isinstance(a, dict)]
+        buffered = (observed or {}).get("buffered", 0)
+        obs_metrics.record_pour(stal, int(buffered), len(arrivals))
     emit("chaos", rec)
 
 

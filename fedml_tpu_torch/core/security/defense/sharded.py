@@ -18,8 +18,25 @@ starts from the plain weighted sum, and the stochastic kernels and attacks
 fold the shard index 0 into their key (``fold_in(key, 0)``), as JAX does on
 a one-device mesh.
 
-The JAX package's partial-pour row masks (the buffered-async engine's
-defended pours) are not here: that engine is not ported.
+``row_mask`` (a ``[K]`` validity mask, 1 = a real row) is the buffered-
+async engine's partial pour: its ``[K]`` buffer shape is fixed, so a pour
+of fewer than K arrivals pads with zero rows. The masked semantics per
+kernel family are the JAX package's, and ``row_mask=None`` (every sync
+path) runs the unmasked code unchanged:
+
+* weight-folded kernels (mean, norm_clip, rfa, cclip, soteria, rlr) are
+  mask-exact already: padded rows carry weight 0 (and ``sign(0) = 0`` in
+  rlr's votes);
+* coordinate sorts (median, trimmed_mean, slsgd) sort padded rows to
+  +inf and take the valid prefix (:func:`_masked_median`,
+  :func:`_masked_sorted_window_mean`);
+* robust statistics (three_sigma, outlier_detection, residual_reweight)
+  take their median / MAD over valid rows only;
+* Gram selections (krum, multi_krum, bulyan, wbc) add 1e30 to every
+  pair involving a padded row (wbc: -1, out of the seeding), so padding
+  is never preferred;
+* stateful scatters (foolsgold, cross_round) write nothing for padded
+  rows: the caller pads ``ids`` with ids disjoint from the valid rows.
 """
 
 from __future__ import annotations
@@ -170,6 +187,48 @@ def _dist_to_median(mat: Arr) -> Arr:
     return torch.sqrt(torch.sum((mat - ra.median0(mat)[None]) ** 2, dim=1))
 
 
+def _masked_median(x: Arr, mask: Arr) -> Arr:
+    """Median over rows with ``mask > 0`` (dim 0; ``[K]`` or ``[K, D]``):
+    invalid rows sort to +inf and the two middle entries of the valid
+    prefix are indexed on the device."""
+    key = mask if x.dim() == 1 else mask[:, None]
+    s = torch.sort(torch.where(key > 0, x, float("inf")), dim=0).values
+    n = torch.clamp(torch.sum(mask).to(torch.int64), min=1)
+    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+
+
+def _masked_sorted_window_mean(mat: Arr, mask: Arr, b) -> Arr:
+    """Per-coordinate mean of the sorted valid rows with ``b`` trimmed
+    from each side (``b``: an int or a device scalar, clamped to the
+    valid count): the masked trimmed mean and SLSGD core."""
+    k = mat.shape[0]
+    s = torch.sort(torch.where(mask[:, None] > 0, mat, float("inf")),
+                   dim=0).values
+    n = torch.clamp(torch.sum(mask).to(torch.int64), min=1)
+    b = torch.minimum(torch.clamp(torch.as_tensor(b, device=mat.device)
+                                  .to(torch.int64), min=0), (n - 1) // 2)
+    idx = torch.arange(k, device=mat.device)[:, None]
+    keep = ((idx >= b) & (idx < n - b)).to(mat.dtype)
+    s = torch.where(torch.isfinite(s), s, 0.0)
+    return (torch.sum(s * keep, dim=0)
+            / torch.clamp(torch.sum(keep, dim=0), min=1.0))
+
+
+def _mask_dists(dists: Arr, mask: Optional[Arr]) -> Arr:
+    """+1e30 on every pair involving an invalid row: the valid rows'
+    score tails inflate alike (their order kept), invalid rows are never
+    selected."""
+    if mask is None:
+        return dists
+    return dists + (1.0 - mask[:, None] * mask[None, :]) * 1e30
+
+
+def _masked_band(scores: Arr, mask: Arr) -> Tuple[Arr, Arr]:
+    """:func:`robust_agg.robust_band` over the valid rows."""
+    mu = _masked_median(scores, mask)
+    return mu, 1.4826 * _masked_median(torch.abs(scores - mu), mask) + 1e-12
+
+
 def _krum_selection(dists: Arr, weights: Arr, byzantine_count: int,
                     m: int) -> Tuple[Arr, Arr]:
     k = dists.shape[0]
@@ -180,10 +239,14 @@ def _krum_selection(dists: Arr, weights: Arr, byzantine_count: int,
     return sel * weights, sel
 
 
-def _bulyan(mat, hp: DefenseHP):
+def _bulyan(mat, hp: DefenseHP, mask=None):
+    """Under a partial-pour ``mask`` padded rows are never preferred; a
+    theta above the valid count pulls the trimmed mean toward the zero
+    padding (a smaller step), as in JAX."""
     f = hp.byzantine_count
     theta = max(mat.shape[0] - 2 * f, 1)
-    scores = ra.krum_scores_from_dists(ra.pairwise_sq_dists(mat), f)
+    scores = ra.krum_scores_from_dists(
+        _mask_dists(ra.pairwise_sq_dists(mat), mask), f)
     sel = ra.smallest(scores, theta)
     return ra.bulyan_trim(mat[sel], f), ra.mask_of(sel, mat.shape[0], mat)
 
@@ -196,18 +259,70 @@ def _rfa(mat, weights, hp: DefenseHP):
     return v
 
 
-def _three_sigma(mat, weights):
-    scores = _dist_to_median(mat)
-    mu, sd = ra.robust_band(scores)
-    keep = (scores <= mu + 3.0 * sd).to(weights.dtype)
+def _three_sigma(mat, weights, mask=None):
+    if mask is None:
+        scores = _dist_to_median(mat)
+        mu, sd = ra.robust_band(scores)
+        keep = (scores <= mu + 3.0 * sd).to(weights.dtype)
+    else:
+        scores = torch.sqrt(torch.sum(
+            (mat - _masked_median(mat, mask)[None]) ** 2, dim=1))
+        mu, sd = _masked_band(scores, mask)
+        keep = ((scores <= mu + 3.0 * sd) & (mask > 0)).to(weights.dtype)
     return ra.weighted_mean(mat, weights * keep), keep
 
 
-def _outlier(mat, weights, hp: DefenseHP):
+def _outlier(mat, weights, hp: DefenseHP, mask=None):
     norms = _row_norms(mat)
-    mu, sd = ra.robust_band(norms)
-    keep = (torch.abs(norms - mu) <= hp.z_threshold * sd).to(mat.dtype)
+    if mask is None:
+        mu, sd = ra.robust_band(norms)
+        keep = (torch.abs(norms - mu) <= hp.z_threshold * sd).to(mat.dtype)
+    else:
+        mu, sd = _masked_band(norms, mask)
+        keep = ((torch.abs(norms - mu) <= hp.z_threshold * sd)
+                & (mask > 0)).to(mat.dtype)
     return ra.weighted_mean(mat, weights * keep), keep
+
+
+def _residual(mat, weights, hp: DefenseHP, mask=None):
+    if mask is None:
+        conf = ra.residual_confidence(_dist_to_median(mat), hp.resid_lam)
+    else:
+        resid = torch.sqrt(torch.sum(
+            (mat - _masked_median(mat, mask)[None]) ** 2, dim=1))
+        mad = _masked_median(torch.abs(resid - _masked_median(resid, mask)),
+                             mask) + 1e-12
+        conf = torch.clamp(hp.resid_lam * mad / torch.clamp(resid, min=1e-12),
+                           0.0, 1.0) * mask
+    return ra.weighted_mean(mat, weights * conf), conf
+
+
+def _wbc_keep_masked(mat, valid, iters: int) -> Arr:
+    """WBC's 2-means with padded rows out of the seeding (their pairs
+    score -1), the centroid means and the majority vote (the JAX body's
+    masked form)."""
+    k = mat.shape[0]
+    dists = torch.where(valid[:, None] * valid[None, :] > 0,
+                        ra.pairwise_sq_dists(mat), -1.0)
+    flat_idx = torch.argmax(dists)   # first maximum, as jnp.argmax
+    c = mat.index_select(0, torch.stack([flat_idx // k, flat_idx % k]))
+
+    def assign_to(c):
+        return torch.argmin(torch.stack([
+            torch.sum((mat - c[0]) ** 2, dim=1),
+            torch.sum((mat - c[1]) ** 2, dim=1)]), dim=0)
+
+    for _ in range(iters):
+        one = ((assign_to(c) == 1).to(mat.dtype) * valid)[:, None]
+        zero = (valid - one[:, 0])[:, None]
+        n1 = torch.clamp(torch.sum(one), min=1.0)
+        n0 = torch.clamp(torch.sum(zero), min=1.0)
+        c = torch.stack([torch.sum(mat * zero, dim=0) / n0,
+                         torch.sum(mat * one, dim=0) / n1])
+    assign = assign_to(c)
+    majority = (torch.sum(assign * valid)
+                > torch.sum(valid) / 2).to(assign.dtype)
+    return (assign == majority).to(mat.dtype) * valid
 
 
 def _noisy(vec: Arr, hp: DefenseHP, key: np.ndarray) -> Arr:
@@ -223,11 +338,13 @@ def _crfl(mat, weights, hp: DefenseHP, key):
     return _noisy(clipped, hp, key)
 
 
-def _foolsgold(mat, weights, state, ids):
+def _foolsgold(mat, weights, state, ids, mask=None):
     """Add this round's (post-attack) rows into the clients' history
     FIRST — the host kernel scores similarities on the updated history —
-    then down-weight mutually-similar clients."""
-    hist_rows = state["history"].index_select(0, ids) + mat
+    then down-weight mutually-similar clients. Masked rows add nothing
+    (their ids are disjoint from the valid rows')."""
+    add = mat if mask is None else mask[:, None] * mat
+    hist_rows = state["history"].index_select(0, ids) + add
     state["history"].index_copy_(0, ids, hist_rows)
     wv = ra.foolsgold_weights(hist_rows, norms_of=_row_norms)
     return ra.weighted_mean(mat, weights * wv), wv
@@ -241,12 +358,17 @@ def _cclip(mat, weights, hp: DefenseHP, state):
     return v
 
 
-def _slsgd(mat, hp: DefenseHP, state):
+def _slsgd(mat, hp: DefenseHP, state, mask=None):
     """Round 0 (``has == 0``) skips the mix exactly like the host kernel's
-    ``prev_global is None``."""
+    ``prev_global is None``. Masked: the trim window covers the sorted
+    valid rows only."""
     k = mat.shape[0]
-    agg = ra.sorted_trim_mean(mat, min(max(hp.byzantine_count, 1),
-                                       (k - 1) // 2))
+    if mask is None:
+        agg = ra.sorted_trim_mean(mat, min(max(hp.byzantine_count, 1),
+                                           (k - 1) // 2))
+    else:
+        agg = _masked_sorted_window_mean(mat, mask,
+                                         max(hp.byzantine_count, 1))
     mixed = torch.where(state["has"] > 0,
                         (1.0 - hp.alpha) * state["prev"] + hp.alpha * agg,
                         agg)
@@ -255,14 +377,22 @@ def _slsgd(mat, hp: DefenseHP, state):
     return mixed
 
 
-def _cross_round(mat, weights, hp: DefenseHP, state, ids):
+def _cross_round(mat, weights, hp: DefenseHP, state, ids, mask=None):
+    """Masked rows neither write their (zero) row into the state nor mark
+    history as present (their ids are disjoint from the valid rows')."""
     prev = state["prev"].index_select(0, ids)
     has = state["has"].index_select(0, ids)
     cos = torch.sum(mat * prev, dim=1) / (_row_norms(mat) * _row_norms(prev)
                                           + 1e-12)
     keep = torch.where(has > 0, (cos >= hp.cr_threshold).to(mat.dtype), 1.0)
-    state["prev"].index_copy_(0, ids, mat)
-    state["has"].index_fill_(0, ids, 1.0)
+    if mask is None:
+        state["prev"].index_copy_(0, ids, mat)
+        state["has"].index_fill_(0, ids, 1.0)
+    else:
+        keep = keep * mask
+        state["prev"].index_copy_(
+            0, ids, torch.where(mask[:, None] > 0, mat, prev))
+        state["has"].index_copy_(0, ids, torch.maximum(mask, has))
     return ra.weighted_mean(mat, weights * keep), keep
 
 
@@ -278,12 +408,15 @@ def defend_shard_stateful(
     state: Optional[Dict[str, Arr]] = None,
     ids: Optional[Arr] = None,
     key: Optional[np.ndarray] = None,
+    row_mask: Optional[Arr] = None,
 ) -> Tuple[Arr, Dict[str, Arr], Arr]:
     """``[K, D]`` matrix + ``[K]`` weights (+ the cross-round ``state``,
     updated in place, the sampled client ``ids`` and the noise ``key``)
     -> (defended aggregate ``[D]``, state, ``[K]`` verdict). The ONE
-    implementation of the fused robust round and of
-    :func:`defend_matrix_sharded`.
+    implementation of the fused robust round, the defended async pour and
+    :func:`defend_matrix_sharded`. ``row_mask`` (``[K]``, 1 = a real row)
+    marks a partial pour's padding (see the module notes); None runs the
+    unmasked kernels.
 
     The **verdict** is each client's effective inclusion in [0, 1]: the
     krum/bulyan selection mask, three_sigma/outlier/wbc/cross_round keep
@@ -293,18 +426,26 @@ def defend_shard_stateful(
     hp = hp or DefenseHP()
     state = state if state is not None else {}
     ones = torch.ones(mat.shape[0], dtype=torch.float32, device=mat.device)
+    mask = row_mask
     d = _canon(defense_type)
     if d == "mean":
         return ra.weighted_mean(mat, weights), state, ones
     if d == "coordinate_median":
-        return ra.median0(mat), state, ones
+        if mask is None:
+            return ra.median0(mat), state, ones
+        return _masked_median(mat, mask), state, ones
     if d == "trimmed_mean":
-        return ra.trimmed_mean(mat, weights, hp.trim_fraction)[0], state, ones
+        if mask is None:
+            return (ra.trimmed_mean(mat, weights, hp.trim_fraction)[0],
+                    state, ones)
+        b = torch.floor(torch.sum(mask) * np.float32(hp.trim_fraction)
+                        + 1e-6)
+        return _masked_sorted_window_mean(mat, mask, b), state, ones
     if d == "three_sigma":
-        vec, keep = _three_sigma(mat, weights)
+        vec, keep = _three_sigma(mat, weights, mask)
         return vec, state, keep
     if d == "bulyan":
-        vec, sel = _bulyan(mat, hp)
+        vec, sel = _bulyan(mat, hp, mask)
         return vec, state, sel
     if d == "rfa":
         return _rfa(mat, weights, hp), state, ones
@@ -313,17 +454,18 @@ def defend_shard_stateful(
                                                         min=1e-12), max=1.0)
         return ra.weighted_mean(mat * scale[:, None], weights), state, ones
     if d == "outlier_detection":
-        vec, keep = _outlier(mat, weights, hp)
+        vec, keep = _outlier(mat, weights, hp, mask)
         return vec, state, keep
     if d == "residual_reweight":
-        conf = ra.residual_confidence(_dist_to_median(mat), hp.resid_lam)
-        return ra.weighted_mean(mat, weights * conf), state, conf
+        vec, conf = _residual(mat, weights, hp, mask)
+        return vec, state, conf
     if d == "rlr":
         return (ra.robust_learning_rate(mat, weights, hp.rlr_threshold)[0],
                 state, ones)
     if d == "wbc":
-        keep = ra.two_means_keep(mat, ra.pairwise_sq_dists(mat),
-                                 hp.wbc_iters)
+        keep = (ra.two_means_keep(mat, ra.pairwise_sq_dists(mat),
+                                  hp.wbc_iters) if mask is None
+                else _wbc_keep_masked(mat, mask, hp.wbc_iters))
         return ra.weighted_mean(mat, weights * keep), state, keep
     if d == "soteria":
         return ra.soteria(mat, weights, hp.soteria_frac)[0], state, ones
@@ -332,20 +474,20 @@ def defend_shard_stateful(
     if d == "crfl":
         return _crfl(mat, weights, hp, key), state, ones
     if d == "foolsgold":
-        vec, wv = _foolsgold(mat, weights, state, ids)
+        vec, wv = _foolsgold(mat, weights, state, ids, mask)
         return vec, state, wv
     if d == "cclip":
         return _cclip(mat, weights, hp, state), state, ones
     if d == "slsgd":
-        return _slsgd(mat, hp, state), state, ones
+        return _slsgd(mat, hp, state, mask), state, ones
     if d == "cross_round":
-        vec, keep = _cross_round(mat, weights, hp, state, ids)
+        vec, keep = _cross_round(mat, weights, hp, state, ids, mask)
         return vec, state, keep
     if d not in ("krum", "multi_krum"):
         raise ValueError(f"unknown defense_type {defense_type!r}")
-    sel_w, sel = _krum_selection(ra.pairwise_sq_dists(mat), weights,
-                                 hp.byzantine_count,
-                                 1 if d == "krum" else hp.multi_k)
+    sel_w, sel = _krum_selection(
+        _mask_dists(ra.pairwise_sq_dists(mat), mask), weights,
+        hp.byzantine_count, 1 if d == "krum" else hp.multi_k)
     return ra.weighted_mean(mat, sel_w), state, sel
 
 
@@ -365,11 +507,12 @@ def defend_matrix_sharded(
     ids: Optional[Arr] = None,
     defense_key: Optional[np.ndarray] = None,
     return_verdict: bool = False,
+    row_mask: Optional[Arr] = None,
 ):
     """``[K, D]`` -> defended aggregate ``[D]``, the model attack (when
     ``attack_type`` is set) injected on the device first: the JAX
-    package's ``defend_matrix_sharded`` on a one-device mesh, with the
-    same returns — ``vec`` for stateless defenses, ``(vec, new_state)``
+    package's ``defend_matrix_sharded`` on a one-device mesh (``row_mask``
+    marks a partial pour's padding), with the same returns — ``vec`` for stateless defenses, ``(vec, new_state)``
     for stateful ones (a cold start over the largest id when ``state`` is
     None), the ``[K]`` verdict appended last with ``return_verdict``."""
     if not supports_sharded(defense_type):
@@ -399,7 +542,9 @@ def defend_matrix_sharded(
     vec, new_state, verdict = defend_shard_stateful(
         mat, torch.as_tensor(weights, device=dev).float(), defense_type, hp,
         state=state if stateful else {}, ids=ids,
-        key=prng.PRNGKey(0) if defense_key is None else defense_key)
+        key=prng.PRNGKey(0) if defense_key is None else defense_key,
+        row_mask=(None if row_mask is None else torch.as_tensor(
+            row_mask, device=dev).float()))
     result = (vec,)
     if stateful:
         result = result + (new_state,)

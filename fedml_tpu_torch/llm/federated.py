@@ -152,11 +152,13 @@ def run_federated_llm(args, device=None,
     :func:`export_silo_adapters` does, and ``adapter_export`` holds the
     ``manifest`` path, the exported ``adapters`` and the export's
     ``wall_s``."""
+    from ..core import obs
     from ..device import get_device
     from ..runner import FedMLRunner, check_ported
 
     device = get_device(device)  # before any work: no CUDA, no quiet CPU
     check_ported(args)            # before the corpus is built
+    obs.configure(args)           # the obs_* knobs (init is bypassed here)
     export_dir = getattr(args, "llm_adapter_export_dir", None)
     if export_dir and int(getattr(args, "lora_rank", 8)) <= 0:
         # fail BEFORE the (possibly hours-long) run, not after it

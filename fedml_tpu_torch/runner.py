@@ -1,7 +1,8 @@
 """FedMLRunner façade (counterpart of ``fedml_tpu/runner.py``): builds the
-GPU simulator or the SP golden loop for the ported slices, hands a user
-``ServerAggregator`` to the GPU engine, and refuses what they have not
-ported."""
+GPU simulator (sync, or buffered-async under ``round_mode:
+async_buffered``), the SP golden loop or the SP ``Async_FedAvg`` loop for
+the ported slices, hands a user ``ServerAggregator`` to the GPU engine,
+and refuses what they have not ported."""
 
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ UNPORTED_KNOBS: Dict[str, tuple] = {
     "chaos_link_loss_prob": (None, 0, 0.0),
     "chaos_link_dup_prob": (None, 0, 0.0),
     "chaos_link_delay_prob": (None, 0, 0.0),
-    "round_mode": (None, "sync"),
     "mesh_shape": (None,),
     "obs_roofline": (None, False),
     # serving chaos (core/chaos's ServingChaosInjector)
@@ -50,6 +50,16 @@ ENGINE_CHAOS_KNOBS: Dict[str, tuple] = {
 PORTED_OPTIMIZERS = ("FedAvg, FedProx, FedOpt (sgd, adam, adagrad, yogi), "
                      "FedSGD, FedLocalSGD, SCAFFOLD, FedNova, FedDyn, Mime")
 
+# federated_optimizer values that the JAX package dispatches to protocol
+# simulators of their own: none runs the engine, so none can honor
+# `round_mode: async_buffered` (only Async_FedAvg is ported)
+_PROTOCOL_FOS = frozenset((
+    "centralized", "fedgkt", "fednas", "fedseg", "fedgan",
+    "hierarchicalfl", "async_fedavg", "asyncfedavg",
+    "decentralized_fl", "split_nn", "classical_vertical",
+    "vertical_fl", "vfl", "turbo_aggregate", "turboaggregate"))
+_ASYNC_FEDAVG = ("async_fedavg", "asyncfedavg")
+
 
 def _knob_on(args, knob: str, off: tuple) -> bool:
     v = getattr(args, knob, None)
@@ -75,17 +85,26 @@ def check_ported(args) -> None:
                 f"crash-at-round, over-sampling; the GPU engine), "
                 f"participant selection (client_selection, "
                 f"selection_adaptive_oversample, pacer_adapt_cohort), "
-                f"contribution assessment (LOO, GTG-Shapley) and a user "
-                f"ServerAggregator, with the CIFAR ResNets, the linear "
+                f"contribution assessment (LOO, GTG-Shapley), a user "
+                f"ServerAggregator and buffered-async rounds (round_mode: "
+                f"async_buffered; federated_optimizer: Async_FedAvg), "
+                f"with the CIFAR ResNets, the linear "
                 f"models or the federated LoRA causal LM, their round "
                 f"checkpoints, and serving them)")
-    if getattr(args, "backend", None) == FEDML_SIMULATION_TYPE_SP:
-        for knob, off in ENGINE_CHAOS_KNOBS.items():
-            if _knob_on(args, knob, off):
-                raise NotImplementedError(
-                    f"{knob}={getattr(args, knob)!r}: the SP golden loop "
-                    f"injects no chaos (neither does the JAX package's); "
-                    f"run it on backend='gpu'")
+    fo = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
+    if fo in _ASYNC_FEDAVG:
+        loop = "the SP Async_FedAvg loop"
+    elif getattr(args, "backend", None) == FEDML_SIMULATION_TYPE_SP:
+        loop = "the SP golden loop"
+    else:
+        return
+    for knob, off in ENGINE_CHAOS_KNOBS.items():
+        if _knob_on(args, knob, off):
+            raise NotImplementedError(
+                f"{knob}={getattr(args, knob)!r}: {loop} injects no chaos "
+                f"(neither does the JAX package's); run it on "
+                f"backend='gpu' (round_mode: async_buffered for async "
+                f"rounds)")
 
 
 class FedMLRunner:
@@ -104,26 +123,52 @@ class FedMLRunner:
             raise NotImplementedError(
                 f"training_type={ttype!r} is not ported to fedml_tpu_torch "
                 f"yet (ported: simulation)")
+        from .core.async_rounds import round_mode_from_args
+        from .core.algframe.client_trainer import make_trainer_spec
+        from .optimizers.registry import create_optimizer
         backend = getattr(args, "backend", FEDML_SIMULATION_TYPE_GPU)
-        if backend == FEDML_SIMULATION_TYPE_GPU:
-            from .simulation.gpu.engine import GPUSimulator as Simulator
+        fo = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
+        async_mode = round_mode_from_args(args) == "async_buffered"
+        if async_mode and fo in _PROTOCOL_FOS:
+            raise ValueError(
+                f"round_mode: async_buffered is a GPU-engine mode; "
+                f"federated_optimizer {fo!r} runs its own protocol "
+                "simulator and would silently ignore it (the SP async "
+                "equivalent is federated_optimizer: Async_FedAvg)")
+        spec = (client_trainer if client_trainer is not None
+                else make_trainer_spec(dataset, model))
+        kw = {}
+        if fo in _ASYNC_FEDAVG:
+            # the protocol loop drives plain FedAvg client steps
+            import copy
+            inner = copy.copy(args)
+            inner.federated_optimizer = "FedAvg"
+            opt = create_optimizer(inner, spec)
+            from .simulation.sp.async_fedavg import \
+                AsyncFedAvgSimulator as Simulator
+        elif backend == FEDML_SIMULATION_TYPE_GPU:
+            opt = create_optimizer(args, spec)
+            if async_mode:
+                from .simulation.gpu.async_engine import \
+                    AsyncBufferedSimulator as Simulator
+            else:
+                from .simulation.gpu.engine import GPUSimulator as Simulator
         elif backend == FEDML_SIMULATION_TYPE_SP:
+            if async_mode:
+                raise ValueError(
+                    "round_mode: async_buffered is a GPU-engine mode; the "
+                    "SP equivalent is federated_optimizer: Async_FedAvg")
+            opt = create_optimizer(args, spec)
             from .simulation.sp.simulator import SPSimulator as Simulator
         else:
             raise NotImplementedError(
                 f"backend={backend!r} is not ported to fedml_tpu_torch yet "
                 f"(ported: gpu, sp)")
-        from .core.algframe.client_trainer import make_trainer_spec
-        from .optimizers.registry import create_optimizer
-        spec = (client_trainer if client_trainer is not None
-                else make_trainer_spec(dataset, model))
-        opt = create_optimizer(args, spec)
-        kw = {}
         if server_aggregator is not None:
-            if backend == FEDML_SIMULATION_TYPE_SP:
+            if backend == FEDML_SIMULATION_TYPE_SP or fo in _ASYNC_FEDAVG:
                 raise NotImplementedError(
-                    "server_aggregator: the SP golden loop runs no user "
-                    "ServerAggregator (neither does the JAX package's); "
+                    "server_aggregator: the SP loops run no user "
+                    "ServerAggregator (neither do the JAX package's); "
                     "run it on backend='gpu'")
             kw["server_aggregator"] = server_aggregator
         self.runner = Simulator(args, dataset, model, opt, spec,

@@ -105,6 +105,7 @@ from ...core.collectives import (FlatLayout, WeightedSum, stack_trees,
 from ...core.contribution import ContributionAssessorManager
 from ...core.dp import FedMLDifferentialPrivacy
 from ...core.obs import profiler as obs_profiler
+from ...core.obs import sink as obs_sink
 from ...core.obs import trace as obs_trace
 from ...core.security import FedMLAttacker, FedMLDefender
 from ...core.security.defense import robust_agg, verdict_from_info
@@ -239,6 +240,17 @@ class GPUSimulator:
                  device: torch.device,
                  init_params: Optional[Dict[str, Any]] = None,
                  server_aggregator=None):
+        # `round_mode: async_buffered` lives in the AsyncBufferedSimulator
+        # subclass (simulation/gpu/async_engine.py); built directly, this
+        # engine would silently run the sync barrier: refuse
+        from ...core.async_rounds import round_mode_from_args
+        if (round_mode_from_args(args) == "async_buffered"
+                and type(self) is GPUSimulator):
+            raise ValueError(
+                "round_mode: async_buffered needs the "
+                "AsyncBufferedSimulator — build via FedMLRunner / "
+                "run_simulation (they dispatch on round_mode), or import "
+                "fedml_tpu_torch.simulation.gpu.async_engine directly")
         self.args = args
         self.fed = fed_dataset
         self.bundle = bundle
@@ -760,11 +772,42 @@ class GPUSimulator:
         acc = WeightedSum({} if robust else self.params,
                           self.opt.server_extras_zero(self.params),
                           device=self.device)
+        acc_m, steps, slots = self._train_cohort(
+            sampled, works, round_key, hyper, rows=mat, w=w, acc=acc,
+            skip_dropped=not robust and self.chaos_tolerance)
+        agg, agg_ex = acc.mean()
+        agg, verdict = self._server_aggregate(round_idx, agg, mat, w,
+                                              sampled, round_key)
+        self._server_step(round_idx, agg, agg_ex)
+        return acc_m, steps, verdict, self._slot_metrics(slots)
+
+    def _train_cohort(self, sampled, works, round_key: np.ndarray,
+                      hyper: TrainHyper, rows: Optional[torch.Tensor] = None,
+                      w: Optional[torch.Tensor] = None,
+                      acc: Optional[WeightedSum] = None,
+                      skip_dropped: bool = True, extras_into=None):
+        """Train ``sampled`` one after another from the global params
+        (client ``cid``'s key ``fold_in(round_key, cid)``, its work
+        fraction from ``works``), each through the captured step. Returns
+        (summed metrics on the device, local steps run, the per-client
+        metrics selection reads or None).
+
+        ``rows`` (``[n, row_d]`` float32 on the device): client k's
+        update goes into row k in the JAX flat layout, and ``extras_into``
+        (a callable ``(extras, row_tail)``) writes its extras after it
+        (the async engine's update ‖ extras row); ``w[k]`` gets its
+        weight, 0 for a dropped client. ``acc`` sums the rest: the update
+        when there are no rows, the extras and the weight. A dropped
+        client (work 0) is skipped when ``skip_dropped``; otherwise it
+        runs its zero-step ``local_train``, and without
+        ``chaos_tolerance`` its weight stays in ``acc``'s denominator. It
+        reports nothing and writes no client state either way."""
+        d = self.layout.size
         acc_m: Dict[str, torch.Tensor] = {}
         slots: Optional[list] = [] if self.selection.track else None
         steps = 0
         for k, (cid, ws) in enumerate(zip(sampled, works)):
-            if ws <= 0.0 and not robust and self.chaos_tolerance:
+            if ws <= 0.0 and skip_dropped:
                 if slots is not None:
                     slots.append(None)
                 continue
@@ -779,32 +822,32 @@ class GPUSimulator:
                 batch_real=self.batch_real[cid], programs=self)
             steps += n_steps
             update = self._client_dp(out.update, ckey)
-            if robust:
-                # row k of the matrix, in the JAX package's flat layout
-                self.layout.flatten_into(update, mat[k])
-                w[k] = out.weight if ws > 0.0 else 0.0
+            if rows is not None:
+                # row k, in the JAX package's flat layout
+                self.layout.flatten_into(update, rows[k, :d])
+                if extras_into is not None:
+                    extras_into(out.extras, rows[k, d:])
+                if w is not None:
+                    w[k] = out.weight if ws > 0.0 else 0.0
                 update = {}
             if ws <= 0.0:
-                if not self.chaos_tolerance:
+                if acc is not None and not self.chaos_tolerance:
                     acc.add_weight(out.weight)
                 if slots is not None:
                     slots.append(None)
                 continue
-            acc.add(out.replace(update=update))
+            if acc is not None:
+                acc.add(out.replace(update=update))
             if self.opt.has_client_state:
                 tree_copy_(cstate, out.client_state)
             for name, m in out.metrics.items():
                 acc_m[name] = acc_m[name] + m if name in acc_m else m
             if slots is not None:
                 slots.append(out.metrics)
-        for name in METRICS:    # a round whose clients all dropped
+        for name in METRICS:    # a cohort whose clients all dropped
             acc_m.setdefault(name, torch.zeros(
                 (), dtype=torch.float32, device=self.device))
-        agg, agg_ex = acc.mean()
-        agg, verdict = self._server_aggregate(round_idx, agg, mat, w,
-                                              sampled, round_key)
-        self._server_step(round_idx, agg, agg_ex)
-        return acc_m, steps, verdict, self._slot_metrics(slots)
+        return acc_m, steps, slots
 
     def _client_dp(self, update: Params, client_key: np.ndarray) -> Params:
         """A client's update as DP sends it (LDP noise, or the CDP clip)."""
@@ -1070,6 +1113,7 @@ class GPUSimulator:
                     logger.info("round %d: test_acc=%.4f", r,
                                 rec["test_acc"])
                 self.history.append(rec)
+                obs_sink.log_round_info(rounds, r)
                 if self.ckpt.enabled:
                     with obs_trace.span("checkpoint", root=True,
                                         attrs={"role": "engine",

@@ -49,6 +49,7 @@ from ...core.checkpoint import RoundCheckpointer
 from ...core.collectives import FlatLayout, WeightedSum
 from ...core.contribution import ContributionAssessorManager
 from ...core.dp import FedMLDifferentialPrivacy
+from ...core.obs import sink as obs_sink
 from ...core.security import FedMLAttacker, FedMLDefender
 from ...core.selection import DeadlinePacer, SelectionManager
 from ..gpu.engine import (GPUSimulator, assess_contribution,
@@ -211,6 +212,7 @@ class SPSimulator:
                 logger.info("round %d: test_acc=%.4f test_loss=%.4f",
                             round_idx, rec["test_acc"], rec["test_loss"])
             self.history.append(rec)
+            obs_sink.log_round_info(rounds, round_idx)
             self.ckpt.maybe_save(round_idx, self.ckpt_state())
         # the writes must be on disk before the run returns
         self.ckpt.flush()

@@ -109,8 +109,8 @@ def test_fresh_init_is_seeded_and_runs():
     ("enable_secure_agg", True), ("enable_fhe", True),
     ("chaos_link_loss_prob", 0.2), ("chaos_link_dup_prob", 0.2),
     ("chaos_link_delay_prob", 0.2), ("mesh_shape", (2, 2)),
-    ("obs_roofline", True), ("round_mode", "async_buffered"),
-    ("chaos_serving_stall_prob", 0.1), ("chaos_serving_stall_s", 0.5),
+    ("obs_roofline", True), ("chaos_serving_stall_prob", 0.1),
+    ("chaos_serving_stall_s", 0.5),
     ("chaos_serving_stall_at_step", 3), ("chaos_serving_nan_prob", 0.1),
     ("chaos_serving_nan_at_step", 2), ("chaos_serving_conn_drop_prob", 0.1),
     ("chaos_serving_crash_at_request", 1)])

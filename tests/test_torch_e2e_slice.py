@@ -148,11 +148,12 @@ def test_linear_models_match_flax(model):
 def test_sp_backend_aliases_and_refusals():
     assert Arguments(backend="single_process").backend == "sp"
     assert Arguments(backend="mesh").backend == "gpu"
-    # the SP loop has no chaos (as in the JAX package), and the async
-    # rounds are not ported; its pacer and contribution run
+    # the SP loop has no chaos (as in the JAX package), and async rounds
+    # are the GPU engine's (the SP loop names Async_FedAvg, as JAX does);
+    # its pacer and contribution run
     with pytest.raises(NotImplementedError, match="chaos_dropout_prob"):
         _run("sp", chaos_dropout_prob=0.2)
-    with pytest.raises(NotImplementedError, match="round_mode"):
+    with pytest.raises(ValueError, match="round_mode.*Async_FedAvg"):
         _run("sp", round_mode="async_buffered")
     with pytest.raises(NotImplementedError, match="backend"):
         _run("fedml_native")
