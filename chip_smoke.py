@@ -135,11 +135,27 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    against the full forward (f32 tiny, bf16 full width), greedy parity
    single vs batch on a full fine-tune, adapter isolation; a
    ``{"serving": ...}`` line;
-13. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
+13. serving chaos and the fleet (``serving/autoscale.py``, the batch
+   engine's ``chaos=``): (a) checks, f32 with TF32 off: the tiny LM's
+   greedy tokens under a NaN at decode step 2 and a stall at step 4 equal
+   the chaos-free run on the card and the CPU's (two resets); two
+   subprocess replicas of phase 11's exported adapter on the card behind
+   the gateway, the first crashing at its request 3: every request
+   answered with an in-process predictor's tokens, the crashed process
+   replaced by ``health_check``; (b) ``bench_llm_serving_chaos``'s
+   traffic and plan (c8, 24 requests, stall + NaN, watchdog 0.3 s) with
+   recovery on and off, plus a chaos-free leg: goodput, success rate,
+   faults, resets, trips; (c) ``bench_llm_serving_fleet``'s soak (3
+   in-process replicas + 1 burst, 768 multi-turn requests at c256, 4 %
+   connection drops, the last replica lost after 40 %), fleet_off then
+   fleet_on: tokens/s, TTFT, success before and after the loss, suffix
+   and prefix hits, scale events, routes; both on the FedLLM main path's
+   model; a ``{"fleet": ...}`` line. B1-B4 launch 0 times in the phase;
+14. the LLM hot loop: 4 SGD steps of the 111M causal LM (bs 8 x seq 1024,
    bf16, full parameters), 8 launches of each attention kernel per step;
    then ``save_model`` / ``load_model`` of its params (the codec's MB/s,
    round trip bitwise);
-14. one JSON line describing each kernel, then the card line, then
+15. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -492,6 +508,46 @@ DECODE_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # single vs batch greedy on a full fine-tune may part only where the single
 # path's top two logits are closer than this
 TIE_GAP = 1e-4
+
+# Serving chaos and the fleet (phase 13). (a) checks, f32 with TF32 off:
+# the tiny LM of tests/test_torch_serving_chaos.py (d 32, 2 layers, dense,
+# a full fine-tune drawn from its seed) under a NaN at decode step 2 and a
+# stall at step 4 (watchdog 0.3 s), card against a chaos-free card run and
+# the CPU's; two subprocess replicas of phase 11's exported adapter on the
+# card, the first crashing at its request 3 (FLEET_CHECK_REQUESTS through
+# the gateway, then a health check). (b) bench.py's
+# bench_llm_serving_chaos traffic and plan (c8, 24 requests of 12 tokens,
+# every second one sampled; stall at step 12 for 5 s, NaN at step 25;
+# watchdog 0.3 s; 64 resets against 0) and (c) bench_llm_serving_fleet's
+# soak (3 replicas + 1 burst, 768 requests at c256, 4 % connection drops,
+# the last replica lost after 40 % of the requests; fleet_off then
+# fleet_on), both on one build of the FedLLM main path's model at seq 1024
+# (d 512, bf16, the bench's fresh LoRA adapter on the seeded base).
+CHAOS_TINY = dict(dataset="llm_synth", model="causal_lm", random_seed=3,
+                  llm_hidden_size=32, llm_num_layers=2, llm_num_heads=2,
+                  llm_intermediate_size=64, llm_max_seq_len=64, lora_rank=0,
+                  llm_attention_impl="dense")
+CHAOS_TINY_PLAN = dict(seed=1, serving_nan_at_step=2,
+                       serving_stall_at_step=4, serving_stall_s=5.0)
+CHAOS_TINY_BATCH = {"slots": 4, "block_size": 16, "prefill_chunk": 8,
+                    "watchdog_s": 0.3, "max_resets": 4, "max_requeues": 4,
+                    "request_timeout_s": 120.0}
+FLEET_CHECK_REQUESTS = 8      # the 7th (0-based 6) is replica 0's request 3
+FLEET_CHECK_ARGS = dict(llm_serving_mode="batch", serving_slots=4,
+                        serving_kv_block_size=16, serving_prefill_chunk=32,
+                        serving_request_timeout_s=120.0)
+CHAOS_BENCH = {"concurrency": 8, "requests": 24, "max_new": 12,
+               "watchdog_s": 0.3, "legs": (("recovery_on", 64),
+                                           ("recovery_off", 0)),
+               "plan": dict(seed=13, serving_stall_at_step=12,
+                            serving_stall_s=5.0, serving_nan_at_step=25)}
+FLEET_REPLICAS, FLEET_CONC, FLEET_LOSS_AT = 3, 256, 0.4
+FLEET_LOAD = dict(tenants=8, sessions_per_tenant=32, turns_per_session=3,
+                  seed=0, mean_gap_s=0.002, max_tokens=16, turn_chars=200)
+# 8,192 KV blocks of 16 at d 512, 4 layers, bf16: 1.07 GB per replica
+FLEET_OPTS = {"slots": 16, "block_size": 16, "prefill_chunk": 64,
+              "prefix_cache": True, "prefill_batch": 8,
+              "request_timeout_s": 600.0, "num_blocks": 8192}
 
 # Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
 # the trainer calls the model), the hot loop, bench_long_context, and the
@@ -2904,6 +2960,405 @@ def churn_leg(torch, Arguments, bundle, tok, adapter, export_dir, dev):
     return out
 
 
+def chaos_tiny_check(torch, llm, Arguments, dev="cuda", cpu="cpu"):
+    """CHAOS_TINY's greedy tokens for PARITY_PROMPTS (12 new, four in
+    flight) on the card under CHAOS_TINY_PLAN, against the same engine's
+    chaos-free run on the card and on the CPU: equal, with two resets and
+    the stall seen by the watchdog."""
+    import concurrent.futures as cf
+    from fedml_tpu_torch.core.chaos import (FaultLedger, FaultPlan,
+                                            ServingChaosInjector)
+    from fedml_tpu_torch.serving.llm_template import CausalLMPredictor
+    bundle, tok = llm.build_llm_bundle(Arguments(**CHAOS_TINY))
+    params = {k: v.detach().clone()
+              for k, v in bundle.module.state_dict().items()}
+
+    def run(device, plan):
+        ledger = FaultLedger()
+        inj = None if plan is None else ServingChaosInjector(
+            FaultPlan(**plan), ledger=ledger)
+        pred = CausalLMPredictor(bundle, params, tokenizer=tok, mode="batch",
+                                 device=device, batch_opts=dict(
+                                     CHAOS_TINY_BATCH, chaos=inj))
+        try:
+            with cf.ThreadPoolExecutor(len(PARITY_PROMPTS)) as ex:
+                outs = [f.result(timeout=120) for f in [
+                    ex.submit(pred.generate, p, max_new_tokens=12)
+                    for p in PARITY_PROMPTS]]
+            eng = pred.engine
+            return outs, {"resets": eng.resets_total,
+                          "watchdog_trips": eng.watchdog.trips,
+                          "injected": [e["kind"] for e in
+                                       ledger.serving_events()],
+                          "health": eng.health()["status"]}
+        finally:
+            pred.close()
+
+    chaos, stats = run(dev, CHAOS_TINY_PLAN)
+    clean, _ = run(dev, None)
+    on_cpu, _ = run(cpu, None)
+    require(stats["injected"] == ["nan", "stall"],
+            f"chaos check: injected {stats['injected']}")
+    require(stats["resets"] == 2 and stats["watchdog_trips"] >= 1
+            and stats["health"] == "ok", f"chaos check: engine {stats}")
+    require(chaos == clean, f"chaos check: tokens under chaos {chaos} != "
+                            f"the chaos-free run's {clean}")
+    require(clean == on_cpu, f"chaos check: card {clean} != CPU {on_cpu}")
+    return dict(stats, prompts=len(PARITY_PROMPTS),
+                tokens=sum(o["completion_tokens"] for o in chaos))
+
+
+def subprocess_fleet_check(torch, Arguments, export, tmp, dev="cuda"):
+    """Two subprocess replicas on ``dev`` serving the FedLLM export's
+    global adapter; the first replica's spec carries
+    ``chaos_serving_crash_at_request: 3``. FLEET_CHECK_REQUESTS greedy chat
+    requests through the gateway all succeed with the tokens of an
+    in-process predictor of the same artifact (the crashed request fails
+    over), the crashed process exits 23, and ``health_check`` replaces it
+    with a new process that serves the same tokens."""
+    from fedml_tpu_torch.serving.autoscale import (
+        Gateway, ReplicaSet, subprocess_replica_factory)
+    from fedml_tpu_torch.serving.llm_template import CausalLMPredictor
+    path = os.path.join(os.path.dirname(export["manifest"]), "global.fmtpu")
+    args = Arguments(**dict(LLM_MAIN_PATH, **FLEET_CHECK_ARGS))
+    crash = Arguments(**dict(LLM_MAIN_PATH, **FLEET_CHECK_ARGS,
+                             chaos_serving_crash_at_request=3))
+    factories = [subprocess_replica_factory(
+        a, path, 0, os.path.join(tmp, f"replicas_{tag}"), device=dev,
+        kind="causal_lm") for a, tag in ((crash, "crash"), (args, "ok"))]
+    made = []
+
+    def factory():
+        made.append(factories[min(len(made), 1)]())
+        return made[-1]
+
+    req = {"messages": [{"role": "user", "content": "add 2 3"}],
+           "max_tokens": 8, "temperature": 0}
+    lone = CausalLMPredictor.from_artifact(args, path, device=dev)
+    rs = gw = None
+    try:
+        want = lone.chat(dict(req))["choices"][0]["message"]["content"]
+        t0 = time.perf_counter()
+        rs = ReplicaSet(replica_factory=factory, min_replicas=2,
+                        max_replicas=2)
+        start_s = time.perf_counter() - t0
+        gw = Gateway(rs, window_s=30.0, backoff_seed=0,
+                     unhealthy_ttl_s=60.0, max_failovers=3)
+        got = [gw.predict(dict(req), timeout=120,
+                          path="/v1/chat/completions")
+               ["choices"][0]["message"]["content"]
+               for _ in range(FLEET_CHECK_REQUESTS)]
+        require(got == [want] * FLEET_CHECK_REQUESTS,
+                f"subprocess fleet: gateway answers {got} != {want!r}")
+        code = made[0].proc.wait(timeout=60)
+        require(code == 23, f"subprocess fleet: replica 0 exited {code}")
+        pids = [r.pid for r in made]
+        t1 = time.perf_counter()
+        healed = rs.health_check()
+        heal_s = time.perf_counter() - t1
+        require(healed == 1 and rs.replicas[0].pid not in pids,
+                f"subprocess fleet: health_check replaced {healed}")
+        after = gw.predict(dict(req), timeout=120,
+                           path="/v1/chat/completions")
+        require(after["choices"][0]["message"]["content"] == want,
+                "subprocess fleet: the replacement's tokens differ")
+        return {"requests": FLEET_CHECK_REQUESTS + 1, "exit_code": code,
+                "pids": pids + [rs.replicas[0].pid],
+                "start_two_s": start_s, "heal_s": heal_s}
+    finally:
+        if rs is not None:
+            rs.stop()
+        for r in made:
+            r.stop()
+        lone.close()
+
+
+def fleet_model(torch, llm, Arguments):
+    """The chaos bench's and the fleet soak's model, built once: the FedLLM
+    main path's base at seq 1024 from its seed, its tokenizer, and a fresh
+    LoRA adapter from seed 0."""
+    from fedml_tpu_torch.llm.lora import lora_init
+    bundle, tok = llm.build_llm_bundle(Arguments(**dict(
+        LLM_MAIN_PATH, llm_max_seq_len=1024)))
+    adapter = lora_init(torch.Generator().manual_seed(0), bundle.base_params,
+                        rank=LLM_MAIN_PATH["lora_rank"])
+    return bundle, tok, adapter
+
+
+def chaos_bench(model, dev="cuda"):
+    """bench_llm_serving_chaos on ``fleet_model``: per leg (recovery on: 64
+    resets; off: 0) a fresh batch predictor under the same seeded stall +
+    NaN plan, one warm request, then CHAOS_BENCH's 24 requests at c8 (odd
+    greedy, even sampled at 1.1 with seed i): goodput tokens/s (tokens of
+    requests that finished "stop"/"length"), success rate, injected faults,
+    resets, watchdog trips; and a chaos-free leg of the same traffic, whose
+    outputs each recovery-on output must equal (the seeded replay holds
+    for greedy and sampled requests alike)."""
+    import concurrent.futures as cf
+    from fedml_tpu_torch.core.chaos import (FaultLedger, FaultPlan,
+                                            ServingChaosInjector)
+    from fedml_tpu_torch.serving.llm_template import CausalLMPredictor
+    bundle, tok, adapter = model
+    conc, n, max_new = (CHAOS_BENCH["concurrency"], CHAOS_BENCH["requests"],
+                        CHAOS_BENCH["max_new"])
+    legs, outputs = {}, {}
+    for tag, max_resets in CHAOS_BENCH["legs"] + (("chaos_free", 64),):
+        ledger = FaultLedger()
+        inj = None if tag == "chaos_free" else ServingChaosInjector(
+            FaultPlan(**CHAOS_BENCH["plan"]), ledger=ledger)
+        pred = CausalLMPredictor(
+            bundle, adapter, tokenizer=tok, mode="batch", device=dev,
+            batch_opts={"slots": conc, "block_size": 16,
+                        "prefill_chunk": 32,
+                        "watchdog_s": CHAOS_BENCH["watchdog_s"],
+                        "max_resets": max_resets, "max_requeues": 8,
+                        "chaos": inj})
+        pred._request_timeout_s = 30.0
+        try:
+            pred.generate("warm", max_new_tokens=2)
+            good, ok, outs = [0] * n, [False] * n, [None] * n
+
+            def one(i):
+                try:
+                    out = pred.generate(
+                        f"chaos bench req {i}", max_new_tokens=max_new,
+                        temperature=(0.0 if i % 2 else 1.1), seed=i)
+                except Exception:  # noqa: BLE001 — recovery off: refused
+                    return
+                outs[i] = out
+                if out["finish_reason"] in ("stop", "length"):
+                    ok[i] = True
+                    good[i] = out["completion_tokens"]
+
+            t0 = time.perf_counter()
+            with cf.ThreadPoolExecutor(conc) as ex:
+                list(ex.map(one, range(n)))
+            wall = time.perf_counter() - t0
+            eng = pred.engine
+            outputs[tag] = outs
+            legs[tag] = {"goodput_tokens_per_s": sum(good) / wall,
+                         "success_rate": sum(ok) / n, "wall_s": wall,
+                         "injected_faults": len(ledger.serving_events()),
+                         "engine_resets": int(eng.resets_total),
+                         "watchdog_trips": int(eng.watchdog.trips),
+                         "decode_steps": int(eng.scheduler.steps_run)}
+        finally:
+            pred.close()
+    on, off = legs["recovery_on"], legs["recovery_off"]
+    require(on["success_rate"] == 1.0 and on["injected_faults"] == 2
+            and on["engine_resets"] == 2,
+            f"chaos bench: recovery on {on}")
+    require(off["injected_faults"] >= 1 and off["engine_resets"] == 0,
+            f"chaos bench: recovery off {off}")
+    require(legs["chaos_free"]["success_rate"] == 1.0,
+            f"chaos bench: chaos-free leg {legs['chaos_free']}")
+    same = sum(a is not None and b is not None and a["text"] == b["text"]
+               for a, b in zip(outputs["recovery_on"],
+                               outputs["chaos_free"]))
+    require(same == n, f"chaos bench: {same} of {n} recovery-on outputs "
+                       f"equal the chaos-free leg's")
+    return {"legs": legs, "vs_baseline": on["goodput_tokens_per_s"]
+            / max(off["goodput_tokens_per_s"], 1e-9),
+            "recovery_on_outputs_equal_chaos_free": same,
+            "requests": n, "concurrency": conc, "max_new": max_new}
+
+
+def fleet_soak(torch, model, fleet_on, load, replicas=FLEET_REPLICAS,
+               conc=FLEET_CONC, loss_at=FLEET_LOSS_AT, dev="cuda"):
+    """One leg of bench_llm_serving_fleet on ``fleet_model``: ``replicas``
+    in-process batch replicas (FLEET_OPTS; +1 burst
+    replica allowed) behind the gateway with the seeded 4 % connection
+    drops, ``load``'s sessions streamed at ``conc``, the last replica
+    stopped once ``loss_at`` of the requests have finished (None: no loss)
+    and the autoscaler stepping every 0.3 s from then on. ON: cache-aware
+    routing, suffix cache, drain grace, heal probes, SLOPolicy; OFF: round
+    robin, prompt-only prefix cache, an EWM policy that never scales."""
+    import threading
+
+    from fedml_tpu_torch.core.chaos import (FaultLedger, FaultPlan,
+                                            ServingChaosInjector)
+    from fedml_tpu_torch.serving.autoscale import (Autoscaler, EWMPolicy,
+                                                   Gateway, ReplicaSet,
+                                                   SLOPolicy)
+    from fedml_tpu_torch.serving.llm_template import (CausalLMPredictor,
+                                                      ChatCompletionRunner)
+    from scripts.serving_load_torch import LoadSpec, run_load
+    bundle, tok, adapter = model
+    spec = LoadSpec(**load)
+    total = spec.total_requests
+    ledger = FaultLedger()
+    chaos = ServingChaosInjector(
+        FaultPlan(seed=17, serving_conn_drop_prob=0.04), ledger=ledger)
+    opts = dict(FLEET_OPTS, suffix_cache=fleet_on)
+    built = []
+
+    def factory():
+        built.append(CausalLMPredictor(bundle, adapter, tokenizer=tok,
+                                       mode="batch", stream=True, device=dev,
+                                       batch_opts=dict(opts)))
+        return built[-1]
+
+    rs = ReplicaSet(predictor_factory=factory, min_replicas=replicas,
+                    max_replicas=replicas + 1,
+                    runner_cls=ChatCompletionRunner,
+                    drain_grace_s=2.0 if fleet_on else 0.0)
+    gw = Gateway(rs, unhealthy_ttl_s=0.75, max_failovers=4, backoff_seed=0,
+                 chaos=chaos, cache_aware=fleet_on, heal_probe=fleet_on)
+    policy = (SLOPolicy(queue_depth_per_replica=32.0, kv_headroom_min=1,
+                        cooldown_s=3.0) if fleet_on
+              else EWMPolicy(target_qps_per_replica=1e9))
+    asc = Autoscaler(gw, policy, interval_s=0.25)
+    lock = threading.Lock()
+    ttfts, tokens, oks = [], [], []
+    mark = [None]
+    done = threading.Event()
+
+    def send(messages, meta):
+        req = {"messages": messages, "stream": True,
+               "max_tokens": int(meta["max_tokens"]),
+               "temperature": float(meta["temperature"]),
+               "seed": int(meta["seed"])}
+        t0 = time.perf_counter()
+        first, parts, usage = None, [], None
+        try:
+            for data in gw.stream(req, timeout=600.0):
+                ch = json.loads(data)["choices"][0]
+                delta = ch.get("delta") or {}
+                if delta.get("content"):
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    parts.append(delta["content"])
+                if ch.get("finish_reason"):
+                    usage = ch.get("usage") or {}
+        except Exception:
+            with lock:
+                oks.append(False)
+            raise
+        with lock:
+            oks.append(True)
+            if first is not None:
+                ttfts.append(first)
+            tokens.append(int((usage or {}).get("completion_tokens",
+                                                len(parts))))
+        return "".join(parts)
+
+    def disrupt():
+        while not done.is_set():
+            with lock:
+                if len(oks) >= int(loss_at * total):
+                    break
+            time.sleep(0.05)
+        if done.is_set():
+            return
+        with rs._lock:
+            victim = rs.replicas[-1] if rs.replicas else None
+        if victim is not None:
+            victim.stop()           # replica loss, mid-soak
+        with lock:
+            mark[0] = len(oks)
+        while not done.is_set():
+            try:
+                asc.step()   # heal + replace + SLO scale
+            except Exception:  # noqa: BLE001 — the soak records, goes on
+                pass
+            done.wait(0.3)
+
+    try:
+        for r in list(rs.replicas):   # warm each engine thread once
+            r.predictor.generate("fleet warmup", max_new_tokens=2)
+        torch.cuda.synchronize()
+        watcher = None
+        if loss_at is not None:
+            watcher = threading.Thread(target=disrupt, daemon=True)
+            watcher.start()
+        t0 = time.perf_counter()
+        records = run_load(send, spec, concurrency=conc)
+        wall = time.perf_counter() - t0
+        done.set()
+        if watcher is not None:
+            watcher.join(timeout=30.0)
+        with rs._lock:
+            engines = [r.predictor.engine for r in rs.replicas]
+        idx = [e.scheduler._index for e in engines
+               if e.scheduler._index is not None]
+        hits = sum(i.hits for i in idx)
+        lookups = hits + sum(i.misses for i in idx)
+        with lock:
+            post = oks[mark[0]:] if mark[0] is not None else []
+            ttft = sorted(ttfts)
+            leg = {
+                "tokens_per_s": sum(tokens) / wall, "wall_s": wall,
+                "requests": len(records), "tokens": sum(tokens),
+                "ttft_mean_s": sum(ttft) / max(len(ttft), 1),
+                "ttft_p99_s": ttft[min(len(ttft) - 1, int(
+                    0.99 * (len(ttft) - 1) + 0.5))] if ttft else 0.0,
+                "success_rate": sum(oks) / max(len(oks), 1),
+                "post_loss_success_rate": sum(post) / max(len(post), 1),
+                "post_loss_requests": len(post),
+                "suffix_hits": sum(i.suffix_hits for i in idx),
+                "suffix_tokens_reused": sum(i.suffix_tokens_reused
+                                            for i in idx),
+                "prefix_hit_rate": hits / max(lookups, 1),
+                "scale_events": int(asc.scale_events),
+                "injected_conn_drops": len(ledger.serving_events()),
+                "replicas_end": len(rs), "routes": dict(gw.route_counts),
+                "decode_steps": sum(int(e.scheduler.steps_run)
+                                    for e in engines),
+                "resets": sum(int(e.resets_total) for e in engines)}
+        return leg
+    finally:
+        done.set()
+        rs.stop()
+        for p in built:
+            p.close()
+
+
+def fleet_phase(torch, llm, cb, fa, Arguments, export, tmp, dev="cuda",
+                load=FLEET_LOAD):
+    """Phase 13: the checks, the chaos bench and the two fleet legs; the
+    kernels' launches over all of it (none expected: batch mode's
+    attention is cached_attention). Returns the fleet line and the
+    launches."""
+    t0 = time.perf_counter()
+    reset_launches(cb, fa)
+    checks = {"chaos_tiny": chaos_tiny_check(torch, llm, Arguments, dev)}
+    print(f"fleet checks: chaos tiny {json.dumps(checks['chaos_tiny'])}",
+          flush=True)
+    checks["subprocess_fleet"] = subprocess_fleet_check(
+        torch, Arguments, export, tmp, dev)
+    print(f"fleet checks: subprocess replicas "
+          f"{json.dumps(checks['subprocess_fleet'])}", flush=True)
+    model = fleet_model(torch, llm, Arguments)
+    chaos = chaos_bench(model, dev)
+    legs = {}
+    for tag, on in (("fleet_off", False), ("fleet_on", True)):
+        legs[tag] = fleet_soak(torch, model, on, load, dev=dev)
+        print(f"fleet {tag}: {json.dumps(legs[tag])}", flush=True)
+        require(legs[tag]["success_rate"] == 1.0
+                and legs[tag]["post_loss_success_rate"] == 1.0
+                and legs[tag]["post_loss_requests"] > 0,
+                f"fleet {tag}: a request failed or no loss happened "
+                f"{legs[tag]}")
+        total = (load["tenants"] * load["sessions_per_tenant"]
+                 * load["turns_per_session"])
+        require(legs[tag]["tokens"] > 0 and legs[tag]["requests"] == total,
+                f"fleet {tag}: {legs[tag]['requests']} of {total} requests "
+                f"played")
+    require(legs["fleet_on"]["suffix_hits"] > 0,
+            f"fleet_on: no suffix hit {legs['fleet_on']}")
+    used = launches(cb, fa)
+    require(not any(used.values()), f"the fleet phase launched {used}: "
+                                    f"batch mode runs no kernel")
+    on, off = legs["fleet_on"], legs["fleet_off"]
+    return {"checks": checks, "chaos": chaos, "legs": legs,
+            "vs_baseline": on["tokens_per_s"] / max(off["tokens_per_s"],
+                                                    1e-9),
+            "ttft_reduction": off["ttft_mean_s"] / max(on["ttft_mean_s"],
+                                                       1e-9),
+            "replicas": FLEET_REPLICAS, "concurrency": FLEET_CONC,
+            "load": load, "phase_s": time.perf_counter() - t0}, used
+
+
 def main() -> int:
     import tempfile
 
@@ -3279,6 +3734,32 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
           f"{serving['from_artifact_load_s']:.2f} s", flush=True)
     print(json.dumps({"serving": serving}), flush=True)
 
+    fleet, fleet_launches = fleet_phase(torch, llm, cb, fa, Arguments,
+                                        result["adapter_export"], tmp)
+    chaos = fleet["chaos"]
+    for leg, r in chaos["legs"].items():
+        print(f"serving chaos {leg:12s} ({card}): goodput "
+              f"{r['goodput_tokens_per_s']:.1f} tokens/s, success rate "
+              f"{r['success_rate']:.3f}, injected {r['injected_faults']}, "
+              f"resets {r['engine_resets']}, watchdog trips "
+              f"{r['watchdog_trips']}, {r['wall_s']:.2f} s", flush=True)
+    print(f"serving chaos on/off goodput {chaos['vs_baseline']:.2f}; "
+          f"recovery-on outputs equal to the chaos-free leg's: "
+          f"{chaos['recovery_on_outputs_equal_chaos_free']} of "
+          f"{chaos['requests']}", flush=True)
+    for leg, r in fleet["legs"].items():
+        print(f"fleet {leg} ({card}): {r['tokens_per_s']:.1f} tokens/s, "
+              f"TTFT mean {r['ttft_mean_s']:.3f} s p99 {r['ttft_p99_s']:.3f}"
+              f" s, success {r['success_rate']:.3f} (post-loss "
+              f"{r['post_loss_success_rate']:.3f}), suffix hits "
+              f"{r['suffix_hits']}, prefix hit rate "
+              f"{r['prefix_hit_rate']:.3f}, scale events "
+              f"{r['scale_events']}, connection drops "
+              f"{r['injected_conn_drops']}, replicas at the end "
+              f"{r['replicas_end']}, routes {r['routes']}", flush=True)
+    fleet["card"] = card
+    print(json.dumps({"fleet": fleet}), flush=True)
+
     ms, losses, hot_launches, n_params, hot_params = hot_loop(
         torch, llm, cb, fa)
     require(all(math.isfinite(x) for x in losses), "hot loop: non-finite loss")
@@ -3316,6 +3797,7 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "launches_fedsgd_unfold": fold["unfold"]["b1_launches"],
         "max_abs_err_fold_batch": fold["b1_fold_batch_max_abs_err"],
         "launches_serving": serve_launches["conv_block"],
+        "launches_fleet": fleet_launches["conv_block"],
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
@@ -3336,6 +3818,7 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
             "design": DESIGN[name],
             "launches": llm_launches[name],
             "launches_serving": serve_launches[name],
+            "launches_fleet": fleet_launches[name],
             "max_abs_err": attn_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

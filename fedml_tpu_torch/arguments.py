@@ -176,6 +176,17 @@ _SCHEMA: Dict[str, Any] = {
     "serving_max_requeues": 2,
     "serving_preempt_after_s": 0.0,
     "serving_shed_queue_depth": 0,     # load shedding (0 = off)
+    # chaos_serving_* — seeded serving-plane fault injection (core/chaos
+    # serving kinds; all off). *_prob knobs draw per index from the
+    # (chaos_seed, kind, index) stream; *_at_step / *_at_request are the
+    # single-shot variants
+    "chaos_serving_stall_prob": 0.0,     # per-decode-step stall draw
+    "chaos_serving_stall_s": 0.0,        # injected stall length
+    "chaos_serving_stall_at_step": None,  # stall exactly at this step
+    "chaos_serving_nan_prob": 0.0,       # per-step NaN-logit poison draw
+    "chaos_serving_nan_at_step": None,   # poison exactly at this step
+    "chaos_serving_conn_drop_prob": 0.0,  # gateway->replica connect drop
+    "chaos_serving_crash_at_request": None,  # replica dies on request N
     "llm_prefix_cache": False,
     "llm_prefill_batch": 0,
     "llm_suffix_cache": False,

@@ -1,16 +1,21 @@
 """Chaos subsystem: deterministic fault injection (counterpart of
-``fedml_tpu/core/chaos``, as far as the simulators use it).
+``fedml_tpu/core/chaos``, as far as the simulators and the serving plane
+use it).
 
 ``FaultPlan`` is the seeded schedule (dropout / stragglers / link faults /
-crash-at-round) and ``FaultLedger`` the injected-vs-observed accounting,
-mirrored to the obs sink. Everything is OFF by default: with the
-``chaos_*`` knobs at their defaults the rounds are unchanged. The
+crash-at-round / serving stalls, NaN poison, connection drops and replica
+crashes), ``FaultLedger`` the injected-vs-observed accounting, mirrored to
+the obs sink, and ``ServingChaosInjector`` the serving plane's interceptor
+(the batch engine's decode loop, the gateway's connect, the replica's
+request seam). Everything is OFF by default: with the ``chaos_*`` knobs at
+their defaults the rounds and the decode loop are unchanged. The
 transport interceptor (``ChaosCommManager``) waits for the distributed
-runtimes, the serving injector for the serving fleet.
+runtimes.
 """
 
 from .plan import (ChaosCrash, FaultLedger, FaultPlan, LinkDecision,
                    RoundFaults)
+from .serving import ServingChaosInjector
 
 __all__ = ["ChaosCrash", "FaultLedger", "FaultPlan", "LinkDecision",
-           "RoundFaults"]
+           "RoundFaults", "ServingChaosInjector"]

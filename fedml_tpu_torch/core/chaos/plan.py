@@ -343,13 +343,14 @@ class FaultLedger:
     mirrored to the obs sink. ``injected`` is what the :class:`FaultPlan`
     scheduled; ``observed`` is what the runtime actually saw at the
     aggregation seam — a tolerance bug shows up as the two disagreeing.
-    Buffered-async pours record here too (:meth:`record_pour`). (The JAX
-    ledger's link and serving records wait for the transport interceptor
-    and serving chaos.)"""
+    Buffered-async pours (:meth:`record_pour`) and the serving plane's
+    injected faults (:meth:`record_serving`) record here too. (The JAX
+    ledger's link records wait for the transport interceptor.)"""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._rounds: List[Dict[str, Any]] = []
+        self._serving: List[Dict[str, Any]] = []
 
     def record_round(self, round_idx: int, injected: Dict[str, Any],
                      observed: Dict[str, Any]) -> None:
@@ -377,6 +378,18 @@ class FaultLedger:
         sink.log_chaos(round_idx=int(version), arrivals=list(arrivals),
                        observed=dict(observed))
 
+    def record_serving(self, kind: str, **detail: Any) -> None:
+        """One injected serving fault (stall / nan / conn_drop / crash)
+        with whatever locates it (step_idx, seq, request_idx). The soak
+        test balances these against the engine's observed recoveries —
+        an injected fault with no matching reset/failover is a tolerance
+        bug."""
+        rec = {"kind": str(kind), **detail}
+        with self._lock:
+            self._serving.append(rec)
+        from ..obs import sink
+        sink.log_chaos(serving=rec)
+
     def pours(self) -> List[Dict[str, Any]]:
         with self._lock:
             return [r for r in self._rounds if r.get("pour")]
@@ -384,3 +397,7 @@ class FaultLedger:
     def rounds(self) -> List[Dict[str, Any]]:
         with self._lock:
             return list(self._rounds)
+
+    def serving_events(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._serving)

@@ -11,8 +11,8 @@ SIGTERM from the platform — and the run JSONL only carries what was
 * :class:`FlightRecorder` — a bounded ring buffer of the last N
   request-lifecycle and engine-step records (a ``deque`` of dicts; an
   append is O(1) and never blocks the decode loop), dumped as
-  schema-valid ``kind: flight`` JSONL on demand or on unhandled engine
-  crash.
+  schema-valid ``kind: flight`` JSONL on demand, on unhandled engine
+  crash, or on SIGTERM (:func:`install_signal_dump`).
 * :class:`Watchdog` — a daemon thread that trips when the component it
   watches reports no progress for T seconds while it has live work
   (``occupancy > 0``), or when the component flags a poisoned step
@@ -31,6 +31,7 @@ import collections
 import json
 import logging
 import os
+import signal
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -134,6 +135,45 @@ class FlightRecorder:
         except Exception:  # pragma: no cover — crash path must not raise
             logger.exception("flight recorder dump failed")
             return None
+
+
+_signal_state: Dict[str, Any] = {"installed": False, "recorders": []}
+
+
+def install_signal_dump(recorder: FlightRecorder,
+                        path: Optional[str] = None) -> bool:
+    """Dump ``recorder`` on SIGTERM (the platform's shutdown signal),
+    then re-raise the default action so the process still dies. Only the
+    main thread may install signal handlers — callers on worker threads
+    get False and should rely on the crash/watchdog dumps instead.
+    Multiple recorders chain onto one handler."""
+    entry = (recorder, path)
+    if _signal_state["installed"]:
+        # a False return must mean NOT registered — only queue the
+        # recorder once a handler exists (or below, once one installs)
+        if entry not in _signal_state["recorders"]:
+            _signal_state["recorders"].append(entry)
+        return True
+    if threading.current_thread() is not threading.main_thread():
+        return False
+    try:
+        prev = signal.getsignal(signal.SIGTERM)
+
+        def _on_term(signum, frame):  # pragma: no cover — signal path
+            for rec, p in _signal_state["recorders"]:
+                rec.dump(p, reason="sigterm")
+            if callable(prev):
+                prev(signum, frame)
+            else:
+                signal.signal(signal.SIGTERM, signal.SIG_DFL)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        signal.signal(signal.SIGTERM, _on_term)
+        _signal_state["installed"] = True
+        _signal_state["recorders"].append(entry)
+        return True
+    except (ValueError, OSError):  # not main thread / restricted env
+        return False
 
 
 class Watchdog:

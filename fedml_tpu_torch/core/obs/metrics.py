@@ -5,7 +5,9 @@ checkpoints use it: the registry, the ``record_llm_*`` hooks, the watchdog
 counter, ``record_round_mfu`` / ``record_hbm_peak``, ``record_wire`` /
 ``record_wire_stage``, ``record_checkpoint_flush``, the selection hooks
 ``record_selection`` / ``record_cohort_assembly``, the async engine's
-``record_pour`` / ``record_arrival``, :class:`LatencyWindow`, the
+``record_pour`` / ``record_arrival``, the serving fleet's
+``record_gateway_route`` / ``_failover`` / ``_heal`` / ``_latency`` and
+``record_fleet_scale``, :class:`LatencyWindow`, the
 snapshot cadences :func:`maybe_flush` / :func:`set_flush_interval` and
 :func:`flush_final`).
 
@@ -541,6 +543,61 @@ def record_watchdog_trip(component: str, reason: str) -> None:
                      "black-box watchdog trips",
                      labels=("component", "reason")).inc(
                          1, component=str(component), reason=str(reason))
+
+
+def record_gateway_latency(latency_s: float) -> None:
+    """Serving gateway seam: per-request end-to-end latency histogram
+    (the exact p50/p99 the autoscaler reads comes from the gateway's
+    :class:`LatencyWindow`; this is the exposition/post-mortem view)."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.histogram("serving_gateway_latency_seconds",
+                       "gateway request latency",
+                       buckets=LATENCY_BUCKETS).observe(float(latency_s))
+
+
+def record_gateway_failover(reason: str) -> None:
+    """Gateway routed a request away from a replica (dead connect,
+    503-shedding replica, failed health probe)."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.counter("serving_gateway_failovers_total",
+                     "requests re-routed off a failed/unhealthy replica",
+                     labels=("reason",)).inc(1, reason=str(reason))
+
+
+def record_gateway_route(outcome: str) -> None:
+    """Cache-aware routing decision: ``warm_hit`` (digest stuck to its
+    warm replica), ``warm_spill`` (warm replica saturated — spilled to
+    round-robin without rehoming), ``cold`` (first sight of the digest,
+    round-robin pick recorded as the digest's home)."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.counter("serving_gateway_routes_total",
+                     "cache-aware routing decisions by outcome",
+                     labels=("outcome",)).inc(1, outcome=str(outcome))
+
+
+def record_gateway_heal(port: int) -> None:
+    """A quarantined replica passed its recovery probe and rejoined the
+    rotation."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.counter("serving_gateway_heals_total",
+                     "quarantined replicas healed back into "
+                     "rotation").inc(1)
+
+
+def record_fleet_scale(direction: str, replicas: int) -> None:
+    """One SLO-driven autoscaler move (``up`` / ``down``) landing on
+    ``replicas`` replicas."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.counter("serving_fleet_scale_events_total",
+                     "autoscaler replica-count changes",
+                     labels=("direction",)).inc(1, direction=str(direction))
+    REGISTRY.gauge("serving_fleet_replicas",
+                   "current serving replica count").set(int(replicas))
 
 
 def record_wire(msg_type: Any, nbytes: int) -> None:

@@ -50,10 +50,12 @@ def log_round_info(total_rounds: int, round_idx: int) -> None:
 def log_chaos(round_idx: Optional[int] = None,
               injected: Optional[Dict[str, Any]] = None,
               observed: Optional[Dict[str, Any]] = None,
-              arrivals: Optional[list] = None) -> None:
+              arrivals: Optional[list] = None,
+              serving: Optional[Dict[str, Any]] = None) -> None:
     """A ``kind: chaos`` record of the fault ledger (the JAX package's
     ``mlops.log_chaos``): what the ``FaultPlan`` injected against what the
-    round observed. ``arrivals`` carries a buffered-async pour's
+    round observed, or one injected serving fault (``serving``: its kind
+    and where it landed). ``arrivals`` carries a buffered-async pour's
     per-update records (client, staleness at aggregation, arrival time,
     dispatch version); they also feed the staleness and buffer-occupancy
     histograms (``metrics.record_pour``)."""
@@ -64,6 +66,8 @@ def log_chaos(round_idx: Optional[int] = None,
         rec["injected"] = injected
     if observed is not None:
         rec["observed"] = observed
+    if serving is not None:
+        rec["serving"] = serving
     if arrivals is not None:
         from . import metrics as obs_metrics
         rec["arrivals"] = arrivals

@@ -25,14 +25,6 @@ UNPORTED_KNOBS: Dict[str, tuple] = {
     "chaos_link_delay_prob": (None, 0, 0.0),
     "mesh_shape": (None,),
     "obs_roofline": (None, False),
-    # serving chaos (core/chaos's ServingChaosInjector)
-    "chaos_serving_stall_prob": (None, 0, 0.0),
-    "chaos_serving_stall_s": (None, 0, 0.0),
-    "chaos_serving_stall_at_step": (None,),
-    "chaos_serving_nan_prob": (None, 0, 0.0),
-    "chaos_serving_nan_at_step": (None,),
-    "chaos_serving_conn_drop_prob": (None, 0, 0.0),
-    "chaos_serving_crash_at_request": (None,),
     # the values of this knob that are ported
     "llm_attention_impl": (None, "", "dense", "flash"),
 }

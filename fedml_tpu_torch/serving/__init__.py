@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import threading
 from abc import ABC, abstractmethod
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -79,8 +80,6 @@ def save_model(params: PyTree, path: str) -> str:
     artifact. A flat dict of tensors or arrays is the port's state dict
     and is written as its nested flax tree (the JAX package's layout);
     any other tree is written as it is."""
-    import os
-
     from ..interop import state_dict_to_flax
     tree = state_dict_to_flax(params) if _is_state_dict(params) else params
     tmp = path + ".tmp"
@@ -189,10 +188,12 @@ class FedMLInferenceRunner:
         from ..core.obs import trace as obs_trace
 
         self.predictor = predictor
-        if chaos is not None:
-            raise NotImplementedError(
-                "replica crash injection (chaos=) needs core/chaos, which "
-                "is not ported to fedml_tpu_torch yet")
+        # optional ServingChaosInjector: replica crash-at-request-N lands
+        # HERE (the request seam) — hard_crash kills the process (the
+        # subprocess-replica analogue of a container OOM-kill), otherwise
+        # the connection is severed mid-request so in-process tests see
+        # the same client-visible failure without losing the test process
+        self.chaos = chaos
         # POST routes: path -> callable(json_request) -> json_response.
         # /predict is always mounted; templates mount more (e.g. the LLM
         # template's /v1/chat/completions)
@@ -282,6 +283,21 @@ class FedMLInferenceRunner:
                 handler = runner.routes.get(self.path)
                 if handler is None:
                     self._reply(404, {"error": "not found"})
+                    return
+                if runner.chaos is not None \
+                        and runner.chaos.request_crash_due():
+                    if runner.chaos.hard_crash:  # subprocess replica only
+                        logger.error("chaos: replica crash-at-request "
+                                     "(hard) — exiting")
+                        os._exit(23)
+                    # in-process analogue: sever the connection so the
+                    # client sees exactly what a process kill looks like
+                    logger.error("chaos: replica crash-at-request — "
+                                 "severing connection")
+                    try:
+                        self.connection.close()
+                    except OSError:
+                        pass
                     return
                 parent = obs_trace.parse_traceparent(
                     self.headers.get("traceparent"))

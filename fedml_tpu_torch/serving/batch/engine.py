@@ -1,8 +1,8 @@
 """BatchingEngine — threaded request queue over the DecodeScheduler
 (counterpart of ``fedml_tpu/serving/batch/engine.py``; the host loop is a
-copy, the scheduler under it runs torch on the card). Serving chaos
-injection (``chaos=``) needs ``core/chaos``, which is not ported: it
-raises.
+copy, the scheduler under it runs torch on the card). ``chaos=`` takes a
+:class:`~fedml_tpu_torch.core.chaos.ServingChaosInjector`, consulted once
+per decode step index before the step runs.
 
 The serving surface (HTTP handler threads) submits requests and blocks on
 per-request futures; ONE worker thread owns the scheduler and runs the
@@ -17,8 +17,8 @@ tail-latency control the autoscaler's p99 policies can rely on, and a
 reason clients can tell apart from an honest ``"length"`` budget stop.
 
 Fault tolerance (crash-only recovery, Candea & Fox): a watchdog trip
-(NaN/inf logits, or a decode stall the loop can observe — any wedge
-between steps) triggers a CONTROLLED RESET
+(NaN/inf logits, or a decode stall the loop can observe — an injected
+chaos stall, or any wedge between steps) triggers a CONTROLLED RESET
 instead of a permanent 503 — every in-flight request is snapshotted
 (prompt, tokens so far, remaining budget, seed, adapter index), the slot
 matrix + paged KV pool + scheduler state are rebuilt (same geometry),
@@ -149,16 +149,13 @@ class BatchingEngine:
         self.max_requeues = int(max_requeues)
         self.preempt_after_s = float(preempt_after_s)
         self.shed_queue_depth = int(shed_queue_depth)
-        if chaos is not None:
-            raise NotImplementedError(
-                "serving chaos injection (chaos=, the chaos_serving_* "
-                "knobs) needs core/chaos, which is not ported to "
-                "fedml_tpu_torch yet")
+        self._chaos = chaos      # optional ServingChaosInjector
         self._reset_requested: Optional[str] = None   # watchdog -> loop
         self._reset_times: List[float] = []
         self._last_reset_ts = 0.0
         self.resets_total = 0
         self._failed: Optional[str] = None   # reset budget exhausted
+        self._last_fault_step = -1   # one plan consult per step index
         self._admit_counter = 0
         self._wave_seq = 0       # piggybacked-prefill wave stamp
         self._req_wall_ema: Optional[float] = None   # Retry-After input
@@ -365,6 +362,8 @@ class BatchingEngine:
                         # request) with nothing in flight: don't busy-spin
                         time.sleep(0.005)
                     continue
+                if self._chaos is not None and not self._inject_chaos():
+                    continue   # injected fault aborted this step
                 self.last_progress_ts = time.time()  # entering the step:
                 # only a step that HANGS past stall_s reads as a stall,
                 # not a slow one that returns
@@ -389,6 +388,45 @@ class BatchingEngine:
         # drain on shutdown
         self._close_steps_span()
         self._fail_all(RuntimeError("engine stopped"))
+
+    def _inject_chaos(self) -> bool:
+        """Consult the serving fault plan for the NEXT decode step.
+        Returns False when the injected fault aborted the step (stall
+        interrupted by a watchdog-requested reset, or NaN poison).
+
+        One consult per step INDEX: a reset doesn't advance
+        ``steps_run`` (the aborted step never ran), so without the
+        latch the same scheduled fault would re-fire on every recovery
+        attempt and a single injected NaN would read as a permanent
+        poison source."""
+        step_idx = int(self.scheduler.steps_run)
+        if step_idx == self._last_fault_step:
+            return True
+        self._last_fault_step = step_idx
+        kind = self._chaos.decode_fault(step_idx)
+        if kind is None:
+            return True
+        if kind == "nan":
+            # poison the step flag exactly like non-finite logits would
+            # (the flag the step's one device->host copy carries): the
+            # loop's finite check turns this into a controlled reset
+            self.flight.note("chaos_nan",
+                             step=int(self.scheduler.steps_run))
+            self.scheduler.last_step_finite = False
+            self._recover("nan_logits")
+            return False
+        # stall: wedge interruptibly — last_progress_ts stops moving, the
+        # watchdog trips, and its reset request cuts the stall short the
+        # way a process restart would. A stall shorter than the watchdog
+        # leash just rides out (tolerated without a reset).
+        stall_s = self._chaos.stall_s()
+        self.flight.note("chaos_stall", step=int(self.scheduler.steps_run),
+                         stall_s=stall_s)
+        deadline = time.time() + stall_s
+        while (time.time() < deadline and self._running
+               and self._reset_requested is None):
+            time.sleep(0.01)
+        return self._reset_requested is None and self._running
 
     def _drain_queue(self) -> None:
         while True:

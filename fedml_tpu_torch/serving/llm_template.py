@@ -182,13 +182,15 @@ class CausalLMPredictor(FedMLPredictor):
         continuous batching with the ``serving_*`` options;
         ``llm_adapter_dir`` loads a named adapter bank exported by
         ``llm/federated.py`` and ``llm_adapter_watch_s > 0`` watches it
-        for hot-swaps. ``device`` rides in ``kw``."""
+        for hot-swaps; a live ``chaos_serving_*`` knob gives the engine a
+        :class:`~fedml_tpu_torch.core.chaos.ServingChaosInjector`.
+        ``device`` rides in ``kw``."""
         from ..core.distributed.communication.message import \
             array_to_tensor
         from ..interop import flax_to_state_dict
         from ..llm.federated import build_llm_bundle
         from ..runner import check_ported
-        check_ported(args)   # the chaos_serving_* knobs, among others
+        check_ported(args)
         bundle, tokenizer = build_llm_bundle(args)
         kw.setdefault("mode", str(getattr(args, "llm_serving_mode",
                                           "single")))
@@ -228,6 +230,13 @@ class CausalLMPredictor(FedMLPredictor):
                 "suffix_cache": bool(
                     getattr(args, "llm_suffix_cache", False)),
             })
+            # seeded serving chaos (engine-side stall/NaN injection);
+            # None unless a chaos_serving_* knob is live, so the default
+            # decode loop never consults a plan
+            if kw["batch_opts"].get("chaos") is None:
+                from ..core.chaos import ServingChaosInjector
+                kw["batch_opts"]["chaos"] = \
+                    ServingChaosInjector.from_args(args)
             adapter_dir = getattr(args, "llm_adapter_dir", None)
             if adapter_dir and kw.get("adapter_bank") is None:
                 from .batch import AdapterBank
@@ -601,7 +610,8 @@ class CausalLMPredictor(FedMLPredictor):
 class ChatCompletionRunner(FedMLInferenceRunner):
     """Inference runner with the OpenAI chat route mounted:
     ``POST /v1/chat/completions`` (and ``/predict`` + ``/ready`` from the
-    base runner)."""
+    base runner); ``chaos`` is the base runner's crash-at-request
+    injector."""
 
     def __init__(self, predictor: CausalLMPredictor, host: str = "127.0.0.1",
                  port: int = 0, chaos=None):

@@ -34,6 +34,7 @@ from fedml_tpu_torch.llm import federated as tfed
 from fedml_tpu_torch.serving.batch import AdapterBank as TBank
 from fedml_tpu_torch.serving.llm_template import CausalLMPredictor
 
+from test_torch_serving_chaos import sealed_jax
 from torch_port_support import single_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
@@ -258,7 +259,8 @@ def test_exported_dirs_serve_the_jax_banks_tokens(pair, exports):
         for k in want:
             np.testing.assert_array_equal(got[k].numpy(), want[k])
         assert (_bank_tokens(TScheduler, tb, tbank, tok, device="cpu")
-                == _bank_tokens(JScheduler, jb, jbank, tok))
+                == _bank_tokens(lambda *a, **k: sealed_jax(
+                    JScheduler(*a, **k)), jb, jbank, tok))
     assert TBank.from_artifacts(str(tdir), capacity=3).capacity == 5
 
 

@@ -109,11 +109,7 @@ def test_fresh_init_is_seeded_and_runs():
     ("enable_secure_agg", True), ("enable_fhe", True),
     ("chaos_link_loss_prob", 0.2), ("chaos_link_dup_prob", 0.2),
     ("chaos_link_delay_prob", 0.2), ("mesh_shape", (2, 2)),
-    ("obs_roofline", True), ("chaos_serving_stall_prob", 0.1),
-    ("chaos_serving_stall_s", 0.5),
-    ("chaos_serving_stall_at_step", 3), ("chaos_serving_nan_prob", 0.1),
-    ("chaos_serving_nan_at_step", 2), ("chaos_serving_conn_drop_prob", 0.1),
-    ("chaos_serving_crash_at_request", 1)])
+    ("obs_roofline", True)])
 def test_unported_knobs_raise(knob, value):
     cfg = dict(CFG, comm_round=1, max_total_samples=16, **{knob: value})
     with pytest.raises(NotImplementedError, match=knob) as ei:
@@ -143,6 +139,29 @@ def test_fault_and_selection_knobs_are_ported(knob, value):
     if not knob.startswith("chaos_"):
         r = fedml_tpu_torch.run_simulation(backend="sp", device="cpu", **cfg)
         assert np.isfinite(r["history"][0]["train_loss"])
+
+
+SERVING_CHAOS_KNOBS = [
+    ("chaos_serving_stall_prob", 0.1), ("chaos_serving_stall_s", 0.5),
+    ("chaos_serving_stall_at_step", 3), ("chaos_serving_nan_prob", 0.1),
+    ("chaos_serving_nan_at_step", 2), ("chaos_serving_conn_drop_prob", 0.1),
+    ("chaos_serving_crash_at_request", 1)]
+
+
+@pytest.mark.parametrize("knob,value", SERVING_CHAOS_KNOBS)
+def test_serving_chaos_knobs_are_ported(knob, value):
+    """The seven ``chaos_serving_*`` knobs are ported (serving chaos:
+    tests/test_torch_serving_chaos.py). As in the JAX package they act on
+    the serving plane only: a simulation that carries one runs, bitwise
+    equal to the same run without it."""
+    cfg = dict(CFG, dataset="synthetic_mnist", model="lr", comm_round=1,
+               max_total_samples=32)
+    a = fedml_tpu_torch.run_simulation(device="cpu", **cfg)
+    b = fedml_tpu_torch.run_simulation(device="cpu", **cfg, **{knob: value})
+    for k in a["params"]:
+        assert torch.equal(a["params"][k], b["params"][k]), k
+    from fedml_tpu_torch.arguments import Arguments
+    assert getattr(Arguments(**{knob: value}), knob) == value
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -82,3 +82,61 @@ def test_entry_point_refuses_without_cuda(monkeypatch):
     assert get_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         get_device("mps")
+
+
+_FLEET_PROBE = r"""
+import runpy, sys
+import fedml_tpu_torch.core.chaos.serving
+import fedml_tpu_torch.core.distributed.communication.backoff
+import fedml_tpu_torch.serving.autoscale
+import fedml_tpu_torch.serving.replica_main
+from fedml_tpu_torch.core.chaos import ServingChaosInjector
+from fedml_tpu_torch.core.obs.flight import install_signal_dump
+from fedml_tpu_torch.core.obs.metrics import (
+    record_fleet_scale, record_gateway_failover, record_gateway_heal,
+    record_gateway_latency, record_gateway_route)
+load = runpy.run_path("scripts/serving_load_torch.py")
+assert callable(load["run_load"]) and callable(load["build_sessions"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "fedml_tpu"))
+print(bad)
+"""
+
+
+def test_fleet_chaos_and_load_script_import_without_jax():
+    """The serving fleet (``serving/autoscale.py``, ``replica_main``), the
+    serving chaos injector, the retry policy copy, the fleet's metric
+    records and ``scripts/serving_load_torch.py`` load no JAX module and
+    nothing of ``fedml_tpu``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = _ROOT
+    out = subprocess.run([sys.executable, "-c", _FLEET_PROBE], cwd=_ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py",
+                                  "scripts/serving_load_torch.py",
+                                  "scripts/fleet_scaling.py",
+                                  "scripts/serving_ab.py",
+                                  "fedml_tpu_torch/serving/autoscale.py",
+                                  "fedml_tpu_torch/serving/replica_main.py"])
+def test_no_jax_import_statement(path):
+    """No import statement of these files names JAX or the JAX package
+    (``chip_smoke.py`` and the scripts that drive it run only on a card,
+    so their text is read)."""
+    import ast
+    with open(os.path.join(_ROOT, path)) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "jaxlib", "flax", "fedml_tpu")]
+    assert not bad, bad

@@ -128,12 +128,23 @@ def test_full_fine_tune_when_rank_is_zero():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("llm_attention_impl", "ring"),
-    ("chaos_serving_nan_at_step", 4)])
+    ("llm_attention_impl", "ring")])
 def test_unported_llm_knobs_raise(knob, value):
     cfg = dict(CFG, comm_round=1, llm_corpus_size=24, **{knob: value})
     with pytest.raises(NotImplementedError, match=knob):
         tfed.run_federated_llm(TArguments(**cfg), device="cpu")
+
+
+def test_serving_chaos_knob_leaves_training_alone():
+    """``chaos_serving_nan_at_step`` is ported (serving chaos acts on the
+    batch engine only): the federated LoRA round that carries it runs,
+    bitwise equal to the same round without it, as in the JAX package."""
+    cfg = dict(CFG, comm_round=1, llm_corpus_size=24)
+    a = tfed.run_federated_llm(TArguments(**cfg), device="cpu")
+    b = tfed.run_federated_llm(
+        TArguments(**cfg, chaos_serving_nan_at_step=4), device="cpu")
+    for k in a["params"]:
+        assert torch.equal(a["params"][k], b["params"][k]), k
 
 
 def test_needs_cuda_unless_cpu_is_named(monkeypatch):

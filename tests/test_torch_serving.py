@@ -45,6 +45,7 @@ from fedml_tpu_torch.serving.batch import DecodeScheduler as TScheduler
 from fedml_tpu_torch.serving.llm_template import (CausalLMPredictor,
                                                   ChatCompletionRunner)
 
+from test_torch_serving_chaos import sealed_jax
 from torch_port_support import single_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
@@ -216,8 +217,9 @@ def schedulers(lora_art):
         jbank.add(f"a{i}", tr)
         tbank.add(f"a{i}", _tensors(flax_to_state_dict(tr)))
     base = tb.base_params
-    js = JScheduler(jb.module, jb.cfg, jb.base_params, jbank, slots=3,
-                    block_size=16, prefill_chunk=8, prefill_batch=2)
+    js = sealed_jax(JScheduler(jb.module, jb.cfg, jb.base_params, jbank,
+                               slots=3, block_size=16, prefill_chunk=8,
+                               prefill_batch=2))
     ts = TScheduler(tb.module, tb.cfg, base, tbank, slots=3, block_size=16,
                     prefill_chunk=8, prefill_batch=2, device="cpu")
     reqs = [([1] + tok.encode("echo hello world, twice") + [3],
@@ -342,6 +344,7 @@ def test_batch_greedy_tokens_match_jax_lora(lora_art, port_batch):
     jb, _, tok, jparams, _ = lora_art
     jpred = JPredictor(jb, jparams, tokenizer=tok, mode="batch",
                        batch_opts=BATCH)
+    sealed_jax(jpred.engine.scheduler)
     try:
         want = _texts(jpred)
         sampled = jpred.generate("add 4 5", max_new_tokens=10,
@@ -367,6 +370,7 @@ def test_full_ft_batch_matches_jax_and_port_single(full_art):
     jb, tb, tok, jparams, tparams = full_art
     jpred = JPredictor(jb, jparams, tokenizer=tok, mode="batch",
                        batch_opts=BATCH)
+    sealed_jax(jpred.engine.scheduler)
     tpred = CausalLMPredictor(tb, tparams, tokenizer=tok, mode="batch",
                               batch_opts=BATCH, device="cpu")
     try:
@@ -552,15 +556,17 @@ def test_shed_and_unported_knobs_raise(lora_art, monkeypatch, tmp_path):
                                              device="cpu")
     for k, v in tparams.items():
         assert torch.equal(loaded.params[k], v), k
-    # ...and refuses the serving-chaos knobs, which are not ported
-    with pytest.raises(NotImplementedError, match="chaos_serving_nan"):
-        CausalLMPredictor.from_artifact(
-            TArguments(**_kw(chaos_serving_nan_at_step=3)), path,
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="chaos"):
-        CausalLMPredictor(tb, tparams, tokenizer=tok, mode="batch",
-                          batch_opts=dict(BATCH, chaos=object()),
-                          device="cpu")
+    # ...and takes the serving-chaos knobs, which are ported: in batch
+    # mode the engine gets the injector (tests/test_torch_serving_chaos.py)
+    from fedml_tpu_torch.core.chaos import ServingChaosInjector
+    chaotic = CausalLMPredictor.from_artifact(
+        TArguments(**_kw(chaos_serving_nan_at_step=3,
+                         llm_serving_mode="batch")), path, device="cpu")
+    try:
+        assert isinstance(chaotic.engine._chaos, ServingChaosInjector)
+        assert chaotic.engine._chaos.plan.serving_nan_at_step == 3
+    finally:
+        chaotic.close()
     with pytest.raises(NotImplementedError, match="roofline"):
         TScheduler(tb.module, tb.cfg, tb.base_params, roofline=True)
     # watch_dir polls a directory (nothing exported there yet) and stops
