@@ -12,14 +12,15 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    compiler's register/shared-memory/spill report; a spill in a
    tensor-core kernel, or a bf16 CUDA-core B1-B4 in the build, fails;
 3. check each kernel against its plain PyTorch version on the card:
-   B1 (fused conv block) at every ResNet-56 block geometry (batch 32) and
-   the odd shapes of its parity tests; B2-B4 (flash attention forward, dQ,
+   B1 (fused conv block) at every ResNet-56 block geometry (batch 32), the
+   odd shapes of its parity tests and ResNet-18's stage 0 (32x32x64,
+   cluster 8, bf16; float32 there must be refused); B2-B4 (flash attention forward, dQ,
    dK/dV) at the FedLLM round's shape, the 111M hot loop's, long context
    and the odd shapes of ``tests/test_llm.py`` (key-padding masks, rows
    with no live key, d 8/100/128 with ragged s); float32 and bfloat16,
    gradients included, and the autograd Function against dense attention;
-4. time each kernel at the main paths' shapes (B2-B4 at the FedLLM
-   round's and the hot loop's): the kernel with CUDA events around eager
+4. time each kernel at the main paths' shapes (B1 at ResNet-56's and
+   ResNet-18's, B2-B4 at the FedLLM round's and the hot loop's): the kernel with CUDA events around eager
    calls and as device time (calls captured in a CUDA graph, its replay
    timed with CUDA events), its plain version, the device time of one
    PyTorch library call for the same function (``library_ms``) and the
@@ -146,8 +147,9 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    traffic and plan (c8, 24 requests, stall + NaN, watchdog 0.3 s) with
    recovery on and off, plus a chaos-free leg: goodput, success rate,
    faults, resets, trips; (c) ``bench_llm_serving_fleet``'s soak (3
-   in-process replicas + 1 burst, 768 multi-turn requests at c256, 4 %
-   connection drops, the last replica lost after 40 %), fleet_off then
+   in-process replicas + 1 burst, 288 multi-turn requests at c256 (the
+   bench's 768 cut in depth), 4 % connection drops, the last replica lost
+   after 40 %), fleet_off then
    fleet_on: tokens/s, TTFT, success before and after the loss, suffix
    and prefix hits, scale events, routes; both on the FedLLM main path's
    model; a ``{"fleet": ...}`` line. B1-B4 launch 0 times in the phase;
@@ -155,7 +157,20 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    bf16, full parameters), 8 launches of each attention kernel per step;
    then ``save_model`` / ``load_model`` of its params (the codec's MB/s,
    round trip bitwise);
-15. one JSON line describing each kernel, then the card line, then
+15. the model zoo and tasks: (a) on the card against the CPU (f32, TF32
+    off): CNNFemnist's dropout masks bit for bit and a 2-round run with
+    dropout, the Shakespeare LSTM under FedOpt (and its captured step
+    against the eager loop at full width), the multilabel and regression
+    tasks, a digits run; (b) ``bench_engine_mfu_resnet18`` at full width
+    (ResNet-18, synthetic CIFAR-10 50,000, 64 clients, bf16, batch 32; the
+    capture, one block of 2 rounds, one eval), as written (cuDNN) and with
+    the fused block (B1 at 2 launches per forward, counted through the
+    graph's replays, one capture): rounds/hour, FLOPs, MFU, the data's and
+    the model's bytes, ``vs_baseline`` against one SP round on 8 clients;
+    (c) ``bench_shakespeare_fedopt`` and (d) ``bench_time_to_acc`` as
+    written, on the bundled real text and digits: rounds/hour, accuracy,
+    rounds (and seconds) to the target; a ``{"zoo": ...}`` line;
+16. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -181,6 +196,11 @@ PEAK_BYTES = 3.35e12
 FLAGSHIP = [((32, 16, 16, 1), 9), ((32, 16, 32, 2), 1), ((16, 32, 32, 1), 8),
             ((16, 32, 64, 2), 1), ((8, 64, 64, 1), 8)]
 BATCH = 32
+# ResNet-18's stage 0 (phase 15's model): 2 stride-1 BasicBlocks of 64
+# channels at 32x32, at batch 32 a cluster of 8 CTAs per sample and
+# 146,944 bytes of shared memory per CTA in bf16. In f32 one CTA would hold
+# the whole sample (858,304 bytes): the kernel refuses it.
+RESNET18 = [((32, 64, 64, 1), 2)]
 # the odd shapes of tests/test_conv_block.py and the batch that is not a
 # multiple of its grid block: (n, h, w, cin, cout, stride)
 ODD = [(2, 7, 9, 16, 16, 1), (2, 7, 7, 16, 32, 2), (2, 9, 8, 16, 32, 2),
@@ -519,9 +539,11 @@ TIE_GAP = 1e-4
 # bench_llm_serving_chaos traffic and plan (c8, 24 requests of 12 tokens,
 # every second one sampled; stall at step 12 for 5 s, NaN at step 25;
 # watchdog 0.3 s; 64 resets against 0) and (c) bench_llm_serving_fleet's
-# soak (3 replicas + 1 burst, 768 requests at c256, 4 % connection drops,
+# soak (3 replicas + 1 burst, 288 requests at c256, 4 % connection drops,
 # the last replica lost after 40 % of the requests; fleet_off then
-# fleet_on), both on one build of the FedLLM main path's model at seq 1024
+# fleet_on; the bench's 32 sessions per tenant cut to 12, its depth, to
+# make room for the model-zoo phase: the same turns, concurrency, drop
+# rate and loss point), both on one build of the FedLLM main path's model at seq 1024
 # (d 512, bf16, the bench's fresh LoRA adapter on the seeded base).
 CHAOS_TINY = dict(dataset="llm_synth", model="causal_lm", random_seed=3,
                   llm_hidden_size=32, llm_num_layers=2, llm_num_heads=2,
@@ -542,12 +564,81 @@ CHAOS_BENCH = {"concurrency": 8, "requests": 24, "max_new": 12,
                "plan": dict(seed=13, serving_stall_at_step=12,
                             serving_stall_s=5.0, serving_nan_at_step=25)}
 FLEET_REPLICAS, FLEET_CONC, FLEET_LOSS_AT = 3, 256, 0.4
-FLEET_LOAD = dict(tenants=8, sessions_per_tenant=32, turns_per_session=3,
+FLEET_LOAD = dict(tenants=8, sessions_per_tenant=12, turns_per_session=3,
                   seed=0, mean_gap_s=0.002, max_tokens=16, turn_chars=200)
 # 8,192 KV blocks of 16 at d 512, 4 layers, bf16: 1.07 GB per replica
 FLEET_OPTS = {"slots": 16, "block_size": 16, "prefill_chunk": 64,
               "prefix_cache": True, "prefill_batch": 8,
               "request_timeout_s": 600.0, "num_blocks": 8192}
+
+# The model zoo and tasks (phase 15). (a) card against CPU, f32 with TF32
+# off and cuDNN on deterministic algorithms, each run within HOUSE_TOL of
+# the CPU's: CNNFemnist with dropout on digits (its two dropout masks
+# first, card against CPU bit for bit, at its shapes at batch 32); the
+# Shakespeare LSTM under FedOpt at hidden 16 (ZOO_NARROW_LSTM: embedding,
+# hidden, layers), and its captured step against the eager loop at full
+# width on the card (2 clients, CAPTURE_TOL); the multilabel and
+# regression tasks; a digits run. 2 rounds each, small learning rates
+# (cuDNN's and the LSTM's reductions sum in other orders on the card).
+ZOO_CNN = dict(dataset="digits", model="cnn", client_num_in_total=4,
+               client_num_per_round=2, comm_round=2, batch_size=8,
+               learning_rate=0.01, max_total_samples=64,
+               frequency_of_the_test=-1, random_seed=3)
+ZOO_LSTM = dict(dataset="shakespeare", model="rnn", client_num_in_total=4,
+                client_num_per_round=4, comm_round=2, epochs=1,
+                batch_size=16, learning_rate=0.1,
+                federated_optimizer="FedOpt", server_optimizer="sgd",
+                server_lr=1.0, server_momentum=0.9,
+                frequency_of_the_test=-1, random_seed=0)
+ZOO_NARROW_LSTM = (8, 16, 2)
+ZOO_MULTILABEL = dict(dataset="synthetic_multilabel", model="lr",
+                      client_num_in_total=4, client_num_per_round=4,
+                      comm_round=2, batch_size=16, learning_rate=0.1,
+                      frequency_of_the_test=-1, random_seed=1)
+ZOO_REGRESSION = dict(model="lr", client_num_in_total=3,
+                      client_num_per_round=3, comm_round=2, batch_size=8,
+                      learning_rate=0.05, frequency_of_the_test=-1,
+                      random_seed=2)
+ZOO_DIGITS = dict(dataset="digits", model="lr", client_num_in_total=10,
+                  client_num_per_round=10, comm_round=2, batch_size=32,
+                  learning_rate=0.1, frequency_of_the_test=-1,
+                  random_seed=0)
+# (b) bench.py's bench_engine_mfu_resnet18 (bench.py:1006) at its width:
+# ResNet-18, synthetic CIFAR-10 50,000 / 1,000, 64 clients per round,
+# bf16, batch 32, lr 0.1, seed 0; cut to the capture, one block of
+# ZOO_R18_BLOCK rounds and one eval; legs: as written (fused_conv_block
+# off: cuDNN) and with the fused block (B1 on stage 0's two 64-channel
+# blocks). Baseline: the SP loop, one round on 8 clients, 6,250 samples.
+ZOO_R18 = dict(backend="gpu", dataset="cifar10", model="resnet18",
+               precision="bfloat16", client_num_in_total=64,
+               client_num_per_round=64, comm_round=1, epochs=1,
+               batch_size=32, learning_rate=0.1, frequency_of_the_test=-1,
+               random_seed=0, allow_synthetic=True, synthetic_size=50000,
+               rounds_per_dispatch=8)
+ZOO_R18_BLOCK = 2
+ZOO_R18_SP = dict(ZOO_R18, backend="sp", client_num_in_total=8,
+                  client_num_per_round=8, synthetic_size=6250,
+                  max_total_samples=6250)
+# (c) bench_shakespeare_fedopt (bench.py:1285) as written: the bundled
+# text, 10 roles, 12 rounds, FedOpt (sgd server, lr 1, momentum 0.9),
+# epochs 2, batch 16, lr 0.4; round 0 warms up (the capture), rounds 1-11
+# timed, an eval after each until the 0.21 target is hit.
+ZOO_SHAKESPEARE = dict(dataset="shakespeare", model="rnn",
+                       client_num_in_total=10, client_num_per_round=10,
+                       comm_round=12, epochs=2, batch_size=16,
+                       learning_rate=0.4, federated_optimizer="fedopt",
+                       server_optimizer="sgd", server_lr=1.0,
+                       server_momentum=0.9, frequency_of_the_test=10000,
+                       random_seed=0)
+ZOO_SHAKESPEARE_TARGET = 0.21
+# (d) bench_time_to_acc (bench.py:217) as written: FedAvg + logistic
+# regression on the bundled digits, 10 clients, lr 0.3, batch 32, an eval
+# after every round, up to 80 rounds; seconds and rounds to 90 %.
+ZOO_DIGITS_BENCH = dict(dataset="digits", model="lr", client_num_in_total=10,
+                        client_num_per_round=10, comm_round=80, epochs=1,
+                        batch_size=32, learning_rate=0.3,
+                        frequency_of_the_test=10000, random_seed=0)
+ZOO_DIGITS_TARGET = 0.90
 
 # Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
 # the trainer calls the model), the hot loop, bench_long_context, and the
@@ -799,13 +890,13 @@ def block_cost(n, h, cin, cout, s, itemsize):
     return nbytes, ops
 
 
-def time_geometries(torch, F, cb, gen, dtype):
+def time_geometries(torch, F, cb, gen, dtype, geometries=FLAGSHIP):
     """Per-geometry ms at batch 32: the kernel (CUDA events, and device
     time), its plain version, the unfused cuDNN chain (device time as
     ``library_ms``, and CUDA events) and the bound."""
     dt = getattr(torch, dtype)
     rows = []
-    for (h, cin, cout, s), count in FLAGSHIP:
+    for (h, cin, cout, s), count in geometries:
         x, p = make_block(torch, gen, BATCH, h, h, cin, cout, s, dt, "cuda")
         x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory, no copy
         w = {k: (v.permute(3, 2, 0, 1).contiguous(
@@ -1313,17 +1404,20 @@ def fedsgd_fold(torch, cb, fa, gen):
             "rel_diff": diff / largest}
 
 
-def robust_simulator(cfg, dev=None, fed=None):
+def robust_simulator(cfg, dev=None, fed=None, module=None):
     """A simulator of ``cfg`` (the GPU engine or the SP loop) on ``dev``
     (the card unless given), on ``fed`` when given (the dataset ``cfg``
-    loads, loaded once for several legs)."""
+    loads, loaded once for several legs), of the model ``module()`` builds
+    when given (else the one ``cfg`` names)."""
     from fedml_tpu_torch import data, model
     from fedml_tpu_torch.arguments import Arguments
     from fedml_tpu_torch.runner import FedMLRunner
     args = Arguments(**cfg)
     if fed is None:
         fed, _ = data.load(args)
-    bundle = model.create(args, fed.num_classes, fed.input_shape)
+    bundle = (model.create(args, fed.num_classes, fed.input_shape)
+              if module is None else model.ModelBundle(module(),
+                                                       cfg["model"]))
     return FedMLRunner(args, device=dev, dataset=fed, model=bundle).runner
 
 
@@ -3359,6 +3453,279 @@ def fleet_phase(torch, llm, cb, fa, Arguments, export, tmp, dev="cuda",
             "load": load, "phase_s": time.perf_counter() - t0}, used
 
 
+def _zoo_card_vs_cpu(torch, cfg, dev, cpu, fed=None, module=None):
+    """``cfg`` through the GPU engine on ``dev`` and on ``cpu`` from the
+    same seeded params; the card's params over HOUSE_TOL of the CPU's."""
+    card = robust_simulator(cfg, dev, fed, module)
+    card.run()
+    ref = robust_simulator(cfg, cpu, fed, module)
+    ref.run()
+    ratio = _house_ratio(torch, card.params, ref.params)
+    return ratio, card
+
+
+def _regression_fed():
+    """A seeded linear-regression dataset (no loader declares the task,
+    in the JAX package either): 3 clients of 6 features."""
+    import numpy as np
+    from fedml_tpu_torch.data.containers import build_federated_dataset
+    rs = np.random.RandomState(0)
+    w = rs.randn(6).astype(np.float32)
+    cxs = [rs.randn(n, 6).astype(np.float32) for n in (20, 13, 27)]
+    cys = [x @ w + 0.1 * rs.randn(len(x)).astype(np.float32) for x in cxs]
+    tx = rs.randn(30, 6).astype(np.float32)
+    return build_federated_dataset(cxs, cys, tx, tx @ w, 8, 1,
+                                   task="regression")
+
+
+def zoo_agreement(torch, tmp, dev="cuda", cpu="cpu"):
+    """Phase 15 (a): the new models and tasks on the card against the CPU
+    (ZOO_*). Returns {check: record}."""
+    from fedml_tpu_torch import data, prng
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.client_trainer import (
+        SequenceTrainer, make_inner_optimizer)
+    from fedml_tpu_torch.core.algframe.local_training import (
+        StepProgram, batch_real_of, run_local_sgd)
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    from fedml_tpu_torch.model import ModelBundle
+    from fedml_tpu_torch.model.dropout import Dropout
+    from fedml_tpu_torch.model.nlp.rnn import RNNShakespeare
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        masks = 0
+        for seed in range(3):
+            key = prng.PRNGKey(seed)
+            for rate, name, shape in ((0.25, "Dropout_0", (32, 14, 14, 64)),
+                                      (0.5, "Dropout_1", (32, 128))):
+                d = Dropout(rate, name).train()
+                x = torch.ones(shape)
+                a = d(x.to(dev), prng.key_t(key, dev)).cpu()
+                b = d(x, prng.key_t(key, cpu))
+                require(torch.equal(a, b), f"dropout {name} seed {seed}: "
+                                           f"the card's mask differs")
+                masks += a.numel()
+        ratio, card = _zoo_card_vs_cpu(torch, ZOO_CNN, dev, cpu)
+        require(ratio <= 1.0, f"CNNFemnist with dropout: card vs CPU "
+                              f"{ratio:.2f}x the house tolerance")
+        out["cnn_dropout"] = {"mask_elements_bitwise": masks,
+                              "house_ratio": ratio,
+                              "captures": card.dispatch_stats["captures"]}
+
+        lstm = dict(ZOO_LSTM, data_cache_dir=tmp)
+        fed, n_out = data.load(Arguments(**lstm))
+        e, h, layers = ZOO_NARROW_LSTM
+        ratio, card = _zoo_card_vs_cpu(
+            torch, lstm, dev, cpu, fed,
+            module=lambda: RNNShakespeare(n_out, e, h, layers))
+        require(ratio <= 1.0, f"LSTM FedOpt: card vs CPU {ratio:.2f}x the "
+                              f"house tolerance")
+        # the full-width LSTM's captured step against the eager loop
+        bundle = ModelBundle(RNNShakespeare(n_out), "rnn")
+        params = bundle.init(torch.Generator().manual_seed(0), dev)
+        spec = SequenceTrainer(bundle.apply)
+        opt = make_inner_optimizer("sgd", 0.4)
+        hyper = TrainHyper(learning_rate=0.4)
+        train = fed.train.to(torch.device(dev))
+        program = StepProgram(spec, opt, params, train.client(0))
+        worst = 0.0
+        for cid in range(2):
+            cdata, key = train.client(cid), prng.fold_in(prng.PRNGKey(0),
+                                                         cid)
+            real = batch_real_of(fed.train.mask[cid])
+            pg, steps, _ = program.run(params, cdata, key, hyper, real)
+            pe, _, _ = run_local_sgd(spec, opt, params, cdata, key, hyper,
+                                     batch_real=real)
+            moved = max((pe[k] - params[k]).abs().max().item() for k in pe)
+            diff = max((pg[k] - pe[k]).abs().max().item() for k in pe)
+            require(steps > 0 and moved > 0, "LSTM: a client did not train")
+            worst = max(worst, diff / moved / CAPTURE_TOL["float32"])
+        require(worst <= 1.0, f"LSTM captured step vs eager loop: off by "
+                              f"{worst:.2f}x the tolerance")
+        out["lstm_fedopt"] = {"house_ratio": ratio,
+                              "captured_vs_eager": worst,
+                              "captures": program.captures,
+                              "replays": program.replays}
+
+        ratio, _ = _zoo_card_vs_cpu(torch, ZOO_MULTILABEL, dev, cpu)
+        require(ratio <= 1.0, f"multilabel: card vs CPU {ratio:.2f}x the "
+                              f"house tolerance")
+        out["multilabel"] = {"house_ratio": ratio}
+        ratio, card = _zoo_card_vs_cpu(torch, ZOO_REGRESSION, dev, cpu,
+                                       _regression_fed())
+        require(ratio <= 1.0 and type(card.spec).__name__ ==
+                "RegressionTrainer", f"regression: card vs CPU {ratio:.2f}x "
+                                     f"the house tolerance")
+        out["regression"] = {"house_ratio": ratio}
+        ratio, card = _zoo_card_vs_cpu(torch, ZOO_DIGITS, dev, cpu)
+        require(ratio <= 1.0 and card.fed.provenance == "real",
+                f"digits: card vs CPU {ratio:.2f}x the house tolerance "
+                f"({card.fed.provenance} data)")
+        out["digits"] = {"house_ratio": ratio}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _bytes(tensors):
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def zoo_resnet18(torch, cb, fa, tmp, cfg=ZOO_R18, sp_cfg=ZOO_R18_SP,
+                 block=ZOO_R18_BLOCK, dev="cuda"):
+    """Phase 15 (b): bench_engine_mfu_resnet18 on the port, cuDNN and fused
+    legs. Returns ({leg: record}, {leg: launches})."""
+    from fedml_tpu_torch import data
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    from fedml_tpu_torch.core.obs import profiler
+
+    cfg = dict(cfg, data_cache_dir=tmp)
+    fed, _ = data.load(Arguments(**cfg))
+    hyper = TrainHyper(learning_rate=cfg["learning_rate"], epochs=1)
+    legs, counts, flops = {}, {}, None
+    for leg, fused in (("cudnn", False), ("fused", True)):
+        sim = robust_simulator(dict(cfg, fused_conv_block=fused), dev, fed)
+        reset_launches(cb, fa)
+        capture_s = sim.capture_step(hyper)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rounds = sim.run_rounds_fused(0, block, hyper)
+        torch.cuda.synchronize()
+        block_s = time.perf_counter() - t0
+        ev = sim.evaluate()
+        torch.cuda.synchronize()
+        counts[leg] = launches(cb, fa)
+        require(all(math.isfinite(m["loss_sum"]) for m in rounds)
+                and math.isfinite(ev["test_loss"]),
+                f"resnet18 {leg}: non-finite metrics")
+        require(sim.dispatch_stats["captures"] == 1 and len(sim.programs)
+                == 1, f"resnet18 {leg}: {sim.dispatch_stats['captures']} "
+                      f"captures")
+        (program,) = sim.programs.values()
+        steps = sum(m["local_steps"] for m in rounds)
+        n_eval = int(sim.test["x"].shape[0])
+        forwards = program.warmup_steps + program.replays + n_eval
+        per = 2 if fused else 0
+        require(program.replays == steps and counts[leg] == {
+            "conv_block": per * forwards, "flash_fwd": 0, "flash_dq": 0,
+            "flash_dkv": 0}, f"resnet18 {leg}: launches {counts[leg]} for "
+                             f"{forwards} forwards, expected {per} B1 each")
+        require(program.graph_launches.get(cb.fused_block, 0) == per,
+                f"resnet18 {leg}: the captured step holds "
+                f"{program.graph_launches.get(cb.fused_block, 0)} B1")
+        if flops is None:
+            flops = sim.round_cost_flops(hyper)
+        round_s = block_s / block
+        legs[leg] = {
+            "rounds_per_hour": 3600.0 / round_s, "step_time_s": round_s,
+            "block_s": block_s, "block_rounds": block,
+            "local_steps": steps, "ms_per_local_step": block_s / steps * 1e3,
+            "round_flops": flops, "tflops": flops / round_s / 1e12,
+            "mfu": profiler.mfu_value(flops, round_s, 1, device="cuda"),
+            "capture_s": capture_s, "captures": program.captures,
+            "b1_launches": counts[leg]["conv_block"],
+            "b1_per_forward": counts[leg]["conv_block"] / forwards,
+            "data_bytes": _bytes(list(vars(sim.train).values())
+                                 + list(sim.test.values())),
+            "model_bytes": _bytes(sim.params.values()),
+            "test_acc_after_block": ev["test_acc"],
+            "hbm_peak_gb": profiler.sample_hbm_peak_gb("cuda"),
+            "data_provenance": fed.provenance}
+        del sim, program
+    sp = robust_simulator(dict(sp_cfg, data_cache_dir=tmp), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp.run(1)
+    torch.cuda.synchronize()
+    sp_round_s = time.perf_counter() - t0
+    samples = float(fed.client_num_samples.sum())
+    sp_samples = float(sp.fed.client_num_samples.sum())
+    for r in legs.values():
+        r["sp_baseline_round_s"] = sp_round_s
+        r["vs_baseline"] = (sp_round_s / sp_samples) / (
+            r["step_time_s"] / samples)
+    return legs, counts
+
+
+def zoo_bench(torch, cfg, target, timed_from, tmp, dev="cuda"):
+    """Phase 15 (c)/(d): a bench that runs rounds one at a time with an
+    eval after each (until ``target``, or every round): the rounds before
+    ``timed_from`` warm up; rounds/hour over the timed rounds' training
+    alone, seconds to the target over the wall from the first timed round
+    (evals included), rounds to the target, the final accuracy."""
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+
+    cfg = dict(cfg, data_cache_dir=tmp)
+    sim = robust_simulator(cfg, dev)
+    hyper = TrainHyper(learning_rate=cfg["learning_rate"],
+                       epochs=cfg["epochs"])
+    steps = 0
+    for r in range(timed_from):
+        steps += sim.run_round(r, hyper)["local_steps"]
+    torch.cuda.synchronize()
+    train_s, t_hit, hit, acc = 0.0, None, None, None
+    t0 = time.perf_counter()
+    for r in range(timed_from, cfg["comm_round"]):
+        r0 = time.perf_counter()
+        steps += sim.run_round(r, hyper)["local_steps"]
+        torch.cuda.synchronize()
+        train_s += time.perf_counter() - r0
+        if t_hit is None or timed_from == 0:
+            acc = sim.evaluate()["test_acc"]
+            if t_hit is None and acc >= target:
+                t_hit, hit = time.perf_counter() - t0, r
+    total_s = time.perf_counter() - t0
+    acc = sim.evaluate()["test_acc"]
+    require(all(torch.isfinite(v).all().item() for v in sim.params.values()),
+            f"{cfg['dataset']}: non-finite params")
+    timed = cfg["comm_round"] - timed_from
+    return {"rounds_per_hour": 3600.0 * timed / train_s,
+            "round_s": train_s / timed, "final_acc": acc,
+            "target_acc": target, "time_to_target_s": t_hit,
+            "rounds_to_target": hit, "total_s": total_s,
+            "rounds": cfg["comm_round"],
+            "local_steps": steps,
+            "captures": sim.dispatch_stats["captures"],
+            "replays": sim.dispatch_stats.get("replays"),
+            "data_provenance": sim.fed.provenance}
+
+
+def zoo_phase(torch, cb, fa, tmp, dev="cuda", cpu="cpu"):
+    """Phase 15: the model zoo and tasks. Each leg zeroes the launch
+    counts before it and reads them after. Returns (the ``zoo`` record,
+    the ResNet-18 legs' launches)."""
+    t_phase = time.perf_counter()
+    reset_launches(cb, fa)
+    t0 = time.perf_counter()
+    checks = zoo_agreement(torch, tmp, dev, cpu)
+    checks_s = time.perf_counter() - t0
+    require(launches(cb, fa) == {"conv_block": 0, "flash_fwd": 0,
+                                 "flash_dq": 0, "flash_dkv": 0},
+            f"zoo checks launched {launches(cb, fa)}")
+    r18, r18_launches = zoo_resnet18(torch, cb, fa, tmp, dev=dev)
+    out = {"checks": checks, "checks_s": checks_s, "resnet18": r18}
+    for name, cfg, target, timed_from in (
+            ("shakespeare_fedopt", ZOO_SHAKESPEARE, ZOO_SHAKESPEARE_TARGET,
+             1),
+            ("digits_time_to_acc", ZOO_DIGITS_BENCH, ZOO_DIGITS_TARGET, 0)):
+        reset_launches(cb, fa)
+        out[name] = zoo_bench(torch, cfg, target, timed_from, tmp, dev)
+        require(launches(cb, fa) == {"conv_block": 0, "flash_fwd": 0,
+                                     "flash_dq": 0, "flash_dkv": 0},
+                f"{name} launched {launches(cb, fa)}")
+        require(out[name]["captures"] == 1, f"{name}: "
+                                            f"{out[name]['captures']} "
+                                            f"captures")
+    require(out["digits_time_to_acc"]["data_provenance"] == "real"
+            and out["shakespeare_fedopt"]["data_provenance"] == "real",
+            "the digits or Shakespeare data is not the bundled real set")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, r18_launches
+
+
 def main() -> int:
     import tempfile
 
@@ -3410,6 +3777,7 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
 
     gen = torch.Generator().manual_seed(0)
     main_err, main_err16 = 0.0, 0.0
+    r18_err = r18_err16 = None
     for dtype in ("float32", "bfloat16"):
         shapes = [(BATCH, h, h, cin, cout, s)
                   for (h, cin, cout, s), _ in FLAGSHIP] + ODD
@@ -3421,6 +3789,25 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
             vs16 = "" if err16 is None else f" (plain bf16: {err16:.3e})"
             print(f"check {dtype:8s} n,h,w,cin,cout,s={shape}: max abs err "
                   f"{err:.3e}{vs16}, grad rel err {gerr:.3e}", flush=True)
+    for (h, cin, cout, s), _ in RESNET18:
+        shape = (BATCH, h, h, cin, cout, s)
+        k = cb.cluster_for(BATCH, h, h, cout, s)
+        require(k == 8, f"ResNet-18 stage 0: cluster {k}, expected 8")
+        r18_err, gerr, r18_err16 = check_case(torch, cb, gen, shape,
+                                              "bfloat16")
+        print(f"check bfloat16 n,h,w,cin,cout,s={shape} (ResNet-18 stage 0, "
+              f"cluster 8): max abs err {r18_err:.3e} (plain bf16: "
+              f"{r18_err16:.3e}), grad rel err {gerr:.3e}", flush=True)
+        x, p = make_block(torch, gen, *shape, torch.float32, "cuda")
+        try:
+            cb.fused_block(x, p, strides=s)
+        except ValueError as e:
+            print(f"check float32 n,h,w,cin,cout,s={shape}: refused as "
+                  f"expected ({e})", flush=True)
+        else:
+            raise SmokeFailure(f"{shape} float32: the kernel took a block "
+                               f"whose sample exceeds one CTA's shared "
+                               f"memory")
     attn_err = {}
     for dtype in ("float32", "bfloat16"):
         for shape in ATTN_SHAPES:
@@ -3455,6 +3842,17 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
           f"ms, cuDNN chain device time {per_fwd['library_ms']:.3f} ms "
           f"(events {per_fwd['library_event_ms']:.3f} ms), bound "
           f"{per_fwd['bound_ms']:.4f} ms ({per_fwd['bound_by']})", flush=True)
+    (r18,) = time_geometries(torch, F, cb, gen, "bfloat16", RESNET18)
+    per18 = {k: r18[k] * r18["count"]
+             for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                       "library_event_ms", "bound_ms")}
+    print(f"time per ResNet-18 forward (stage 0: 2 blocks "
+          f"{r18['geometry']}, bs{BATCH}, bf16, cluster {r18['cluster']}): "
+          f"kernel {per18['ms']:.4f} ms (device time "
+          f"{per18['device_ms']:.4f} ms), plain {per18['plain_ms']:.4f} ms, "
+          f"cuDNN chain device time {per18['library_ms']:.4f} ms (events "
+          f"{per18['library_event_ms']:.4f} ms), bound "
+          f"{per18['bound_ms']:.5f} ms ({r18['bound_by']})", flush=True)
     attn_time = {}
     for label, shape in (("main", ATTN_MAIN), ("hot", ATTN_HOT)):
         attn_time[label] = time_attention(torch, F, fa, gen, shape,
@@ -3781,6 +4179,29 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
           f"round trip bitwise", flush=True)
     print(json.dumps({"codec": codec}), flush=True)
 
+    zoo, zoo_launches = zoo_phase(torch, cb, fa, tmp)
+    for label, r in zoo["checks"].items():
+        print(f"zoo check {label:12s} (card vs CPU, f32): {json.dumps(r)}",
+              flush=True)
+    for leg, r in zoo["resnet18"].items():
+        print(f"zoo resnet18 {leg:5s} ({card}): {r['rounds_per_hour']:.2f} "
+              f"rounds/hour ({r['step_time_s']:.3f} s per round, "
+              f"{r['ms_per_local_step']:.2f} ms per local step), "
+              f"{r['tflops']:.2f} TFLOP/s, MFU {r['mfu']}, vs_baseline "
+              f"{r['vs_baseline']:.2f}; data {r['data_bytes']} bytes, model "
+              f"{r['model_bytes']} bytes; B1 {r['b1_launches']} launches = "
+              f"{r['b1_per_forward']:.0f} per forward, {r['captures']} "
+              f"capture", flush=True)
+    for name in ("shakespeare_fedopt", "digits_time_to_acc"):
+        r = zoo[name]
+        print(f"zoo {name} ({card}): {r['rounds_per_hour']:.1f} rounds/hour "
+              f"({r['round_s']:.4f} s per round), final acc "
+              f"{r['final_acc']:.4f}, {r['rounds_to_target']} rounds and "
+              f"{r['time_to_target_s']} s to {r['target_acc']}, "
+              f"{r['data_provenance']} data", flush=True)
+    zoo["card"] = card
+    print(json.dumps({"zoo": zoo}), flush=True)
+
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
@@ -3805,6 +4226,17 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "library_ms": per_fwd["library_ms"],
         "device_ms": per_fwd["device_ms"],
         "clusters": {r["geometry"]: r["cluster"] for r in rows},
+        # ResNet-18's stage 0 (2 blocks per forward; phase 15)
+        "launches_resnet18": zoo_launches["fused"]["conv_block"],
+        "launches_resnet18_cudnn": zoo_launches["cudnn"]["conv_block"],
+        "max_abs_err_resnet18": r18_err,
+        "max_abs_err_plain_bf16_resnet18": r18_err16,
+        "ms_resnet18": per18["ms"], "device_ms_resnet18": per18["device_ms"],
+        "plain_ms_resnet18": per18["plain_ms"],
+        "library_ms_resnet18": per18["library_ms"],
+        "bound_ms_resnet18": per18["bound_ms"],
+        "bound_by_resnet18": r18["bound_by"],
+        "cluster_resnet18": r18["cluster"],
         "ms_hot": None, "device_ms_hot": None, "plain_ms_hot": None,
         "library_ms_hot": None, "bound_ms_hot": None,
         "bound_by_hot": None}]

@@ -1,16 +1,22 @@
 """Client-side trainer specs and the inner optimizer (counterpart of
 ``fedml_tpu/core/algframe/client_trainer.py``).
 
-A trainer is a *spec*: ``loss(params, batch) -> (loss, aux)`` and
+A trainer is a *spec*: ``loss(params, batch, rng) -> (loss, aux)`` and
 ``eval_stats(params, batch) -> dict of sums``, both on a ``Params`` dict.
+``rng`` is the training step's dropout key (an int64 ``[2]`` tensor, or
+None for a model without dropout); the model's forward takes it. Every
+trainer sums ``loss_sum`` / ``correct`` / ``count`` over the batch's real
+samples as the JAX package's does: the classification, next-token
+(``sequence``), multi-hot tag (``multilabel``) and ``regression`` tasks.
 The inner optimizer reproduces optax's update rules term for term, so a
 client's local trajectory matches the JAX package's within float rounding.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -20,18 +26,28 @@ Batch = Dict[str, torch.Tensor]  # {"x", "y", "mask"}
 
 
 class TrainerSpec:
-    """``apply_fn(params, x, train=...)`` is the model forward."""
+    """``apply_fn(params, x, rng=..., train=...)`` is the model forward.
+    A subclass defines :meth:`_stats` (the masked sums from the logits);
+    :meth:`loss` is their ``loss_sum`` over ``max(count, 1)``."""
 
     def __init__(self, apply_fn: Callable[..., torch.Tensor]):
         self.apply_fn = apply_fn
 
-    def loss(self, params: Params, batch: Batch
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _stats(self, out: torch.Tensor, batch: Batch
+               ) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
+
+    def loss(self, params: Params, batch: Batch,
+             rng: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        out = self.apply_fn(params, batch["x"], rng=rng, train=True)
+        aux = self._stats(out, batch)
+        return aux["loss_sum"] / torch.clamp(aux["count"], min=1.0), aux
 
     def eval_stats(self, params: Params, batch: Batch
                    ) -> Dict[str, torch.Tensor]:
-        raise NotImplementedError
+        return self._stats(self.apply_fn(params, batch["x"], train=False),
+                           batch)
 
 
 class ClassificationTrainer(TrainerSpec):
@@ -43,31 +59,75 @@ class ClassificationTrainer(TrainerSpec):
         per_ex = F.cross_entropy(logits, labels, reduction="none")
         mask = batch["mask"].to(per_ex.dtype)
         correct = ((logits.argmax(-1) == labels) * mask).sum()
-        return per_ex, mask, {"loss_sum": (per_ex * mask).sum(),
-                              "correct": correct, "count": mask.sum()}
+        return {"loss_sum": (per_ex * mask).sum(), "correct": correct,
+                "count": mask.sum()}
 
-    def loss(self, params, batch):
-        logits = self.apply_fn(params, batch["x"], train=True)
-        per_ex, mask, aux = self._stats(logits, batch)
-        denom = torch.clamp(mask.sum(), min=1.0)
-        return aux["loss_sum"] / denom, aux
 
-    def eval_stats(self, params, batch):
-        logits = self.apply_fn(params, batch["x"], train=False)
-        return self._stats(logits, batch)[2]
+class SequenceTrainer(TrainerSpec):
+    """Per-token cross-entropy for next-token prediction: labels
+    ``[bs, L]``, logits ``[bs, L, V]``; the per-sample mask broadcasts over
+    the tokens (``[bs, 1]`` over ``[bs, L]``), so every token of a real
+    sample counts, padding characters included, as in the JAX package."""
+
+    def _stats(self, logits, batch):
+        labels = batch["y"].long()
+        per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  labels.reshape(-1), reduction="none"
+                                  ).reshape(labels.shape)
+        mask = batch["mask"].to(per_tok.dtype)[:, None]
+        correct = ((logits.argmax(-1) == labels) * mask).sum()
+        return {"loss_sum": (per_tok * mask).sum(), "correct": correct,
+                "count": (mask * torch.ones_like(per_tok)).sum()}
+
+
+class MultiLabelTrainer(TrainerSpec):
+    """Sigmoid-BCE tag prediction (stackoverflow_lr): ``y`` is a multi-hot
+    ``[bs, n_tags]`` matrix; the loss is the mean over tags, and
+    ``correct`` sums each sample's share of tags predicted right."""
+
+    def _stats(self, logits, batch):
+        labels = batch["y"].to(logits.dtype)
+        per_ex = F.binary_cross_entropy_with_logits(
+            logits, labels, reduction="none").mean(-1)
+        mask = batch["mask"].to(per_ex.dtype)
+        pred = (logits > 0).to(labels.dtype)
+        correct = ((pred == labels).float().mean(-1) * mask).sum()
+        return {"loss_sum": (per_ex * mask).sum(), "correct": correct,
+                "count": mask.sum()}
+
+
+class RegressionTrainer(TrainerSpec):
+    """Mean squared error; ``correct`` is 0."""
+
+    def _stats(self, preds, batch):
+        labels = batch["y"].to(preds.dtype)
+        if preds.dim() > labels.dim():
+            labels = labels[..., None]
+        per_ex = ((preds - labels) ** 2).mean(-1)
+        mask = batch["mask"].to(per_ex.dtype)
+        return {"loss_sum": (per_ex * mask).sum(),
+                "correct": torch.zeros((), device=preds.device),
+                "count": mask.sum()}
+
+
+_TRAINERS = {"sequence": SequenceTrainer, "multilabel": MultiLabelTrainer,
+             "regression": RegressionTrainer}
 
 
 def make_trainer_spec(fed, bundle) -> TrainerSpec:
-    """Pick the TrainerSpec from the dataset's declared task."""
+    """Pick the TrainerSpec from the dataset's declared task. A dataset
+    built without one (``classification``) whose labels have a trailing
+    axis (``y`` of 4 or more dimensions with the client and batch axes) is
+    ``multilabel`` for float labels, else ``sequence``."""
     task = getattr(fed, "task", "classification")
+    if task == "classification" and np.ndim(fed.train.y) >= 4:
+        task = ("multilabel" if np.issubdtype(np.asarray(fed.train.y).dtype,
+                                              np.floating)
+                else "sequence")
     if task in ("llm", "causal_lm"):
         from ...llm.trainer import CausalLMTrainer
         return CausalLMTrainer(bundle.apply)
-    if task != "classification":
-        raise NotImplementedError(
-            f"task={task!r} is not ported to fedml_tpu_torch yet "
-            f"(ported: classification, llm)")
-    return ClassificationTrainer(bundle.apply)
+    return _TRAINERS.get(task, ClassificationTrainer)(bundle.apply)
 
 
 class InnerOptimizer:

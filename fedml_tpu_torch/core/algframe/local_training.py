@@ -36,6 +36,14 @@ The full-batch gradient (:func:`full_batch_grad_sum`, FedSGD, Mime and the
 folded round) scans *every* padded batch, all-zero-mask ones included
 (their ``count`` weight is 0), as the JAX scan does; :class:`GradProgram`
 is its captured counterpart.
+
+A model with dropout (:func:`draws_dropout`) takes a dropout key at each
+step, JAX's: the local loop hands step ``t`` the second half of
+``split`` of a carried key that starts at ``split(rng)[1]``, and the
+full-batch gradient hands batch ``i`` ``fold_in(rng, i)``. The keys live in
+int64 tensors on the params' device (:class:`StepKeys`, :class:`BatchKeys`)
+and each step derives its key there, so a captured step draws new masks at
+every replay: the host writes the client's key once, before its steps.
 """
 
 from __future__ import annotations
@@ -88,12 +96,58 @@ def effective_steps(batch_real: np.ndarray, epochs: int,
         np.float32(1.0))
 
 
+def draws_dropout(spec: TrainerSpec) -> bool:
+    """Whether the model behind ``spec.apply_fn`` (a bundle's ``apply``)
+    draws dropout masks in training."""
+    return bool(getattr(getattr(spec.apply_fn, "__self__", None),
+                        "has_dropout", False))
+
+
+class StepKeys:
+    """The local loop's per-step dropout keys on ``device``: a carried key
+    (``split(rng)[1]`` at a client's start) that each :meth:`next` splits
+    in place into the next carried key and the step's key."""
+
+    def __init__(self, device):
+        self.carry = torch.zeros(2, dtype=torch.int64, device=device)
+        self._ctr = torch.arange(2, dtype=torch.int64, device=device)
+
+    def reset_(self, rng: np.ndarray) -> None:
+        prng.set_key_(self.carry, prng.split(rng)[1])
+
+    def next(self) -> torch.Tensor:
+        blk = prng.split2_t(self.carry, self._ctr)
+        self.carry.copy_(blk[0])
+        return blk[1]
+
+
+class BatchKeys:
+    """The full-batch gradient's dropout keys on ``device``: batch ``i``'s
+    is ``fold_in(rng, i)``, ``i`` a device counter each :meth:`next`
+    advances."""
+
+    def __init__(self, device):
+        self.base = torch.zeros(2, dtype=torch.int64, device=device)
+        self.i = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def reset_(self, rng: np.ndarray) -> None:
+        prng.set_key_(self.base, rng)
+        self.i.zero_()
+
+    def next(self) -> torch.Tensor:
+        key = prng.fold_in_t(self.base, self.i)
+        self.i.add_(1)
+        return key
+
+
+def _keys(cls, spec: TrainerSpec, device):
+    return cls(device) if draws_dropout(spec) else None
+
+
 def _batch_schedule(rng: np.ndarray, batch_real: np.ndarray,
                     total_steps: int):
     """Yield the batch index of each of ``total_steps`` steps."""
     denom = max(int(batch_real.sum()), 1)
-    # split(rng)[1] seeds the per-step keys the JAX loop hands the model
-    # for dropout; no ported model has dropout, so it is not drawn here
     data_rng = prng.split(rng)[0]
     order = None
     for t in range(total_steps):
@@ -112,16 +166,18 @@ def _zero_metrics(dev) -> Dict[str, torch.Tensor]:
             for k in METRICS}
 
 
-def _loss_grads(spec: TrainerSpec, params: Params, batch,
+def _loss_grads(spec: TrainerSpec, params: Params, batch, keys=None,
                 contiguous: bool = False):
     """The loss's gradients at ``params`` (dict, params' order) and its
     aux sums. ``contiguous``: in the params' (contiguous) layout. A conv
     kernel's gradient comes back with the strides of the layout the
     convolution ran in, and a multi-tensor ``_foreach`` op takes its fused
     path only when the tensors it pairs share strides; otherwise it
-    launches one kernel per tensor."""
+    launches one kernel per tensor. ``keys`` (:class:`StepKeys` or
+    :class:`BatchKeys`) gives the step's dropout key."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss, aux = spec.loss(leaves, batch)
+    rng = None if keys is None else keys.next()
+    loss, aux = spec.loss(leaves, batch, rng)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     if contiguous:
         grads = [g.contiguous() for g in grads]
@@ -130,11 +186,12 @@ def _loss_grads(spec: TrainerSpec, params: Params, batch,
 
 def _sgd_step(spec: TrainerSpec, opt: InnerOptimizer, params: Params,
               opt_state, batch, metrics: Dict[str, torch.Tensor],
-              grad_transform: Optional[GradTransform], ctx) -> None:
+              grad_transform: Optional[GradTransform], ctx,
+              keys: Optional[StepKeys]) -> None:
     """One local step in place: gradients, the optimizer's transform of
     them, the inner optimizer's update, the metric sums. The eager loop and
     the captured step both run this."""
-    grads, aux = _loss_grads(spec, params, batch,
+    grads, aux = _loss_grads(spec, params, batch, keys,
                              contiguous=grad_transform is not None)
     with torch.no_grad():
         if grad_transform is not None:
@@ -144,12 +201,12 @@ def _sgd_step(spec: TrainerSpec, opt: InnerOptimizer, params: Params,
 
 
 def _grad_sum_step(spec: TrainerSpec, params: Params, batch,
-                   grad_sum: Params, metrics: Dict[str, torch.Tensor]
-                   ) -> None:
+                   grad_sum: Params, metrics: Dict[str, torch.Tensor],
+                   keys: Optional[BatchKeys]) -> None:
     """One batch of the full-batch gradient in place: ``grad_sum += g *
     count`` (the batch's real samples; 0 for an all-padding batch) and the
     metric sums."""
-    grads, aux = _loss_grads(spec, params, batch, contiguous=True)
+    grads, aux = _loss_grads(spec, params, batch, keys, contiguous=True)
     with torch.no_grad():
         g = list(grads.values())
         torch._foreach_add_(list(grad_sum.values()),
@@ -178,12 +235,16 @@ def run_local_sgd(spec: TrainerSpec, inner_opt: InnerOptimizer,
     total_steps = step_count(batch_real, hyper)
     params = {k: v.detach().clone() for k, v in params.items()}
     opt_state = inner_opt.init(params)
-    metrics = _zero_metrics(next(iter(params.values())).device)
+    dev = next(iter(params.values())).device
+    metrics = _zero_metrics(dev)
+    keys = _keys(StepKeys, spec, dev)
+    if keys is not None:
+        keys.reset_(rng)
     for idx in _batch_schedule(rng, batch_real, total_steps):
         batch = {"x": cdata.x[idx], "y": cdata.y[idx],
                  "mask": cdata.mask[idx]}
         _sgd_step(spec, inner_opt, params, opt_state, batch, metrics,
-                  grad_transform, ctx)
+                  grad_transform, ctx, keys)
     return params, total_steps, metrics
 
 
@@ -194,16 +255,19 @@ def full_batch_grad_sum(spec: TrainerSpec, params: Params,
     each padded batch's mean gradient times its real-sample count, summed
     over every batch. It is exactly additive across clients, which is what
     lets the folded round replace one pass per client with one wide pass.
-    Returns ``(grad_sum, metrics)`` (new tensors). ``rng`` keys the model's
-    per-batch randomness in the JAX package; no ported model draws any."""
-    del rng
+    Returns ``(grad_sum, metrics)`` (new tensors). Batch ``i`` draws its
+    dropout masks from ``fold_in(rng, i)``."""
     params = {k: v.detach() for k, v in params.items()}
     grad_sum = {k: torch.zeros_like(v) for k, v in params.items()}
-    metrics = _zero_metrics(next(iter(params.values())).device)
+    dev = next(iter(params.values())).device
+    metrics = _zero_metrics(dev)
+    keys = _keys(BatchKeys, spec, dev)
+    if keys is not None:
+        keys.reset_(rng)
     for i in range(cdata.x.shape[0]):
         _grad_sum_step(spec, params, {"x": cdata.x[i], "y": cdata.y[i],
                                       "mask": cdata.mask[i]},
-                       grad_sum, metrics)
+                       grad_sum, metrics, keys)
     return grad_sum, metrics
 
 
@@ -217,7 +281,7 @@ def full_batch_grad(spec: TrainerSpec, params: Params, cdata: ClientData,
     if program is None:
         grad_sum, metrics = full_batch_grad_sum(spec, params, cdata, rng)
     else:
-        grad_sum, metrics = program.run(params, cdata)
+        grad_sum, metrics = program.run(params, cdata, rng)
     denom = torch.clamp(metrics["count"], min=1.0)
     g = list(grad_sum.values())
     return (dict(zip(grad_sum, torch._foreach_div(g, denom.to(g[0].dtype)))),
@@ -235,9 +299,13 @@ class _Program:
     back to the eager body on a CUDA device.
     """
 
+    _key_cls = StepKeys
+
     def __init__(self, spec: TrainerSpec, params: Params, cdata: ClientData):
         dev = next(iter(params.values())).device
         self.spec = spec
+        # the dropout keys, static too: written before a client's steps
+        self.keys = _keys(self._key_cls, spec, dev)
         self.capture = dev.type == "cuda"
         self.params = {k: torch.empty_like(v) for k, v in params.items()}
         self.batch = {"x": torch.empty_like(cdata.x[0]),
@@ -322,7 +390,8 @@ class StepProgram(_Program):
 
     def _body(self) -> None:
         _sgd_step(self.spec, self.opt, self.params, self.opt_state,
-                  self.batch, self.metrics, self.grad_transform, self.ctx)
+                  self.batch, self.metrics, self.grad_transform, self.ctx,
+                  self.keys)
 
     def prepare(self, params: Params, cdata: ClientData,
                 hyper: TrainHyper, ctx: Optional[Dict[str, Any]] = None
@@ -342,6 +411,8 @@ class StepProgram(_Program):
         valid until the next call)."""
         self.prepare(params, cdata, hyper, ctx)
         self._reset(params, hyper, ctx)
+        if self.keys is not None:
+            self.keys.reset_(rng)
         total_steps = step_count(batch_real, hyper)
         for idx in _batch_schedule(rng, batch_real, total_steps):
             self._load_batch(cdata, idx)
@@ -367,6 +438,8 @@ class GradProgram(_Program):
     static sums. Built once per (model, compute dtype, batch shape); the
     folded round's wider batch gets a program of its own."""
 
+    _key_cls = BatchKeys
+
     def __init__(self, spec: TrainerSpec, params: Params, cdata: ClientData):
         super().__init__(spec, params, cdata)
         self.grad_sum = {k: torch.zeros_like(v)
@@ -374,20 +447,24 @@ class GradProgram(_Program):
 
     def _body(self) -> None:
         _grad_sum_step(self.spec, self.params, self.batch, self.grad_sum,
-                       self.metrics)
+                       self.metrics, self.keys)
 
     def prepare(self, params: Params, cdata: ClientData) -> None:
         if self.capture and self.graph is None:
             self._reset(params)
             self._capture(cdata)
 
-    def run(self, params: Params, cdata: ClientData
+    def run(self, params: Params, cdata: ClientData,
+            rng: Optional[np.ndarray] = None
             ) -> Tuple[Params, Dict[str, torch.Tensor]]:
-        """:func:`full_batch_grad_sum` of ``cdata`` at ``params``: every
-        padded batch, in order. The returned sums are the static tensors,
-        valid until the next call; the metrics are copies."""
+        """:func:`full_batch_grad_sum` of ``cdata`` at ``params`` (dropout
+        keys from ``rng``): every padded batch, in order. The returned sums
+        are the static tensors, valid until the next call; the metrics are
+        copies."""
         self.prepare(params, cdata)
         self._reset(params)
+        if self.keys is not None:
+            self.keys.reset_(rng)
         for i in range(cdata.x.shape[0]):
             self._load_batch(cdata, i)
             self._step()

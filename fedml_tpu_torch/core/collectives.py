@@ -97,6 +97,15 @@ def stack_trees(tree: PyTree, n: int) -> PyTree:
         (n,) + (1,) * v.dim()).contiguous(), tree)
 
 
+def tree_weighted_average(stacked: PyTree, weights: torch.Tensor) -> PyTree:
+    """Leaves with a leading client axis -> their average weighted by
+    ``weights / max(sum(weights), 1e-12)`` (``fedml_tpu``'s
+    ``tree_weighted_average``; ``FedMLAggOperator.agg``)."""
+    norm = weights / torch.clamp(weights.sum(), min=1e-12)
+    return tree_map(lambda leaf: (leaf * norm.reshape(
+        (-1,) + (1,) * (leaf.dim() - 1)).to(leaf.dtype)).sum(0), stacked)
+
+
 class WeightedSum:
     """The round's aggregation: ``Σ_k w_k x_k`` of the clients' updates and
     extras, accumulated client by client in schedule order, and their mean

@@ -1,14 +1,21 @@
-"""Mini-Shakespeare: the bundled REAL text (counterpart of
-``fedml_tpu/data/bundled/shakespeare.py``, ``PASSAGES`` only).
+"""Mini-Shakespeare: the bundled REAL text (a copy of
+``fedml_tpu/data/bundled/shakespeare.py``).
 
 Genuine public-domain Shakespeare passages (plays first published
 1597-1623), one speaking role per entry. The FedLLM path builds its
 real-language instruction corpus from them
-(:func:`fedml_tpu_torch.llm.data.shakespeare_instruction_corpus`). A copy:
-``tests/test_torch_llm.py`` pins it equal to the JAX package's.
+(:func:`fedml_tpu_torch.llm.data.shakespeare_instruction_corpus`), and
+:func:`materialize_mini_shakespeare` writes it as a LEAF train/test split
+(client = role, 80-character windows) for next-character prediction.
+``tests/test_torch_llm.py`` pins the text and
+``tests/test_torch_bundled_data.py`` the materialised split equal to the
+JAX package's.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 # role -> passage. Public-domain text; sizes chosen so every client yields
 # dozens of training windows.
@@ -165,3 +172,41 @@ PASSAGES = {
         "Is rounded with a sleep."
     ),
 }
+
+SEQ_LEN = 80
+
+
+def _windows(text: str, seq_len: int = SEQ_LEN, stride: int = 11):
+    """Overlapping (x, y) pairs: y is x shifted one character — per-token
+    next-char prediction (SequenceTrainer's label layout)."""
+    xs, ys = [], []
+    for start in range(0, len(text) - seq_len - 1, stride):
+        xs.append(text[start:start + seq_len])
+        ys.append(text[start + 1:start + seq_len + 1])
+    return xs, ys
+
+
+def materialize_mini_shakespeare(root: str) -> str:
+    """Write the bundled shard as LEAF train/test JSON under
+    ``root/shakespeare``; returns that directory. Idempotent."""
+    base = os.path.join(root, "shakespeare")
+    done = os.path.join(base, ".bundled")
+    if os.path.exists(done):
+        return base
+    train_users, test_users = {}, {}
+    for role, text in PASSAGES.items():
+        xs, ys = _windows(text)
+        n_test = max(len(xs) // 10, 1)
+        train_users[role] = {"x": xs[:-n_test], "y": ys[:-n_test]}
+        test_users[role] = {"x": xs[-n_test:], "y": ys[-n_test:]}
+    for split, users in (("train", train_users), ("test", test_users)):
+        d = os.path.join(base, split)
+        os.makedirs(d, exist_ok=True)
+        blob = {"users": sorted(users),
+                "num_samples": [len(users[u]["x"]) for u in sorted(users)],
+                "user_data": users}
+        with open(os.path.join(d, "data.json"), "w") as f:
+            json.dump(blob, f)
+    with open(done, "w") as f:
+        f.write("mini-shakespeare v1\n")
+    return base

@@ -103,6 +103,7 @@ def from_central_arrays(
     partition_method: str = "hetero",
     partition_alpha: float = 0.5,
     seed: int = 0,
+    task: str = "classification",
 ) -> FederatedDataset:
     """Central arrays + partitioner -> FederatedDataset."""
     from ..core.data.noniid_partition import partition
@@ -112,4 +113,4 @@ def from_central_arrays(
     cxs = [x[parts[i]] for i in range(num_clients)]
     cys = [y[parts[i]] for i in range(num_clients)]
     return build_federated_dataset(cxs, cys, test_x, test_y, batch_size,
-                                   num_classes)
+                                   num_classes, task=task)

@@ -8,7 +8,11 @@ scopes are module attributes of the same names, so the path joined with
 ``.`` is the state-dict key. The port stores conv kernels HWIO like flax;
 the one layout change is the Dense kernel of the CIFAR models, ``[in,
 out]`` in flax and ``[out, in]`` (``Dense_0.weight``) in
-``torch.nn.Linear``. The causal LM keeps flax's names and layouts
+``torch.nn.Linear`` (the CNNs' ``Dense_k`` too: their ``Dense_0`` follows
+an NHWC flatten on both sides, so its rows line up). The CNNs' conv
+biases (``Conv_k.bias``), the embeddings (``Embed_0.embedding``) and the
+LSTMs' kernels (``OptimizedLSTMCell_k.ii.kernel`` ``[in, h]``, ...,
+``OptimizedLSTMCell_k.hi.bias``) keep flax's names and layouts. The causal LM keeps flax's names and layouts
 (``layer_0.attn.q.kernel`` ``[h, heads, head_dim]``, ``embed.embedding``,
 ...), and so do its LoRA adapters (``layer_0.attn.q.lora_a`` ``[in, r]``,
 ``lora_b`` ``[r, prod(out)]``): they cross path for path, unchanged.

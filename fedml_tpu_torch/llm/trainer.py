@@ -32,7 +32,8 @@ class CausalLMTrainer(TrainerSpec):
         count = tok_w.sum()
         return loss_sum, correct, count
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, rng=None):
+        # the causal LM has no dropout: rng is unused
         loss_sum, correct, count = self._stats(params, batch, True)
         loss = loss_sum / count.clamp(min=1.0)
         return loss, {"loss_sum": loss_sum, "correct": correct,

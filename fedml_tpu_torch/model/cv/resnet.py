@@ -1,5 +1,5 @@
-"""CIFAR ResNets (ResNet-20/56, 6n+2 layout) with GroupNorm (counterpart of
-``fedml_tpu/model/cv/resnet.py``).
+"""CIFAR ResNets (ResNet-20/56, 6n+2 layout) and ResNet-18, with GroupNorm
+(counterpart of ``fedml_tpu/model/cv/resnet.py``).
 
 Parameter names follow the flax modules' scope paths (``Conv_0.kernel``,
 ``BasicBlock_3.GroupNorm_1.scale``, ``Dense_0.weight``), so
@@ -20,10 +20,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...core.kernels.conv_block import (MAX_FUSED_CHANNELS, _conv_same,
-                                        _group_norm, fused_block,
+                                        _group_norm, _same_pads, fused_block,
                                         reference_block)
 
 
@@ -36,6 +37,30 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
         nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
         t.mul_(std)
     return t
+
+
+def init_dense_(m: nn.Linear, generator: torch.Generator) -> None:
+    """flax ``nn.Dense``'s initialisers on a ``torch.nn.Linear``: a
+    lecun_normal ``[in, out]`` kernel (stored transposed) and a zero
+    bias."""
+    w = torch.empty(m.in_features, m.out_features)
+    lecun_normal_(w, m.in_features, generator)
+    with torch.no_grad():
+        m.weight.copy_(w.t())
+        m.bias.zero_()
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int,
+             same: bool = False) -> torch.Tensor:
+    """flax ``nn.max_pool`` over NHWC: ``VALID`` (flax's default), or
+    ``SAME`` padding, which pads each spatial side as XLA does (the odd
+    element at the end) with -inf."""
+    xn = x.permute(0, 3, 1, 2)
+    if same:
+        ph = _same_pads(int(x.shape[1]), window, stride)
+        pw = _same_pads(int(x.shape[2]), window, stride)
+        xn = F.pad(xn, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(xn, window, stride).permute(0, 2, 3, 1)
 
 
 class ConvKernel(nn.Module):
@@ -143,12 +168,7 @@ class CifarResNet(nn.Module):
         for m in self.modules():
             if isinstance(m, (ConvKernel, GroupNorm)):
                 m.reset_parameters(generator)
-        with torch.no_grad():
-            w = torch.empty(self.Dense_0.in_features,
-                            self.Dense_0.out_features)
-            lecun_normal_(w, self.Dense_0.in_features, generator)
-            self.Dense_0.weight.copy_(w.t())
-            self.Dense_0.bias.zero_()
+        init_dense_(self.Dense_0, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.GroupNorm_0(self.Conv_0(x)))
@@ -157,14 +177,52 @@ class CifarResNet(nn.Module):
         return self.Dense_0(x.mean(dim=(1, 2)))
 
 
-def create_resnet(name: str, num_classes: int, fused: str = "") -> nn.Module:
+class ResNet18(CifarResNet):
+    """ImageNet-style ResNet-18 (``fedml_tpu/model/cv/resnet.py``
+    ``ResNet18``): a stem, then 4 stages of 2 BasicBlocks at widths
+    64/128/256/512 (the first block of stages 1-3 strided). Images of at
+    most 64 rows get the CIFAR stem (3x3 conv); larger ones the 7x7
+    stride-2 conv and a 3x3 stride-2 ``SAME`` max-pool. flax picks the stem
+    from the input at each call; the port's parameter shapes depend on it,
+    so it is fixed from ``input_shape`` (``(h, w, c)``) when built. With
+    ``fused`` the two 64-channel blocks of stage 0 run the fused block;
+    the wider stages stay on cuDNN."""
+
+    def __init__(self, num_classes: int, input_shape=(32, 32, 3),
+                 fused: str = ""):
+        nn.Module.__init__(self)
+        self.fused = fused
+        self.small = int(input_shape[0]) <= 64
+        cin = int(input_shape[-1])
+        self.Conv_0 = ConvKernel(cin, 64, ksize=3 if self.small else 7)
+        self.GroupNorm_0 = GroupNorm(64, 8)
+        cin, k = 64, 0
+        for stage, filters in enumerate((64, 128, 256, 512)):
+            for block in range(2):
+                strides = 2 if (stage > 0 and block == 0) else 1
+                self.add_module(f"BasicBlock_{k}", BasicBlock(
+                    cin, filters, strides, fused=fused))
+                cin, k = filters, k + 1
+        self.num_blocks = k
+        self.Dense_0 = nn.Linear(512, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.Conv_0(x, 1 if self.small else 2)
+        x = torch.relu(self.GroupNorm_0(x))
+        if not self.small:
+            x = max_pool(x, 3, 2, same=True)
+        for k in range(self.num_blocks):
+            x = getattr(self, f"BasicBlock_{k}")(x)
+        return self.Dense_0(x.mean(dim=(1, 2)))
+
+
+def create_resnet(name: str, num_classes: int, fused: str = "",
+                  input_shape=(32, 32, 3)) -> nn.Module:
     name = name.lower()
     if name in ("resnet20", "resnet20_gn"):
         return CifarResNet(num_classes, blocks_per_stage=3, fused=fused)
     if name in ("resnet56", "resnet56_gn", "resnet"):
         return CifarResNet(num_classes, blocks_per_stage=9, fused=fused)
     if name in ("resnet18", "resnet18_gn"):
-        raise NotImplementedError(
-            "model='resnet18' is not ported to fedml_tpu_torch yet "
-            "(ported: resnet20, resnet56)")
+        return ResNet18(num_classes, input_shape, fused=fused)
     raise ValueError(f"unknown resnet variant {name!r}")

@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .cv.resnet import lecun_normal_
+from .cv.resnet import init_dense_
 
 
 class MLP(nn.Module):
@@ -31,11 +31,7 @@ class MLP(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initialisers: lecun_normal kernels, zero biases."""
         for m in self.children():
-            w = torch.empty(m.in_features, m.out_features)
-            lecun_normal_(w, m.in_features, generator)
-            with torch.no_grad():
-                m.weight.copy_(w.t())
-                m.bias.zero_()
+            init_dense_(m, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)

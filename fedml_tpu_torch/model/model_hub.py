@@ -3,16 +3,20 @@
 
 A :class:`ModelBundle` wraps an ``nn.Module`` with the two functions the
 algorithm frame consumes: ``init`` returns the parameters as an ordered dict
-of tensors (the module's ``state_dict`` names), and ``apply(params, x)`` runs
-the module on those tensors through ``torch.func.functional_call``, so local
-training, the FedAvg sum and the server step work on plain dicts.
+of tensors (the module's ``state_dict`` names), and ``apply(params, x,
+rng=, train=)`` runs the module on those tensors through
+``torch.func.functional_call``, so local training, the FedAvg sum and the
+server step work on plain dicts. A model with dropout
+(:attr:`ModelBundle.has_dropout`) takes the training step's dropout key,
+an int64 ``[2]`` tensor (:mod:`fedml_tpu_torch.prng`), as its forward's
+``rng``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -45,7 +49,14 @@ class ModelBundle:
         return {k: v.detach().clone()
                 for k, v in self.module.state_dict().items()}
 
+    @property
+    def has_dropout(self) -> bool:
+        """The JAX package's ``_has_dropout``: the model draws dropout
+        masks in training, from the key ``apply`` is given."""
+        return bool(getattr(self.module, "has_dropout", False))
+
     def apply(self, params: Params, x: torch.Tensor,
+              rng: Optional[torch.Tensor] = None,
               train: bool = False) -> torch.Tensor:
         if self.compute_dtype != torch.float32:
             # Mixed precision, the JAX package's recipe: master params stay
@@ -59,7 +70,9 @@ class ModelBundle:
             if x.is_floating_point():
                 x = x.to(dt)
         self.module.train(train)
-        out = functional_call(self.module, params, (x,))
+        kwargs = ({"rng": rng} if rng is not None and self.has_dropout
+                  else {})
+        out = functional_call(self.module, params, (x,), kwargs)
         return out.float()
 
 
@@ -93,22 +106,50 @@ def _compute_dtype(args) -> torch.dtype:
 
 def create(args, output_dim: int, input_shape=None) -> ModelBundle:
     """The model named by ``args.model``, with ``args.precision`` selecting
-    the compute dtype of the bundle's apply path. The linear models need
-    one sample's ``input_shape`` (the dataset's)."""
-    name = str(getattr(args, "model", "resnet56")).lower()
-    if name in ("lr", "logistic_regression", "mlp"):
-        from .linear import MLP, LogisticRegression
-        if input_shape is None:
+    the compute dtype of the bundle's apply path. ``input_shape`` is one
+    sample's shape (the dataset's): the linear models, the CNNs and
+    ResNet-18 size their layers from it."""
+    name = str(getattr(args, "model", "lr")).lower()
+    shape = tuple(input_shape) if input_shape is not None else None
+
+    def need_shape():
+        if shape is None:
             raise ValueError(f"model={name!r} needs the dataset's "
                              f"input_shape")
+        return shape
+
+    if name in ("lr", "logistic_regression", "mlp"):
+        from .linear import MLP, LogisticRegression
         cls = MLP if name == "mlp" else LogisticRegression
-        module = cls(int(math.prod(input_shape)), output_dim)
+        module = cls(int(math.prod(need_shape())), output_dim)
+    elif name in ("cnn", "cnn_dropout", "femnist_cnn"):
+        from .cv.cnn import CNNFemnist
+        module = CNNFemnist(output_dim, input_shape=need_shape())
+    elif name in ("device_cnn", "mobile_cnn"):
+        from .cv.cnn import DeviceCNN
+        module = DeviceCNN(output_dim, input_shape=need_shape())
+    elif name in ("simple_cnn", "cifar_cnn"):
+        from .cv.cnn import SimpleCNN
+        module = SimpleCNN(output_dim, input_shape=need_shape())
     elif name.startswith("resnet"):
         from .cv.resnet import create_resnet
-        module = create_resnet(name, output_dim,
-                               fused=_fused_conv_mode(args))
+        module = create_resnet(
+            name, output_dim, fused=_fused_conv_mode(args),
+            input_shape=need_shape() if name.startswith("resnet18")
+            else (32, 32, 3))
+    elif name in ("rnn", "lstm", "rnn_shakespeare", "stacked_lstm"):
+        from .nlp.rnn import RNNShakespeare, RNNStackOverflow
+        dataset = str(getattr(args, "dataset", "")).lower()
+        cls = (RNNStackOverflow if "stackoverflow" in dataset
+               else RNNShakespeare)
+        module = cls(vocab_size=output_dim)
     else:
         raise NotImplementedError(
             f"model={name!r} is not ported to fedml_tpu_torch yet "
-            f"(ported: resnet20, resnet56, lr, mlp)")
+            f"(ported: {PORTED_MODELS})")
     return ModelBundle(module, name, compute_dtype=_compute_dtype(args))
+
+
+PORTED_MODELS = ("resnet20, resnet56, resnet18, lr, mlp, cnn (dropout), "
+                 "simple_cnn, device_cnn, rnn (Shakespeare / StackOverflow "
+                 "LSTM)")

@@ -203,7 +203,7 @@ class FedSGD(FedOptimizer):
                 self.spec, global_params, folded_cdata, rng)
         else:
             grad_sum, metrics = programs.grad_program(folded_cdata).run(
-                global_params, folded_cdata)
+                global_params, folded_cdata, rng)
         return tree_unflatten(grad_sum, torch._foreach_neg(
             list(grad_sum.values()))), metrics
 

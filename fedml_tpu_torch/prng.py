@@ -466,3 +466,49 @@ def epoch_order(data_rng: np.ndarray, epoch: int,
     keys = uniform(fold_in(data_rng, epoch), len(batch_real))
     keys = np.where(batch_real, keys, keys + np.float32(2.0))
     return np.argsort(keys, kind="stable")
+
+
+# -- keys as device tensors ----------------------------------------------------
+# A key held in an int64 [2] tensor (each word a uint32 value) on the
+# tensors' device, so that a captured step derives its keys on the card
+# from a tensor written before each replay, never from host bits frozen at
+# capture.
+
+
+def key_t(key: np.ndarray, device) -> torch.Tensor:
+    """A uint32[2] key as an int64 [2] tensor on ``device``."""
+    return torch.tensor([int(key[0]), int(key[1])], dtype=torch.int64,
+                        device=device)
+
+
+def set_key_(dst: torch.Tensor, key: np.ndarray) -> None:
+    """Write a host key into a key tensor in place (two fills: no copy
+    from host memory, so nothing waits for the card's queue)."""
+    dst[0].fill_(int(key[0]))
+    dst[1].fill_(int(key[1]))
+
+
+def split2_t(key: torch.Tensor, counters: torch.Tensor) -> torch.Tensor:
+    """``split(key)`` of a key tensor: ``[2, 2]`` int64, row 0 the carried
+    key and row 1 the subkey. ``counters`` is ``arange(2)`` on the key's
+    device."""
+    return torch.stack(_threefry_t(key[0], key[1], counters), dim=1)
+
+
+def fold_in_t(key: torch.Tensor, data) -> torch.Tensor:
+    """``fold_in(key, data)`` of a key tensor; ``data`` an int, or an int64
+    tensor of one element."""
+    ctr = (data.reshape(1) if torch.is_tensor(data) else torch.full(
+        (1,), int(data) & _MASK, dtype=torch.int64, device=key.device))
+    return torch.cat(_threefry_t(key[0], key[1], ctr))
+
+
+def bernoulli_t(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` of a key tensor, on its
+    device: ``uniform(key, shape) < p`` in float32, the uniform from the
+    flat row-major index of each element."""
+    n = int(np.prod(shape))
+    ctr = torch.arange(n, dtype=torch.int64, device=key.device)
+    b0, b1 = _threefry_t(key[0], key[1], ctr)
+    u = _uniform_t(b0.bitwise_xor_(b1), np.float32(0.0))
+    return (u < _c(np.float32(p))).reshape(tuple(shape))

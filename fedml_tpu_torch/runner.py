@@ -2,7 +2,8 @@
 GPU simulator (sync, or buffered-async under ``round_mode:
 async_buffered``), the SP golden loop or the SP ``Async_FedAvg`` loop for
 the ported slices, hands a user ``ServerAggregator`` to the GPU engine,
-and refuses what they have not ported."""
+and refuses what they have not ported (an unported model or dataset is
+refused by ``model.create`` / ``data.load``, naming itself)."""
 
 from __future__ import annotations
 
@@ -80,8 +81,11 @@ def check_ported(args) -> None:
                 f"contribution assessment (LOO, GTG-Shapley), a user "
                 f"ServerAggregator and buffered-async rounds (round_mode: "
                 f"async_buffered; federated_optimizer: Async_FedAvg), "
-                f"with the CIFAR ResNets, the linear "
-                f"models or the federated LoRA causal LM, their round "
+                f"with the ResNets (20, 56, 18), the CNNs (cnn with "
+                f"dropout, simple_cnn, device_cnn), the Shakespeare and "
+                f"StackOverflow LSTMs, the linear models or the federated "
+                f"LoRA causal LM on the classification, sequence, "
+                f"multilabel, regression and LLM tasks, their round "
                 f"checkpoints, and serving them)")
     fo = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
     if fo in _ASYNC_FEDAVG:

@@ -1026,7 +1026,8 @@ class GPUSimulator:
         on a CPU copy of the model, in float32 and on the unfused plain
         path: the counter cannot see inside a CUDA kernel's launch, and the
         model's work is the same whichever kernel does it. It counts convolutions and
-        matmuls at their full extent, padding taps included, and no
+        matmuls at their full extent, padding taps included (an LSTM's
+        input projection and its per-step recurrent products too), and no
         elementwise op. XLA's ``cost_analysis`` (the JAX engine's count)
         counts only the taps that land inside the unpadded input and one
         FLOP per elementwise op; on the CIFAR ResNets the padding taps
@@ -1047,8 +1048,12 @@ class GPUSimulator:
         batch = {k: torch.zeros(t.shape[2:], dtype=t.dtype)
                  for k, t in (("x", self.train.x), ("y", self.train.y),
                               ("mask", self.train.mask))}
+        # a model with dropout draws its masks from a key: any key will do
+        rng = (torch.zeros(2, dtype=torch.int64)
+               if getattr(twin, "has_dropout", False)
+               else None)
         with FlopCounterMode(display=False) as counter:
-            loss, _ = spec.loss(leaves, batch)
+            loss, _ = spec.loss(leaves, batch, rng)
             torch.autograd.grad(loss, list(leaves.values()))
         per_batch = float(counter.get_total_flops())
         n_sampled = int(self.args.client_num_per_round)

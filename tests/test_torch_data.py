@@ -90,5 +90,6 @@ def test_missing_cache_needs_opt_in(tmp_path, monkeypatch):
 
 
 def test_unported_dataset_raises():
+    # digits is ported (bundled); the FedNLP reader is not
     with pytest.raises(NotImplementedError, match="dataset"):
-        tdata.load(TArguments(dataset="digits"))
+        tdata.load(TArguments(dataset="fednlp_agnews"))

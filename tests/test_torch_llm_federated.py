@@ -24,7 +24,7 @@ from fedml_tpu.llm import lora as jlora
 from fedml_tpu.llm import model as jmodel
 from fedml_tpu_torch.arguments import Arguments as TArguments
 from fedml_tpu_torch.core.algframe.client_trainer import (
-    ClassificationTrainer, make_trainer_spec)
+    SequenceTrainer, make_trainer_spec)
 from fedml_tpu_torch.core.kernels import flash_attention as fa
 from fedml_tpu_torch.data import containers as tcontainers
 from fedml_tpu_torch.interop import flax_to_state_dict, state_dict_to_flax
@@ -194,10 +194,14 @@ def test_make_trainer_spec_routes_the_llm_task():
         assert spec.apply_fn == bundle.apply
     fed = tcontainers.build_federated_dataset(*arrays, **dict(
         kw, task="classification"))
-    assert isinstance(make_trainer_spec(fed, bundle), ClassificationTrainer)
-    with pytest.raises(NotImplementedError, match="regression"):
-        make_trainer_spec(tcontainers.build_federated_dataset(
-            *arrays, **dict(kw, task="regression")), bundle)
+    # undeclared [bs, L] int labels infer the sequence task, as in the JAX
+    # package
+    assert isinstance(make_trainer_spec(fed, bundle), SequenceTrainer)
+    # regression is ported: its own trainer, on the bundle's apply
+    spec = make_trainer_spec(tcontainers.build_federated_dataset(
+        *arrays, **dict(kw, task="regression")), bundle)
+    assert type(spec).__name__ == "RegressionTrainer"
+    assert spec.apply_fn == bundle.apply
 
 
 def test_runner_takes_client_trainer():

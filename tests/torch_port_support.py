@@ -100,3 +100,71 @@ def assert_params_equal(a, b):
     assert set(a) == set(b)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+# -- the model zoo and tasks: one configuration through both packages --------
+
+
+@pytest.fixture
+def narrow_lstm(monkeypatch):
+    """Both packages' ``model.create`` build the Shakespeare LSTM at
+    hidden 16 (embedding 8, 2 layers), so the run stays small."""
+    import fedml_tpu.model as jmodel
+    import fedml_tpu_torch.model as tmodel
+    from fedml_tpu.model.model_hub import ModelBundle as JBundle
+    from fedml_tpu.model.nlp.rnn import RNNShakespeare as JRNN
+    from fedml_tpu_torch.model.model_hub import ModelBundle as TBundle
+    from fedml_tpu_torch.model.nlp.rnn import RNNShakespeare as TRNN
+
+    monkeypatch.setattr(jmodel, "create", lambda args, out: JBundle(
+        JRNN(out, 8, 16, 2), "rnn"))
+    monkeypatch.setattr(tmodel, "create", lambda args, out, shape=None:
+                        TBundle(TRNN(out, 8, 16, 2), "rnn"))
+
+
+def zoo_jax_init(cfg, tmp_path):
+    """The flax parameters the JAX engine starts ``cfg`` from, as the
+    port's state dict."""
+    import jax
+    import fedml_tpu.data as jdata
+    import fedml_tpu.model as jmodel
+    from fedml_tpu.arguments import Arguments as JArguments
+    from fedml_tpu_torch.interop import flax_to_state_dict
+
+    args = JArguments(backend="tpu", data_cache_dir=str(tmp_path), **cfg)
+    fed, out = jdata.load(args)
+    key = jax.random.split(jax.random.PRNGKey(cfg["random_seed"]))[0]
+    return flax_to_state_dict(jax.device_get(
+        jmodel.create(args, out).init(key, fed.train.x[0, 0])))
+
+
+def zoo_runs(cfg, tmp_path):
+    """``cfg`` through ``fedml_tpu.run_simulation`` (TPU engine on the
+    virtual CPU devices) and the port's GPU engine and SP loop on the CPU,
+    from the same params: the port's GPU engine within the house tolerance
+    of JAX (params and history), bitwise equal to its SP loop. Returns
+    (the port's GPU run, the JAX run)."""
+    import jax
+    import numpy as np
+    import fedml_tpu
+    import fedml_tpu_torch
+    from fedml_tpu_torch.interop import flax_to_state_dict
+
+    p0 = zoo_jax_init(cfg, tmp_path)
+    rj = fedml_tpu.run_simulation(backend="tpu", data_cache_dir=str(
+        tmp_path / "j"), **cfg)
+    runs = {b: fedml_tpu_torch.run_simulation(
+        backend=b, device="cpu", init_params=p0,
+        data_cache_dir=str(tmp_path / "t"), **cfg) for b in ("gpu", "sp")}
+    want = flax_to_state_dict(jax.device_get(rj["params"]))
+    assert_params_close(runs["gpu"]["params"], want)
+    assert_params_equal(runs["gpu"]["params"], runs["sp"]["params"])
+    for ht, hj in zip(runs["gpu"]["history"], rj["history"]):
+        for k in ("train_loss", "train_acc", "test_acc", "test_loss"):
+            np.testing.assert_allclose(ht[k], hj[k], rtol=RTOL, atol=ATOL,
+                                       err_msg=k)
+    moved = max(float(np.abs(want[k] - p0[k]).max()) for k in want)
+    assert moved > 1e-3
+    return runs["gpu"], rj
+
+
