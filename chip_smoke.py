@@ -170,7 +170,26 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     (c) ``bench_shakespeare_fedopt`` and (d) ``bench_time_to_acc`` as
     written, on the bundled real text and digits: rounds/hour, accuracy,
     rounds (and seconds) to the target; a ``{"zoo": ...}`` line;
-16. one JSON line describing each kernel, then the card line, then
+16. the cross-silo runtime: (a) checks (f32, TF32 off): the 4-silo LR
+    session of ``tests/test_cross_silo.py`` (3 rounds, INPROC) on the card
+    against the CPU, the same session over TCP on loopback bitwise equal
+    to INPROC, a session under seeded link loss,
+    duplication and delay (completes; non-empty link ledger) and its
+    JSONL records through ``core/obs/schema.py``; (b)
+    ``bench_cross_silo_wire`` as written (digits, LR, 10 silos, 40
+    rounds in-proc, dense against ``topk_qsgd`` 5 % + EF with the
+    compressed broadcast): model-bearing bytes per round, accuracy,
+    rounds to 90 %, wall seconds (its SecAgg and gossip legs are not
+    ported: null); (c) the flagship's configuration as a session over TCP
+    (ResNet-56, synthetic CIFAR-10 50,000 / 1,000, bf16, fused block; 4
+    silo subprocesses on the card, the server through
+    ``run_cross_silo_server`` in this process): 1 untimed round (the
+    captures) and 2 timed rounds, seconds per round, rounds/hour, the
+    wait / aggregate / broadcast / eval split, model bytes per round,
+    accuracy, and per silo its steps, ms per local step, captures (1) and
+    B1 launches, held to 27 x (warm-up + replays); the server's B1 held
+    to 27 per eval forward; a ``{"cross_silo": ...}`` line;
+17. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -295,7 +314,7 @@ FAMILY_CFG = dict(
     dataset="synthetic_cifar10", model="resnet20", client_num_in_total=8,
     client_num_per_round=4, comm_round=2, batch_size=8, learning_rate=0.01,
     max_total_samples=64, synthetic_test_size=64, frequency_of_the_test=-1,
-    random_seed=3, fused_conv_block="pallas")
+    random_seed=3, fused_conv_block="pallas", enable_tracking=False)
 FAMILY = {"FedAvg": {}, "FedProx": {}, "FedOpt": {},
           "FedOpt_adam": dict(server_optimizer="adam", server_lr=0.01),
           "FedOpt_adagrad": dict(server_optimizer="adagrad", server_lr=0.01),
@@ -557,7 +576,8 @@ CHAOS_TINY_BATCH = {"slots": 4, "block_size": 16, "prefill_chunk": 8,
 FLEET_CHECK_REQUESTS = 8      # the 7th (0-based 6) is replica 0's request 3
 FLEET_CHECK_ARGS = dict(llm_serving_mode="batch", serving_slots=4,
                         serving_kv_block_size=16, serving_prefill_chunk=32,
-                        serving_request_timeout_s=120.0)
+                        serving_request_timeout_s=120.0,
+                        enable_tracking=False)
 CHAOS_BENCH = {"concurrency": 8, "requests": 24, "max_new": 12,
                "watchdog_s": 0.3, "legs": (("recovery_on", 64),
                                            ("recovery_off", 0)),
@@ -639,6 +659,46 @@ ZOO_DIGITS_BENCH = dict(dataset="digits", model="lr", client_num_in_total=10,
                         batch_size=32, learning_rate=0.3,
                         frequency_of_the_test=10000, random_seed=0)
 ZOO_DIGITS_TARGET = 0.90
+
+# The cross-silo runtime (phase 16). (a) checks, f32 with TF32 off: the
+# reference's tests/test_cross_silo.py session (synthetic MNIST, LR, 4
+# silos, 3 rounds, lr 0.1, seed 9) over INPROC on the card against the
+# CPU (HOUSE_TOL), over TCP on loopback against INPROC (bitwise), under
+# CS_LINK's seeded link loss / duplication / delay (completes, non-empty
+# link ledger) and its JSONL records through core/obs/schema.py.
+CS_LR = dict(dataset="synthetic_mnist", model="lr", client_num_in_total=4,
+             client_num_per_round=4, comm_round=3, epochs=1, batch_size=32,
+             learning_rate=0.1, frequency_of_the_test=1, random_seed=9)
+CS_LINK = dict(chaos_link_loss_prob=0.08, chaos_link_dup_prob=0.1,
+               chaos_link_delay_prob=0.1, chaos_link_delay_s=0.2,
+               chaos_seed=31, round_timeout_s=1.5)
+# (b) bench.py's bench_cross_silo_wire (bench.py:452) as written: bundled
+# digits, LR, 10 silos, 40 rounds in-proc, lr 0.3, batch 32, seed 0, an
+# eval every round; dense against topk_qsgd at 0.05 with error feedback
+# and the compressed broadcast; model-bearing bytes are the INIT, SYNC and
+# C2S_MODEL messages' (the in-proc broker encodes every message).
+CS_WIRE = dict(dataset="digits", model="lr", client_num_in_total=10,
+               client_num_per_round=10, comm_round=40, epochs=1,
+               batch_size=32, learning_rate=0.3, frequency_of_the_test=1,
+               random_seed=0)
+CS_WIRE_CC = dict(comm_compression="topk_qsgd", comm_compression_ratio=0.05,
+                  comm_compression_broadcast="compress")
+CS_WIRE_TARGET = 0.90
+# (c) the flagship's configuration as a cross-silo session: ResNet-56,
+# synthetic CIFAR-10 50,000 / 1,000 (hetero, alpha 0.5), batch 32, bf16,
+# the fused conv block, epochs 1, lr 0.1, seed 0; 4 silos (all of them in
+# every round) as subprocesses, the server in this process, over TCP on
+# loopback. Round 0 captures each silo's step (untimed); rounds 1..
+# CS_FULL_TIMED are timed; the server evaluates after every round.
+CS_FULL_TIMED = 2
+CS_FULL = dict(dataset="synthetic_cifar10", model="resnet56",
+               precision="bfloat16", fused_conv_block="pallas",
+               client_num_in_total=4, client_num_per_round=4,
+               comm_round=1 + CS_FULL_TIMED, epochs=1, batch_size=32,
+               learning_rate=0.1, synthetic_size=50000,
+               synthetic_test_size=1000, partition_alpha=0.5,
+               frequency_of_the_test=1, random_seed=0)
+CS_JOIN_S = 600.0
 
 # Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
 # the trainer calls the model), the hot loop, bench_long_context, and the
@@ -946,7 +1006,8 @@ def tiny_run_agreement(torch, fedml):
                client_num_in_total=4, client_num_per_round=2, comm_round=1,
                batch_size=8, learning_rate=0.01, max_total_samples=64,
                synthetic_test_size=64, frequency_of_the_test=1,
-               random_seed=3, fused_conv_block="pallas")
+               random_seed=3, fused_conv_block="pallas",
+               enable_tracking=False)
     gpu = fedml.run_simulation(**cfg)
     cpu = fedml.run_simulation(device="cpu", **cfg)
     worst = 0.0
@@ -3726,6 +3787,364 @@ def zoo_phase(torch, cb, fa, tmp, dev="cuda", cpu="cpu"):
     return out, r18_launches
 
 
+def free_port_base(n):
+    """A base port whose ``n`` ports from it are free on loopback now (a
+    TCP session listens on ``base + rank``)."""
+    import random
+    import socket
+    rng = random.Random(os.getpid() ^ time.time_ns())
+    for _ in range(200):
+        base = rng.randint(20000, 60000 - n)
+        socks = []
+        try:
+            for i in range(n):
+                sk = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                socks.append(sk)
+                sk.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    raise SmokeFailure("no free range of ports on loopback")
+
+
+def _listening(port) -> bool:
+    import socket
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=0.5):
+            return True
+    except OSError:
+        return False
+
+
+def cs_session(cfg, dev, backend="INPROC", join_s=120.0):
+    """One cross-silo session of ``cfg`` with every party on ``dev``: the
+    server and each silo on a thread of this process, over ``backend``
+    (INPROC, or TCP on free loopback ports). Returns (server, silos); a
+    session that does not finish within ``join_s`` fails."""
+    import copy
+    import threading
+
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.distributed.communication.inproc import \
+        InProcBroker
+    from fedml_tpu_torch.cross_silo.horizontal.runner import (build_client,
+                                                              build_server)
+    n = cfg["client_num_per_round"]
+    args = Arguments(**cfg, training_type="cross_silo")
+    if backend == "TCP":
+        args.tcp_base_port = free_port_base(n + 1)
+    else:
+        args.inproc_broker = InProcBroker()
+    fed, output_dim = data.load(args)
+    bundle = model.create(args, output_dim, fed.input_shape)
+    server = build_server(args, fed, bundle, backend=backend, device=dev)
+    silos = [build_client(args, fed, copy.deepcopy(bundle), rank=r,
+                          backend=backend, device=dev)
+             for r in range(1, n + 1)]
+    threads = [threading.Thread(target=c.run, daemon=True) for c in silos]
+    for t in threads:
+        t.start()
+    st = threading.Thread(target=server.run, daemon=True)
+    st.start()
+    st.join(timeout=join_s)
+    ok = not st.is_alive() and server.result is not None
+    for c, t in zip(silos, threads):
+        t.join(timeout=2.0)
+        if t.is_alive():   # a lost FINISH (link faults) leaves it waiting
+            c.finish()
+            t.join(timeout=2.0)
+    require(ok, f"cross-silo session ({backend}, {dev}) did not finish "
+                f"within {join_s} s")
+    return server, silos
+
+
+def cs_checks(torch, fedml, tmp, dev="cuda", cpu="cpu"):
+    """Phase 16 (a). Returns {check: record}."""
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core import mlops
+    from fedml_tpu_torch.core.chaos import ChaosCommManager
+    from fedml_tpu_torch.core.obs import schema
+
+    out = {}
+    card, _ = cs_session(CS_LR, dev, "INPROC")
+    ref, _ = cs_session(CS_LR, cpu, "INPROC")
+    ratio = _house_ratio(torch, card.result["params"], ref.result["params"])
+    require(ratio <= 1.0, f"cross-silo LR session: card vs CPU at {ratio:.3f}"
+                          f" of HOUSE_TOL")
+    out["inproc_card_vs_cpu"] = {
+        "of_tolerance": ratio,
+        "test_acc": [card.result["final_test_acc"],
+                     ref.result["final_test_acc"]]}
+    tcp, _ = cs_session(CS_LR, dev, "TCP")
+    same = all(torch.equal(tcp.result["params"][k], v)
+               for k, v in card.result["params"].items())
+    require(same, "cross-silo LR session: TCP params differ from INPROC's")
+    out["tcp_vs_inproc_bitwise"] = same
+    log_dir = os.path.join(tmp, "cs_logs")
+    fedml.init(Arguments(**CS_LR, training_type="cross_silo",
+                         log_file_dir=log_dir, run_id="cs_link"))
+    try:
+        t0 = time.perf_counter()
+        server, silos = cs_session(dict(CS_LR, **CS_LINK), dev, "INPROC")
+        link_s = time.perf_counter() - t0
+    finally:
+        path = mlops.log_path()
+        mlops.init(Arguments(enable_tracking=False))
+    events = [e for m in [server] + silos
+              if isinstance(m.com_manager, ChaosCommManager)
+              for e in m.com_manager.ledger.links()]
+    require(len(server.result["history"]) == CS_LR["comm_round"] and events,
+            f"link-fault session: {len(server.result['history'])} rounds, "
+            f"{len(events)} link faults")
+    out["link_faults"] = {
+        "rounds": len(server.result["history"]), "faults": len(events),
+        "lost": sum(e["copies"] == 0 for e in events),
+        "duplicated": sum(e["copies"] > 1 for e in events),
+        "delayed": sum(e["delay_s"] > 0 for e in events),
+        "final_test_acc": server.result["final_test_acc"], "wall_s": link_s}
+    with open(path) as f:
+        lines = [ln for ln in f if ln.strip()]
+    errors = schema.validate_lines(lines)
+    kinds = sorted({json.loads(ln)["kind"] for ln in lines})
+    require(not errors and "comm" in kinds and "chaos" in kinds,
+            f"mlops records: {len(errors)} schema errors ({errors[:3]}), "
+            f"kinds {kinds}")
+    out["records"] = {"lines": len(lines), "kinds": kinds}
+    return out
+
+
+def cs_wire_bench(torch, tmp, dev="cuda"):
+    """Phase 16 (b): bench_cross_silo_wire on ``dev``, dense then
+    compressed. Returns the bench's record."""
+    from fedml_tpu_torch.core.distributed.communication.message import \
+        WIRE_STATS
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+
+    types = (str(MyMessage.MSG_TYPE_S2C_INIT_CONFIG),
+             str(MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT),
+             str(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER))
+    rounds = CS_WIRE["comm_round"]
+
+    def session(**cc):
+        WIRE_STATS.reset()
+        t0 = time.perf_counter()
+        server, _ = cs_session(dict(CS_WIRE, data_cache_dir=tmp, **cc), dev)
+        wall = time.perf_counter() - t0
+        by_type = WIRE_STATS.snapshot()["by_type"]
+        model_bytes = sum(by_type.get(t, {"bytes": 0})["bytes"]
+                          for t in types)
+        accs = [h.get("test_acc", 0.0) for h in server.result["history"]]
+        hit = next((i for i, a in enumerate(accs) if a >= CS_WIRE_TARGET),
+                   None)
+        require(all(torch.isfinite(v).all().item()
+                    for v in server.result["params"].values()),
+                "wire bench: non-finite params")
+        return {"bytes_per_round": model_bytes / rounds,
+                "final_acc": accs[-1] if accs else 0.0,
+                "rounds_to_target": hit, "wall_s": wall}
+
+    off = session()
+    on = session(**CS_WIRE_CC)
+    reduction = (off["bytes_per_round"] / on["bytes_per_round"]
+                 if on["bytes_per_round"] else None)
+    not_ported = ("not ported: the leg needs cross_silo/secagg (SecAgg "
+                  "lane compression)", "not ported: the leg needs "
+                  "cross_silo/decentralized.py (gossip)")
+    return {"metric": "fedavg_cross_silo_wire_bytes_per_round",
+            "value": on["bytes_per_round"],
+            "vs_baseline": reduction,
+            "dense_bytes_per_round": off["bytes_per_round"],
+            "compressed_final_acc": on["final_acc"],
+            "dense_final_acc": off["final_acc"],
+            "target_acc": CS_WIRE_TARGET,
+            "compressed_rounds_to_target": on["rounds_to_target"],
+            "dense_rounds_to_target": off["rounds_to_target"],
+            "compressed_wall_s": on["wall_s"], "dense_wall_s": off["wall_s"],
+            "legs": {"secagg_compressed": None, "gossip_compressed": None},
+            "legs_reason": {"secagg_compressed": not_ported[0],
+                            "gossip_compressed": not_ported[1]}}
+
+
+def cs_flagship(torch, cb, fa, fedml, tmp, cfg=CS_FULL, dev="cuda",
+                join_s=CS_JOIN_S):
+    """Phase 16 (c): ``cfg`` as a cross-silo session over TCP, the server
+    through ``run_cross_silo_server`` in this process and each silo a
+    ``python -m fedml_tpu_torch.cross_silo.silo_main`` process on ``dev``.
+    Returns (the record, the server's launches, each silo's record)."""
+    import threading
+
+    from fedml_tpu_torch.core.distributed.communication.message import \
+        WIRE_STATS
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage
+
+    n = cfg["client_num_per_round"]
+    base = free_port_base(n + 1)
+    kw = dict(cfg, backend="TCP", tcp_base_port=base, data_cache_dir=tmp,
+              enable_tracking=False)
+    procs, logs, box = [], [], {}
+    t_start = time.perf_counter()
+    reset_launches(cb, fa)
+    WIRE_STATS.reset()
+    held = 0
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()   # what earlier phases hold
+
+    def serve():
+        try:
+            box["result"] = fedml.run_cross_silo_server(device=dev, **kw)
+        except BaseException as e:   # reported below
+            box["error"] = e
+
+    # the server listens before the silos announce themselves (a silo's
+    # ONLINE gives up after its retries)
+    st = threading.Thread(target=serve, daemon=True)
+    st.start()
+    deadline = time.perf_counter() + join_s
+    while not _listening(base) and st.is_alive():
+        require(time.perf_counter() < deadline,
+                "cross-silo flagship: the server never listened")
+        time.sleep(0.2)
+    # the host's cores shared out: n silos and the server on one host
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(
+        1, (os.cpu_count() or 1) // (n + 1))))
+    try:
+        for r in range(1, n + 1):
+            spec = os.path.join(tmp, f"silo_{r}.json")
+            with open(spec, "w") as f:
+                json.dump({"args": dict(kw, rank=r), "device": dev}, f)
+            log = open(os.path.join(tmp, f"silo_{r}.err"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "fedml_tpu_torch.cross_silo.silo_main",
+                 spec], stdout=subprocess.PIPE, stderr=log, text=True,
+                env=env))
+        while st.is_alive() and time.perf_counter() < deadline:
+            st.join(timeout=1.0)
+            dead = [p.returncode for p in procs if p.poll() not in (None, 0)]
+            require(not dead, f"cross-silo flagship: a silo exited {dead}")
+        require(not st.is_alive(), f"cross-silo flagship: the session did "
+                                   f"not finish within {join_s} s")
+        require("error" not in box, f"cross-silo flagship server: "
+                                    f"{box.get('error')!r}")
+        server_launches = launches(cb, fa)
+        wall = time.perf_counter() - t_start
+        silos = []
+        for p in procs:
+            out, _ = p.communicate(timeout=120)
+            require(p.returncode == 0, f"a silo exited {p.returncode}")
+            silos.append(json.loads(out.strip().splitlines()[-1])["silo"])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    result = box["result"]
+    times = result["round_times"]
+    timed = times[1:]
+    # the wall time from the first timed round's broadcast to the end of
+    # the last round's close, over the timed rounds (the pieces below
+    # leave out the close, the records, selection and the trace)
+    s_per_round = (times[-1]["end_s"] - timed[0]["start_s"]) / len(timed)
+    pieces_s = sum(t["broadcast_s"] + t["wait_s"] + t["aggregate_s"]
+                   + t["eval_s"] for t in timed) / len(timed)
+    by_type = WIRE_STATS.snapshot()["by_type"]
+    model_types = (str(MyMessage.MSG_TYPE_S2C_INIT_CONFIG),
+                   str(MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT))
+    s2c = sum(by_type.get(t, {"bytes": 0})["bytes"] for t in model_types)
+    silo_recs = []
+    steps_total = 0
+    for st_ in sorted(silos, key=lambda x: x["rank"]):
+        trains = st_["trainings"]
+        steps = sum(t["steps"] for t in trains)
+        steps_total += steps
+        t_steps = sum(t["steps"] for t in trains if t["round"] >= 1)
+        t_s = sum(t["train_s"] for t in trains if t["round"] >= 1)
+        b1 = st_["launches"]["fused_block"]
+        want = 27 * (st_["warmup_steps"] + st_["replays"])
+        require(st_["captures"] == 1 and st_["replays"] == steps
+                and b1 == want,
+                f"silo {st_['rank']}: {st_['captures']} captures, "
+                f"{st_['replays']} replays for {steps} steps, B1 {b1} "
+                f"launches (expected {want})")
+        require(all(v == 0 for k, v in st_["launches"].items()
+                    if k != "fused_block"),
+                f"silo {st_['rank']} launched {st_['launches']}")
+        silo_recs.append({
+            "rank": st_["rank"], "steps": steps,
+            "steps_per_round": [t["steps"] for t in trains],
+            "ms_per_local_step": 1e3 * t_s / max(t_steps, 1),
+            "train_s_per_round": [t["train_s"] for t in trains],
+            "captures": st_["captures"], "capture_s": st_["capture_s"],
+            "warmup_steps": st_["warmup_steps"], "replays": st_["replays"],
+            "b1_launches": b1,
+            "hbm_peak_gb": st_.get("peak_allocated_bytes", 0) / 2 ** 30,
+            "c2s_bytes": st_.get("c2s_bytes")})
+    acc = result["final_test_acc"]
+    require(acc is not None and math.isfinite(acc) and all(
+        torch.isfinite(v).all().item() for v in result["params"].values()),
+        "cross-silo flagship: non-finite params or accuracy")
+    eval_batches = result["eval_batches"]
+    want = 27 * eval_batches * len(times)
+    require(server_launches == {"conv_block": want, "flash_fwd": 0,
+                                "flash_dq": 0, "flash_dkv": 0},
+            f"cross-silo server launches {server_launches}, expected "
+            f"{want} B1 (27 x {eval_batches} eval batches x {len(times)} "
+            f"rounds)")
+    c2s = sum(r["c2s_bytes"] or 0 for r in silo_recs)
+    record = {
+        "rounds": len(times), "timed_rounds": len(timed),
+        "s_per_round": s_per_round, "rounds_per_hour": 3600.0 / s_per_round,
+        "round_times": times,
+        "wait_s_per_round": sum(t["wait_s"] for t in timed) / len(timed),
+        "aggregate_s_per_round": sum(t["aggregate_s"] for t in timed)
+        / len(timed),
+        "broadcast_s_per_round": sum(t["broadcast_s"] for t in timed)
+        / len(timed),
+        "eval_s_per_round": sum(t["eval_s"] for t in timed) / len(timed),
+        "other_s_per_round": s_per_round - pieces_s,
+        "s2c_model_bytes_per_round": s2c / len(times),
+        "c2s_model_bytes_per_round": c2s / len(times),
+        "test_acc": acc, "local_steps": steps_total,
+        "server_b1_launches": server_launches["conv_block"],
+        "server_hbm_peak_gb": ((torch.cuda.max_memory_allocated() - held)
+                               / 2 ** 30 if dev != "cpu" else 0.0),
+        "silos": silo_recs, "wall_s": wall}
+    return record, server_launches, silo_recs
+
+
+def cross_silo_phase(torch, cb, fa, fedml, tmp, dev="cuda", cpu="cpu"):
+    """Phase 16: the cross-silo runtime. Returns (the ``cross_silo``
+    record, the silos' B1 launches, the server's)."""
+    t_phase = time.perf_counter()
+    reset_launches(cb, fa)
+    t0 = time.perf_counter()
+    checks = cs_checks(torch, fedml, tmp, dev, cpu)
+    checks_s = time.perf_counter() - t0
+    require(launches(cb, fa) == {"conv_block": 0, "flash_fwd": 0,
+                                 "flash_dq": 0, "flash_dkv": 0},
+            f"cross-silo checks launched {launches(cb, fa)}")
+    t0 = time.perf_counter()
+    wire = cs_wire_bench(torch, tmp, dev)
+    wire_s = time.perf_counter() - t0
+    require(launches(cb, fa) == {"conv_block": 0, "flash_fwd": 0,
+                                 "flash_dq": 0, "flash_dkv": 0},
+            f"wire bench launched {launches(cb, fa)}")
+    full, server_launches, silos = cs_flagship(torch, cb, fa, fedml, tmp,
+                                               dev=dev)
+    return ({"checks": checks, "checks_s": checks_s, "wire": wire,
+             "wire_s": wire_s, "flagship": full,
+             "phase_s": time.perf_counter() - t_phase},
+            sum(s["b1_launches"] for s in silos),
+            server_launches["conv_block"])
+
+
 def main() -> int:
     import tempfile
 
@@ -4202,6 +4621,47 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
     zoo["card"] = card
     print(json.dumps({"zoo": zoo}), flush=True)
 
+    cs, cs_silo_b1, cs_server_b1 = cross_silo_phase(torch, cb, fa, fedml,
+                                                    tmp)
+    for label, r in cs["checks"].items():
+        print(f"cross-silo check {label} (f32): {json.dumps(r)}", flush=True)
+    w = cs["wire"]
+    print(f"cross-silo wire bench ({card}): dense "
+          f"{w['dense_bytes_per_round']:.1f} vs topk_qsgd "
+          f"{w['value']:.1f} model-bearing bytes per round "
+          f"({w['vs_baseline']:.2f}x), final acc "
+          f"{w['dense_final_acc']:.4f} / {w['compressed_final_acc']:.4f}, "
+          f"rounds to {w['target_acc']}: {w['dense_rounds_to_target']} / "
+          f"{w['compressed_rounds_to_target']}, wall "
+          f"{w['dense_wall_s']:.2f} / {w['compressed_wall_s']:.2f} s; legs "
+          f"{w['legs']} ({w['legs_reason']})", flush=True)
+    f = cs["flagship"]
+    print(f"cross-silo flagship ({card}): {f['s_per_round']:.3f} s per "
+          f"round (wall) over {f['timed_rounds']} timed rounds = "
+          f"{f['rounds_per_hour']:.2f} rounds/hour (server wait "
+          f"{f['wait_s_per_round']:.3f} s, aggregate "
+          f"{f['aggregate_s_per_round']:.4f} s, broadcast "
+          f"{f['broadcast_s_per_round']:.4f} s, eval "
+          f"{f['eval_s_per_round']:.3f} s, the rest "
+          f"{f['other_s_per_round']:.3f} s per round); model bytes per round "
+          f"S2C {f['s2c_model_bytes_per_round']:.0f}, C2S "
+          f"{f['c2s_model_bytes_per_round']:.0f}; test acc "
+          f"{f['test_acc']:.4f}; server B1 {f['server_b1_launches']}, HBM "
+          f"peak {f['server_hbm_peak_gb']:.2f} GB above what the process "
+          f"held before; {f['wall_s']:.1f} s with the silos' start",
+          flush=True)
+    for r in f["silos"]:
+        print(f"cross-silo silo {r['rank']} ({card}): steps "
+              f"{r['steps_per_round']}, {r['ms_per_local_step']:.2f} ms per "
+              f"local step (timed rounds, the card shared by 4 silos), train "
+              f"s per round {[round(x, 3) for x in r['train_s_per_round']]}, "
+              f"{r['captures']} capture ({r['capture_s']:.2f} s), B1 "
+              f"{r['b1_launches']} launches = 27 x ({r['warmup_steps']} + "
+              f"{r['replays']}), HBM peak {r['hbm_peak_gb']:.2f} GB",
+              flush=True)
+    cs["card"] = card
+    print(json.dumps({"cross_silo": cs}), flush=True)
+
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
@@ -4219,6 +4679,10 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "max_abs_err_fold_batch": fold["b1_fold_batch_max_abs_err"],
         "launches_serving": serve_launches["conv_block"],
         "launches_fleet": fleet_launches["conv_block"],
+        # phase 16 (c): the 4 silo processes' captured steps, and the
+        # server's evaluations
+        "launches_cross_silo_silos": cs_silo_b1,
+        "launches_cross_silo_server": cs_server_b1,
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],

@@ -16,7 +16,11 @@ simulated round: differential privacy, attacks and defenses, chaos
 (dropout, stragglers, crash-at-round), participant selection,
 contribution assessment and a user ``ServerAggregator``; buffered-async
 rounds (``round_mode: async_buffered`` on the GPU engine, with defended
-pours, and the SP ``federated_optimizer: Async_FedAvg`` loop).
+pours, and the SP ``federated_optimizer: Async_FedAvg`` loop). The
+cross-silo runtime (:mod:`fedml_tpu_torch.cross_silo`): the horizontal
+FedAvg server and silos over the in-proc, TCP and gRPC transports, with
+retries, link-fault injection, wire compression byte-compatible with the
+JAX package's, and the record plane (:mod:`fedml_tpu_torch.core.mlops`).
 Modules follow the JAX package's paths. Nothing here imports JAX or
 ``fedml_tpu``.
 
@@ -28,6 +32,10 @@ Modules follow the JAX package's paths. Nothing here imports JAX or
     from fedml_tpu_torch.llm import run_federated_llm
     result = run_federated_llm(fedml.Arguments(dataset="llm",
                                                model="causal_lm"))
+    # cross-silo: one server process and N silo processes
+    fedml.run_cross_silo_server(backend="TCP", client_num_per_round=4)
+    fedml.run_cross_silo_client(backend="TCP", rank=1,
+                                client_num_per_round=4)
 
 Entry points run on CUDA; ``device="cpu"`` runs the plain PyTorch path on
 the CPU, as the parity tests do. Without CUDA and without ``device="cpu"``
@@ -39,18 +47,22 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from .arguments import Arguments, add_args, load_arguments
-from .constants import FEDML_TRAINING_PLATFORM_SIMULATION
+from .constants import (FEDML_TRAINING_PLATFORM_CROSS_SILO,
+                        FEDML_TRAINING_PLATFORM_SIMULATION)
 from .runner import FedMLRunner
 
 __version__ = "0.1.0"
 
 
-def init(args: Optional[Arguments] = None, **overrides: Any) -> Arguments:
+def init(args: Optional[Arguments] = None, device=None,
+         **overrides: Any) -> Arguments:
     """Parse config: with no ``args``, reads ``--cf <yaml>`` from the CLI if
-    present; keyword overrides always win. Wires the ``obs_*`` knobs
-    (:func:`fedml_tpu_torch.core.obs.configure`), as the JAX package's
-    ``init`` does through ``mlops.init``."""
-    from .core import obs
+    present; keyword overrides always win. Wires the record plane
+    (:func:`fedml_tpu_torch.core.mlops.init`: the run's JSONL file under
+    ``log_file_dir`` unless ``enable_tracking`` is off, and the ``obs_*``
+    knobs), as the JAX package's ``init`` does; ``device`` is the run's
+    device, which the system sampler reads."""
+    from .core import mlops
     if args is None:
         cli = add_args()
         merged = dict(rank=cli.rank, role=cli.role, run_id=cli.run_id)
@@ -60,7 +72,7 @@ def init(args: Optional[Arguments] = None, **overrides: Any) -> Arguments:
         for k, v in overrides.items():
             setattr(args, k, v)
         args._finalize()
-    obs.configure(args)
+    mlops.init(args, device=device)
     return args
 
 
@@ -97,7 +109,7 @@ def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
     from .device import get_device
 
     device = get_device(device)  # before any work: no CUDA, no quiet CPU
-    args = init(args, backend=backend, **overrides)
+    args = init(args, device=device, backend=backend, **overrides)
     args.training_type = FEDML_TRAINING_PLATFORM_SIMULATION
     fed, output_dim = data_mod.load(args)
     bundle = model_mod.create(args, output_dim, fed.input_shape)
@@ -112,3 +124,48 @@ def run_simulation(backend: str = "gpu", args: Optional[Arguments] = None,
         from .serving import save_model
         save_model(result["params"], os.path.expanduser(str(save_path)))
     return result
+
+
+def cross_silo_runner(role: str, args: Optional[Arguments] = None,
+                      device=None,
+                      init_params: Optional[Dict[str, Any]] = None,
+                      **overrides: Any) -> FedMLRunner:
+    """The cross-silo party ``role`` (``"server"`` or ``"client"``) of
+    ``args`` and ``overrides`` on ``device``, built and not yet run
+    (``run()`` blocks until the session ends; its manager, e.g. a silo's
+    trainer, stays inspectable afterwards)."""
+    from . import data as data_mod
+    from . import model as model_mod
+    from .device import get_device
+
+    device = get_device(device)  # before any work: no CUDA, no quiet CPU
+    args = init(args, device=device, **overrides)
+    args.training_type = FEDML_TRAINING_PLATFORM_CROSS_SILO
+    args.role = role
+    fed, output_dim = data_mod.load(args)
+    bundle = model_mod.create(args, output_dim, fed.input_shape)
+    return FedMLRunner(args, device=device, dataset=fed, model=bundle,
+                       init_params=init_params)
+
+
+def run_cross_silo_server(args: Optional[Arguments] = None, device=None,
+                          init_params: Optional[Dict[str, Any]] = None,
+                          **overrides: Any) -> Optional[Dict[str, Any]]:
+    """Run the cross-silo server (rank 0) of a horizontal FedAvg session
+    on ``device`` (CUDA unless ``"cpu"``) until the session ends; the
+    silos are :func:`run_cross_silo_client` processes (or threads) on the
+    same ``backend`` (``TCP`` or ``GRPC``; unset, or any value that names
+    no transport, means GRPC as in the JAX package; ``INPROC`` needs
+    ``args.inproc_broker``). ``init_params`` (a state dict) replaces the
+    seeded init. Returns ``params``, ``history``, ``final_test_acc`` and
+    ``rounds``, and the server's ``round_times`` and ``eval_batches``."""
+    return cross_silo_runner("server", args, device, init_params,
+                             **overrides).run()
+
+
+def run_cross_silo_client(args: Optional[Arguments] = None, device=None,
+                          **overrides: Any) -> None:
+    """Run silo ``rank`` (1..``client_num_per_round``) of a horizontal
+    FedAvg session on ``device`` (CUDA unless ``"cpu"``) until the server
+    finishes the session."""
+    return cross_silo_runner("client", args, device, **overrides).run()

@@ -22,6 +22,7 @@ _SCHEMA: Dict[str, Any] = {
     # common_args
     "training_type": FEDML_TRAINING_PLATFORM_SIMULATION,
     "random_seed": 0,
+    "scenario": "horizontal",    # cross-silo: horizontal (hierarchical raises)
     "run_id": "0",
     # data_args
     "dataset": "synthetic_mnist",
@@ -90,6 +91,12 @@ _SCHEMA: Dict[str, Any] = {
     "chaos_straggler_prob": 0.0,     # per-(round, client) straggler
     "chaos_straggler_work": 0.5,     # fraction of local work a straggler runs
     "chaos_crash_at_round": None,    # raise ChaosCrash after this round
+    # link faults at the cross-silo Message send seam (the transport
+    # interceptor, core/chaos/interceptor.py)
+    "chaos_link_loss_prob": 0.0,     # per-message loss
+    "chaos_link_dup_prob": 0.0,      # per-message duplication
+    "chaos_link_delay_prob": 0.0,    # per-message delay probability
+    "chaos_link_delay_s": 0.0,       # delay applied when it fires
     # dropped clients leave the weighted average's denominator (off: their
     # scheduled weight stays and dilutes the aggregate)
     "chaos_tolerance": True,
@@ -131,14 +138,46 @@ _SCHEMA: Dict[str, Any] = {
     # staleness clamp before weighting (stale uploads are down-weighted,
     # never dropped); 0 = adaptive from observed arrival-rate posteriors
     "async_staleness_cap": 16,
-    # the JAX package's cross-silo pour valve (no cross-silo server here)
+    # the JAX package's cross-silo pour valve (its async cross-silo
+    # server is not ported)
     "async_pour_timeout_s": 0.0,
     # simulated-arrival heterogeneity (async engine + SP Async_FedAvg)
     "async_duration_sigma": 0.6,
     # validation_args
     "frequency_of_the_test": 5,
-    # comm_args
+    # comm_args (the cross-silo transports: INPROC | TCP | GRPC; a WAN
+    # session with any other backend value runs over GRPC, as in the JAX
+    # package)
     "backend": "gpu",
+    # wire-efficiency for cross-silo updates (utils/compression.py). Off by
+    # default: the wire stays byte-identical to the dense float32 path.
+    "comm_compression": None,            # topk|randk|qsgd|topk_qsgd|randk_qsgd
+    "comm_compression_ratio": 0.1,       # sparsifier keep-ratio in (0, 1]
+    "comm_quantize_levels": 127,         # QSGD levels (int8 wire, <= 127)
+    "comm_compression_broadcast": "full",  # server->client: full|bf16|compress
+    # stats-driven per-round keep-ratio (core/wire/adaptive); bounds default
+    # to [ratio / 4, ratio]
+    "comm_compression_adaptive": False,
+    "comm_compression_ratio_min": None,
+    "comm_compression_ratio_max": None,
+    "comm_compression_latency_budget_s": None,  # uplink s == full pressure
+    # comm retry policy (exponential backoff + jitter at the transport
+    # send seam; 0 attempts = fail fast); deadline_s caps the total retry
+    # budget in wall seconds (0 = attempt count only)
+    "comm_retry_max_attempts": 4,
+    "comm_retry_base_s": 0.2,
+    "comm_retry_max_s": 2.0,
+    "comm_retry_deadline_s": 0.0,
+    # cross-silo: a timed-out round aggregates only if at least
+    # ceil(frac * expected) silos reported
+    "round_quorum_frac": 0.0,
+    # cross-silo data-index assignment: legacy round-robin | scored
+    "silo_index_assignment": "legacy",
+    # tracking_args (core/mlops.init): the run's JSONL record file
+    "enable_tracking": True,     # master switch for the JSONL sink
+    "log_file_dir": "~/.cache/fedml_tpu/logs",
+    "log_server_url": None,      # remote log shipper endpoint (log_daemon)
+    "sys_perf_profiling": False,  # host/device sampler thread (mlops)
     # obs_args (core/obs.configure): spans and the metrics registry are
     # on by default; the snapshot cadence in rounds and in wall seconds
     # (0 = off)
@@ -219,7 +258,7 @@ class Arguments:
         self.backend = FEDML_SIMULATION_BACKEND_ALIASES.get(backend, backend)
         if self.client_num_per_round > self.client_num_in_total:
             self.client_num_per_round = self.client_num_in_total
-        for key in ("data_cache_dir", "checkpoint_dir"):
+        for key in ("data_cache_dir", "log_file_dir", "checkpoint_dir"):
             val = getattr(self, key, None)
             if isinstance(val, str):
                 setattr(self, key, os.path.expanduser(val))

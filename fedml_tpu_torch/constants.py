@@ -1,7 +1,10 @@
 """Constants the ported slices read (counterpart of ``fedml_tpu/constants.py``,
-reduced to the simulation platform and its backends)."""
+reduced to the simulation and cross-silo platforms, their backends and the
+cross-silo wire's compression names)."""
 
 FEDML_TRAINING_PLATFORM_SIMULATION = "simulation"
+FEDML_TRAINING_PLATFORM_CROSS_SILO = "cross_silo"
+FEDML_TRAINING_PLATFORM_CROSS_CLOUD = "cross_cloud"
 
 # Simulation backends. The JAX package runs the round as one SPMD program on
 # a TPU mesh ("tpu"); the port runs it on one CUDA device ("gpu"). SP is the
@@ -19,3 +22,24 @@ FEDML_SIMULATION_BACKEND_ALIASES = {
     "nccl": FEDML_SIMULATION_TYPE_GPU,
     "mpi": FEDML_SIMULATION_TYPE_GPU,
 }
+
+# Cross-silo scenarios
+FEDML_CROSS_SILO_SCENARIO_HORIZONTAL = "horizontal"
+FEDML_CROSS_SILO_SCENARIO_HIERARCHICAL = "hierarchical"
+
+# Wire-efficiency for cross-silo updates (``comm_compression`` knobs):
+# sparsification/quantization of the client->server update with per-client
+# error feedback, plus the server->client sync dtype. Off by default —
+# payloads stay byte-identical to the dense float32 path.
+COMM_COMPRESSION_TOPK = "topk"
+COMM_COMPRESSION_RANDK = "randk"
+COMM_COMPRESSION_QSGD = "qsgd"
+COMM_COMPRESSION_TOPK_QSGD = "topk_qsgd"
+COMM_COMPRESSION_RANDK_QSGD = "randk_qsgd"
+COMM_COMPRESSION_METHODS = (
+    COMM_COMPRESSION_TOPK, COMM_COMPRESSION_RANDK, COMM_COMPRESSION_QSGD,
+    COMM_COMPRESSION_TOPK_QSGD, COMM_COMPRESSION_RANDK_QSGD,
+)
+COMM_BROADCAST_FULL = "full"          # dense float32 server->client sync
+COMM_BROADCAST_BF16 = "bf16"          # dense sync at half the bytes
+COMM_BROADCAST_COMPRESS = "compress"  # sync ships the compressed global delta

@@ -48,6 +48,7 @@ every replay: the host writes the client's key once, before its steps.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -67,6 +68,11 @@ GradTransform = Callable[[Params, Params, Dict[str, Any]], Params]
 #: eager runs of the step body on a side stream before capture, as
 #: PyTorch asks (lazy library handles, workspaces, autotuning)
 WARMUP_STEPS = 3
+
+# one capture at a time per process: the in-proc cross-silo session runs
+# each silo's program on a thread of its own, and a capture reads the
+# kernel counters' ``captured`` before and after
+_CAPTURE_LOCK = threading.Lock()
 
 
 def batch_real_of(mask) -> np.ndarray:
@@ -325,7 +331,14 @@ class _Program:
 
     def _capture(self, cdata: ClientData) -> None:
         """Warm the body up on a side stream, then capture it. The warm-up
-        writes the static tensors; the caller resets them afterwards."""
+        writes the static tensors; the caller resets them afterwards.
+        Captures are serialised within a process, and each is
+        ``thread_local`` (other threads, e.g. the in-proc cross-silo
+        session's other parties, keep working on the card meanwhile)."""
+        with _CAPTURE_LOCK:
+            self._capture_locked(cdata)
+
+    def _capture_locked(self, cdata: ClientData) -> None:
         from ..kernels import counted_kernels
         t0 = time.perf_counter()
         self._load_batch(cdata, 0)
@@ -340,7 +353,7 @@ class _Program:
         # keep_graph: the graph stays inspectable (debug_dump) after
         # instantiation
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._body()
         graph.instantiate()
         self.graph_launches = {fn: fn.captured - n

@@ -1,6 +1,7 @@
 """Deterministic fault injection — the chaos subsystem's schedule (a copy
-of ``fedml_tpu/core/chaos/plan.py``; its ledger records go to the obs
-sink, ``core/obs/sink.py``, as ``kind: chaos``).
+of ``fedml_tpu/core/chaos/plan.py``; its ledger records go through the
+obs sink, ``core/obs/sink.py``, which ``mlops`` shares, as ``kind:
+chaos``).
 
 Real federated deployments (the reference's Octopus/Beehive pillars) live
 with client dropout, stragglers, flaky links, and mid-run crashes; the
@@ -339,17 +340,18 @@ class FaultPlan:
 
 
 class FaultLedger:
-    """Injected-vs-observed fault accounting, one record per round,
-    mirrored to the obs sink. ``injected`` is what the :class:`FaultPlan`
-    scheduled; ``observed`` is what the runtime actually saw at the
-    aggregation seam — a tolerance bug shows up as the two disagreeing.
-    Buffered-async pours (:meth:`record_pour`) and the serving plane's
-    injected faults (:meth:`record_serving`) record here too. (The JAX
-    ledger's link records wait for the transport interceptor.)"""
+    """Injected-vs-observed fault accounting, one record per round (plus
+    link events), mirrored to the obs sink. ``injected`` is what the
+    :class:`FaultPlan` scheduled; ``observed`` is what the runtime actually
+    saw at the aggregation seam — a tolerance bug shows up as the two
+    disagreeing. Buffered-async pours (:meth:`record_pour`), the transport
+    interceptor's link faults (:meth:`record_link`) and the serving plane's
+    injected faults (:meth:`record_serving`) record here too."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._rounds: List[Dict[str, Any]] = []
+        self._links: List[Dict[str, Any]] = []
         self._serving: List[Dict[str, Any]] = []
 
     def record_round(self, round_idx: int, injected: Dict[str, Any],
@@ -378,6 +380,16 @@ class FaultLedger:
         sink.log_chaos(round_idx=int(version), arrivals=list(arrivals),
                        observed=dict(observed))
 
+    def record_link(self, sender: int, receiver: int, msg_type: Any,
+                    decision: LinkDecision) -> None:
+        rec = {"sender": int(sender), "receiver": int(receiver),
+               "msg_type": str(msg_type), "copies": decision.copies,
+               "delay_s": decision.delay_s}
+        with self._lock:
+            self._links.append(rec)
+        from ..obs import sink
+        sink.log_chaos(link=rec)
+
     def record_serving(self, kind: str, **detail: Any) -> None:
         """One injected serving fault (stall / nan / conn_drop / crash)
         with whatever locates it (step_idx, seq, request_idx). The soak
@@ -398,6 +410,15 @@ class FaultLedger:
         with self._lock:
             return list(self._rounds)
 
+    def links(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._links)
+
     def serving_events(self) -> List[Dict[str, Any]]:
         with self._lock:
             return list(self._serving)
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"rounds": list(self._rounds), "links": list(self._links),
+                    "serving": list(self._serving)}

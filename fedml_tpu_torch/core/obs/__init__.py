@@ -9,21 +9,24 @@ as far as the serving engine, its scheduler and the GPU engine use it):
   NaN :class:`Watchdog`;
 - :mod:`.profiler`: the dispatch seam's host/device split, the peak
   table and MFU (``obs_profile_device``);
-- :mod:`.sink`: where records go (nowhere until a caller installs one).
+- :mod:`.sink`: where records go (the run's JSONL file once
+  ``core/mlops.init`` opens it, and a caller's callable);
+- :mod:`.schema`: the one table every record kind validates against (a
+  copy of the JAX package's).
 
-:func:`configure` wires the ``obs_*`` knobs (``fedml_tpu_torch.init`` and
-``run_federated_llm`` call it, as the JAX package's ``mlops.init`` does).
-Not ported yet: ``roofline`` (``obs_roofline`` raises), ``schema`` and
-the mlops plumbing (ROADMAP Queue A, the record plane).
+:func:`configure` wires the ``obs_*`` knobs (``core/mlops.init``, which
+``fedml_tpu_torch.init`` calls, and ``run_federated_llm`` call it). Not
+ported yet: ``roofline`` (``obs_roofline`` raises).
 """
 
 from __future__ import annotations
 
-from . import flight, metrics, profiler, sink, trace  # noqa: F401
+from . import flight, metrics, profiler, schema, sink, trace  # noqa: F401
 from .flight import FlightRecorder, Watchdog  # noqa: F401
 from .metrics import REGISTRY  # noqa: F401
-from .trace import (NOOP_SPAN, SpanContext, current_span,  # noqa: F401
-                    parse_traceparent, span, tracer)
+from .trace import (NOOP_SPAN, SpanContext, add_event,  # noqa: F401
+                    current_span, extract, inject, parse_traceparent, span,
+                    tracer)
 
 
 def configure(args=None) -> None:

@@ -625,6 +625,27 @@ def record_wire_stage(msg_type: Any, stage: str, nbytes: int) -> None:
                          stage=str(stage))
 
 
+def record_dispatch(name: str, wall_s: float, rounds: int,
+                    compiles: int) -> None:
+    """Dispatch seam (``mlops.log_dispatch``): dispatch wall time and the
+    compile counter."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.histogram("fed_dispatch_wall_seconds",
+                       "host wall time of one device dispatch",
+                       buckets=WALL_BUCKETS,
+                       labels=("dispatch",)).observe(float(wall_s),
+                                                     dispatch=str(name))
+    REGISTRY.counter("fed_dispatch_rounds_total",
+                     "FL rounds carried by dispatches",
+                     labels=("dispatch",)).inc(int(rounds),
+                                               dispatch=str(name))
+    if compiles:
+        REGISTRY.counter("fed_xla_compiles_total",
+                         "XLA backend compiles observed at dispatch "
+                         "seams").inc(int(compiles))
+
+
 def record_checkpoint_flush(wall_s: float) -> None:
     """``RoundCheckpointer.flush`` seam: the wall time the round loop
     blocks for its checkpoint writes."""

@@ -1,7 +1,6 @@
 """Distributed tracing — real spans with trace/span IDs, Dapper-style
-(counterpart of ``fedml_tpu/core/obs/trace.py``; the Message propagation
-helpers wait for the transports, and spans are emitted through
-:mod:`.sink` instead of ``mlops``).
+(counterpart of ``fedml_tpu/core/obs/trace.py``; spans are emitted through
+:mod:`.sink`, which ``mlops`` shares).
 
 The plane the old ``mlops.event`` never was: every span carries a
 process-unique ``span_id`` inside a run-spanning ``trace_id``, nests under
@@ -30,6 +29,9 @@ import re
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+# the Message param carrying the W3C context header
+TRACEPARENT_KEY = "traceparent"
 
 _TRACEPARENT_RE = re.compile(
     r"^[0-9a-f]{2}-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")
@@ -91,6 +93,15 @@ def _stack() -> List["Span"]:
 def current_span() -> Optional["Span"]:
     st = _stack()
     return st[-1] if st else None
+
+
+def add_event(name: str, **attrs: Any) -> None:
+    """Attach a point-in-time event to the current span, if any — the
+    seam deep layers (backoff retries, chaos faults) use without needing
+    a span handle threaded through."""
+    sp = current_span()
+    if sp is not None:
+        sp.add_event(name, **attrs)
 
 
 class Span:
@@ -274,6 +285,26 @@ def span(name: str, parent: Any = None, root: bool = False,
          attrs: Optional[Dict[str, Any]] = None):
     """Module-level shortcut: ``with obs_trace.span("broadcast"): ...``"""
     return tracer.start_span(name, parent=parent, root=root, attrs=attrs)
+
+
+# --- Message propagation ----------------------------------------------------
+
+def inject(msg, span_or_ctx: Any = None) -> None:
+    """Stamp the current (or given) span's traceparent onto an outgoing
+    :class:`Message` — the ONE seam every transport inherits, because the
+    header is an ordinary message param."""
+    if not _cfg["enabled"]:
+        return
+    sp = span_or_ctx if span_or_ctx is not None else current_span()
+    if isinstance(sp, Span):
+        sp = sp.context
+    if isinstance(sp, SpanContext):
+        msg.add_params(TRACEPARENT_KEY, sp.traceparent())
+
+
+def extract(msg) -> Optional[SpanContext]:
+    """Read the remote trace context off a received :class:`Message`."""
+    return parse_traceparent(msg.get(TRACEPARENT_KEY))
 
 
 # --- emission ---------------------------------------------------------------

@@ -456,6 +456,37 @@ def laplace_segments_t(rng: np.ndarray, segments) -> torch.Tensor:
     return _segments_draw_t(_laplace_of, _LAPLACE_LO, rng, segments)
 
 
+def bits_t(key: np.ndarray, n: int, device) -> torch.Tensor:
+    """``jax.random.bits(key, (n,))`` (32-bit) on ``device``: ``b0 ^ b1`` of
+    ``threefry(key, (0, i))``, uint32 values in ``int64``."""
+    ctr = torch.arange(int(n), dtype=torch.int64, device=device)
+    b0, b1 = _threefry_t(*_ints(key), ctr)
+    return b0.bitwise_xor_(b1)
+
+
+def uniform_t(key: np.ndarray, n: int, device) -> torch.Tensor:
+    """:func:`uniform` on ``[0, 1)`` drawn on ``device`` (same bits on the
+    CPU)."""
+    return _uniform_t(bits_t(key, n, device), np.float32(0.0))
+
+
+def permutation_t(key: np.ndarray, n: int, device) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (jax 0.9's ``_shuffle``) on
+    ``device``, as ``int64``: ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each
+    splitting the key, drawing 32 random bits per position from the
+    subkey and stably sorting the positions by them (ties keep their
+    order, as ``lax.sort_key_val``)."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(rounds):
+        key, subkey = split(key)
+        order = torch.sort(bits_t(subkey, n, device), stable=True).indices
+        x = x[order]
+    return x
+
+
 def epoch_order(data_rng: np.ndarray, epoch: int,
                 batch_real: np.ndarray) -> np.ndarray:
     """The local loop's sort-trick batch order for one epoch: a uniform key

@@ -2,14 +2,18 @@
 GPU simulator (sync, or buffered-async under ``round_mode:
 async_buffered``), the SP golden loop or the SP ``Async_FedAvg`` loop for
 the ported slices, hands a user ``ServerAggregator`` to the GPU engine,
-and refuses what they have not ported (an unported model or dataset is
-refused by ``model.create`` / ``data.load``, naming itself)."""
+builds a cross-silo party (``training_type: cross_silo``: the server or a
+silo of the horizontal session, ``cross_silo/``), and refuses what they
+have not ported (an unported model or dataset is refused by
+``model.create`` / ``data.load``, naming itself)."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 from .constants import (FEDML_SIMULATION_TYPE_GPU, FEDML_SIMULATION_TYPE_SP,
+                        FEDML_TRAINING_PLATFORM_CROSS_CLOUD,
+                        FEDML_TRAINING_PLATFORM_CROSS_SILO,
                         FEDML_TRAINING_PLATFORM_SIMULATION)
 from .device import get_device
 
@@ -18,12 +22,6 @@ from .device import get_device
 # NotImplementedError naming it, rather than silently ignoring it.
 UNPORTED_KNOBS: Dict[str, tuple] = {
     "enable_secure_agg": (None, False), "enable_fhe": (None, False),
-    # link faults act only through the transport interceptor
-    # (core/chaos's ChaosCommManager), which waits for the distributed
-    # runtimes
-    "chaos_link_loss_prob": (None, 0, 0.0),
-    "chaos_link_dup_prob": (None, 0, 0.0),
-    "chaos_link_delay_prob": (None, 0, 0.0),
     "mesh_shape": (None,),
     "obs_roofline": (None, False),
     # the values of this knob that are ported
@@ -42,6 +40,22 @@ ENGINE_CHAOS_KNOBS: Dict[str, tuple] = {
 
 PORTED_OPTIMIZERS = ("FedAvg, FedProx, FedOpt (sgd, adam, adagrad, yogi), "
                      "FedSGD, FedLocalSGD, SCAFFOLD, FedNova, FedDyn, Mime")
+
+# what the port runs, for the refusals' messages
+PORTED_SUMMARY = (
+    "ported: the simulation platform, i.e. the GPU and SP simulators' "
+    f"rounds with every federated optimizer ({PORTED_OPTIMIZERS}) and "
+    "client_slot_fold, differential privacy (LDP, CDP, NbAFL), the model "
+    "and data attacks, the 22 defenses and the defended round, chaos, "
+    "participant selection, contribution assessment, a user "
+    "ServerAggregator and buffered-async rounds; the cross-silo platform "
+    "(training_type: cross_silo), i.e. the horizontal synchronous session "
+    "over INPROC, TCP or gRPC with the comm_retry_*, comm_compression_*, "
+    "round_timeout_s / round_quorum_frac, chaos_* (link faults included) "
+    "and checkpoint knobs, whose secure aggregation (SA, LSA), async "
+    "server, split learning, gossip, vertical and hierarchical scenarios "
+    "still raise; the models and tasks of the zoo, round checkpoints, "
+    "the federated LoRA causal LM and serving")
 
 # federated_optimizer values that the JAX package dispatches to protocol
 # simulators of their own: none runs the engine, so none can honor
@@ -69,24 +83,7 @@ def check_ported(args) -> None:
         if _knob_on(args, knob, off):
             raise NotImplementedError(
                 f"{knob}={getattr(args, knob)!r} is not ported to "
-                f"fedml_tpu_torch yet (ported: the GPU and SP simulators' "
-                f"rounds with every federated optimizer ({PORTED_OPTIMIZERS})"
-                f" and client_slot_fold, differential privacy (LDP, CDP, "
-                f"NbAFL), the model and data attacks, the 22 defenses and "
-                f"the defended round (robust_fused, sharded_defense, "
-                f"robust_relayout_quant), chaos (dropout, stragglers, "
-                f"crash-at-round, over-sampling; the GPU engine), "
-                f"participant selection (client_selection, "
-                f"selection_adaptive_oversample, pacer_adapt_cohort), "
-                f"contribution assessment (LOO, GTG-Shapley), a user "
-                f"ServerAggregator and buffered-async rounds (round_mode: "
-                f"async_buffered; federated_optimizer: Async_FedAvg), "
-                f"with the ResNets (20, 56, 18), the CNNs (cnn with "
-                f"dropout, simple_cnn, device_cnn), the Shakespeare and "
-                f"StackOverflow LSTMs, the linear models or the federated "
-                f"LoRA causal LM on the classification, sequence, "
-                f"multilabel, regression and LLM tasks, their round "
-                f"checkpoints, and serving them)")
+                f"fedml_tpu_torch yet ({PORTED_SUMMARY})")
     fo = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
     if fo in _ASYNC_FEDAVG:
         loop = "the SP Async_FedAvg loop"
@@ -105,7 +102,9 @@ def check_ported(args) -> None:
 
 class FedMLRunner:
     """Dispatch on ``args.training_type`` x ``args.backend``: the port has
-    the simulation platform on the GPU and SP backends."""
+    the simulation platform on the GPU and SP backends, and the
+    cross-silo platform (``cross_silo`` / ``cross_cloud``) over INPROC, TCP
+    and gRPC."""
 
     def __init__(self, args, device=None, dataset=None, model=None,
                  client_trainer=None, server_aggregator=None,
@@ -115,10 +114,22 @@ class FedMLRunner:
         check_ported(args)
         ttype = getattr(args, "training_type",
                         FEDML_TRAINING_PLATFORM_SIMULATION)
+        if ttype in (FEDML_TRAINING_PLATFORM_CROSS_SILO,
+                     FEDML_TRAINING_PLATFORM_CROSS_CLOUD):
+            if server_aggregator is not None:
+                raise NotImplementedError(
+                    "server_aggregator: the cross-silo server takes no "
+                    "user ServerAggregator (neither does the JAX "
+                    "package's); run it on the simulation platform")
+            from .cross_silo.runner import build_cross_silo_runner
+            self.runner = build_cross_silo_runner(
+                args, dataset, model, client_trainer,
+                device=get_device(device), init_params=init_params)
+            return
         if ttype != FEDML_TRAINING_PLATFORM_SIMULATION:
             raise NotImplementedError(
                 f"training_type={ttype!r} is not ported to fedml_tpu_torch "
-                f"yet (ported: simulation)")
+                f"yet (ported: simulation, cross_silo)")
         from .core.async_rounds import round_mode_from_args
         from .core.algframe.client_trainer import make_trainer_spec
         from .optimizers.registry import create_optimizer

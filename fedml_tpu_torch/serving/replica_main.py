@@ -36,7 +36,7 @@ from types import SimpleNamespace
 def main() -> None:
     with open(sys.argv[1]) as f:
         spec = json.load(f)
-    from ..core import obs
+    from ..core import mlops, obs
     from ..core.chaos import ServingChaosInjector
     from ..device import get_device
     from . import CheckpointPredictor, FedMLInferenceRunner
@@ -44,11 +44,12 @@ def main() -> None:
     # raises before anything is served when the card is asked for and absent
     device = get_device(spec.get("device", "cuda"))
     args = SimpleNamespace(**spec["args"])
-    # the obs knobs from the spec's flat config; the pid-suffixed run_id
-    # keeps sibling replicas' records apart
+    # a replica is a first-class observability citizen: its own JSONL
+    # file (run_<id>.jsonl; the pid-suffixed run_id keeps sibling
+    # replicas' files apart) and the obs knobs, from the spec's flat
+    # config
     args.run_id = f"{getattr(args, 'run_id', '0')}_replica{os.getpid()}"
-    obs.configure(args)
-    obs.sink.set_sink(None, run_id=args.run_id)
+    mlops.init(args, device=device)
     # serving chaos in a SUBPROCESS replica is allowed to be lethal:
     # crash-at-request-N exits this process for real (the gateway's
     # health-aware failover + the set's health check are what recover)

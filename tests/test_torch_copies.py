@@ -7,7 +7,14 @@ outputs, bit for bit.
 * ``data/leaf.py``: the LEAF reader, text and numeric users;
 * ``data/acquire.py``'s offline part: ``BUNDLED_REAL`` and
   ``import_archive`` / ``_parse_local_archive`` (``.npz`` and CIFAR
-  tarballs).
+  tarballs);
+* the cross-silo runtime's copies: ``cross_silo/message_define.py``,
+  ``base_com_manager.py`` (observers), ``fedml_comm_manager.py`` (the
+  handler registry), the INPROC / TCP / gRPC transports' constants and
+  broker, ``core/mlops/log_daemon.py`` (the shipper's POSTs to a local
+  HTTP server). ``interceptor.py``, ``schema.py``, ``backoff.py`` and
+  ``core/wire/*`` are pinned in ``tests/test_torch_comm.py`` and
+  ``tests/test_torch_compression.py``.
 """
 
 from __future__ import annotations
@@ -189,3 +196,143 @@ def test_ml_namespace_agg_matches_jax():
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=2e-4, atol=2e-5)
+
+
+def test_message_define_copy():
+    from fedml_tpu.cross_silo.message_define import MyMessage as J
+    from fedml_tpu_torch.cross_silo.message_define import MyMessage as T
+    names = sorted(k for k in vars(J) if k.isupper())
+    assert names == sorted(k for k in vars(T) if k.isupper())
+    assert len(names) > 15
+    assert all(getattr(J, k) == getattr(T, k) for k in names)
+
+
+def _observed(base_mod, msg_mod):
+    class Mgr(base_mod.BaseCommunicationManager):
+        def send_message(self, msg):
+            pass
+
+        def handle_receive_message(self):
+            pass
+
+        def stop_receive_message(self):
+            pass
+
+    class Obs(base_mod.Observer):
+        def __init__(self, tag, log):
+            self.tag, self.log = tag, log
+
+        def receive_message(self, msg_type, msg):
+            self.log.append((self.tag, msg_type, msg.get_sender_id()))
+
+    log, m = [], Mgr()
+    a, b = Obs("a", log), Obs("b", log)
+    m.add_observer(a)
+    m.add_observer(b)
+    m.notify(msg_mod.Message(3, 1, 0))
+    m.remove_observer(a)
+    m.remove_observer(a)
+    m.notify(msg_mod.Message(5, 2, 0))
+    abstract = sorted(base_mod.BaseCommunicationManager.__abstractmethods__)
+    return log, abstract
+
+
+def test_base_com_manager_copy():
+    from fedml_tpu.core.distributed.communication import (
+        base_com_manager as jb, message as jm)
+    from fedml_tpu_torch.core.distributed.communication import (
+        base_com_manager as tb, message as tm)
+    assert _observed(tb, tm) == _observed(jb, jm)
+
+
+def _registry(fcm, inproc, args):
+    log = []
+
+    class Mgr(fcm.FedMLCommManager):
+        def register_message_receive_handlers(self):
+            self.register_message_receive_handler(3, lambda m: log.append(
+                ("h3", m.get_sender_id())))
+
+    args.inproc_broker = inproc.InProcBroker()
+    m = Mgr(args, rank=0, size=2, backend="inproc")
+    m.register_message_receive_handlers()
+    from importlib import import_module
+    msg = import_module(fcm.__name__.rsplit(".", 1)[0]
+                        + ".communication.message").Message
+    m.receive_message(3, msg(3, 1, 0))
+    m.receive_message(9, msg(9, 1, 0))   # no handler: logged, ignored
+    return log, m.backend, m.get_sender_id(), type(m.com_manager).__name__
+
+
+def test_fedml_comm_manager_copy():
+    from fedml_tpu.arguments import Arguments as JA
+    from fedml_tpu.core.distributed import fedml_comm_manager as jf
+    from fedml_tpu.core.distributed.communication import inproc as ji
+    from fedml_tpu_torch.arguments import Arguments as TA
+    from fedml_tpu_torch.core.distributed import fedml_comm_manager as tf
+    from fedml_tpu_torch.core.distributed.communication import inproc as ti
+    assert _registry(tf, ti, TA()) == _registry(jf, ji, JA())
+
+
+def test_transport_copies():
+    from fedml_tpu.core.distributed.communication import grpc as jg
+    from fedml_tpu.core.distributed.communication import tcp as jt
+    from fedml_tpu_torch.core.distributed.communication import grpc as tg
+    from fedml_tpu_torch.core.distributed.communication import tcp as tt
+    from fedml_tpu_torch.core.distributed.communication import inproc as ti
+    assert tt.TCP_BASE_PORT == jt.TCP_BASE_PORT == 29690
+    assert (tg.GRPC_BASE_PORT, tg._SERVICE, tg._METHOD, tg.MAX_MSG) == (
+        jg.GRPC_BASE_PORT, jg._SERVICE, jg._METHOD, jg.MAX_MSG)
+    broker = ti.InProcBroker()
+    broker.post(2, b"x")
+    broker.post(2, b"y")
+    assert broker.inbox(2).get_nowait() == b"x"
+    assert broker.inbox(2).get_nowait() == b"y"
+    assert broker.inbox(1).empty()
+
+
+def _ship(daemon, path, port):
+    ship = daemon.LogShipper(str(path), f"http://127.0.0.1:{port}/logs",
+                             run_id="r", device_id="7", batch_lines=2,
+                             interval_s=60.0)
+    with open(path, "wb") as f:
+        f.write(b"one\ntwo\r\nthree\rfour\n  \nfive")
+    n = ship.pump_once()
+    ship.stop(flush=True)
+    return n, ship.shipped_lines, ship.failed_batches
+
+
+def test_log_daemon_copy(tmp_path):
+    import http.server
+    import threading
+    from fedml_tpu.core.mlops import log_daemon as jd
+    from fedml_tpu_torch.core.mlops import log_daemon as td
+
+    bodies = []
+
+    class H(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            n = int(self.headers["Content-Length"])
+            bodies.append(json.loads(self.rfile.read(n)))
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.HTTPServer(("127.0.0.1", 0), H)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        got = []
+        for mod, name in ((td, "t.log"), (jd, "j.log")):
+            bodies.clear()
+            stats = _ship(mod, tmp_path / name, srv.server_address[1])
+            got.append((stats, [dict(b) for b in bodies]))
+    finally:
+        srv.shutdown()
+    assert got[0] == got[1]
+    (n, shipped, failed), posted = got[0]
+    assert (n, shipped, failed) == (4, 5, 0)
+    assert [b["log_lines"] for b in posted] == [["one", "two"],
+                                                ["three", "four"], ["five"]]

@@ -107,9 +107,7 @@ def test_fresh_init_is_seeded_and_runs():
 
 @pytest.mark.parametrize("knob,value", [
     ("enable_secure_agg", True), ("enable_fhe", True),
-    ("chaos_link_loss_prob", 0.2), ("chaos_link_dup_prob", 0.2),
-    ("chaos_link_delay_prob", 0.2), ("mesh_shape", (2, 2)),
-    ("obs_roofline", True)])
+    ("mesh_shape", (2, 2)), ("obs_roofline", True)])
 def test_unported_knobs_raise(knob, value):
     cfg = dict(CFG, comm_round=1, max_total_samples=16, **{knob: value})
     with pytest.raises(NotImplementedError, match=knob) as ei:
@@ -139,6 +137,22 @@ def test_fault_and_selection_knobs_are_ported(knob, value):
     if not knob.startswith("chaos_"):
         r = fedml_tpu_torch.run_simulation(backend="sp", device="cpu", **cfg)
         assert np.isfinite(r["history"][0]["train_loss"])
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("chaos_link_loss_prob", 0.2), ("chaos_link_dup_prob", 0.2),
+    ("chaos_link_delay_prob", 0.2)])
+def test_link_fault_knobs_are_ported(knob, value):
+    """The three ``chaos_link_*`` knobs are ported with the transport
+    interceptor (cross-silo sessions: tests/test_torch_cross_silo.py). As
+    in the JAX package they act on the cross-silo wire only: a simulation
+    that carries one runs, bitwise equal to the same run without it."""
+    cfg = dict(CFG, dataset="synthetic_mnist", model="lr", comm_round=1,
+               max_total_samples=32)
+    a = fedml_tpu_torch.run_simulation(device="cpu", **cfg)
+    b = fedml_tpu_torch.run_simulation(device="cpu", **cfg, **{knob: value})
+    for k in a["params"]:
+        assert torch.equal(a["params"][k], b["params"][k]), k
 
 
 SERVING_CHAOS_KNOBS = [

@@ -140,3 +140,49 @@ def test_no_jax_import_statement(path):
     bad = [n for n in names
            if n.split(".")[0] in ("jax", "jaxlib", "flax", "fedml_tpu")]
     assert not bad, bad
+
+
+_NO_GRPC_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+
+class _NoGrpc(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "grpc" or name.startswith("grpc."):
+            raise ModuleNotFoundError(f"No module named {name!r}")
+        return None
+
+
+sys.meta_path.insert(0, _NoGrpc())
+import fedml_tpu_torch
+names = ["fedml_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(fedml_tpu_torch.__path__,
+                                          "fedml_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+from fedml_tpu_torch.core.distributed.communication.grpc import \
+    GRPCCommManager
+try:
+    GRPCCommManager(0, base_port=1)
+except ModuleNotFoundError as e:
+    refused = "grpc" in str(e)
+else:
+    refused = False
+print(len(names), refused, "grpc" in sys.modules,
+      "fedml_tpu_torch.cross_silo.horizontal.runner" in names)
+"""
+
+
+def test_package_imports_without_grpc():
+    """The card's host lists no ``grpcio``: every module of the port
+    (the cross-silo runtime and its gRPC transport among them) imports
+    with ``grpc`` hidden; only building a GRPC transport needs it."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = _ROOT
+    out = subprocess.run([sys.executable, "-c", _NO_GRPC_PROBE], cwd=_ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, refused, loaded, walked = out.stdout.split()
+    assert int(count) >= 25
+    assert (refused, loaded, walked) == ("True", "False", "True")
