@@ -189,7 +189,24 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     accuracy, and per silo its steps, ms per local step, captures (1) and
     B1 launches, held to 27 x (warm-up + replays); the server's B1 held
     to 27 per eval forward; a ``{"cross_silo": ...}`` line;
-17. one JSON line describing each kernel, then the card line, then
+17. the buffered-async cross-silo runtime and the other transports: (a)
+    checks (f32, TF32 off): a scripted upload trace (fresh, 1-5 versions
+    stale, past the base ring, a compressed uplink; undefended, and krum
+    with a byzantine row) through ``AsyncFedMLAggregator`` on the card
+    against the CPU; phase 16's LR session over PUBSUB_STORAGE (broker in
+    this process, payloads through the object store) and over TRPC (a
+    process per rank) bitwise equal to INPROC; the LR session as an async
+    session (K 2) under link faults (every pour, a balanced buffer
+    ledger, staleness >= 1); (b) the flagship's configuration as a
+    buffered-async session (K 2 of 4 ResNet-56 silo processes, the server
+    and the broker in this process, PUBSUB_STORAGE): 2 untimed pours (the
+    captures), 4 timed: seconds per pour, updates per wall hour beside
+    phase 16 (c)'s, the wait / aggregate / eval / broadcast split, the
+    staleness histogram, the store's objects and bytes, per silo its
+    trainings, ms per local step, captures (1) and B1 launches held to 27
+    x (warm-up + replays); the server's B1 held to 27 per eval forward; an
+    ``{"async_cross_silo": ...}`` line;
+18. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -198,6 +215,7 @@ and read just after. Imports nothing of JAX or ``fedml_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -699,6 +717,38 @@ CS_FULL = dict(dataset="synthetic_cifar10", model="resnet56",
                synthetic_test_size=1000, partition_alpha=0.5,
                frequency_of_the_test=1, random_seed=0)
 CS_JOIN_S = 600.0
+
+# The buffered-async cross-silo runtime and the other transports (phase
+# 17). (a) checks, f32 with TF32 off: ASYNC_TRACE's scripted upload trace
+# (fresh uploads, uploads 1-5 versions stale, one from version 0 past the
+# ring cap 4, a topk_qsgd compressed uplink; undefended at K 2, and krum
+# at K 4 with one byzantine row x 50) through AsyncFedMLAggregator on the
+# card and on the CPU (HOUSE_TOL, the same verdicts); CS_LR over
+# PUBSUB_STORAGE (the broker in this process, the store under the run's
+# temp dir, the JAX package's 4,096-byte offload threshold: every model
+# message goes through the store) and over TRPC (a process per rank), each
+# bitwise equal to the INPROC session; CS_LR as an async session (K 2,
+# the pour-timeout valve) under CS_LINK's link faults for CS_ASYNC_LR_POURS
+# pours (every pour completes, the buffer ledger balances, staleness >= 1).
+ASYNC_TRACE = dict(client_num_per_round=5, round_mode="async_buffered",
+                   async_alpha=0.8, async_staleness_weighting="polynomial",
+                   async_staleness_poly=0.5, async_staleness_cap=4,
+                   random_seed=11)
+ASYNC_TRACE_KRUM = dict(enable_defense=True, defense_type="krum",
+                        byzantine_client_num=1)
+ASYNC_TRACE_POURS = 8
+CS_ASYNC_LR_POURS = 8
+# (b) CS_FULL as a buffered-async session: K 2 of the 4 silos, the silos
+# as processes and the server in this process over PUBSUB_STORAGE (model
+# payloads through the object store); CS_ASYNC_WARM untimed pours (every
+# silo's first training, which holds its capture), then CS_ASYNC_TIMED
+# timed pours (one pair: the re-synced pairs alternate); the pour-timeout
+# valve far above a pour (no partial pour).
+CS_ASYNC_WARM = 2
+CS_ASYNC_TIMED = 2
+CS_ASYNC_FULL = dict(CS_FULL, round_mode="async_buffered", async_buffer_k=2,
+                     async_pour_timeout_s=120.0,
+                     comm_round=CS_ASYNC_WARM + CS_ASYNC_TIMED)
 
 # Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
 # the trainer calls the model), the hot loop, bench_long_context, and the
@@ -3822,8 +3872,10 @@ def _listening(port) -> bool:
 def cs_session(cfg, dev, backend="INPROC", join_s=120.0):
     """One cross-silo session of ``cfg`` with every party on ``dev``: the
     server and each silo on a thread of this process, over ``backend``
-    (INPROC, or TCP on free loopback ports). Returns (server, silos); a
-    session that does not finish within ``join_s`` fails."""
+    (INPROC, TCP on free loopback ports, or PUBSUB_STORAGE through a
+    broker in this process and the object store at
+    ``FEDML_TPU_STORAGE_DIR``). Returns (server, silos); a session that
+    does not finish within ``join_s`` fails."""
     import copy
     import threading
 
@@ -3835,8 +3887,14 @@ def cs_session(cfg, dev, backend="INPROC", join_s=120.0):
                                                               build_server)
     n = cfg["client_num_per_round"]
     args = Arguments(**cfg, training_type="cross_silo")
+    broker = None
     if backend == "TCP":
         args.tcp_base_port = free_port_base(n + 1)
+    elif backend == "PUBSUB_STORAGE":
+        from fedml_tpu_torch.core.distributed.communication.pubsub import \
+            PubSubBroker
+        broker = PubSubBroker()
+        args.pubsub_broker_port = broker.port
     else:
         args.inproc_broker = InProcBroker()
     fed, output_dim = data.load(args)
@@ -3857,6 +3915,8 @@ def cs_session(cfg, dev, backend="INPROC", join_s=120.0):
         if t.is_alive():   # a lost FINISH (link faults) leaves it waiting
             c.finish()
             t.join(timeout=2.0)
+    if broker is not None:
+        broker.stop()
     require(ok, f"cross-silo session ({backend}, {dev}) did not finish "
                 f"within {join_s} s")
     return server, silos
@@ -4140,6 +4200,397 @@ def cross_silo_phase(torch, cb, fa, fedml, tmp, dev="cuda", cpu="cpu"):
                                                dev=dev)
     return ({"checks": checks, "checks_s": checks_s, "wire": wire,
              "wire_s": wire_s, "flagship": full,
+             "phase_s": time.perf_counter() - t_phase},
+            sum(s["b1_launches"] for s in silos),
+            server_launches["conv_block"])
+
+
+def async_trace(torch, agg, pours, k, byzantine, seed=3, scale=0.05):
+    """Feed ASYNC_TRACE's scripted uploads to ``agg`` (``pours`` pours of
+    ``k``): each upload its dispatch base plus a seeded delta (the
+    ``byzantine``-th of a pour x 50), the third pour's first a
+    ``topk_qsgd`` blob of its delta. Returns the pours' arrivals."""
+    import numpy as np
+
+    from fedml_tpu_torch import prng
+    from fedml_tpu_torch.utils import compression as comp
+    rng = np.random.RandomState(seed)
+    spec = comp.CommCompressionSpec("topk_qsgd", ratio=0.25)
+    arrivals = []
+    for p in range(pours):
+        for i in range(k):
+            lag = 0 if i == 0 else int(rng.randint(0, min(p, 5) + 1))
+            if p == pours - 1 and i == k - 1:
+                lag = p                  # from version 0: past the ring
+            v = max(agg.version - lag, 0)
+            base = agg.base_for(v)
+            delta = (scale * rng.randn(base.shape[0])).astype(np.float32)
+            if i == byzantine:
+                delta = delta * np.float32(50.0)
+            rank, t = 1 + (p * k + i) % 5, float(p * k + i)
+            if p == 2 and i == 0:
+                blob, _ = comp.ef_compress_vec(delta, None, spec,
+                                               prng.PRNGKey(5))
+                agg.add_async_upload(rank, comp.decompress_vec(blob), 2.0,
+                                     up_version=v, arrival_t=t,
+                                     compressed=True)
+            else:
+                agg.add_async_upload(rank, base + delta, 2.0, up_version=v,
+                                     arrival_t=t, compressed=False)
+        arrivals.append(agg.pour())
+    return arrivals
+
+
+def async_agg_check(torch, dev="cuda", cpu="cpu"):
+    """Phase 17 (a): the async aggregator on ``dev`` against ``cpu`` on
+    ASYNC_TRACE, undefended (K 2) and krum-defended (K 4, a byzantine
+    row). Returns {leg: record}."""
+    import numpy as np
+
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.cross_silo.server.async_server import \
+        AsyncFedMLAggregator
+    gen = torch.Generator().manual_seed(0)
+    init = {"Dense_0.weight": 0.1 * torch.randn(10, 8, generator=gen),
+            "Dense_0.bias": 0.1 * torch.randn(10, generator=gen)}
+    out = {}
+    for leg, knobs, k, byz in (("plain", {}, 2, None),
+                               ("krum", ASYNC_TRACE_KRUM, 4, 1)):
+        aggs, arrivals = [], []
+        for d in (dev, cpu):
+            agg = AsyncFedMLAggregator(
+                Arguments(**ASYNC_TRACE, async_buffer_k=k, **knobs), init,
+                device=d)
+            arrivals.append(async_trace(torch, agg, ASYNC_TRACE_POURS, k,
+                                        byz))
+            aggs.append(agg)
+        card, ref = aggs
+        order = [[(a["client"], a["staleness"]) for a in p]
+                 for p in arrivals[0]]
+        require(order == [[(a["client"], a["staleness"]) for a in p]
+                          for p in arrivals[1]],
+                f"async aggregator ({leg}): card and CPU pour differently")
+        ratio = _house_ratio(torch, card.global_params, ref.global_params)
+        require(ratio <= 1.0 and card.version == ASYNC_TRACE_POURS,
+                f"async aggregator ({leg}): card vs CPU at {ratio:.3f} of "
+                f"HOUSE_TOL, version {card.version}")
+        verdicts = all(np.array_equal(getattr(card.silo_stats, key),
+                                      getattr(ref.silo_stats, key))
+                       for key in ("incl_obs", "excl_obs"))
+        require(verdicts, f"async aggregator ({leg}): verdicts differ")
+        stal = [s for p in order for _, s in p]
+        require(max(stal) >= 5, f"async aggregator ({leg}): staleness "
+                                f"{stal} never past the ring")
+        rec = {"of_tolerance": ratio, "pours": card.version,
+               "staleness": stal, "params_device":
+                   str(next(iter(card.global_params.values())).device)}
+        if knobs:
+            rec["excluded"] = float(card.silo_stats.excl_obs.sum())
+            rec["ef_carried"] = sorted(card._ef_carry)
+            require(rec["excluded"] > 0, "krum excluded no row")
+        else:
+            rec["bitwise"] = all(torch.equal(
+                card.global_params[n].cpu(), v)
+                for n, v in ref.global_params.items())
+            require(rec["bitwise"], "undefended async pours: card and CPU "
+                                    "differ (host arithmetic)")
+        out[leg] = rec
+    return out
+
+
+@contextlib.contextmanager
+def storage_dir(path):
+    """The object store's root (``FEDML_TPU_STORAGE_DIR``) set to ``path``
+    in this process for the block."""
+    prev = os.environ.get("FEDML_TPU_STORAGE_DIR")
+    os.environ["FEDML_TPU_STORAGE_DIR"] = path
+    try:
+        yield path
+    finally:
+        if prev is None:
+            os.environ.pop("FEDML_TPU_STORAGE_DIR", None)
+        else:
+            os.environ["FEDML_TPU_STORAGE_DIR"] = prev
+
+
+def _store_objects(root):
+    files = [os.path.join(root, f) for f in os.listdir(root)
+             if not f.endswith(".tmp")]
+    return len(files), sum(os.path.getsize(f) for f in files)
+
+
+def cs_trpc_session(torch, cfg, dev, tmp, join_s=180.0):
+    """``cfg`` over TRPC, one process per rank (``silo_main``: the server
+    and each silo on ``dev``). Returns the server's params (read back from
+    its ``params_out``) and its record."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.distributed.communication.message import \
+        loads_tree
+    n = cfg["client_num_per_round"]
+    kw = dict(cfg, backend="TRPC", trpc_master_addr="127.0.0.1",
+              trpc_master_port=free_port_base(1), training_type="cross_silo",
+              data_cache_dir=tmp, enable_tracking=False)
+    out = os.path.join(tmp, "trpc_params.msgpack")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs, logs = [], []
+    try:
+        for r in range(n + 1):
+            spec = os.path.join(tmp, f"trpc_{r}.json")
+            with open(spec, "w") as f:
+                json.dump({"args": dict(kw, rank=r), "device": dev,
+                           "role": "server" if r == 0 else "client",
+                           "params_out": out}, f)
+            log = open(os.path.join(tmp, f"trpc_{r}.err"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "fedml_tpu_torch.cross_silo.silo_main",
+                 spec], stdout=subprocess.PIPE, stderr=log, text=True,
+                env=env))
+        outs = [p.communicate(timeout=join_s)[0] for p in procs]
+        codes = [p.returncode for p in procs]
+        require(codes == [0] * (n + 1), f"TRPC session: ranks exited "
+                                        f"{codes}")
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"TRPC session did not finish within {join_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    with open(out, "rb") as f:
+        params = {k: torch.from_numpy(np.array(v))
+                  for k, v in loads_tree(f.read()).items()}
+    return params, json.loads(outs[0].strip().splitlines()[-1])["server"]
+
+
+def cs_async_checks(torch, tmp, dev="cuda", cpu="cpu"):
+    """Phase 17 (a). Returns {check: record}."""
+    out = {"aggregator_card_vs_cpu": async_agg_check(torch, dev, cpu)}
+    inproc, _ = cs_session(CS_LR, dev, "INPROC")
+    store = os.path.join(tmp, "cs_store_lr")
+    os.makedirs(store, exist_ok=True)
+    with storage_dir(store):
+        ps, _ = cs_session(CS_LR, dev, "PUBSUB_STORAGE")
+    same = all(torch.equal(ps.result["params"][k], v)
+               for k, v in inproc.result["params"].items())
+    objects, nbytes = _store_objects(store)
+    require(same, "cross-silo LR session: PUBSUB_STORAGE params differ "
+                  "from INPROC's")
+    require(objects > 0, "PUBSUB_STORAGE offloaded no payload")
+    out["pubsub_storage_vs_inproc_bitwise"] = {
+        "bitwise": same, "store_objects": objects, "store_bytes": nbytes}
+    t0 = time.perf_counter()
+    params, server = cs_trpc_session(torch, CS_LR, dev, tmp)
+    same = all(torch.equal(params[k], v.cpu())
+               for k, v in inproc.result["params"].items())
+    require(same, "cross-silo LR session: TRPC params differ from "
+                  "INPROC's")
+    out["trpc_vs_inproc_bitwise"] = {
+        "bitwise": same, "rounds": len(server["history"]),
+        "wall_s": time.perf_counter() - t0}
+    cfg = dict(CS_LR, **CS_LINK, round_mode="async_buffered",
+               async_buffer_k=2, async_pour_timeout_s=1.0,
+               comm_round=CS_ASYNC_LR_POURS)
+    t0 = time.perf_counter()
+    server, _ = cs_session(cfg, dev, "INPROC")
+    c = server.aggregator.buffer.counters
+    pours = server.chaos_ledger.pours()
+    stal = [a["staleness"] for p in pours for a in p["injected"]["arrivals"]]
+    require(len(server.result["history"]) == CS_ASYNC_LR_POURS
+            and len(pours) == CS_ASYNC_LR_POURS
+            and c["added"] == c["poured"] + c["buffered"]
+            and sum(p["observed"]["poured"] for p in pours) == c["poured"]
+            and stal and max(stal) >= 1,
+            f"async LR session under link faults: "
+            f"{len(server.result['history'])} pours, ledger {c}, "
+            f"staleness {stal}")
+    out["async_link_faults"] = {
+        "pours": len(pours), "ledger": c, "staleness_max": max(stal),
+        "final_test_acc": server.result["final_test_acc"],
+        "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def cs_async_flagship(torch, cb, fa, fedml, tmp, cfg=CS_ASYNC_FULL,
+                      dev="cuda", join_s=CS_JOIN_S, warm=CS_ASYNC_WARM):
+    """Phase 17 (b): ``cfg`` as a buffered-async session over
+    PUBSUB_STORAGE: the broker and the server (``run_cross_silo_server``)
+    in this process, each silo a ``silo_main`` process on ``dev``, the
+    object store under ``tmp``. Returns (the record, the server's
+    launches, each silo's record)."""
+    import threading
+
+    from fedml_tpu_torch.core.distributed.communication.pubsub import \
+        PubSubBroker
+
+    n = cfg["client_num_per_round"]
+    store = os.path.join(tmp, "cs_store_full")
+    os.makedirs(store, exist_ok=True)
+    broker = PubSubBroker()
+    kw = dict(cfg, backend="PUBSUB_STORAGE", pubsub_broker_port=broker.port,
+              data_cache_dir=tmp, enable_tracking=False, run_id="async17")
+    procs, logs, box = [], [], {}
+    t_start = time.perf_counter()
+    reset_launches(cb, fa)
+
+    def serve():
+        try:
+            runner = fedml.cross_silo_runner("server", device=dev, **kw)
+            box["manager"] = runner.runner.manager
+            box["result"] = runner.run()
+        except BaseException as e:   # reported below
+            box["error"] = e
+
+    # the store's root for the server, whose transport reads it when it is
+    # built (the silos get it in their specs)
+    with storage_dir(store):
+        st = threading.Thread(target=serve, daemon=True)
+        st.start()
+        env = dict(os.environ, OMP_NUM_THREADS=str(max(
+            1, (os.cpu_count() or 1) // (n + 1))))
+        deadline = time.perf_counter() + join_s
+        try:
+            for r in range(1, n + 1):
+                spec = os.path.join(tmp, f"async_silo_{r}.json")
+                with open(spec, "w") as f:
+                    json.dump({"args": dict(kw, rank=r), "device": dev,
+                               "storage_dir": store}, f)
+                log = open(os.path.join(tmp, f"async_silo_{r}.err"), "w")
+                logs.append(log)
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "fedml_tpu_torch.cross_silo.silo_main", spec],
+                    stdout=subprocess.PIPE, stderr=log, text=True, env=env))
+            while st.is_alive() and time.perf_counter() < deadline:
+                st.join(timeout=1.0)
+                dead = [p.returncode for p in procs
+                        if p.poll() not in (None, 0)]
+                require(not dead, f"async cross-silo flagship: a silo "
+                                  f"exited {dead}")
+            require(not st.is_alive(), f"async cross-silo flagship: the "
+                                       f"session did not finish within "
+                                       f"{join_s} s")
+            require("error" not in box, f"async cross-silo flagship "
+                                        f"server: {box.get('error')!r}")
+            server_launches = launches(cb, fa)
+            wall = time.perf_counter() - t_start
+            silos = []
+            for p in procs:
+                out, _ = p.communicate(timeout=120)
+                require(p.returncode == 0, f"a silo exited {p.returncode}")
+                silos.append(
+                    json.loads(out.strip().splitlines()[-1])["silo"])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+            broker.stop()
+    result = box["result"]
+    times = result["round_times"]
+    timed = times[warm:]
+    require(len(times) == cfg["comm_round"] and timed,
+            f"async flagship: {len(times)} pours")
+    # wall time from the first timed pour's start (the previous pour's
+    # end) to the last pour's end, over the timed pours
+    s_per_pour = (times[-1]["end_s"] - timed[0]["start_s"]) / len(timed)
+    pieces_s = sum(t["wait_s"] + t["aggregate_s"] + t["eval_s"]
+                   + t["broadcast_s"] for t in timed) / len(timed)
+    history = result["history"]
+    k = cfg["async_buffer_k"]
+    require(all(h["poured"] == k for h in history),
+            f"async flagship: pours of {[h['poured'] for h in history]} "
+            f"(a partial pour)")
+    silo_recs, steps_total = [], 0
+    for st_ in sorted(silos, key=lambda x: x["rank"]):
+        trains = st_["trainings"]
+        steps = sum(t["steps"] for t in trains)
+        steps_total += steps
+        b1 = st_["launches"]["fused_block"]
+        want = 27 * (st_["warmup_steps"] + st_["replays"])
+        require(st_["captures"] == 1 and st_["replays"] == steps
+                and b1 == want,
+                f"async silo {st_['rank']}: {st_['captures']} captures, "
+                f"{st_['replays']} replays for {steps} steps, B1 {b1} "
+                f"launches (expected {want})")
+        require(all(v == 0 for n_, v in st_["launches"].items()
+                    if n_ != "fused_block"),
+                f"async silo {st_['rank']} launched {st_['launches']}")
+        later = trains[1:]
+        t_steps = sum(t["steps"] for t in later)
+        silo_recs.append({
+            "rank": st_["rank"], "trainings": len(trains), "steps": steps,
+            "steps_per_training": [t["steps"] for t in trains],
+            "ms_per_local_step": (1e3 * sum(t["train_s"] for t in later)
+                                  / t_steps if t_steps else None),
+            "captures": st_["captures"], "capture_s": st_["capture_s"],
+            "warmup_steps": st_["warmup_steps"], "replays": st_["replays"],
+            "b1_launches": b1, "c2s_bytes": st_.get("c2s_bytes"),
+            "hbm_peak_gb": st_.get("peak_allocated_bytes", 0) / 2 ** 30})
+    eval_batches = result["eval_batches"]
+    evals = sum("test_acc" in h for h in history)
+    want = 27 * eval_batches * evals
+    require(server_launches == {"conv_block": want, "flash_fwd": 0,
+                                "flash_dq": 0, "flash_dkv": 0},
+            f"async cross-silo server launches {server_launches}, expected "
+            f"{want} B1 (27 x {eval_batches} eval batches x {evals} evals)")
+    acc = result["final_test_acc"]
+    require(acc is not None and math.isfinite(acc) and all(
+        torch.isfinite(v).all().item() for v in result["params"].values()),
+        "async cross-silo flagship: non-finite params or accuracy")
+    manager = box["manager"]
+    ledger = manager.aggregator.buffer.counters
+    pours = manager.chaos_ledger.pours()
+    require(ledger["added"] == ledger["poured"] + ledger["buffered"]
+            and len(pours) == len(times),
+            f"async flagship: buffer ledger {ledger}, {len(pours)} pours")
+    stal = {}
+    for p in pours:
+        for a in p["injected"]["arrivals"]:
+            stal[str(a["staleness"])] = stal.get(str(a["staleness"]), 0) + 1
+    objects, nbytes = _store_objects(store)
+    return ({"pours": len(times), "timed_pours": len(timed), "k": k,
+             "s_per_pour": s_per_pour,
+             "updates_per_hour": 3600.0 * k / s_per_pour,
+             "pours_per_hour": 3600.0 / s_per_pour,
+             "wait_s_per_pour": sum(t["wait_s"] for t in timed) / len(timed),
+             "aggregate_s_per_pour": sum(t["aggregate_s"] for t in timed)
+             / len(timed),
+             "eval_s_per_pour": sum(t["eval_s"] for t in timed) / len(timed),
+             "broadcast_s_per_pour": sum(t["broadcast_s"] for t in timed)
+             / len(timed),
+             "other_s_per_pour": s_per_pour - pieces_s,
+             "pour_times": times, "buffer_ledger": ledger,
+             "staleness_histogram": stal,
+             "staleness_mean": [h["staleness_mean"] for h in history],
+             "store_objects": objects, "store_bytes": nbytes,
+             "test_acc": acc, "local_steps": steps_total,
+             "server_b1_launches": server_launches["conv_block"],
+             "silos": silo_recs, "wall_s": wall},
+            server_launches, silo_recs)
+
+
+def async_cross_silo_phase(torch, cb, fa, fedml, tmp, dev="cuda",
+                           cpu="cpu"):
+    """Phase 17: the async cross-silo runtime and the PUBSUB / TRPC
+    transports. Returns (the ``async_cross_silo`` record, the silos' B1
+    launches, the server's)."""
+    t_phase = time.perf_counter()
+    reset_launches(cb, fa)
+    t0 = time.perf_counter()
+    checks = cs_async_checks(torch, tmp, dev, cpu)
+    checks_s = time.perf_counter() - t0
+    require(launches(cb, fa) == {"conv_block": 0, "flash_fwd": 0,
+                                 "flash_dq": 0, "flash_dkv": 0},
+            f"async cross-silo checks launched {launches(cb, fa)}")
+    full, server_launches, silos = cs_async_flagship(torch, cb, fa, fedml,
+                                                     tmp, dev=dev)
+    return ({"checks": checks, "checks_s": checks_s, "flagship": full,
              "phase_s": time.perf_counter() - t_phase},
             sum(s["b1_launches"] for s in silos),
             server_launches["conv_block"])
@@ -4662,6 +5113,37 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
     cs["card"] = card
     print(json.dumps({"cross_silo": cs}), flush=True)
 
+    acs, acs_silo_b1, acs_server_b1 = async_cross_silo_phase(torch, cb, fa,
+                                                            fedml, tmp)
+    for label, r in acs["checks"].items():
+        print(f"async cross-silo check {label} (f32): {json.dumps(r)}",
+              flush=True)
+    f = acs["flagship"]
+    print(f"async cross-silo flagship ({card}): {f['s_per_pour']:.3f} s per "
+          f"pour (wall) over {f['timed_pours']} timed pours of K "
+          f"{f['k']} = {f['updates_per_hour']:.1f} updates per wall hour "
+          f"(sync, phase 16 (c): 4 x "
+          f"{cs['flagship']['rounds_per_hour']:.2f} = "
+          f"{4 * cs['flagship']['rounds_per_hour']:.1f}); server wait "
+          f"{f['wait_s_per_pour']:.3f} s, aggregate "
+          f"{f['aggregate_s_per_pour']:.4f} s, eval "
+          f"{f['eval_s_per_pour']:.4f} s, broadcast "
+          f"{f['broadcast_s_per_pour']:.4f} s, the rest "
+          f"{f['other_s_per_pour']:.4f} s per pour; staleness "
+          f"{f['staleness_histogram']}; the store {f['store_objects']} "
+          f"objects, {f['store_bytes']} bytes; test acc "
+          f"{f['test_acc']:.4f}; server B1 {f['server_b1_launches']}; "
+          f"{f['wall_s']:.1f} s with the silos' start", flush=True)
+    for r in f["silos"]:
+        print(f"async cross-silo silo {r['rank']} ({card}): "
+              f"{r['trainings']} trainings of {r['steps_per_training']} "
+              f"steps, {r['ms_per_local_step']:.2f} ms per local step "
+              f"(after the first), {r['captures']} capture "
+              f"({r['capture_s']:.2f} s), B1 {r['b1_launches']} launches = "
+              f"27 x ({r['warmup_steps']} + {r['replays']})", flush=True)
+    acs["card"] = card
+    print(json.dumps({"async_cross_silo": acs}), flush=True)
+
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
@@ -4683,6 +5165,10 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         # server's evaluations
         "launches_cross_silo_silos": cs_silo_b1,
         "launches_cross_silo_server": cs_server_b1,
+        # phase 17 (b): the buffered-async session's 4 silo processes and
+        # the server's evaluations
+        "launches_async_cross_silo_silos": acs_silo_b1,
+        "launches_async_cross_silo_server": acs_server_b1,
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],

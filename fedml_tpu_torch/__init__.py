@@ -18,7 +18,8 @@ contribution assessment and a user ``ServerAggregator``; buffered-async
 rounds (``round_mode: async_buffered`` on the GPU engine, with defended
 pours, and the SP ``federated_optimizer: Async_FedAvg`` loop). The
 cross-silo runtime (:mod:`fedml_tpu_torch.cross_silo`): the horizontal
-FedAvg server and silos over the in-proc, TCP and gRPC transports, with
+FedAvg server (synchronous or buffered-async) and silos over the in-proc,
+TCP, gRPC, pub/sub (with its object store) and TRPC transports, with
 retries, link-fault injection, wire compression byte-compatible with the
 JAX package's, and the record plane (:mod:`fedml_tpu_torch.core.mlops`).
 Modules follow the JAX package's paths. Nothing here imports JAX or
@@ -154,9 +155,11 @@ def run_cross_silo_server(args: Optional[Arguments] = None, device=None,
     """Run the cross-silo server (rank 0) of a horizontal FedAvg session
     on ``device`` (CUDA unless ``"cpu"``) until the session ends; the
     silos are :func:`run_cross_silo_client` processes (or threads) on the
-    same ``backend`` (``TCP`` or ``GRPC``; unset, or any value that names
-    no transport, means GRPC as in the JAX package; ``INPROC`` needs
-    ``args.inproc_broker``). ``init_params`` (a state dict) replaces the
+    same ``backend`` (``TCP``, ``GRPC``, ``PUBSUB`` / ``PUBSUB_STORAGE`` /
+    ``MQTT_S3_LOCAL`` with ``pubsub_broker_port``, or ``TRPC``; unset, or
+    any value that names no transport, means GRPC as in the JAX package;
+    ``INPROC`` needs ``args.inproc_broker``). ``round_mode:
+    async_buffered`` runs the buffered-async server. ``init_params`` (a state dict) replaces the
     seeded init. Returns ``params``, ``history``, ``final_test_acc`` and
     ``rounds``, and the server's ``round_times`` and ``eval_batches``."""
     return cross_silo_runner("server", args, device, init_params,

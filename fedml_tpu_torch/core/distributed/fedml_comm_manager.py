@@ -3,10 +3,10 @@ copy of ``fedml_tpu/core/distributed/fedml_comm_manager.py``).
 
 Parity target: reference ``core/distributed/fedml_comm_manager.py:11``
 (``register_message_receive_handler`` :63, ``send_message`` :53, ``run`` :25,
-backend factory ``_init_manager`` :131). Backends here: INPROC (threaded
-tests/sims), TCP, GRPC. PUBSUB and TRPC are the JAX package's too and are
-not ported yet (they raise NotImplementedError); MQTT needs paho and MPI
-needs mpi4py, as in the JAX package.
+backend factory ``_init_manager`` :131). Backends, as in the JAX package:
+INPROC (threaded tests/sims), TCP, GRPC, PUBSUB (alias PUBSUB_STORAGE,
+MQTT_S3_LOCAL: broker topics + object-store payloads) and TRPC
+(``torch.distributed.rpc``); MQTT needs paho and MPI needs mpi4py.
 """
 
 from __future__ import annotations
@@ -104,19 +104,38 @@ class FedMLCommManager(Observer):
                                    int(getattr(self.args, "grpc_base_port", 0)
                                        or 29790),
                                    retry=retry_policy_from_args(self.args))
-        if b in ("PUBSUB", "PUBSUB_STORAGE", "MQTT_S3_LOCAL", "TRPC"):
-            raise NotImplementedError(
-                f"backend {b} is not ported to fedml_tpu_torch yet (the "
-                "pub/sub + object-store and torch.distributed.rpc "
-                "transports come with the slice that ports pubsub, "
-                "distributed_storage and trpc); use INPROC, TCP or GRPC")
+        if b in ("PUBSUB", "PUBSUB_STORAGE", "MQTT_S3_LOCAL"):
+            from .communication.pubsub import PubSubStorageCommManager
+            port = int(getattr(self.args, "pubsub_broker_port", 0) or 0)
+            if port <= 0:
+                raise ValueError(
+                    "backend PUBSUB needs args.pubsub_broker_port (the "
+                    "port of a running PubSubBroker; start one with "
+                    "fedml_tpu_torch.core.distributed.communication.pubsub."
+                    "PubSubBroker())")
+            return PubSubStorageCommManager(
+                self.rank,
+                broker_host=str(getattr(self.args, "pubsub_broker_host",
+                                        "127.0.0.1")),
+                broker_port=port,
+                run_id=str(getattr(self.args, "run_id", "0")))
+        if b == "TRPC":
+            from .communication.trpc import TRPCCommManager
+            return TRPCCommManager(
+                self.rank, self.size,
+                master_addr=str(getattr(self.args, "trpc_master_addr",
+                                        "127.0.0.1")),
+                master_port=int(getattr(self.args, "trpc_master_port", 0)
+                                or 29500))
         if b == "MPI":
             raise ImportError(
                 "MPI backend needs mpi4py + an MPI runtime (absent here); "
-                "INPROC covers the simulation role, TCP/GRPC the "
+                "INPROC covers the simulation role, TCP/GRPC/TRPC the "
                 "distributed one")
         if b in ("MQTT_S3", "MQTT_WEB3", "MQTT_THETASTORE", "MQTT_S3_MNN"):
             raise ImportError(
                 f"backend {b} needs paho-mqtt (not available in this "
-                "environment); use GRPC or TCP")
+                "environment); PUBSUB provides the same control/data-plane "
+                "split (broker topics + object-store payloads) over stdlib "
+                "TCP, or use GRPC/TCP")
         raise ValueError(f"unknown comm backend {b!r}")

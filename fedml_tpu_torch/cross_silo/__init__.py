@@ -1,8 +1,10 @@
 """Cross-silo runtimes (counterpart of ``fedml_tpu/cross_silo``): the
-horizontal FedAvg server and silo FSMs over the comm stack (in-proc, TCP,
-gRPC). Secure aggregation (SA, LSA), split learning, vertical FL, gossip,
-the hierarchical scenario and the buffered-async server are not ported
-yet; each raises NotImplementedError naming itself."""
+horizontal FedAvg server (synchronous, or buffered-async under
+``round_mode: async_buffered``) and silo FSMs over the comm stack
+(in-proc, TCP, gRPC, pub/sub with its object store, TRPC). Secure
+aggregation (SA, LSA), split learning, vertical FL, gossip and the
+hierarchical scenario are not ported yet; each raises
+NotImplementedError naming itself."""
 
 from __future__ import annotations
 

@@ -34,9 +34,10 @@ logger = logging.getLogger(__name__)
 
 
 class ClientMasterManager(FedMLCommManager):
-    # class-level fallbacks: a disabled plan, so FSM methods stay
-    # callable on partially-constructed instances (tests via __new__)
+    # class-level fallbacks: a disabled plan + sync mode, so FSM methods
+    # stay callable on partially-constructed instances (tests via __new__)
     chaos = FaultPlan()
+    _async_mode = False
     _wire_ckpt = None
 
     def __init__(self, args, trainer, comm=None, rank: int = 1,
@@ -55,6 +56,11 @@ class ClientMasterManager(FedMLCommManager):
         # timeout/quorum tolerance takes it from there); a straggler
         # trains a reduced fraction of its local steps
         self.chaos = FaultPlan.from_args(args)
+        # buffered-async sessions: every upload must echo the model
+        # version it trained from (the sync's round tag) — that tag IS
+        # the server's staleness signal, for dense uploads too
+        from ...core.async_rounds import round_mode_from_args
+        self._async_mode = round_mode_from_args(args) == "async_buffered"
         self._cc_residual = None
         self._global_vec = None   # f32 vector of the last received global
         self._cc_rng = prng.fold_in(
@@ -241,12 +247,14 @@ class ClientMasterManager(FedMLCommManager):
         else:
             out.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS,
                            params_to_wire(new_params))
-            if self.chaos.enabled:
+            if self.chaos.enabled or self._async_mode:
                 # under chaos an upload can outlive its round (delayed or
                 # duplicated link copies, post-grace degraded aggregation
                 # racing a straggler) — tag it so the server can drop the
                 # stale copy instead of polluting the next round's pool.
-                # Otherwise the default wire stays byte-identical.
+                # Async sessions tag unconditionally: the version echo is
+                # the server's per-update staleness signal. Otherwise the
+                # default wire stays byte-identical.
                 out.add_params(MyMessage.MSG_ARG_KEY_ROUND_IDX,
                                self.round_idx)
         out.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, float(n_samples))
@@ -255,8 +263,9 @@ class ClientMasterManager(FedMLCommManager):
         with obs_trace.tracer.span(
                 "upload", attrs={"rank": self.rank,
                                  "round_idx": self.round_idx}) as usp:
-            # the UPLOAD span's context rides the upload: the server
-            # links these spans off its wait span
+            # the UPLOAD span's context rides the upload: the async
+            # server's pour links exactly these spans (staleness per
+            # link); the sync server links them off its wait span
             obs_trace.inject(out, usp)
             self.send_message(out)
         self._save_wire_state()

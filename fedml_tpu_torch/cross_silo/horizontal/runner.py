@@ -1,15 +1,17 @@
 """Horizontal cross-silo runner (counterpart of
-``fedml_tpu/cross_silo/horizontal/runner.py``, its synchronous path).
+``fedml_tpu/cross_silo/horizontal/runner.py``).
 
 Builds the server or a silo per ``args.role`` / ``args.rank`` over the
-chosen WAN backend, plus :func:`run_cross_silo_inproc`: server + N silo
+chosen WAN backend (INPROC, TCP, GRPC, PUBSUB / PUBSUB_STORAGE /
+MQTT_S3_LOCAL, TRPC), plus :func:`run_cross_silo_inproc`: server + N silo
 clients as threads over the in-proc broker, the exact Message FSM of a
-real deployment. Every party runs on ``device``: the builders take it
-as given, the in-proc helper resolves it as ``run_simulation`` does
-(CUDA unless ``"cpu"``; no CUDA and no ``"cpu"`` raises). The protocols the JAX
-runner also dispatches (secure aggregation, split learning, gossip,
-vertical FL) and ``round_mode: async_buffered`` are not ported yet and
-raise NotImplementedError naming themselves.
+real deployment. ``round_mode: async_buffered`` builds the buffered-async
+server (:mod:`..server.async_server`), as the JAX runner does. Every
+party runs on ``device``: the builders take it as given, the in-proc
+helper resolves it as ``run_simulation`` does (CUDA unless ``"cpu"``; no
+CUDA and no ``"cpu"`` raises). The protocols the JAX runner also
+dispatches (secure aggregation, split learning, gossip, vertical FL) are
+not ported yet and raise NotImplementedError naming themselves.
 """
 
 from __future__ import annotations
@@ -54,20 +56,13 @@ _UNPORTED_PROTOCOLS = {
 
 
 def check_protocol(args) -> None:
-    """Refuse the cross-silo protocols and modes the port lacks."""
+    """Refuse the cross-silo protocols the port lacks."""
     fo = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
     if fo in _UNPORTED_PROTOCOLS:
         raise NotImplementedError(
             f"{_UNPORTED_PROTOCOLS[fo]} is not ported to fedml_tpu_torch "
-            f"yet (ported cross-silo: the horizontal synchronous FedAvg "
-            f"session)")
-    from ...core.async_rounds import round_mode_from_args
-    if round_mode_from_args(args) == "async_buffered":
-        raise NotImplementedError(
-            "round_mode: async_buffered in cross-silo (the buffered-async "
-            "server, cross_silo/server/async_server.py) is not ported to "
-            "fedml_tpu_torch yet (ported cross-silo: the synchronous "
-            "session)")
+            f"yet (ported cross-silo: the horizontal FedAvg session, "
+            f"synchronous or round_mode: async_buffered)")
 
 
 def _build_spec(fed, bundle, client_trainer):
@@ -105,6 +100,17 @@ def build_server(args, fed, bundle, spec=None, backend: Optional[str] = None,
     else:
         global_params = load_params(bundle, init_params, device)
     size = int(getattr(args, "client_num_per_round", 1)) + 1
+    from ...core.async_rounds import round_mode_from_args
+    if round_mode_from_args(args) == "async_buffered":
+        # buffered-async session: pours replace rounds (no barrier FSM)
+        from ..server.async_server import (AsyncFedMLAggregator,
+                                           AsyncFedMLServerManager)
+        aggregator = AsyncFedMLAggregator(
+            args, global_params, eval_fn=_make_eval_fn(spec, fed, device),
+            device=device)
+        return AsyncFedMLServerManager(
+            args, aggregator, comm=comm, rank=0, size=size,
+            backend=backend or _wan_backend(args))
     aggregator = FedMLAggregator(args, global_params,
                                  eval_fn=_make_eval_fn(spec, fed, device))
     return FedMLServerManager(
@@ -125,9 +131,17 @@ def build_client(args, fed, bundle, rank: int, spec=None,
         backend=backend or _wan_backend(args))
 
 
+# the transports ``args.backend`` may name; any other value (a simulation
+# backend's name, or none) means GRPC, as in the JAX package. Its runner
+# maps PUBSUB and TRPC to GRPC too; here they reach their transports, so
+# a party built from ``args`` alone (``silo_main``) can use them
+WAN_BACKENDS = ("INPROC", "TCP", "GRPC", "PUBSUB", "PUBSUB_STORAGE",
+                "MQTT_S3_LOCAL", "TRPC")
+
+
 def _wan_backend(args) -> str:
     b = str(getattr(args, "backend", "") or "").upper()
-    return b if b in ("INPROC", "TCP", "GRPC") else "GRPC"
+    return b if b in WAN_BACKENDS else "GRPC"
 
 
 class CrossSiloRunner:

@@ -49,13 +49,14 @@ PORTED_SUMMARY = (
     "and data attacks, the 22 defenses and the defended round, chaos, "
     "participant selection, contribution assessment, a user "
     "ServerAggregator and buffered-async rounds; the cross-silo platform "
-    "(training_type: cross_silo), i.e. the horizontal synchronous session "
-    "over INPROC, TCP or gRPC with the comm_retry_*, comm_compression_*, "
-    "round_timeout_s / round_quorum_frac, chaos_* (link faults included) "
-    "and checkpoint knobs, whose secure aggregation (SA, LSA), async "
-    "server, split learning, gossip, vertical and hierarchical scenarios "
-    "still raise; the models and tasks of the zoo, round checkpoints, "
-    "the federated LoRA causal LM and serving")
+    "(training_type: cross_silo), i.e. the horizontal session, synchronous "
+    "or buffered-async (round_mode: async_buffered), over INPROC, TCP, "
+    "gRPC, PUBSUB (broker + object store) or TRPC with the comm_retry_*, "
+    "comm_compression_*, round_timeout_s / round_quorum_frac, async_*, "
+    "chaos_* (link faults included) and checkpoint knobs, whose secure "
+    "aggregation (SA, LSA), split learning, gossip, vertical and "
+    "hierarchical scenarios still raise; the models and tasks of the zoo, "
+    "round checkpoints, the federated LoRA causal LM and serving")
 
 # federated_optimizer values that the JAX package dispatches to protocol
 # simulators of their own: none runs the engine, so none can honor
@@ -103,8 +104,8 @@ def check_ported(args) -> None:
 class FedMLRunner:
     """Dispatch on ``args.training_type`` x ``args.backend``: the port has
     the simulation platform on the GPU and SP backends, and the
-    cross-silo platform (``cross_silo`` / ``cross_cloud``) over INPROC, TCP
-    and gRPC."""
+    cross-silo platform (``cross_silo`` / ``cross_cloud``) over INPROC, TCP,
+    gRPC, PUBSUB and TRPC."""
 
     def __init__(self, args, device=None, dataset=None, model=None,
                  client_trainer=None, server_aggregator=None,

@@ -2,7 +2,8 @@
 
 * transports: a Message round trip through INPROC, TCP and gRPC on free
   loopback ports, decoded by both packages' codecs;
-* ``FedMLCommManager``'s factory: its backends and its refusals;
+* ``FedMLCommManager``'s factory: its backends (PUBSUB and TRPC
+  included) and its refusals;
 * ``retry_with_backoff`` / ``retry_policy_from_args``: the reference's
   delays, attempts and deadline;
 * ``ChaosCommManager``: loss / duplication / delay decisions and the
@@ -146,7 +147,7 @@ def _manager(backend, **knobs):
     return FedMLCommManager(args, rank=0, size=2, backend=backend)
 
 
-def test_comm_manager_factory_backends_and_refusals():
+def test_comm_manager_factory_backends_and_refusals(monkeypatch):
     from fedml_tpu_torch.core.distributed.communication.inproc import (
         InProcBroker, InProcCommManager)
     from fedml_tpu_torch.core.distributed.communication.tcp import \
@@ -165,9 +166,45 @@ def test_comm_manager_factory_backends_and_refusals():
         m.finish()
     with pytest.raises(ValueError, match="inproc_broker"):
         _manager("INPROC")
-    for b in ("PUBSUB", "PUBSUB_STORAGE", "MQTT_S3_LOCAL", "TRPC"):
-        with pytest.raises(NotImplementedError, match=b):
-            _manager(b)
+    # PUBSUB and its aliases: a broker's port is required; with one, the
+    # manager is the pub/sub + object-store transport, subscribed to its
+    # topic at the broker
+    from fedml_tpu_torch.core.distributed.communication import pubsub
+    broker = pubsub.PubSubBroker()
+    try:
+        for b in ("PUBSUB", "PUBSUB_STORAGE", "MQTT_S3_LOCAL"):
+            with pytest.raises(ValueError, match="pubsub_broker_port"):
+                _manager(b)
+            m = _manager(b, pubsub_broker_port=broker.port, run_id="r7")
+            assert isinstance(m.com_manager,
+                              pubsub.PubSubStorageCommManager)
+            assert m.com_manager._topic("*", 0) == "fedml_r7_*_0"
+            m.finish()
+    finally:
+        broker.stop()
+    # TRPC: the rpc world's address and size reach the transport (its
+    # init_rpc waits for every rank: tests/test_torch_trpc.py runs it)
+    from fedml_tpu_torch.core.distributed.communication import trpc
+    seen = []
+
+    class _TRPC(TBase):
+        def __init__(self, *a, **k):
+            super().__init__()
+            seen.append((a, k))
+
+        def send_message(self, msg):
+            pass
+
+        def handle_receive_message(self):
+            pass
+
+        def stop_receive_message(self):
+            pass
+
+    monkeypatch.setattr(trpc, "TRPCCommManager", _TRPC)
+    _manager("TRPC", trpc_master_port=29612)
+    assert seen == [((0, 2), {"master_addr": "127.0.0.1",
+                              "master_port": 29612})]
     for b in ("MPI", "MQTT_S3", "MQTT_WEB3"):
         with pytest.raises(ImportError):
             _manager(b)

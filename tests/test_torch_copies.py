@@ -12,7 +12,10 @@ outputs, bit for bit.
   ``base_com_manager.py`` (observers), ``fedml_comm_manager.py`` (the
   handler registry), the INPROC / TCP / gRPC transports' constants and
   broker, ``core/mlops/log_daemon.py`` (the shipper's POSTs to a local
-  HTTP server). ``interceptor.py``, ``schema.py``, ``backoff.py`` and
+  HTTP server), ``distributed_storage`` (keys and object files), the
+  pub/sub frames and broker handshake across the packages, TRPC's names,
+  the topologies and the Flow DAG (``test_comm.py::TestFlow::
+  test_flow_chain_with_loop`` on both). ``interceptor.py``, ``schema.py``, ``backoff.py`` and
   ``core/wire/*`` are pinned in ``tests/test_torch_comm.py`` and
   ``tests/test_torch_compression.py``.
 """
@@ -336,3 +339,149 @@ def test_log_daemon_copy(tmp_path):
     assert (n, shipped, failed) == (4, 5, 0)
     assert [b["log_lines"] for b in posted] == [["one", "two"],
                                                 ["three", "four"], ["five"]]
+
+
+# --- the rest of the cross-silo runtime's copies: the object store, the
+# pub/sub frames and handshake, TRPC's names, the topologies and the flow
+
+
+def test_object_storage_copy(tmp_path):
+    """The same blob and the same model tree give the same key and the
+    same object file in both stores, and each reads the other's."""
+    from fedml_tpu.core.distributed.distributed_storage import \
+        LocalObjectStorage as J
+    from fedml_tpu_torch.core.distributed.distributed_storage import \
+        LocalObjectStorage as T
+    j, t = J(str(tmp_path / "j")), T(str(tmp_path / "t"))
+    assert J.SCHEME == T.SCHEME == "cas://"
+    tree = {"Dense_0": {"kernel": np.arange(6, dtype=np.float32)
+                        .reshape(2, 3), "bias": np.ones(3, np.float32)}}
+    for put in ("put_object", "write_model"):
+        arg = b"blob" if put == "put_object" else tree
+        kj, kt = getattr(j, put)(arg), getattr(t, put)(arg)
+        assert kj == kt
+        digest = kj.removeprefix("cas://")
+        with open(tmp_path / "j" / digest, "rb") as a, \
+                open(tmp_path / "t" / digest, "rb") as b:
+            assert a.read() == b.read()
+    out = J(str(tmp_path / "t")).read_model(kt)
+    _equal(out["Dense_0"]["kernel"], tree["Dense_0"]["kernel"])
+    out = T(str(tmp_path / "j")).read_model(kj)
+    _equal(out["Dense_0"]["bias"], tree["Dense_0"]["bias"])
+
+
+def test_pubsub_frames_and_auth_copy(monkeypatch):
+    """Frames are byte-equal; the HMAC challenge is the same; a JAX client
+    authenticates against the port's broker and the port's against the
+    JAX broker, and a wrong secret is refused by both."""
+    import socket
+
+    from fedml_tpu.core.distributed.communication import pubsub as jp
+    from fedml_tpu_torch.core.distributed.communication import pubsub as tp
+
+    frames = []
+    for mod in (jp, tp):
+        a, b = socket.socketpair()
+        mod._send_frame(a, {"kind": "pub", "topic": "fedml_0_*_1",
+                            "payload": b"\x00\x01"})
+        frames.append(b.recv(1 << 16))
+        a.close()
+        b.close()
+    assert frames[0] == frames[1]
+    assert jp._challenge_mac(b"k", b"n") == tp._challenge_mac(b"k", b"n")
+    monkeypatch.setenv("FEDML_TPU_BROKER_SECRET", "s3")
+    assert jp.broker_secret() == tp.broker_secret() == b"s3"
+    for broker_mod, client_mod in ((tp, jp), (jp, tp)):
+        broker = broker_mod.PubSubBroker(secret=b"right")
+        try:
+            sock = client_mod.client_connect("127.0.0.1", broker.port,
+                                             secret=b"right")
+            sock.close()
+            with pytest.raises(PermissionError):
+                client_mod.client_connect("127.0.0.1", broker.port,
+                                          secret=b"wrong")
+        finally:
+            broker.stop()
+    assert jp.PubSubStorageCommManager.OFFLOAD_KEYS == \
+        tp.PubSubStorageCommManager.OFFLOAD_KEYS
+
+
+def test_trpc_copy():
+    from fedml_tpu.core.distributed.communication import trpc as jt
+    from fedml_tpu_torch.core.distributed.communication import trpc as tt
+    assert jt._WORKER_FMT == tt._WORKER_FMT
+    assert tt._deliver(bytearray(b"abc")) is True
+    assert tt._INBOX.get_nowait() == b"abc"
+
+
+@pytest.mark.parametrize("n,k,seed", [(6, 2, 0), (7, 4, 3), (5, 3, 1)])
+def test_topology_copy(n, k, seed):
+    from fedml_tpu.core.distributed import topology as jt
+    from fedml_tpu_torch.core.distributed import topology as tt
+    for cls in ("SymmetricTopologyManager", "AsymmetricTopologyManager"):
+        got = []
+        for mod in (jt, tt):
+            tm = getattr(mod, cls)(n, neighbor_num=k, seed=seed)
+            tm.generate_topology()
+            got.append((tm.mixing_matrix(),
+                        [tm.get_in_neighbor_idx_list(i) for i in range(n)],
+                        [tm.get_out_neighbor_idx_list(i) for i in range(n)],
+                        [tm.get_in_neighbor_weights(i) for i in range(n)],
+                        tm.to_ppermute_pairs()))
+        _equal(got[0][0], got[1][0])
+        assert got[0][1:] == got[1][1:]
+        np.testing.assert_allclose(got[1][0].sum(axis=1), 1.0, atol=1e-9)
+    adj = np.random.RandomState(seed).rand(n, n) > 0.6
+    custom = []
+    for mod in (jt, tt):
+        tm = mod.SymmetricTopologyManager(n)
+        tm.generate_custom_topology(adj)
+        custom.append(tm.mixing_matrix())
+    _equal(custom[0], custom[1])
+
+
+def _flow_chain(mod):
+    """``test_comm.py::TestFlow::test_flow_chain_with_loop`` on ``mod``'s
+    flow, with each step's calls logged."""
+    calls = []
+
+    class Server(mod.FedMLExecutor):
+        def init_model(self):
+            calls.append(("init",))
+            self.set_params(0)
+            return 0
+
+        def aggregate(self, v=None):
+            calls.append(("agg", v))
+            self.set_params(self.get_params() + (v or 0))
+            return self.get_params()
+
+    class Client(mod.FedMLExecutor):
+        def train(self, v=None):
+            calls.append(("train", v))
+            return (v or 0) + 1
+
+    class A:
+        comm_round = 3
+
+    server, client = Server(0), Client(1, [0])
+    flow = mod.FedMLAlgorithmFlow(A(), server)
+    with pytest.raises(RuntimeError, match="build"):
+        flow.run()
+    flow.add_flow("init", server.init_model)
+    flow.add_flow("train", client.train, loop=True)
+    flow.add_flow("agg", server.aggregate, loop=True)
+    flow.add_flow("done", server.aggregate)
+    flow.build()
+    out = flow.run()
+    # 3 loop iterations: agg accumulates; the final agg adds again
+    assert server.get_params() >= 3
+    with pytest.raises(ValueError, match="no flows"):
+        mod.FedMLAlgorithmFlow(A()).build()
+    return out, server.get_params(), calls, client.neighbor_id_list
+
+
+def test_flow_chain_with_loop_copy():
+    from fedml_tpu.core.distributed import flow as jf
+    from fedml_tpu_torch.core.distributed import flow as tf
+    assert _flow_chain(tf) == _flow_chain(jf)

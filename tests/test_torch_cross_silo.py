@@ -21,7 +21,8 @@ carried across (``interop.flax_to_state_dict``), house tolerance:
   a round every silo drops out of, skipped) and a link-fault session each
   complete; the wire checkpoint's resume equals an uninterrupted
   client's uplinks;
-* the entry points, and the refusals of what is not ported.
+* the entry points, and the refusals of what is not ported (the
+  buffered-async server is ported: ``test_torch_async_cross_silo.py``).
 """
 
 from __future__ import annotations
@@ -475,19 +476,38 @@ def test_entry_points_run_a_tcp_session():
 @pytest.mark.parametrize("knobs,name", [
     (dict(federated_optimizer="SA"), "secure aggregation"),
     (dict(federated_optimizer="LSA"), "LightSecAgg"),
-    (dict(round_mode="async_buffered"), "async_buffered"),
+    (dict(round_mode="async_buffered", federated_optimizer="SA"),
+     "async_buffered"),
     (dict(federated_optimizer="split_nn"), "split learning"),
     (dict(federated_optimizer="decentralized_fl"), "gossip"),
     (dict(federated_optimizer="vertical_fl"), "vertical"),
     (dict(scenario="hierarchical"), "hierarchical")])
 @pytest.mark.parametrize("role", ["server", "client"])
 def test_unported_cross_silo_features_raise(knobs, name, role):
+    """What the port lacks raises, naming itself, with or without
+    ``round_mode: async_buffered`` (which is ported: the server and its
+    silos build; ``tests/test_torch_async_cross_silo.py`` runs them)."""
     fn = (fedml_tpu_torch.run_cross_silo_server if role == "server"
           else fedml_tpu_torch.run_cross_silo_client)
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(NotImplementedError, match=name) as ei:
         fn(device="cpu", backend="INPROC", dataset="synthetic_mnist",
            model="lr", client_num_in_total=2, client_num_per_round=2,
            max_total_samples=16, enable_tracking=False, rank=1, **knobs)
+    if "round_mode" in knobs:
+        # the refusal names the unported protocol, and async as ported
+        assert str(ei.value).startswith("secure aggregation")
+        from fedml_tpu_torch.core.distributed.communication.inproc import \
+            InProcBroker
+        from fedml_tpu_torch.cross_silo.server.async_server import \
+            AsyncFedMLServerManager
+        runner = fedml_tpu_torch.cross_silo_runner(
+            role, device="cpu", backend="INPROC", dataset="synthetic_mnist",
+            model="lr", client_num_in_total=2, client_num_per_round=2,
+            max_total_samples=16, enable_tracking=False, rank=1,
+            round_mode="async_buffered", inproc_broker=InProcBroker())
+        manager = runner.runner.manager
+        assert (isinstance(manager, AsyncFedMLServerManager)
+                if role == "server" else manager._async_mode)
 
 
 def test_cross_silo_refuses_a_user_aggregator_and_no_cuda(monkeypatch):
