@@ -67,8 +67,9 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    (the configurations without a stochastic attack or defense), and the
    device ``normal`` against the host one at 855,770 draws (1 ulp); (b)
    the defended flagship: MAIN_PATH with 12 of 64 clients flipped x5 and
-   multi-krum keeping 20, one timed block of 2 rounds on the fused path,
-   1 round on the host path, 1 round of LDP; rounds/hour beside phase
+   multi-krum keeping 20, one timed round on each of the fused path,
+   the host path and LDP (the fused block cut from 2 rounds to 1 to pay
+   for phase 18); rounds/hour beside phase
    6's FedAvg, the device milliseconds of attack + defense + DP per round
    (CUDA events), the matrix bytes, B1 at 27 launches per forward with
    one capture, the verdicts excluding every flipped client; (c)
@@ -105,7 +106,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    foolsgold) under byzantine_random x10; a crash at pour 1 of 3
    resumed to the end, bitwise; (b) MAIN_PATH at 64 of 128 clients in
    flight, K 32, ``bench_async_chaos``'s chaos: leg 1 the bootstrap then
-   4 timed pours, leg 2 with ``bench_async_robust``'s attack (26 of 128
+   2 timed pours (4 until phase 18 needed the time), leg 2 with ``bench_async_robust``'s attack (26 of 128
    byzantine_random x10) and krum, the bootstrap then 2 timed pours:
    seconds per pour, pours and updates per wall hour (beside phase 9's
    sync FedAvg at 64 of 128), updates per simulated hour, staleness,
@@ -147,7 +148,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    traffic and plan (c8, 24 requests, stall + NaN, watchdog 0.3 s) with
    recovery on and off, plus a chaos-free leg: goodput, success rate,
    faults, resets, trips; (c) ``bench_llm_serving_fleet``'s soak (3
-   in-process replicas + 1 burst, 288 multi-turn requests at c256 (the
+   in-process replicas + 1 burst, 96 multi-turn requests at c256 (the
    bench's 768 cut in depth), 4 % connection drops, the last replica lost
    after 40 %), fleet_off then
    fleet_on: tokens/s, TTFT, success before and after the loss, suffix
@@ -179,12 +180,13 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     ``bench_cross_silo_wire`` as written (digits, LR, 10 silos, 40
     rounds in-proc, dense against ``topk_qsgd`` 5 % + EF with the
     compressed broadcast): model-bearing bytes per round, accuracy,
-    rounds to 90 %, wall seconds (its SecAgg and gossip legs are not
-    ported: null); (c) the flagship's configuration as a session over TCP
+    rounds to 90 %, wall seconds, and its gossip leg (phase 18 (c); the
+    SecAgg leg is not ported: null); (c) the flagship's configuration as
+    a session over TCP
     (ResNet-56, synthetic CIFAR-10 50,000 / 1,000, bf16, fused block; 4
     silo subprocesses on the card, the server through
     ``run_cross_silo_server`` in this process): 1 untimed round (the
-    captures) and 2 timed rounds, seconds per round, rounds/hour, the
+    captures) and 1 timed round, seconds per round, rounds/hour, the
     wait / aggregate / broadcast / eval split, model bytes per round,
     accuracy, and per silo its steps, ms per local step, captures (1) and
     B1 launches, held to 27 x (warm-up + replays); the server's B1 held
@@ -200,13 +202,28 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     ledger, staleness >= 1); (b) the flagship's configuration as a
     buffered-async session (K 2 of 4 ResNet-56 silo processes, the server
     and the broker in this process, PUBSUB_STORAGE): 2 untimed pours (the
-    captures), 4 timed: seconds per pour, updates per wall hour beside
+    captures), 2 timed: seconds per pour, updates per wall hour beside
     phase 16 (c)'s, the wait / aggregate / eval / broadcast split, the
     staleness histogram, the store's objects and bytes, per silo its
     trainings, ms per local step, captures (1) and B1 launches held to 27
     x (warm-up + replays); the server's B1 held to 27 per eval forward; an
     ``{"async_cross_silo": ...}`` line;
-18. one JSON line describing each kernel, then the card line, then
+18. the other cross-silo scenarios: (a) checks (f32, TF32 off): the
+    4-node LR gossip session (INPROC) on the card against the CPU, dense
+    and with ``topk_qsgd`` (every compressed blob's kept indices and
+    levels bit for bit), the SP decentralized loop card against CPU, the
+    split-learning and vertical-FL sessions against their SP simulators
+    and the CPU, the hierarchical session (1-rank silos) bitwise equal to
+    the horizontal one; (b) gossip at the flagship's width (ResNet-56,
+    bf16, fused block, 4 node processes over TCP on a ring): 1 untimed
+    round (the captures), 1 timed: seconds per round, rounds/hour, per
+    node its steps, ms per local step, send, wait, decode and mix
+    seconds, captures (1)
+    and B1 launches held to 27 x (warm-up + replays), node 0's eval
+    launches held to 27 per eval forward, N2N bytes per round, the
+    consensus distance and the average model's accuracy; (c) bench.py's
+    gossip wire leg (in phase 16 (b)); a ``{"gossip": ...}`` line;
+19. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -401,14 +418,15 @@ ROBUST_SP_TOL = 1e-3
 FLAGSHIP_PARAMS = 855770
 # (b) the defended flagship: MAIN_PATH with bench_robust_krum's knobs
 # scaled to 64 clients (12 flipped x5, multi-krum keeping 20); legs: the
-# fused path for FLAGSHIP_BLOCK rounds, the host path for 1, and LDP
-# (gaussian, epsilon 10, delta 1e-5, clip 1.0) for 1 (2 put the phase
-# at 148 s, over its ~120 s share of the run).
+# fused path, the host path and LDP (gaussian, epsilon 10, delta 1e-5,
+# clip 1.0) for 1 round each (2 LDP rounds put the phase at 148 s; the
+# fused path's block of FLAGSHIP_BLOCK rounds was cut to 1 to pay for
+# phase 18).
 ROBUST_FLAGSHIP = dict(MAIN_PATH, enable_attack=True,
                        attack_type="byzantine_flip", byzantine_client_num=12,
                        attack_scale=5.0, enable_defense=True,
                        defense_type="multi_krum", krum_param_m=20)
-ROBUST_LEGS = (("fused", ROBUST_FLAGSHIP, FLAGSHIP_BLOCK),
+ROBUST_LEGS = (("fused", ROBUST_FLAGSHIP, 1),
                ("host", dict(ROBUST_FLAGSHIP, robust_fused="host"), 1),
                ("ldp", dict(MAIN_PATH, enable_dp=True, dp_type="local_dp",
                             dp_mechanism="gaussian", **ROBUST_DP), 1))
@@ -511,12 +529,12 @@ ASYNC_CHECKS = {
 # (b) the full-width legs on FAULTS_PATH (ResNet-56, synthetic CIFAR-10
 # 50,000, bf16, fused conv block, 128 clients, batch 32) with 64 clients in
 # flight and K 32 under bench_async_chaos's chaos. Leg 1: the bootstrap (64
-# clients), then 4 timed pours. Leg 2: leg 1 plus bench_async_robust's
+# clients), then 2 timed pours. Leg 2: leg 1 plus bench_async_robust's
 # attack scaled to 128 clients (byzantine_random x10 on 26, its 20 %) and
 # krum; the bootstrap, then 2 timed pours.
 ASYNC_PATH = dict(FAULTS_PATH, round_mode="async_buffered",
                   async_buffer_k=32, **ASYNC_CHAOS)
-ASYNC_LEGS = (("async", ASYNC_PATH, 4),
+ASYNC_LEGS = (("async", ASYNC_PATH, 2),
               ("async_krum", dict(ASYNC_PATH, enable_attack=True,
                                   attack_type="byzantine_random",
                                   attack_scale=10.0, byzantine_client_num=26,
@@ -602,7 +620,7 @@ CHAOS_BENCH = {"concurrency": 8, "requests": 24, "max_new": 12,
                "plan": dict(seed=13, serving_stall_at_step=12,
                             serving_stall_s=5.0, serving_nan_at_step=25)}
 FLEET_REPLICAS, FLEET_CONC, FLEET_LOSS_AT = 3, 256, 0.4
-FLEET_LOAD = dict(tenants=8, sessions_per_tenant=12, turns_per_session=3,
+FLEET_LOAD = dict(tenants=8, sessions_per_tenant=4, turns_per_session=3,
                   seed=0, mean_gap_s=0.002, max_tokens=16, turn_chars=200)
 # 8,192 KV blocks of 16 at d 512, 4 layers, bf16: 1.07 GB per replica
 FLEET_OPTS = {"slots": 16, "block_size": 16, "prefill_chunk": 64,
@@ -708,7 +726,7 @@ CS_WIRE_TARGET = 0.90
 # every round) as subprocesses, the server in this process, over TCP on
 # loopback. Round 0 captures each silo's step (untimed); rounds 1..
 # CS_FULL_TIMED are timed; the server evaluates after every round.
-CS_FULL_TIMED = 2
+CS_FULL_TIMED = 1
 CS_FULL = dict(dataset="synthetic_cifar10", model="resnet56",
                precision="bfloat16", fused_conv_block="pallas",
                client_num_in_total=4, client_num_per_round=4,
@@ -749,6 +767,48 @@ CS_ASYNC_TIMED = 2
 CS_ASYNC_FULL = dict(CS_FULL, round_mode="async_buffered", async_buffer_k=2,
                      async_pour_timeout_s=120.0,
                      comm_round=CS_ASYNC_WARM + CS_ASYNC_TIMED)
+
+# The other cross-silo scenarios (phase 18). (a) checks, f32 with TF32
+# off: GOSSIP_LR (tests/test_torch_gossip.py's session: bundled digits,
+# LR, 4 nodes on a ring, 2 rounds, lr 0.1, seed 5) over INPROC on the card
+# against the CPU (HOUSE_TOL), dense and with GOSSIP_CC (3 rounds: every
+# compressed N2N blob's kept indices and levels bit for bit, its scale to
+# GOSSIP_SCALE_RTOL); the SP decentralized loop on the card against the
+# CPU; the split-learning and vertical-FL sessions (MULTIPARTY: 3 clients
+# / 3 feature parties, 2 rounds) on the card against their SP simulators
+# on the card and against the CPU sessions; the hierarchical session (2
+# silos of 1 rank, CS_LR's configuration) against the horizontal session
+# on the card, bitwise.
+GOSSIP_LR = dict(dataset="digits", model="lr", client_num_in_total=4,
+                 client_num_per_round=4, comm_round=2, epochs=1,
+                 batch_size=32, learning_rate=0.1, frequency_of_the_test=1,
+                 random_seed=5, federated_optimizer="decentralized_fl",
+                 topology_neighbors=2)
+GOSSIP_CC = dict(gossip_compression="topk_qsgd", comm_compression_ratio=0.1,
+                 comm_round=3)
+GOSSIP_SCALE_RTOL = 1e-6
+MULTIPARTY = dict(dataset="digits", model="lr", client_num_in_total=3,
+                  client_num_per_round=3, comm_round=2, epochs=1,
+                  batch_size=32, learning_rate=0.1, frequency_of_the_test=1,
+                  random_seed=7, party_num=3)
+# (b) gossip at the flagship's width: CS_FULL's knobs (ResNet-56, bf16,
+# the fused block, 4 nodes on synthetic CIFAR-10 50,000 / 1,000, alpha
+# 0.5, batch 32) with federated_optimizer decentralized_fl on a ring
+# (topology_neighbors 2); four node processes (silo_main's gossip role)
+# over TCP on loopback; round 0 holds each node's capture (untimed),
+# GOSSIP_FULL_TIMED rounds are timed; node 0 evaluates the average model
+# once, after the last round.
+GOSSIP_FULL_TIMED = 1
+GOSSIP_FULL = dict(CS_FULL, federated_optimizer="decentralized_fl",
+                   topology_neighbors=2, comm_round=1 + GOSSIP_FULL_TIMED)
+# (c) bench.py's _gossip_wire_leg (bench.py:409) as written: digits, LR, 4
+# nodes, 8 rounds in-proc, lr 0.3, seed 0; dense against
+# gossip_compression topk_qsgd at 0.1; N2N bytes per round. Phase 16 (b)
+# reports it as the wire bench's legs.gossip_compressed.
+GOSSIP_WIRE = dict(dataset="digits", model="lr", client_num_in_total=4,
+                   client_num_per_round=4, comm_round=8, epochs=1,
+                   batch_size=32, learning_rate=0.3, random_seed=0,
+                   federated_optimizer="decentralized_fl")
 
 # Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
 # the trainer calls the model), the hot loop, bench_long_context, and the
@@ -3979,7 +4039,8 @@ def cs_checks(torch, fedml, tmp, dev="cuda", cpu="cpu"):
 
 def cs_wire_bench(torch, tmp, dev="cuda"):
     """Phase 16 (b): bench_cross_silo_wire on ``dev``, dense then
-    compressed. Returns the bench's record."""
+    compressed, with its gossip leg (phase 18 (c)). Returns the bench's
+    record."""
     from fedml_tpu_torch.core.distributed.communication.message import \
         WIRE_STATS
     from fedml_tpu_torch.cross_silo.message_define import MyMessage
@@ -4011,9 +4072,7 @@ def cs_wire_bench(torch, tmp, dev="cuda"):
     on = session(**CS_WIRE_CC)
     reduction = (off["bytes_per_round"] / on["bytes_per_round"]
                  if on["bytes_per_round"] else None)
-    not_ported = ("not ported: the leg needs cross_silo/secagg (SecAgg "
-                  "lane compression)", "not ported: the leg needs "
-                  "cross_silo/decentralized.py (gossip)")
+    gossip = gossip_wire_leg(tmp, dev)
     return {"metric": "fedavg_cross_silo_wire_bytes_per_round",
             "value": on["bytes_per_round"],
             "vs_baseline": reduction,
@@ -4024,9 +4083,9 @@ def cs_wire_bench(torch, tmp, dev="cuda"):
             "compressed_rounds_to_target": on["rounds_to_target"],
             "dense_rounds_to_target": off["rounds_to_target"],
             "compressed_wall_s": on["wall_s"], "dense_wall_s": off["wall_s"],
-            "legs": {"secagg_compressed": None, "gossip_compressed": None},
-            "legs_reason": {"secagg_compressed": not_ported[0],
-                            "gossip_compressed": not_ported[1]}}
+            "legs": {"secagg_compressed": None, "gossip_compressed": gossip},
+            "legs_reason": {"secagg_compressed": "not ported: the leg needs "
+                            "cross_silo/secagg (SecAgg lane compression)"}}
 
 
 def cs_flagship(torch, cb, fa, fedml, tmp, cfg=CS_FULL, dev="cuda",
@@ -4596,6 +4655,332 @@ def async_cross_silo_phase(torch, cb, fa, fedml, tmp, dev="cuda",
             server_launches["conv_block"])
 
 
+def _parts(cfg, **extra):
+    """``(args, fed, bundle)`` of the port for ``cfg``."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    args = Arguments(**cfg, enable_tracking=False, **extra)
+    fed, output_dim = data.load(args)
+    return args, fed, model.create(args, output_dim, fed.input_shape)
+
+
+def gossip_session(cfg, dev, blobs=None):
+    """``cfg`` as an INPROC gossip session on ``dev``; ``blobs`` (a dict)
+    collects every compressed N2N blob under its key (node and round)."""
+    import numpy as np
+
+    from fedml_tpu_torch.cross_silo import decentralized as D
+    args, fed, bundle = _parts(cfg, training_type="cross_silo")
+    orig = D.encode_update
+
+    def spy(vec, **kw):
+        enc = orig(vec, **kw)
+        blobs[np.asarray(kw["rng"]).tobytes()] = enc.payload
+        return enc
+
+    if blobs is not None:
+        D.encode_update = spy
+    try:
+        result = D.run_gossip_inproc(args, fed, bundle, device=dev)
+    finally:
+        D.encode_update = orig
+    require(result is not None, f"gossip session on {dev} did not finish")
+    return result
+
+
+def _blob_agreement(card, cpu):
+    """Card blobs against CPU blobs: (all bitwise, kept indices and levels
+    bitwise, worst relative scale difference)."""
+    import numpy as np
+    require(sorted(card) == sorted(cpu) and card,
+            f"gossip blobs: {len(card)} on the card, {len(cpu)} on the CPU")
+    bitwise, selection, scale = True, True, 0.0
+    for key, a in card.items():
+        b = cpu[key]
+        for k in a:
+            same = np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes()
+            bitwise &= same
+            if k == "s":
+                scale = max(scale, abs(float(a[k]) - float(b[k]))
+                            / max(abs(float(b[k])), 1e-30))
+            else:
+                selection &= same
+    return bitwise, selection, scale
+
+
+def scenario_checks(torch, dev="cuda", cpu="cpu"):
+    """Phase 18 (a). Returns {check: record}."""
+    from fedml_tpu_torch.cross_silo.hierarchical import \
+        run_hierarchical_cross_silo_inproc
+    from fedml_tpu_torch.cross_silo.horizontal.runner import \
+        run_cross_silo_inproc
+    from fedml_tpu_torch.cross_silo.split_learning import run_splitnn_inproc
+    from fedml_tpu_torch.cross_silo.vertical import run_vfl_inproc
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    out = {}
+    card, ref = gossip_session(GOSSIP_LR, dev), gossip_session(GOSSIP_LR, cpu)
+    ratio = _house_ratio(torch, card["params"], ref["params"])
+    require(ratio <= 1.0 and card["final_test_acc"] == ref["final_test_acc"],
+            f"gossip LR session: card vs CPU at {ratio:.3f} of HOUSE_TOL, "
+            f"acc {card['final_test_acc']} vs {ref['final_test_acc']}")
+    out["gossip_card_vs_cpu"] = {
+        "of_tolerance": ratio, "test_acc": card["final_test_acc"],
+        "consensus_dist": [card["consensus_dist"], ref["consensus_dist"]]}
+    cfg = dict(GOSSIP_LR, **GOSSIP_CC)
+    blobs_card, blobs_cpu = {}, {}
+    card = gossip_session(cfg, dev, blobs_card)
+    ref = gossip_session(cfg, cpu, blobs_cpu)
+    bitwise, selection, scale = _blob_agreement(blobs_card, blobs_cpu)
+    ratio = _house_ratio(torch, card["params"], ref["params"])
+    require(selection and scale <= GOSSIP_SCALE_RTOL and ratio <= 1.0,
+            f"compressed gossip: indices and levels equal {selection}, "
+            f"scale {scale:.2e} apart, params at {ratio:.3f} of HOUSE_TOL")
+    out["gossip_compressed_card_vs_cpu"] = {
+        "blobs": len(blobs_card), "bitwise": bitwise,
+        "indices_and_levels_bitwise": selection,
+        "scale_max_rel_diff": scale, "of_tolerance": ratio}
+
+    def sp(cfg, d):
+        args, fed, bundle = _parts(cfg)
+        r = FedMLRunner(args, device=d, dataset=fed, model=bundle).run()
+        return r, fed
+    card, _ = sp(GOSSIP_LR, dev)
+    ref, _ = sp(GOSSIP_LR, cpu)
+    ratio = _house_ratio(torch, card["params"], ref["params"])
+    require(ratio <= 1.0, f"SP decentralized loop: card vs CPU at "
+                          f"{ratio:.3f} of HOUSE_TOL")
+    out["sp_decentralized_card_vs_cpu"] = {
+        "of_tolerance": ratio, "test_acc": card["final_test_acc"]}
+
+    split = dict(MULTIPARTY, federated_optimizer="split_nn")
+    sim, fed = sp(split, dev)
+    sessions = {}
+    for d in (dev, cpu):
+        args, fed, _ = _parts(split, training_type="cross_silo")
+        sessions[d] = run_splitnn_inproc(args, fed, device=d)
+    r_sim = _house_ratio(torch, sessions[dev]["params"]["top"],
+                         sim["params"]["top"])
+    r_cpu = _house_ratio(torch, sessions[dev]["params"]["top"],
+                         sessions[cpu]["params"]["top"])
+    accs = [[h["test_acc"] for h in r["history"]]
+            for r in (sessions[dev], sim, sessions[cpu])]
+    require(r_sim <= 1.0 and r_cpu <= 1.0 and accs[0] == accs[1] == accs[2],
+            f"split learning: session vs SP at {r_sim:.3f}, vs CPU at "
+            f"{r_cpu:.3f} of HOUSE_TOL, accuracies {accs}")
+    out["split_learning"] = {"session_vs_sp": r_sim,
+                             "session_card_vs_cpu": r_cpu,
+                             "test_acc": accs[0]}
+
+    vfl = dict(MULTIPARTY, federated_optimizer="vfl")
+    sim, _ = sp(vfl, dev)
+    for d in (dev, cpu):
+        args, fed, _ = _parts(vfl, training_type="cross_silo")
+        sessions[d] = run_vfl_inproc(args, fed, device=d)
+    r_sim = max(_house_ratio(torch, a, b) for a, b in
+                zip(sessions[dev]["party_params"], sim["params"]))
+    r_cpu = max(_house_ratio(torch, a, b) for a, b in
+                zip(sessions[dev]["party_params"],
+                    sessions[cpu]["party_params"]))
+    accs = [[h["test_acc"] for h in r["history"]]
+            for r in (sessions[dev], sim, sessions[cpu])]
+    require(r_sim <= 1.0 and r_cpu <= 1.0 and accs[0] == accs[1] == accs[2],
+            f"vertical FL: session vs SP at {r_sim:.3f}, vs CPU at "
+            f"{r_cpu:.3f} of HOUSE_TOL, accuracies {accs}")
+    out["vertical_fl"] = {"session_vs_sp": r_sim,
+                          "session_card_vs_cpu": r_cpu, "test_acc": accs[0]}
+
+    runs = {}
+    for scenario in ("hierarchical", "horizontal"):
+        cfg = dict(CS_LR, comm_round=2)
+        args, fed, bundle = _parts(cfg, training_type="cross_silo",
+                                   scenario=scenario)
+        run = (run_hierarchical_cross_silo_inproc if scenario ==
+               "hierarchical" else run_cross_silo_inproc)
+        runs[scenario] = run(args, fed, bundle, device=dev)
+    same = all(torch.equal(runs["hierarchical"]["params"][k], v)
+               for k, v in runs["horizontal"]["params"].items())
+    require(same, "hierarchical session (1-rank silos) differs from the "
+                  "horizontal session")
+    out["hierarchical_vs_horizontal_bitwise"] = same
+    return out
+
+
+def gossip_wire_leg(tmp, dev="cuda"):
+    """Phase 18 (c): bench.py's gossip leg on ``dev``, dense then
+    ``topk_qsgd``: N2N model-bearing bytes per round off the WireStats
+    ledger (the in-proc broker encodes every message)."""
+    from fedml_tpu_torch.core.distributed.communication.message import \
+        WIRE_STATS
+    from fedml_tpu_torch.cross_silo.decentralized import GossipMsg
+
+    rounds = GOSSIP_WIRE["comm_round"]
+
+    def session(**kw):
+        WIRE_STATS.reset()
+        t0 = time.perf_counter()
+        result = gossip_session(dict(GOSSIP_WIRE, data_cache_dir=tmp, **kw),
+                                dev)
+        wall = time.perf_counter() - t0
+        by_type = WIRE_STATS.snapshot()["by_type"]
+        rec = by_type.get(GossipMsg.N2N_PARAMS,
+                          by_type.get(str(GossipMsg.N2N_PARAMS),
+                                      {"bytes": 0}))
+        return {"bytes_per_round": rec["bytes"] / rounds,
+                "final_acc": result["final_test_acc"],
+                "consensus_dist": result["consensus_dist"], "wall_s": wall}
+
+    off = session()
+    on = session(gossip_compression="topk_qsgd", comm_compression_ratio=0.1)
+    return {"bytes_per_round": on["bytes_per_round"],
+            "dense_bytes_per_round": off["bytes_per_round"],
+            "reduction_vs_dense": (off["bytes_per_round"]
+                                   / on["bytes_per_round"]
+                                   if on["bytes_per_round"] else None),
+            "final_acc": on["final_acc"], "dense_final_acc": off["final_acc"],
+            "consensus_dist": on["consensus_dist"],
+            "dense_consensus_dist": off["consensus_dist"],
+            "wall_s": on["wall_s"], "dense_wall_s": off["wall_s"]}
+
+
+def gossip_flagship(torch, cb, fa, tmp, cfg=GOSSIP_FULL, dev="cuda",
+                    join_s=CS_JOIN_S):
+    """Phase 18 (b): ``cfg`` as a gossip session over TCP, each node a
+    ``silo_main`` process (role ``gossip``) on ``dev``. Returns (the
+    record, each node's record)."""
+    n = cfg["client_num_in_total"]
+    base = free_port_base(n)
+    kw = dict(cfg, backend="TCP", tcp_base_port=base, data_cache_dir=tmp,
+              enable_tracking=False)
+    procs, logs = [], []
+    t_start = time.perf_counter()
+    reset_launches(cb, fa)
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(
+        1, (os.cpu_count() or 1) // n)))
+    try:
+        for r in range(n):
+            spec = os.path.join(tmp, f"gossip_{r}.json")
+            with open(spec, "w") as f:
+                json.dump({"args": dict(kw, rank=r), "device": dev,
+                           "role": "gossip"}, f)
+            log = open(os.path.join(tmp, f"gossip_{r}.err"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "fedml_tpu_torch.cross_silo.silo_main",
+                 spec], stdout=subprocess.PIPE, stderr=log, text=True,
+                env=env))
+        nodes = []
+        deadline = time.perf_counter() + join_s
+        for r, p in enumerate(procs):
+            left = max(deadline - time.perf_counter(), 1.0)
+            try:
+                out, _ = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"gossip flagship: a node did not finish "
+                                   f"within {join_s} s")
+            if p.returncode != 0:
+                logs[r].flush()
+                with open(logs[r].name) as f:
+                    tail = f.read()[-3000:]
+                raise SmokeFailure(f"gossip node {r} exited {p.returncode}:"
+                                   f"\n{tail}")
+            nodes.append(json.loads(out.strip().splitlines()[-1])["gossip"])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t_start
+    require(launches(cb, fa) == {"conv_block": 0, "flash_fwd": 0,
+                                 "flash_dq": 0, "flash_dkv": 0},
+            f"the gossip flagship launched {launches(cb, fa)} in this "
+            f"process")
+    nodes.sort(key=lambda x: x["rank"])
+    result = nodes[0]["result"]
+    eval_batches = nodes[0]["eval_batches"]
+    rounds = cfg["comm_round"]
+    timed = range(rounds - GOSSIP_FULL_TIMED, rounds)
+    # the wall time of the timed rounds: the first node's start of the
+    # first timed round to the last node's end of the last
+    s_per_round = (max(nd["rounds"][rounds - 1]["end_t"] for nd in nodes)
+                   - min(nd["rounds"][timed[0]]["start_t"] for nd in nodes)
+                   ) / len(timed)
+    node_recs, n2n = [], 0
+    for nd in nodes:
+        steps = sum(t["steps"] for t in nd["trainings"])
+        t_steps = sum(nd["rounds"][r]["steps"] for r in timed)
+        t_s = sum(nd["rounds"][r]["train_s"] for r in timed)
+        # node 0 trains and evaluates in one process: its counters are
+        # read just before its evaluation and just after it
+        if nd["rank"] == 0:
+            b1 = nd["launches_before_eval"]["fused_block"]
+            evals = nd["eval_launches"]["fused_block"]
+            require(evals == 27 * eval_batches
+                    and nd["launches"]["fused_block"] == b1 + evals,
+                    f"gossip node 0: B1 {evals} launches in its evaluation "
+                    f"(expected 27 x {eval_batches} batches), "
+                    f"{nd['launches']['fused_block']} in all, {b1} before "
+                    f"it")
+        else:
+            b1, evals = nd["launches"]["fused_block"], 0
+        want = 27 * (nd["warmup_steps"] + nd["replays"])
+        require(nd["captures"] == 1 and nd["replays"] == steps
+                and b1 == want,
+                f"gossip node {nd['rank']}: {nd['captures']} captures, "
+                f"{nd['replays']} replays for {steps} steps, B1 {b1} "
+                f"training launches (expected {want})")
+        require(all(v == 0 for k, v in nd["launches"].items()
+                    if k != "fused_block"),
+                f"gossip node {nd['rank']} launched {nd['launches']}")
+        n2n += nd["n2n_bytes"]
+        node_recs.append({
+            "rank": nd["rank"], "steps": steps,
+            "steps_per_round": [r["steps"] for r in nd["rounds"]],
+            "ms_per_local_step": 1e3 * t_s / max(t_steps, 1),
+            "train_s_per_round": [r["train_s"] for r in nd["rounds"]],
+            "send_s_per_round": [r["send_s"] for r in nd["rounds"]],
+            "wait_s_per_round": [r["wait_s"] for r in nd["rounds"]],
+            "decode_s_per_round": [r["decode_s"] for r in nd["rounds"]],
+            "mix_s_per_round": [r["mix_s"] for r in nd["rounds"]],
+            "captures": nd["captures"], "capture_s": nd["capture_s"],
+            "warmup_steps": nd["warmup_steps"], "replays": nd["replays"],
+            "b1_launches": b1, "b1_eval_launches": evals,
+            "hbm_peak_gb": nd.get("peak_allocated_bytes", 0) / 2 ** 30,
+            "n2n_bytes": nd["n2n_bytes"]})
+    acc, consensus = result["final_test_acc"], result["consensus_dist"]
+    require(acc is not None and math.isfinite(acc)
+            and math.isfinite(consensus),
+            f"gossip flagship: accuracy {acc}, consensus {consensus}")
+    record = {
+        "rounds": rounds, "timed_rounds": len(timed),
+        "s_per_round": s_per_round, "rounds_per_hour": 3600.0 / s_per_round,
+        "n2n_bytes_per_round": n2n / rounds,
+        "consensus_dist": consensus, "test_acc": acc,
+        "eval_batches": eval_batches,
+        "b1_launches_nodes": sum(r["b1_launches"] for r in node_recs),
+        "b1_launches_eval": node_recs[0]["b1_eval_launches"],
+        "nodes": node_recs, "wall_s": wall}
+    return record, node_recs
+
+
+def gossip_phase(torch, cb, fa, tmp, dev="cuda", cpu="cpu"):
+    """Phase 18: the other cross-silo scenarios. Returns the ``gossip``
+    record (its checks, the flagship session)."""
+    t_phase = time.perf_counter()
+    reset_launches(cb, fa)
+    t0 = time.perf_counter()
+    checks = scenario_checks(torch, dev, cpu)
+    checks_s = time.perf_counter() - t0
+    require(launches(cb, fa) == {"conv_block": 0, "flash_fwd": 0,
+                                 "flash_dq": 0, "flash_dkv": 0},
+            f"scenario checks launched {launches(cb, fa)}")
+    full, _ = gossip_flagship(torch, cb, fa, tmp, dev=dev)
+    return {"checks": checks, "checks_s": checks_s, "flagship": full,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import tempfile
 
@@ -5144,6 +5529,34 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
     acs["card"] = card
     print(json.dumps({"async_cross_silo": acs}), flush=True)
 
+    gossip = gossip_phase(torch, cb, fa, tmp)
+    for label, r in gossip["checks"].items():
+        print(f"scenario check {label} (f32): {json.dumps(r)}", flush=True)
+    f = gossip["flagship"]
+    print(f"gossip flagship ({card}): {f['s_per_round']:.3f} s per round "
+          f"(wall) over {f['timed_rounds']} timed round = "
+          f"{f['rounds_per_hour']:.2f} rounds/hour; N2N bytes per round "
+          f"{f['n2n_bytes_per_round']:.0f}; consensus distance "
+          f"{f['consensus_dist']:.4f}; average model's test acc "
+          f"{f['test_acc']:.4f}; node 0's eval B1 {f['b1_launches_eval']}; "
+          f"{f['wall_s']:.1f} s with the nodes' start", flush=True)
+    for r in f["nodes"]:
+        print(f"gossip node {r['rank']} ({card}): steps "
+              f"{r['steps_per_round']}, {r['ms_per_local_step']:.2f} ms per "
+              f"local step (timed round, the card shared by 4 nodes), train "
+              f"s {[round(x, 3) for x in r['train_s_per_round']]}, send s "
+              f"{[round(x, 3) for x in r['send_s_per_round']]}, wait s "
+              f"{[round(x, 3) for x in r['wait_s_per_round']]}, decode s "
+              f"{[round(x, 4) for x in r['decode_s_per_round']]}, mix s "
+              f"{[round(x, 4) for x in r['mix_s_per_round']]}, "
+              f"{r['captures']} capture ({r['capture_s']:.2f} s), B1 "
+              f"{r['b1_launches']} training launches = 27 x "
+              f"({r['warmup_steps']} + {r['replays']}), "
+              f"{r['b1_eval_launches']} in its evaluation, HBM peak "
+              f"{r['hbm_peak_gb']:.2f} GB", flush=True)
+    gossip["card"] = card
+    print(json.dumps({"gossip": gossip}), flush=True)
+
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
@@ -5169,6 +5582,10 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         # the server's evaluations
         "launches_async_cross_silo_silos": acs_silo_b1,
         "launches_async_cross_silo_server": acs_server_b1,
+        # phase 18 (b): the 4 gossip node processes' captured steps, and
+        # node 0's evaluation of the average model
+        "launches_gossip_nodes": gossip["flagship"]["b1_launches_nodes"],
+        "launches_gossip_eval": gossip["flagship"]["b1_launches_eval"],
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],

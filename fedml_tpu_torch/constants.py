@@ -1,10 +1,12 @@
 """Constants the ported slices read (counterpart of ``fedml_tpu/constants.py``,
-reduced to the simulation and cross-silo platforms, their backends and the
-cross-silo wire's compression names)."""
+reduced to the simulation, cross-silo and federated serving platforms,
+their backends and the cross-silo wire's compression names)."""
 
 FEDML_TRAINING_PLATFORM_SIMULATION = "simulation"
 FEDML_TRAINING_PLATFORM_CROSS_SILO = "cross_silo"
 FEDML_TRAINING_PLATFORM_CROSS_CLOUD = "cross_cloud"
+# a cross-silo session whose aggregate is then served (serving/federated.py)
+FEDML_TRAINING_PLATFORM_SERVING = "fedml_serving"
 
 # Simulation backends. The JAX package runs the round as one SPMD program on
 # a TPU mesh ("tpu"); the port runs it on one CUDA device ("gpu"). SP is the

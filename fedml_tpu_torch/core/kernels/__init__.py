@@ -25,3 +25,8 @@ def counted_kernels():
     from . import conv_block, flash_attention
     return (conv_block.fused_block, flash_attention.flash_fwd,
             flash_attention.flash_dq, flash_attention.flash_dkv)
+
+
+def launch_counts():
+    """Each counted wrapper's ``launches``, by its name."""
+    return {fn.__name__: int(fn.launches) for fn in counted_kernels()}

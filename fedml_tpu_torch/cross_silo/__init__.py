@@ -1,10 +1,11 @@
 """Cross-silo runtimes (counterpart of ``fedml_tpu/cross_silo``): the
 horizontal FedAvg server (synchronous, or buffered-async under
-``round_mode: async_buffered``) and silo FSMs over the comm stack
-(in-proc, TCP, gRPC, pub/sub with its object store, TRPC). Secure
-aggregation (SA, LSA), split learning, vertical FL, gossip and the
-hierarchical scenario are not ported yet; each raises
-NotImplementedError naming itself."""
+``round_mode: async_buffered``) and silo FSMs, serverless gossip
+(``decentralized.py``), split learning (``split_learning.py``), vertical
+FL (``vertical.py``) and the hierarchical scenario (``hierarchical/``),
+all over the same comm stack (in-proc, TCP, gRPC, pub/sub with its
+object store, TRPC). Secure aggregation (SA, LSA) is not ported yet and
+raises NotImplementedError naming itself."""
 
 from __future__ import annotations
 

@@ -81,6 +81,13 @@ class SiloTrainer:
                 for k in ("captures", "warmup_steps", "replays",
                           "capture_s")}
 
+    def _local_sgd(self, params, cdata: ClientData, key, hyper: TrainHyper,
+                   batch_real):
+        """The local steps: the optimizer's step program over this silo's
+        programs. Returns ``(params, steps, metric sums)``."""
+        return self.opt._local_sgd(params, {}, {}, cdata, key, hyper,
+                                   batch_real, self)
+
     # --- flat-vector views (wire-efficient update path) ---------------------
     def params_to_vec(self, params) -> np.ndarray:
         """Host float32 vector of a params dict, in the JAX flat layout
@@ -98,17 +105,19 @@ class SiloTrainer:
         return cd
 
     def train(self, params, client_idx: int, round_idx: int,
-              work_scale: float = 1.0
+              work_scale: float = 1.0, key_index: int = None
               ) -> Tuple[dict, float, Dict[str, float]]:
+        """``key_index`` (default ``client_idx``) is folded into the
+        round's key: a gossip node folds in its rank."""
         t0 = time.perf_counter()
         self._cdata = cdata = self._client(int(client_idx))
         hyper = TrainHyper(learning_rate=float(self.args.learning_rate),
                            epochs=int(self.args.epochs),
                            work_scale=float(work_scale))
-        key = prng.fold_in(prng.fold_in(self.rng, round_idx), client_idx)
-        out, steps, metrics = self.opt._local_sgd(
-            params, {}, {}, cdata, key, hyper,
-            self.batch_real[int(client_idx)], self)
+        key = prng.fold_in(prng.fold_in(self.rng, round_idx),
+                           client_idx if key_index is None else key_index)
+        out, steps, metrics = self._local_sgd(
+            params, cdata, key, hyper, self.batch_real[int(client_idx)])
         # the program's static tensors are overwritten by the next round
         new_params = {k: v.detach().clone() for k, v in out.items()}
         n = float(np.asarray(self.fed.train.num_samples)[int(client_idx)])

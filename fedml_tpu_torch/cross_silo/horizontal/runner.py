@@ -9,9 +9,11 @@ real deployment. ``round_mode: async_buffered`` builds the buffered-async
 server (:mod:`..server.async_server`), as the JAX runner does. Every
 party runs on ``device``: the builders take it as given, the in-proc
 helper resolves it as ``run_simulation`` does (CUDA unless ``"cpu"``; no
-CUDA and no ``"cpu"`` raises). The protocols the JAX runner also
-dispatches (secure aggregation, split learning, gossip, vertical FL) are
-not ported yet and raise NotImplementedError naming themselves.
+CUDA and no ``"cpu"`` raises). ``federated_optimizer`` split_nn /
+splitnn, decentralized_fl / gossip and classical_vertical / vertical_fl /
+vfl build the split-learning, gossip and vertical-FL managers, as the JAX
+runner does; secure aggregation (SA, LSA) is not ported yet and raises
+NotImplementedError naming itself.
 """
 
 from __future__ import annotations
@@ -41,18 +43,10 @@ _UNPORTED_PROTOCOLS = {
     "lsa": "LightSecAgg (federated_optimizer LSA, cross_silo/lightsecagg)",
     "lightsecagg": "LightSecAgg (federated_optimizer LSA, "
                    "cross_silo/lightsecagg)",
-    "split_nn": "split learning (federated_optimizer split_nn, "
-                "cross_silo/split_learning.py)",
-    "splitnn": "split learning (federated_optimizer split_nn, "
-               "cross_silo/split_learning.py)",
-    "decentralized_fl": "gossip learning (federated_optimizer "
-                        "decentralized_fl, cross_silo/decentralized.py)",
-    "gossip": "gossip learning (federated_optimizer decentralized_fl, "
-              "cross_silo/decentralized.py)",
-    "classical_vertical": "vertical FL (cross_silo/vertical.py)",
-    "vertical_fl": "vertical FL (cross_silo/vertical.py)",
-    "vfl": "vertical FL (cross_silo/vertical.py)",
 }
+SPLIT_FOS = ("split_nn", "splitnn")
+GOSSIP_FOS = ("decentralized_fl", "gossip")
+VERTICAL_FOS = ("classical_vertical", "vertical_fl", "vfl")
 
 
 def check_protocol(args) -> None:
@@ -62,7 +56,8 @@ def check_protocol(args) -> None:
         raise NotImplementedError(
             f"{_UNPORTED_PROTOCOLS[fo]} is not ported to fedml_tpu_torch "
             f"yet (ported cross-silo: the horizontal FedAvg session, "
-            f"synchronous or round_mode: async_buffered)")
+            f"synchronous or round_mode: async_buffered, gossip, split "
+            f"learning, vertical FL and the hierarchical scenario)")
 
 
 def _build_spec(fed, bundle, client_trainer):
@@ -145,10 +140,13 @@ def _wan_backend(args) -> str:
 
 
 class CrossSiloRunner:
-    """Single-role entry: ``args.role`` decides server vs client;
-    ``run()`` blocks until the FL session finishes. A user
-    ``ServerAggregator`` is not taken here (neither does the JAX
-    package's horizontal runner)."""
+    """Single-role entry: ``args.role`` decides server vs client, and
+    ``federated_optimizer`` the protocol (split learning, gossip, vertical
+    FL, else FedAvg); ``run()`` blocks until the FL session finishes. A
+    gossip node's rank is 0 for the server role, else ``max(rank, 1)``;
+    split learning's ``init_params`` is ``{"bottom", "top"}``, vertical
+    FL's one state dict per party. A user ``ServerAggregator`` is not
+    taken here (neither does the JAX package's horizontal runner)."""
 
     def __init__(self, args, dataset, model, client_trainer=None,
                  server_aggregator=None, *, device,
@@ -158,7 +156,45 @@ class CrossSiloRunner:
         self.bundle = model
         role = str(getattr(args, "role", "client")).lower()
         rank = int(getattr(args, "rank", 1) or 1)
-        if role == "server":
+        fo = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
+        check_protocol(args)
+        backend = _wan_backend(args)
+        if fo in SPLIT_FOS:
+            # activations and their gradients cross the transport
+            from ..split_learning import (SplitNNClientManager,
+                                          SplitNNServerManager)
+            n = int(getattr(args, "client_num_per_round", 1))
+            init = init_params or {}
+            if role == "server":
+                self.manager = SplitNNServerManager(
+                    args, dataset.num_classes, size=n + 1, backend=backend,
+                    device=device, init_params=init.get("top"))
+            else:
+                self.manager = SplitNNClientManager(
+                    args, dataset, rank=max(rank, 1), size=n + 1,
+                    backend=backend, device=device,
+                    init_params=init.get("bottom"))
+        elif fo in GOSSIP_FOS:
+            # serverless: every process is a gossip node; rank == node
+            from ..decentralized import GossipNodeManager
+            n = int(getattr(args, "client_num_in_total", 2))
+            self.manager = GossipNodeManager(
+                args, dataset, model,
+                rank=0 if role == "server" else max(rank, 1), size=n,
+                backend=backend, device=device, init_params=init_params,
+                spec=client_trainer)
+        elif fo in VERTICAL_FOS:
+            from ..vertical import VFLPartyManager, VFLServerManager
+            n = int(getattr(args, "party_num", 2) or 2)
+            if role == "server":
+                self.manager = VFLServerManager(
+                    args, dataset, size=n + 1, backend=backend,
+                    device=device)
+            else:
+                self.manager = VFLPartyManager(
+                    args, dataset, rank=max(rank, 1), size=n + 1,
+                    backend=backend, device=device, init_params=init_params)
+        elif role == "server":
             self.manager = build_server(args, dataset, model, client_trainer,
                                         device=device,
                                         init_params=init_params)

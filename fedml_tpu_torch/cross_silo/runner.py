@@ -1,6 +1,7 @@
 """Cross-silo runner dispatch (counterpart of
-``fedml_tpu/cross_silo/runner.py``): the horizontal scenario; the
-hierarchical one is not ported yet."""
+``fedml_tpu/cross_silo/runner.py``): ``scenario: hierarchical`` builds the
+hierarchical runner (silos of data-parallel ranks), anything else the
+horizontal one."""
 
 from __future__ import annotations
 
@@ -10,9 +11,10 @@ def build_cross_silo_runner(args, dataset, model, client_trainer=None,
                             init_params=None):
     scenario = str(getattr(args, "scenario", "horizontal")).lower()
     if scenario == "hierarchical":
-        raise NotImplementedError(
-            "scenario: hierarchical (cross_silo/hierarchical) is not ported "
-            "to fedml_tpu_torch yet (ported: scenario horizontal)")
+        from .hierarchical.runner import HierarchicalCrossSiloRunner
+        return HierarchicalCrossSiloRunner(
+            args, dataset, model, client_trainer, server_aggregator,
+            device=device, init_params=init_params)
     from .horizontal.runner import CrossSiloRunner
     return CrossSiloRunner(args, dataset, model, client_trainer,
                            server_aggregator, device=device,

@@ -4,10 +4,12 @@
 
 The spec is a JSON object: ``args`` (the session's knobs, ``rank``
 among them), ``device`` (``"cuda"`` unless given), ``role`` (``"client"``
-unless given) and, for the PUBSUB transports, ``storage_dir``: the object
-store's root, shared by every party of the session (it sets
-``FEDML_TPU_STORAGE_DIR`` in this process; the broker's address is the
-``pubsub_broker_host`` / ``pubsub_broker_port`` knobs). The party joins
+unless given; ``"gossip"`` for a node of a gossip session,
+``federated_optimizer: decentralized_fl``) and, for the PUBSUB
+transports, ``storage_dir``: the object store's root, shared by every
+party of the session (it sets ``FEDML_TPU_STORAGE_DIR`` in this process;
+the broker's address is the ``pubsub_broker_host`` /
+``pubsub_broker_port`` knobs). The party joins
 the session over its backend (``TCP``, ``GRPC``, ``PUBSUB`` /
 ``PUBSUB_STORAGE`` / ``MQTT_S3_LOCAL`` or ``TRPC``, one rank per process)
 and runs until the session ends, synchronous or ``round_mode:
@@ -21,7 +23,13 @@ uploads and the device's peak allocated bytes. The server (``role:
 "server"``) writes its final parameters with the wire codec
 (``dumps_tree`` of the state dict, on the host) to ``params_out`` when
 the spec names one, and prints ``{"server": {...}}``: its history,
-final accuracy and ``round_times``.
+final accuracy and ``round_times``. A gossip node prints ``{"gossip":
+{...}}``: its rank, one record per round (steps, train / wait / mix
+seconds), its trainings, step-program counts and launches as a silo's,
+the bytes of the N2N messages it sent and its peak device bytes; node 0
+adds the session's result (the average model's accuracy, the consensus
+distance, the history), its evaluation's batches, and the launches
+counted before its evaluation and within it.
 """
 
 from __future__ import annotations
@@ -40,19 +48,56 @@ def run_silo(kw: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     from .. import cross_silo_runner
     from ..arguments import Arguments
     from ..core.distributed.communication.message import WIRE_STATS
-    from ..core.kernels import counted_kernels
+    from ..core.kernels import launch_counts
     from .message_define import MyMessage
 
     runner = cross_silo_runner("client", Arguments(**kw), device)
     runner.run()
     trainer = runner.runner.manager.trainer
     stats = {"rank": int(runner.args.rank), "trainings": trainer.log,
-             "launches": {fn.__name__: int(fn.launches)
-                          for fn in counted_kernels()}}
+             "launches": launch_counts()}
     stats.update(trainer.program_stats())
     up = WIRE_STATS.snapshot()["by_type"].get(
         str(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER), {})
     stats["c2s_bytes"] = int(up.get("bytes", 0))
+    if trainer.device.type == "cuda":
+        stats["peak_allocated_bytes"] = int(torch.cuda.max_memory_allocated(
+            trainer.device))
+    return stats
+
+
+def run_gossip_node(kw: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """Run gossip node ``kw["rank"]`` to the end of the session; returns
+    its stats (the ``gossip`` record)."""
+    import torch
+
+    from .. import cross_silo_runner
+    from ..arguments import Arguments
+    from ..core.distributed.communication.message import WIRE_STATS
+    from ..core.kernels import launch_counts
+    from .decentralized import GossipMsg
+
+    rank = int(kw.get("rank", 0) or 0)
+    runner = cross_silo_runner("server" if rank == 0 else "client",
+                               Arguments(**kw), device)
+    runner.run()
+    node = runner.runner.manager
+    trainer = node.trainer
+    stats = {"rank": node.rank, "rounds": node.log,
+             "trainings": trainer.log,
+             "launches": launch_counts()}
+    stats.update(trainer.program_stats())
+    by_type = WIRE_STATS.snapshot()["by_type"]
+    sent = by_type.get(GossipMsg.N2N_PARAMS,
+                       by_type.get(str(GossipMsg.N2N_PARAMS), {}))
+    stats["n2n_bytes"] = int(sent.get("bytes", 0))
+    if node.result is not None:
+        stats["result"] = {k: node.result[k] for k in
+                           ("final_test_acc", "consensus_dist", "history",
+                            "rounds")}
+        stats["eval_batches"] = int(node.eval_fn().batches)
+        stats["launches_before_eval"] = node.launches_before_eval
+        stats["eval_launches"] = node.eval_launches
     if trainer.device.type == "cuda":
         stats["peak_allocated_bytes"] = int(torch.cuda.max_memory_allocated(
             trainer.device))
@@ -82,9 +127,12 @@ def main(argv) -> int:
     if spec.get("storage_dir"):
         os.environ["FEDML_TPU_STORAGE_DIR"] = spec["storage_dir"]
     device = spec.get("device", "cuda")
-    if spec.get("role", "client") == "server":
+    role = spec.get("role", "client")
+    if role == "server":
         out = {"server": run_server(spec["args"], device,
                                     spec.get("params_out"))}
+    elif role == "gossip":
+        out = {"gossip": run_gossip_node(spec["args"], device)}
     else:
         out = {"silo": run_silo(spec["args"], device)}
     print(json.dumps(out), flush=True)

@@ -24,27 +24,45 @@ from ..core.distributed.communication.message import (bf16_wire_to_tree,
 from ..interop import flax_to_state_dict, state_dict_to_flax
 
 
+def _host(params: Params) -> Dict[str, np.ndarray]:
+    """The params as host arrays through one device-to-host copy: a copy
+    per leaf waits for the device once per leaf, and on a card that
+    processes time-slice each wait can last a slice."""
+    flat = torch.cat([v.detach().reshape(-1) for v in params.values()])
+    parts = flat.cpu().split([v.numel() for v in params.values()])
+    return {k: t.view(v.shape).numpy()
+            for (k, v), t in zip(params.items(), parts)}
+
+
 def params_to_wire(params: Params) -> Dict[str, np.ndarray]:
     """``tree_to_wire`` of the params' flax tree."""
-    return tree_to_wire(state_dict_to_flax(params))
+    return tree_to_wire(state_dict_to_flax(_host(params)))
 
 
 def params_to_wire_bf16(params: Params) -> Dict[str, np.ndarray]:
     """``tree_to_wire_bf16`` of the params' flax tree."""
-    return tree_to_wire_bf16(state_dict_to_flax(params))
+    return tree_to_wire_bf16(state_dict_to_flax(_host(params)))
 
 
 def _to_params(tree, template: Params) -> Params:
+    """A flax tree of host arrays as params like ``template``: one
+    host-to-device copy into one buffer, each leaf a view of it in its
+    template's dtype (a cast on the device only where they differ)."""
     sd = flax_to_state_dict(tree)
-    return {k: torch.from_numpy(np.array(sd[k], copy=True)).to(
-        device=v.device, dtype=v.dtype) for k, v in template.items()}
+    flat = np.concatenate([np.asarray(sd[k]).reshape(-1) for k in template])
+    dev = next(iter(template.values())).device
+    parts = torch.from_numpy(flat).to(dev).split(
+        [v.numel() for v in template.values()])
+    return {k: t.view(v.shape).to(v.dtype)
+            for (k, v), t in zip(template.items(), parts)}
 
 
 def wire_to_params(wire: Dict[str, Any], template: Params) -> Params:
     """Inverse of :func:`params_to_wire`, on ``template``'s device and in
-    its dtypes."""
-    return _to_params(wire_to_tree(wire, state_dict_to_flax(template)),
-                      template)
+    its dtypes. ``wire_to_tree`` reads only the template's structure, so
+    none of its data is copied off the device."""
+    structure = state_dict_to_flax(dict.fromkeys(template, np.zeros(0)))
+    return _to_params(wire_to_tree(wire, structure), template)
 
 
 def bf16_wire_to_params(wire: Dict[str, Any], template: Params) -> Params:

@@ -24,6 +24,12 @@ arrays in both packages (the port's store is a copy):
 port engine resumes a JAX run's selection history
 (``sim.selection.load_state_dict``).
 
+The split-learning parts and the vertical-FL party nets are flax
+*variables* (``{"params": tree}``) in the JAX package and state dicts of
+``Dense_k`` layers in the port: :func:`split_params_from_flax` and
+:func:`vfl_params_from_flax` carry them across (the same Dense layout
+change).
+
 Neither direction imports JAX: both sides are numpy.
 """
 
@@ -79,3 +85,27 @@ def selection_state_from_jax(state: Mapping[str, Any]
     """A JAX selection store's ``state_dict()`` (jax or numpy arrays) as
     the port's: the same keys, numpy arrays of the same dtypes."""
     return {str(k): np.array(v, copy=True) for k, v in state.items()}
+
+
+def variables_to_state_dict(variables: Mapping[str, Any]
+                            ) -> Dict[str, np.ndarray]:
+    """Flax variables (``{"params": tree}``, or the tree itself) -> a
+    state dict."""
+    tree = variables.get("params", variables) if isinstance(
+        variables, Mapping) else variables
+    return flax_to_state_dict(tree)
+
+
+def split_params_from_flax(bottom: Mapping[str, Any],
+                           top: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX split-learning parts' variables -> the port's
+    ``{"bottom": state dict, "top": state dict}`` (``init_params`` of the
+    split simulator and session)."""
+    return {"bottom": variables_to_state_dict(bottom),
+            "top": variables_to_state_dict(top)}
+
+
+def vfl_params_from_flax(parties) -> list:
+    """The JAX vertical-FL party nets' variables -> the port's state
+    dicts, one per party, in party order."""
+    return [variables_to_state_dict(p) for p in parties]

@@ -1,10 +1,14 @@
 """FedMLRunner façade (counterpart of ``fedml_tpu/runner.py``): builds the
 GPU simulator (sync, or buffered-async under ``round_mode:
-async_buffered``), the SP golden loop or the SP ``Async_FedAvg`` loop for
-the ported slices, hands a user ``ServerAggregator`` to the GPU engine,
-builds a cross-silo party (``training_type: cross_silo``: the server or a
-silo of the horizontal session, ``cross_silo/``), and refuses what they
-have not ported (an unported model or dataset is refused by
+async_buffered``), the SP golden loop, or the protocol simulators
+(``Async_FedAvg``, ``hierarchicalfl``, ``decentralized_fl``, ``split_nn``
+and the vertical names, on any backend, as the JAX package dispatches
+them), hands a user ``ServerAggregator`` to the GPU engine, builds a
+cross-silo party (``training_type: cross_silo``, ``cross_silo/``: the
+horizontal, gossip, split-learning or vertical session, or ``scenario:
+hierarchical``), runs a session and serves its aggregate
+(``training_type: fedml_serving``, alias ``serving``), and refuses what
+they have not ported (an unported model or dataset is refused by
 ``model.create`` / ``data.load``, naming itself)."""
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Any, Dict, Optional
 from .constants import (FEDML_SIMULATION_TYPE_GPU, FEDML_SIMULATION_TYPE_SP,
                         FEDML_TRAINING_PLATFORM_CROSS_CLOUD,
                         FEDML_TRAINING_PLATFORM_CROSS_SILO,
+                        FEDML_TRAINING_PLATFORM_SERVING,
                         FEDML_TRAINING_PLATFORM_SIMULATION)
 from .device import get_device
 
@@ -48,25 +53,40 @@ PORTED_SUMMARY = (
     "client_slot_fold, differential privacy (LDP, CDP, NbAFL), the model "
     "and data attacks, the 22 defenses and the defended round, chaos, "
     "participant selection, contribution assessment, a user "
-    "ServerAggregator and buffered-async rounds; the cross-silo platform "
-    "(training_type: cross_silo), i.e. the horizontal session, synchronous "
-    "or buffered-async (round_mode: async_buffered), over INPROC, TCP, "
-    "gRPC, PUBSUB (broker + object store) or TRPC with the comm_retry_*, "
-    "comm_compression_*, round_timeout_s / round_quorum_frac, async_*, "
+    "ServerAggregator, buffered-async rounds and the protocol simulators "
+    "(Async_FedAvg, hierarchicalfl, decentralized_fl, split_nn, vertical "
+    "FL); the cross-silo platform (training_type: cross_silo), i.e. the "
+    "horizontal session, synchronous or buffered-async (round_mode: "
+    "async_buffered), gossip, split learning, vertical FL and scenario: "
+    "hierarchical, over INPROC, TCP, gRPC, PUBSUB (broker + object store) "
+    "or TRPC with the comm_retry_*, comm_compression_*, "
+    "gossip_compression, round_timeout_s / round_quorum_frac, async_*, "
     "chaos_* (link faults included) and checkpoint knobs, whose secure "
-    "aggregation (SA, LSA), split learning, gossip, vertical and "
-    "hierarchical scenarios still raise; the models and tasks of the zoo, "
-    "round checkpoints, the federated LoRA causal LM and serving")
+    "aggregation (SA, LSA) still raises; federated serving (training_type: "
+    "fedml_serving); the models and tasks of the zoo, round checkpoints, "
+    "the federated LoRA causal LM and serving")
 
 # federated_optimizer values that the JAX package dispatches to protocol
 # simulators of their own: none runs the engine, so none can honor
-# `round_mode: async_buffered` (only Async_FedAvg is ported)
+# `round_mode: async_buffered`
 _PROTOCOL_FOS = frozenset((
     "centralized", "fedgkt", "fednas", "fedseg", "fedgan",
     "hierarchicalfl", "async_fedavg", "asyncfedavg",
     "decentralized_fl", "split_nn", "classical_vertical",
     "vertical_fl", "vfl", "turbo_aggregate", "turboaggregate"))
 _ASYNC_FEDAVG = ("async_fedavg", "asyncfedavg")
+# the ported protocol simulators: module and class under simulation/sp,
+# and whether the protocol drives plain FedAvg client steps
+_PROTOCOL_SIMULATORS = {
+    "async_fedavg": ("async_fedavg", "AsyncFedAvgSimulator", True),
+    "asyncfedavg": ("async_fedavg", "AsyncFedAvgSimulator", True),
+    "hierarchicalfl": ("hierarchical", "HierarchicalSimulator", True),
+    "decentralized_fl": ("decentralized", "DecentralizedSimulator", True),
+    "split_nn": ("split_nn", "SplitNNSimulator", False),
+    "classical_vertical": ("vertical_fl", "VerticalFLSimulator", False),
+    "vertical_fl": ("vertical_fl", "VerticalFLSimulator", False),
+    "vfl": ("vertical_fl", "VerticalFLSimulator", False),
+}
 
 
 def _knob_on(args, knob: str, off: tuple) -> bool:
@@ -79,15 +99,23 @@ def _knob_on(args, knob: str, off: tuple) -> bool:
 def check_ported(args) -> None:
     """Raise NotImplementedError for the first knob of an unported
     feature that ``args`` turns on, and for the engine's chaos knobs on
-    the SP backend."""
+    the SP backend and the protocol simulators."""
     for knob, off in UNPORTED_KNOBS.items():
         if _knob_on(args, knob, off):
             raise NotImplementedError(
                 f"{knob}={getattr(args, knob)!r} is not ported to "
                 f"fedml_tpu_torch yet ({PORTED_SUMMARY})")
     fo = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
+    hint = ("run it on backend='gpu' (round_mode: async_buffered for "
+            "async rounds)")
     if fo in _ASYNC_FEDAVG:
         loop = "the SP Async_FedAvg loop"
+    elif fo in _PROTOCOL_SIMULATORS and getattr(
+            args, "training_type",
+            FEDML_TRAINING_PLATFORM_SIMULATION) == \
+            FEDML_TRAINING_PLATFORM_SIMULATION:
+        loop = f"the {fo} protocol simulator"
+        hint = "the GPU engine's rounds take them"
     elif getattr(args, "backend", None) == FEDML_SIMULATION_TYPE_SP:
         loop = "the SP golden loop"
     else:
@@ -96,16 +124,14 @@ def check_ported(args) -> None:
         if _knob_on(args, knob, off):
             raise NotImplementedError(
                 f"{knob}={getattr(args, knob)!r}: {loop} injects no chaos "
-                f"(neither does the JAX package's); run it on "
-                f"backend='gpu' (round_mode: async_buffered for async "
-                f"rounds)")
+                f"(neither does the JAX package's); {hint}")
 
 
 class FedMLRunner:
     """Dispatch on ``args.training_type`` x ``args.backend``: the port has
-    the simulation platform on the GPU and SP backends, and the
-    cross-silo platform (``cross_silo`` / ``cross_cloud``) over INPROC, TCP,
-    gRPC, PUBSUB and TRPC."""
+    the simulation platform on the GPU and SP backends, the cross-silo
+    platform (``cross_silo`` / ``cross_cloud``) over INPROC, TCP, gRPC,
+    PUBSUB and TRPC, and federated serving (``fedml_serving``)."""
 
     def __init__(self, args, device=None, dataset=None, model=None,
                  client_trainer=None, server_aggregator=None,
@@ -127,10 +153,21 @@ class FedMLRunner:
                 args, dataset, model, client_trainer,
                 device=get_device(device), init_params=init_params)
             return
+        if ttype in (FEDML_TRAINING_PLATFORM_SERVING, "serving"):
+            if server_aggregator is not None:
+                raise NotImplementedError(
+                    "server_aggregator: the federated serving session's "
+                    "server takes no user ServerAggregator (neither does "
+                    "the JAX package's)")
+            from .serving.federated import FederatedServingRunner
+            self.runner = FederatedServingRunner(
+                args, dataset, model, client_trainer,
+                device=get_device(device), init_params=init_params)
+            return
         if ttype != FEDML_TRAINING_PLATFORM_SIMULATION:
             raise NotImplementedError(
                 f"training_type={ttype!r} is not ported to fedml_tpu_torch "
-                f"yet (ported: simulation, cross_silo)")
+                f"yet (ported: simulation, cross_silo, fedml_serving)")
         from .core.async_rounds import round_mode_from_args
         from .core.algframe.client_trainer import make_trainer_spec
         from .optimizers.registry import create_optimizer
@@ -146,14 +183,18 @@ class FedMLRunner:
         spec = (client_trainer if client_trainer is not None
                 else make_trainer_spec(dataset, model))
         kw = {}
-        if fo in _ASYNC_FEDAVG:
-            # the protocol loop drives plain FedAvg client steps
+        if fo in _PROTOCOL_SIMULATORS:
             import copy
-            inner = copy.copy(args)
-            inner.federated_optimizer = "FedAvg"
-            opt = create_optimizer(inner, spec)
-            from .simulation.sp.async_fedavg import \
-                AsyncFedAvgSimulator as Simulator
+            import importlib
+            module, name, fedavg = _PROTOCOL_SIMULATORS[fo]
+            opt = None
+            if fedavg:
+                # the protocol loop drives plain FedAvg client steps
+                inner = copy.copy(args)
+                inner.federated_optimizer = "FedAvg"
+                opt = create_optimizer(inner, spec)
+            Simulator = getattr(importlib.import_module(
+                f".simulation.sp.{module}", __package__), name)
         elif backend == FEDML_SIMULATION_TYPE_GPU:
             opt = create_optimizer(args, spec)
             if async_mode:
@@ -173,7 +214,8 @@ class FedMLRunner:
                 f"backend={backend!r} is not ported to fedml_tpu_torch yet "
                 f"(ported: gpu, sp)")
         if server_aggregator is not None:
-            if backend == FEDML_SIMULATION_TYPE_SP or fo in _ASYNC_FEDAVG:
+            if backend == FEDML_SIMULATION_TYPE_SP or \
+                    fo in _PROTOCOL_SIMULATORS:
                 raise NotImplementedError(
                     "server_aggregator: the SP loops run no user "
                     "ServerAggregator (neither do the JAX package's); "

@@ -1,4 +1,5 @@
-"""The single-process golden simulator."""
+"""The single-process golden simulator (the protocol simulators sit beside
+it: async_fedavg, hierarchical, decentralized, split_nn, vertical_fl)."""
 
 from .simulator import SPSimulator
 

@@ -15,7 +15,13 @@ outputs, bit for bit.
   HTTP server), ``distributed_storage`` (keys and object files), the
   pub/sub frames and broker handshake across the packages, TRPC's names,
   the topologies and the Flow DAG (``test_comm.py::TestFlow::
-  test_flow_chain_with_loop`` on both). ``interceptor.py``, ``schema.py``, ``backoff.py`` and
+  test_flow_chain_with_loop`` on both);
+* ``serving/federated.py`` (what each role runs and serves, with the
+  session and the endpoint stubbed) and the env contract of
+  ``cross_silo/hierarchical/process_group.py`` (the same rendezvous,
+  world size and rank from the same environment, each handed to its
+  framework's initializer; a no-op at world size 1). ``interceptor.py``,
+  ``schema.py``, ``backoff.py`` and
   ``core/wire/*`` are pinned in ``tests/test_torch_comm.py`` and
   ``tests/test_torch_compression.py``.
 """
@@ -485,3 +491,113 @@ def test_flow_chain_with_loop_copy():
     from fedml_tpu.core.distributed import flow as jf
     from fedml_tpu_torch.core.distributed import flow as tf
     assert _flow_chain(tf) == _flow_chain(jf)
+
+
+@pytest.mark.parametrize("env,kw", [
+    ({"WORLD_SIZE": "2", "RANK": "1", "MASTER_ADDR": "10.0.0.7",
+      "MASTER_PORT": "29411"}, {}),
+    ({"WORLD_SIZE": "4", "RANK": "3"}, {}),
+    ({}, {"coordinator": "127.0.0.1:1234", "num_hosts": 3,
+          "host_rank": 2}),
+    ({"WORLD_SIZE": "1"}, {}), ({}, {})])
+def test_process_group_env_contract_copy(monkeypatch, env, kw):
+    import jax
+    import torch.distributed as dist
+    from fedml_tpu.cross_silo.hierarchical import process_group as jpg
+    from fedml_tpu_torch.cross_silo.hierarchical import process_group as tpg
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    seen = {}
+    monkeypatch.setattr(jpg, "_initialized", False)
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **a: seen.setdefault("jax", a))
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda **a: seen.setdefault("torch", a))
+    up = (jpg.init_silo_process_group(**kw),
+          tpg.init_silo_process_group(**kw, device="cpu"))
+    assert up[0] == up[1] == (int(env.get("WORLD_SIZE",
+                                          kw.get("num_hosts", 1))) > 1)
+    if not up[0]:
+        assert seen == {}
+        return
+    j, t = seen["jax"], seen["torch"]
+    assert t["init_method"] == "tcp://" + j["coordinator_address"]
+    assert (t["world_size"], t["rank"]) == (j["num_processes"],
+                                            j["process_id"])
+    assert t["backend"] == "gloo"
+
+
+@pytest.mark.parametrize("device,backend", [("cuda", "nccl"),
+                                            ("cuda:1", "nccl"),
+                                            ("cpu", "gloo")])
+def test_process_group_backend_follows_the_silo_device(monkeypatch, device,
+                                                       backend):
+    """The backend comes from the silo's device, not from whether the host
+    has a card (the rendezvous is stubbed: no card is touched)."""
+    import torch.distributed as dist
+    from fedml_tpu_torch.cross_silo.hierarchical import process_group as tpg
+    seen = {}
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda **a: seen.update(a))
+    assert tpg.init_silo_process_group("127.0.0.1:1234", 2, 1, device=device)
+    assert seen["backend"] == backend
+
+
+@pytest.mark.parametrize("role", ["server", "client"])
+def test_federated_serving_copy(monkeypatch, role):
+    """Both runners with the session and the endpoint stubbed: the same
+    calls (the predictor's params, the port, start vs run) and the same
+    result."""
+    import fedml_tpu.serving as js
+    import fedml_tpu_torch.serving as ts
+    from fedml_tpu.cross_silo.horizontal import runner as jr
+    from fedml_tpu.serving import federated as jf
+    from fedml_tpu_torch.cross_silo.horizontal import runner as tr
+    from fedml_tpu_torch.serving import federated as tf
+
+    def stubs(runner_mod, serving_mod, log):
+        class Session:
+            def __init__(self, *a, **k):
+                log.append(("session",))
+
+            def run(self, comm_round=None):
+                return {"params": {"w": 1.0}, "final_test_acc": 0.5}
+
+        class Predictor:
+            def __init__(self, bundle, params, **k):
+                log.append(("predictor", bundle, params))
+
+        class Endpoint:
+            port = 4321
+
+            def __init__(self, predictor, port=0):
+                log.append(("endpoint", port))
+
+            def start(self):
+                log.append(("start",))
+
+            def run(self):
+                log.append(("run",))
+
+        monkeypatch.setattr(runner_mod, "CrossSiloRunner", Session)
+        monkeypatch.setattr(serving_mod, "CheckpointPredictor", Predictor)
+        monkeypatch.setattr(serving_mod, "FedMLInferenceRunner", Endpoint)
+
+    logs, results = [], []
+    for runner_mod, serving_mod, mod, extra in (
+            (jr, js, jf, {}), (tr, ts, tf, {"device": "cpu"})):
+        log = []
+        stubs(runner_mod, serving_mod, log)
+        for block in (False, True):
+            args = type("A", (), dict(role=role, serving_port=77,
+                                      serving_block=block))()
+            r = mod.FederatedServingRunner(args, "fed", "bundle", **extra)
+            results.append(r.run())
+        logs.append(log)
+    assert logs[0] == logs[1]
+    assert results[:2] == results[2:]
+    if role == "server":
+        assert results[0]["serving_port"] == 4321
+        assert ("start",) in logs[0] and ("run",) in logs[0]

@@ -486,25 +486,46 @@ def test_entry_points_run_a_tcp_session():
 def test_unported_cross_silo_features_raise(knobs, name, role):
     """What the port lacks raises, naming itself, with or without
     ``round_mode: async_buffered`` (which is ported: the server and its
-    silos build; ``tests/test_torch_async_cross_silo.py`` runs them)."""
+    silos build; ``tests/test_torch_async_cross_silo.py`` runs them).
+    Split learning, gossip, vertical FL and the hierarchical scenario are
+    ported now: each builds its own party for the role
+    (``tests/test_torch_multiparty.py``, ``test_torch_gossip.py`` and
+    ``test_torch_hierarchical.py`` run them)."""
+    from fedml_tpu_torch.core.distributed.communication.inproc import \
+        InProcBroker
+    kw = dict(device="cpu", backend="INPROC", dataset="synthetic_mnist",
+              model="lr", client_num_in_total=2, client_num_per_round=2,
+              max_total_samples=16, enable_tracking=False, rank=1, **knobs)
+    ported = {"split learning": ("SplitNNServerManager",
+                                 "SplitNNClientManager"),
+              "gossip": ("GossipNodeManager", "GossipNodeManager"),
+              "vertical": ("VFLServerManager", "VFLPartyManager"),
+              "hierarchical": ("FedMLServerManager",
+                               "ClientMasterManager")}
+    if name in ported:
+        runner = fedml_tpu_torch.cross_silo_runner(
+            role, inproc_broker=InProcBroker(), **kw)
+        manager = runner.runner.manager
+        assert type(manager).__name__ == ported[name][role == "client"]
+        if name == "hierarchical" and role == "client":
+            assert type(manager.trainer).__name__ == \
+                "HierarchicalSiloTrainer"
+        manager.com_manager.stop_receive_message()
+        return
     fn = (fedml_tpu_torch.run_cross_silo_server if role == "server"
           else fedml_tpu_torch.run_cross_silo_client)
     with pytest.raises(NotImplementedError, match=name) as ei:
-        fn(device="cpu", backend="INPROC", dataset="synthetic_mnist",
-           model="lr", client_num_in_total=2, client_num_per_round=2,
-           max_total_samples=16, enable_tracking=False, rank=1, **knobs)
+        fn(**kw)
     if "round_mode" in knobs:
         # the refusal names the unported protocol, and async as ported
         assert str(ei.value).startswith("secure aggregation")
-        from fedml_tpu_torch.core.distributed.communication.inproc import \
-            InProcBroker
-        from fedml_tpu_torch.cross_silo.server.async_server import \
-            AsyncFedMLServerManager
         runner = fedml_tpu_torch.cross_silo_runner(
             role, device="cpu", backend="INPROC", dataset="synthetic_mnist",
             model="lr", client_num_in_total=2, client_num_per_round=2,
             max_total_samples=16, enable_tracking=False, rank=1,
             round_mode="async_buffered", inproc_broker=InProcBroker())
+        from fedml_tpu_torch.cross_silo.server.async_server import \
+            AsyncFedMLServerManager
         manager = runner.runner.manager
         assert (isinstance(manager, AsyncFedMLServerManager)
                 if role == "server" else manager._async_mode)
