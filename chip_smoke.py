@@ -51,7 +51,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    cuDNN on deterministic algorithms, within a few ulps of the largest
    update (expected bitwise); (b) SCAFFOLD on the flagship's configuration
    (its step, the control-variate transform inside, captured apart; one
-   timed block of 2 rounds, one eval), rounds/hour beside phase 6's
+   timed block of 1 round, one eval), rounds/hour beside phase 6's
    FedAvg, B1 at 27 launches per forward, the bytes of the ``[64, ...]``
    client-state stack; (c) B1 against its plain version at the folded
    batch (64 x 32 = 2,048, bf16), then FedSGD on the flagship's shape
@@ -92,7 +92,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    resumed to the end, bitwise; (b) MAIN_PATH at 64 of 128 clients: leg
    0 FedAvg, leg 1 bench_chaos_selection's knobs (20 % dropout, 10 %
    stragglers at half work, oort, adaptive over-sampling), one block of
-   2 rounds each, leg 2 leg 1 with LOO for 1 round (the fused robust path
+   1 round each, leg 2 leg 1 with LOO for 1 round (the fused robust path
    pins the cohort): rounds/hour, cohorts, dropped and straggling counts,
    summed work, B1 at 27 launches per forward with one capture, a
    dropped client's empty slot, the oort store's clients equal to those
@@ -180,8 +180,10 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     ``bench_cross_silo_wire`` as written (digits, LR, 10 silos, 40
     rounds in-proc, dense against ``topk_qsgd`` 5 % + EF with the
     compressed broadcast): model-bearing bytes per round, accuracy,
-    rounds to 90 %, wall seconds, and its gossip leg (phase 18 (c); the
-    SecAgg leg is not ported: null); (c) the flagship's configuration as
+    rounds to 90 %, wall seconds, its gossip leg (phase 18 (c)) and its
+    SecAgg leg (bench.py's, from the bench's own LR init: 4-bit lanes
+    against the dense field, bytes, rounds to 90 %, the masked sums equal
+    to the plain ones); (c) the flagship's configuration as
     a session over TCP
     (ResNet-56, synthetic CIFAR-10 50,000 / 1,000, bf16, fused block; 4
     silo subprocesses on the card, the server through
@@ -223,7 +225,17 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     launches held to 27 per eval forward, N2N bytes per round, the
     consensus distance and the average model's accuracy; (c) bench.py's
     gossip wire leg (in phase 16 (b)); a ``{"gossip": ...}`` line;
-19. one JSON line describing each kernel, then the card line, then
+19. secure aggregation: (a) the field math of ``core/mpc`` on the card
+    against the CPU and an integer reference, bitwise; (b) the SA and
+    LSA sessions (``run_secagg_inproc``, ``run_lsa_inproc``) at the
+    flagship's width (ResNet-56, bf16, fused block, 4 silo threads, 1
+    round, each silo cut to 2 steps): B1 held to 27 x (warm-up + replays
+    + eval batches), the model held to plain FedAvg of the silos'
+    deltas within the house tolerance plus one quantum per silo; (c)
+    over those deltas, the masking algebra with 0 and 1 silo dropped and
+    LightSecAgg's coding, bitwise; (d) the LR sessions, card vs CPU; a
+    ``{"secure_aggregation": ...}`` line;
+20. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -358,8 +370,11 @@ FAMILY = {"FedAvg": {}, "FedProx": {}, "FedOpt": {},
           "FedNova": dict(momentum=0.9), "FedDyn": {}, "Mime": {}}
 FAMILY_ULPS = 4
 # (b) SCAFFOLD on the flagship's configuration (MAIN_PATH), its step
-# captured apart, one timed block of FLAGSHIP_BLOCK rounds, one eval.
+# captured apart, one timed block of SCAFFOLD_BLOCK rounds, one eval.
+# SCAFFOLD_BLOCK was FLAGSHIP_BLOCK (2) until the secure sessions at the
+# flagship's width (phase 19 (b)) took its time.
 SCAFFOLD_PATH = dict(MAIN_PATH, federated_optimizer="SCAFFOLD")
+SCAFFOLD_BLOCK = 1
 # (c) FedSGD at the flagship's shape (ResNet-56, batch 32, bf16, fused conv
 # block, 64 clients a round), the data cut from 50,000 to 8,192 samples so
 # that one round with client_slot_fold off (64 clients x 7 padded batches
@@ -486,11 +501,13 @@ RELAYOUT_QUANTUM = {"int8": 1.0 / 127.0, "bf16": 2.0 ** -8}
 RELAYOUT_FLIP_SHARE = 0.01
 # (b) the full-width leg: MAIN_PATH at partial participation (128 clients,
 # 64 a round: bench_chaos_selection's "half of the clients per round" at
-# the flagship's width). Leg 0 FedAvg, one block of FLAGSHIP_BLOCK rounds;
+# the flagship's width). Leg 0 FedAvg, one block of FAULTS_BLOCK rounds;
 # leg 1 bench_chaos_selection's knobs (20 % dropout, 10 % stragglers at
 # half work, seed 7, tolerance on, oort, adaptive over-sampling capped at
-# 1.0), one block of FLAGSHIP_BLOCK rounds; leg 2 leg 1 with LOO, 1 round
-# (the fused robust path pins the adaptive cohort at 64).
+# 1.0), one block of FAULTS_BLOCK rounds; leg 2 leg 1 with LOO, 1 round
+# (the fused robust path pins the adaptive cohort at 64). FAULTS_BLOCK was
+# FLAGSHIP_BLOCK (2) until the secure-aggregation phase (19) took its time.
+FAULTS_BLOCK = 1
 FAULTS_PATH = dict(MAIN_PATH, client_num_in_total=128,
                    client_num_per_round=64)
 FAULTS_KNOBS = dict(chaos_dropout_prob=0.2, chaos_straggler_prob=0.1,
@@ -498,9 +515,9 @@ FAULTS_KNOBS = dict(chaos_dropout_prob=0.2, chaos_straggler_prob=0.1,
                     chaos_tolerance=True, client_selection="oort",
                     selection_adaptive_oversample=True,
                     selection_max_over_sample=1.0)
-FAULTS_LEGS = (("fedavg", FAULTS_PATH, FLAGSHIP_BLOCK),
+FAULTS_LEGS = (("fedavg", FAULTS_PATH, FAULTS_BLOCK),
                ("chaos_oort", dict(FAULTS_PATH, **FAULTS_KNOBS),
-                FLAGSHIP_BLOCK),
+                FAULTS_BLOCK),
                ("chaos_oort_loo", dict(FAULTS_PATH, contribution_method="loo",
                                        **FAULTS_KNOBS), 1))
 
@@ -809,6 +826,65 @@ GOSSIP_WIRE = dict(dataset="digits", model="lr", client_num_in_total=4,
                    client_num_per_round=4, comm_round=8, epochs=1,
                    batch_size=32, learning_rate=0.3, random_seed=0,
                    federated_optimizer="decentralized_fl")
+
+# Secure aggregation (phase 19). (a) the field math of core/mpc (GF(p), p =
+# 2^31 - 1, uint32 values in int64 lanes) on the card against the CPU and
+# against an exact integer reference (numpy uint64), bitwise: ff_add /
+# ff_sub / ff_neg / ff_mul on FIELD_PAIRS seeded pairs plus FIELD_EDGE,
+# each edge value against each; quantize -> dequantize over a vector of the
+# flagship's parameter count (seeded normals x 8, ties at half a quantum,
+# values past the +-2^29 clip, infinities) and dequantize of seeded field
+# values (signed values up to 2^30, which the float32 conversion rounds);
+# sum_mod_p over [4, D] and [64, D]; ff_random against prng's host
+# threefry.
+FIELD_PAIRS = 1 << 20
+FIELD_EDGE = (0, 1, 2, 2**16 - 1, 2**16, 2**16 + 1, 2**30, 2**30 + 1,
+              2**31 - 3, 2**31 - 2)
+# (b) the SA and LSA sessions at the flagship's width: SECAGG_FULL (CS_FULL's
+# ResNet-56, bf16, the fused conv block, synthetic CIFAR-10 50,000 in 4
+# partitions at alpha 0.5; 1 round) through run_secagg_inproc and
+# run_lsa_inproc on the card, so the silos' own on_train (the delta, n x
+# delta quantized on the card, fresh X25519 mask keys, sealed shares, the
+# SHA-256 masks of the JAX package) and the server's unmask and
+# apply_mean_delta run. Each silo's local training is cut to SECAGG_STEPS
+# steps (work_scale, through the sessions' client_factory hook); B1 must
+# be 27 x (every silo's warm-up + replays + the server's eval batches);
+# the session's model must equal plain FedAvg of the same silos' deltas
+# (float64, with quantize's +-2^13 clip on n x delta) within the house
+# tolerance plus one quantum per silo (2^-16 / sum(n)).
+SECAGG_FULL = dict(CS_FULL, comm_round=1)
+SECAGG_STEPS = 2
+# (c) the dropout algebra at the same width, over the SA session's silo
+# deltas: each n x delta quantized on the card and masked on the host by a
+# core/mpc SecAggClient (threshold 3 of 4, the stand-in key agreement);
+# secagg_unmask with no silo dropped and with silo 3 dropped must give the
+# survivors' plain quantized sum (sum_mod_p on the card) bit for bit.
+# LightSecAgg's mask_encoding / decode_aggregate_mask (n 4, LSA's
+# defaults: privacy_t 1, threshold n - 1, so split_t 2) recover the
+# aggregate mask over the same D, with and without silo 3, and unmask the
+# masked deltas to the same sum.
+# (d) the SA and LSA sessions on SECAGG_LR (CS_LR, 2 rounds) over INPROC
+# on the card against the CPU: the house tolerance plus one quantum per
+# silo and round (2^-16 / sum(n)). The state machines seal the routed
+# shares with the cryptography package; on a host without it both must
+# fail at build with the ModuleNotFoundError that names it (a stated
+# precondition: (b) to (d) then report "cpu_only").
+SECAGG_LR = dict(CS_LR, comm_round=2)
+# Phase 16 (b)'s SecAgg leg: bench.py's _secagg_wire_leg (bench.py:269) as
+# written: bundled digits, LR, 4 silos, 40 rounds, lr 0.3, seed 0; each
+# silo's local SGD from the global model with the key fold_in(PRNGKey(17 +
+# silo), round); the dense field leg (quantize at 2^-16, 4 B per
+# coordinate) against SECAGG_WIRE_BITS-bit lanes (plan_for(4, 4): 5 lanes
+# a word, field_encode with error feedback, rng (silo + 1) * 1000003 +
+# round), the pairwise masks seeded (round << 16) ^ (min << 8) ^ max, the
+# scale's running average. The JAX bench's acceptance: the masked sum
+# equals the plain sum every round, >= 4x fewer bytes than the dense
+# field, lane rounds to 90 % within +-2 of the dense leg's.
+SECAGG_WIRE = dict(dataset="digits", model="lr", client_num_in_total=4,
+                   client_num_per_round=4, comm_round=40, epochs=1,
+                   batch_size=32, learning_rate=0.3, frequency_of_the_test=1,
+                   random_seed=0)
+SECAGG_WIRE_BITS = 4
 
 # Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
 # the trainer calls the model), the hot loop, bench_long_context, and the
@@ -1456,7 +1532,7 @@ def _simulator(cfg):
 def scaffold_flagship(torch, cb, fa):
     """Phase 7 (b): SCAFFOLD on the flagship's configuration. Its step
     (the control-variate transform inside) is captured apart, then one
-    block of FLAGSHIP_BLOCK rounds is timed and one eval follows. Returns
+    block of SCAFFOLD_BLOCK rounds is timed and one eval follows. Returns
     its record and the kernels' launches over the path."""
     from fedml_tpu_torch.core.algframe.types import TrainHyper
     sim = _simulator(SCAFFOLD_PATH)
@@ -1465,7 +1541,7 @@ def scaffold_flagship(torch, cb, fa):
     capture_s = sim.capture_step(hyper)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    block = sim.run_rounds_fused(0, FLAGSHIP_BLOCK, hyper)
+    block = sim.run_rounds_fused(0, SCAFFOLD_BLOCK, hyper)
     torch.cuda.synchronize()
     block_s = time.perf_counter() - t0
     state = card_state()
@@ -1499,9 +1575,9 @@ def scaffold_flagship(torch, cb, fa):
     require(rows == sim.fed.num_clients,
             f"SCAFFOLD flagship: {rows} clients' c_i moved, expected "
             f"{sim.fed.num_clients}")
-    round_s = block_s / FLAGSHIP_BLOCK
+    round_s = block_s / SCAFFOLD_BLOCK
     return {"rounds_per_hour": 3600.0 / round_s, "step_time_s": round_s,
-            "block_s": block_s, "block_rounds": FLAGSHIP_BLOCK,
+            "block_s": block_s, "block_rounds": SCAFFOLD_BLOCK,
             "local_steps": steps,
             "ms_per_local_step": block_s / steps * 1e3,
             "capture_s": capture_s, "warmup_steps": program.warmup_steps,
@@ -4039,8 +4115,8 @@ def cs_checks(torch, fedml, tmp, dev="cuda", cpu="cpu"):
 
 def cs_wire_bench(torch, tmp, dev="cuda"):
     """Phase 16 (b): bench_cross_silo_wire on ``dev``, dense then
-    compressed, with its gossip leg (phase 18 (c)). Returns the bench's
-    record."""
+    compressed, with its SecAgg leg (phase 19's) and its gossip leg (phase
+    18 (c)). Returns the bench's record."""
     from fedml_tpu_torch.core.distributed.communication.message import \
         WIRE_STATS
     from fedml_tpu_torch.cross_silo.message_define import MyMessage
@@ -4073,6 +4149,7 @@ def cs_wire_bench(torch, tmp, dev="cuda"):
     reduction = (off["bytes_per_round"] / on["bytes_per_round"]
                  if on["bytes_per_round"] else None)
     gossip = gossip_wire_leg(tmp, dev)
+    secagg = secagg_wire_leg(torch, tmp, dev)
     return {"metric": "fedavg_cross_silo_wire_bytes_per_round",
             "value": on["bytes_per_round"],
             "vs_baseline": reduction,
@@ -4083,9 +4160,8 @@ def cs_wire_bench(torch, tmp, dev="cuda"):
             "compressed_rounds_to_target": on["rounds_to_target"],
             "dense_rounds_to_target": off["rounds_to_target"],
             "compressed_wall_s": on["wall_s"], "dense_wall_s": off["wall_s"],
-            "legs": {"secagg_compressed": None, "gossip_compressed": gossip},
-            "legs_reason": {"secagg_compressed": "not ported: the leg needs "
-                            "cross_silo/secagg (SecAgg lane compression)"}}
+            "legs": {"secagg_compressed": secagg,
+                     "gossip_compressed": gossip}}
 
 
 def cs_flagship(torch, cb, fa, fedml, tmp, cfg=CS_FULL, dev="cuda",
@@ -4981,6 +5057,564 @@ def gossip_phase(torch, cb, fa, tmp, dev="cuda", cpu="cpu"):
             "phase_s": time.perf_counter() - t_phase}
 
 
+def bench_truncated_normal(key, shape):
+    """``jax.random.truncated_normal(key, -2, 2, shape)`` in float32, on
+    the host, as flax's ``lecun_normal`` draws it: ``sqrt(2) *
+    erf_inv(u)`` for ``u`` uniform on ``[erf(-sqrt(2)), erf(sqrt(2)))``
+    (the correctly rounded float32 values, which are XLA's at these
+    bounds), clipped inside the bounds; ``erf_inv`` is the port's prng's
+    (XLA's single-precision polynomial)."""
+    import math
+
+    import numpy as np
+
+    from fedml_tpu_torch import prng
+    lo, hi = np.float32(-2.0), np.float32(2.0)
+    sqrt2 = np.float32(np.sqrt(2.0))
+    a = np.float32(math.erf(float(lo / sqrt2)))
+    b = np.float32(math.erf(float(hi / sqrt2)))
+    u = prng.uniform(key, int(np.prod(shape)), minval=a, maxval=b)
+    out = (sqrt2 * prng._erf_inv(prng._NumpyOps, u)).astype(np.float32)
+    return np.clip(out, np.nextafter(lo, np.float32(np.inf)),
+                   np.nextafter(hi, np.float32(-np.inf))).reshape(shape)
+
+
+def bench_lr_init(seed, fan_in, fan_out):
+    """The JAX package's LR init for ``random_seed`` ``seed``, as bench.py
+    draws it (``bundle.init(split(PRNGKey(seed))[0])``: flax's Dense_0,
+    a lecun_normal kernel and a zero bias), through the port's prng and
+    flax's key derivation, as a state dict of host arrays."""
+    import numpy as np
+
+    from fedml_tpu_torch import prng
+    from fedml_tpu_torch.interop import flax_to_state_dict
+    from fedml_tpu_torch.model.dropout import scope_salt
+    # make_rng("params")'s first call in scope Dense_0
+    key = prng.fold_in(prng.split(prng.PRNGKey(seed))[0],
+                       scope_salt("Dense_0", 1))
+    std = np.float32(np.sqrt(np.float32(1.0 / fan_in))) / np.float32(
+        0.87962566103423978)
+    kernel = bench_truncated_normal(key, (fan_in, fan_out)) * std
+    return flax_to_state_dict({"Dense_0": {
+        "kernel": kernel, "bias": np.zeros(fan_out, np.float32)}})
+
+
+def secagg_wire_leg(torch, tmp, dev="cuda", cfg=SECAGG_WIRE,
+                    bits=SECAGG_WIRE_BITS, target=CS_WIRE_TARGET,
+                    init=None, gate=True):
+    """Phase 16 (b)'s SecAgg leg: bench.py's _secagg_wire_leg through the
+    port's modules on ``dev`` (the local steps and the dense leg's
+    quantize / dequantize on the card, the masks and the lanes on the
+    host), from ``init`` (a state dict) or the bench's own init
+    (:func:`bench_lr_init`): rounds to 90 % depend on the draw. With
+    ``gate`` the JAX bench's acceptance is required. Returns the bench's
+    record and each leg's wall seconds."""
+    import numpy as np
+
+    from fedml_tpu_torch import prng
+    from fedml_tpu_torch.core.algframe.client_trainer import \
+        make_trainer_spec
+    from fedml_tpu_torch.core.collectives import FlatLayout
+    from fedml_tpu_torch.core.mpc import P, dequantize, expand_mask, quantize
+    from fedml_tpu_torch.core.mpc.field_ops import lanes, to_uint32
+    from fedml_tpu_torch.core.wire import (field_encode, lane_dequantize_sum,
+                                           plan_for, suggest_scale)
+    from fedml_tpu_torch.cross_silo.client.trainer import SiloTrainer
+    from fedml_tpu_torch.cross_silo.horizontal.runner import _make_eval_fn
+    from fedml_tpu_torch.optimizers.registry import create_optimizer
+
+    p = int(P)
+    k_n, rounds = cfg["client_num_per_round"], cfg["comm_round"]
+    device = torch.device(dev)
+    args, fed, bundle = _parts(dict(cfg, data_cache_dir=tmp),
+                               training_type="cross_silo")
+    spec = make_trainer_spec(fed, bundle)
+    trainer = SiloTrainer(args, fed, bundle, spec,
+                          create_optimizer(args, spec), device)
+    eval_fn = _make_eval_fn(spec, fed, device)
+    fan_out, fan_in = trainer.params_template["Dense_0.weight"].shape
+    if init is None:
+        init = bench_lr_init(cfg["random_seed"], fan_in, fan_out)
+    params0 = {k: torch.as_tensor(v).to(device) for k, v in init.items()}
+    layout = FlatLayout.of(params0)
+    d = layout.size
+
+    def local_vec(global_p, cidx, rnd):
+        # the bench's key, fold_in(PRNGKey(17 + silo), round)
+        out, _, _ = trainer.train(global_p, cidx, rnd, key=prng.fold_in(
+            prng.PRNGKey(17 + cidx), rnd))
+        return layout.flatten(out).float()
+
+    def leg(use_lanes):
+        plan = plan_for(bits, k_n) if use_lanes else None
+        scale = suggest_scale(4.0, plan) if plan else None
+        residuals = [None] * k_n
+        global_p = params0
+        plen = plan.packed_len(d) if plan else d
+        hit, acc, exact = None, 0.0, True
+        t0 = time.perf_counter()
+        for rnd in range(rounds):
+            qs = []
+            for k in range(k_n):
+                vec = local_vec(global_p, k, rnd)
+                if plan:
+                    packed, residuals[k] = field_encode(
+                        vec.cpu().numpy(), scale, plan, residuals[k],
+                        np.random.default_rng((k + 1) * 1000003 + rnd))
+                    qs.append(packed.astype(np.uint64))
+                else:
+                    qs.append(to_uint32(quantize(vec)).astype(np.uint64))
+            # +s_ij for i < j, -s_ij for i > j: the sum cancels mod p
+            masked = np.zeros(plen, np.uint64)
+            plain = np.zeros(plen, np.uint64)
+            for i in range(k_n):
+                m = qs[i] % p
+                for j in range(k_n):
+                    if i == j:
+                        continue
+                    seed = (rnd << 16) ^ (min(i, j) << 8) ^ max(i, j)
+                    s = expand_mask(seed, plen).astype(np.uint64)
+                    m = (m + s) % p if i < j else (m + p - s) % p
+                masked = (masked + m) % p
+                plain = (plain + qs[i]) % p
+            exact = exact and bool(np.array_equal(masked, plain))
+            if plan:
+                ssum = lane_dequantize_sum(masked.astype(np.uint32), k_n,
+                                           scale, plan, d)
+                avg = torch.from_numpy(ssum / k_n)
+                # the scale's running average, as SecAggServerManager
+                per_client = float(np.abs(ssum).max()) / k_n
+                scale = 0.5 * scale + 0.5 * suggest_scale(
+                    max(2.0 * per_client, 1e-8), plan)
+            else:
+                avg = dequantize(lanes(masked, device))[:d] / k_n
+            global_p = layout.unflatten(avg.to(device, torch.float32),
+                                        like=params0)
+            acc = float(eval_fn(global_p)["test_acc"])
+            if hit is None and acc >= target:
+                hit = rnd
+        return {"bytes_per_round": float(plen * 4 * k_n),
+                "rounds_to_target": hit, "final_acc": acc,
+                "mask_sum_bit_exact": exact,
+                "wall_s": time.perf_counter() - t0}
+
+    dense = leg(use_lanes=False)
+    lanes_leg = leg(use_lanes=True)
+    rec = {
+        "bytes_per_round": lanes_leg["bytes_per_round"],
+        "dense_field_bytes_per_round": dense["bytes_per_round"],
+        "reduction_vs_dense_field": (dense["bytes_per_round"]
+                                     / lanes_leg["bytes_per_round"]),
+        "rounds_to_target": lanes_leg["rounds_to_target"],
+        "dense_field_rounds_to_target": dense["rounds_to_target"],
+        "final_acc": lanes_leg["final_acc"],
+        "dense_field_final_acc": dense["final_acc"],
+        "mask_sum_bit_exact": bool(lanes_leg["mask_sum_bit_exact"]
+                                   and dense["mask_sum_bit_exact"]),
+        "bits": bits, "k_max": k_n, "target_acc": target,
+        "wall_s": lanes_leg["wall_s"], "dense_field_wall_s": dense["wall_s"]}
+    hits = (rec["rounds_to_target"], rec["dense_field_rounds_to_target"])
+    require(not gate or rec["mask_sum_bit_exact"]
+            and rec["reduction_vs_dense_field"] >= 4
+            and None not in hits and abs(hits[0] - hits[1]) <= 2,
+            f"SecAgg wire leg: {rec}")
+    return rec
+
+
+def field_checks(torch, d, dev="cuda", cpu="cpu"):
+    """Phase 19 (a): core/mpc's field math on ``dev`` against ``cpu`` and
+    an exact integer reference, bitwise, over ``d`` coordinates (the
+    flagship's parameter count). Returns what was checked."""
+    import numpy as np
+
+    from fedml_tpu_torch import prng
+    from fedml_tpu_torch.core import mpc
+    from fedml_tpu_torch.core.mpc.field_ops import lanes, to_uint32
+
+    p = int(mpc.P)
+    rng = np.random.RandomState(19)
+    edge = np.asarray(FIELD_EDGE, np.uint32)
+    a = np.concatenate([np.repeat(edge, len(edge)), rng.randint(
+        0, p, FIELD_PAIRS).astype(np.uint32)])
+    b = np.concatenate([np.tile(edge, len(edge)), rng.randint(
+        0, p, FIELD_PAIRS).astype(np.uint32)])
+    a64, b64 = a.astype(np.uint64), b.astype(np.uint64)
+    ref = {"ff_add": (a64 + b64) % p, "ff_sub": (a64 + p - b64) % p,
+           "ff_neg": (p - a64) % p, "ff_mul": (a64 * b64) % p}
+
+    def both(fn, *xs):
+        """``fn`` on the card and on the CPU: (card, CPU) host results."""
+        return [fn(*(x.to(where) if torch.is_tensor(x) else lanes(x, where)
+                     for x in xs)).cpu() for where in (dev, cpu)]
+
+    for op, want in ref.items():
+        xs = (a,) if op == "ff_neg" else (a, b)
+        card, host = both(getattr(mpc, op), *xs)
+        require(np.array_equal(to_uint32(card), to_uint32(host))
+                and np.array_equal(to_uint32(host), want.astype(np.uint32)),
+                f"field {op}: card, CPU and the integer reference differ")
+    # quantize over D: normals x 8, ties at half a quantum, past the clip
+    x = (rng.randn(d) * 8).astype(np.float32)
+    half = np.float32(2.0 ** -17)
+    special = np.asarray([1, 3, 5, -1, -3, -5, 7, -7], np.float32) * half
+    x[:8] = special
+    x[8:16] = [2.0 ** 14, -(2.0 ** 14), 1e9, -1e9, np.inf, -np.inf, 0.0,
+               -0.0]
+    card, host = both(mpc.quantize, torch.from_numpy(x))
+    s = np.clip(np.round(x * np.float32(65536.0)), -2.0 ** 29,
+                2.0 ** 29).astype(np.int64)
+    want_q = np.where(s >= 0, s, p + s).astype(np.uint32)
+    require(np.array_equal(to_uint32(card), to_uint32(host))
+            and np.array_equal(to_uint32(host), want_q),
+            "quantize: card, CPU and the reference differ")
+    card_dq, host_dq = both(mpc.dequantize, card)
+    fq = rng.randint(0, p, d).astype(np.uint32)
+    card_f, host_f = both(mpc.dequantize, fq)
+    for got_card, got_host, q in ((card_dq, host_dq, want_q),
+                                  (card_f, host_f, fq)):
+        q64 = q.astype(np.int64)
+        signed = np.where(q64 > p // 2, q64 - p, q64).astype(np.int32)
+        want_f = signed.astype(np.float32) / np.float32(65536.0)
+        require(np.array_equal(got_card.numpy().view(np.uint32),
+                               got_host.numpy().view(np.uint32))
+                and np.array_equal(got_host.numpy().view(np.uint32),
+                                   want_f.view(np.uint32)),
+                "dequantize: card, CPU and the reference differ")
+    for k in (4, 64):
+        m = rng.randint(0, p, size=(k, d)).astype(np.uint32)
+        card, host = both(mpc.sum_mod_p, m)
+        want = m.astype(np.uint64).sum(axis=0) % p
+        require(np.array_equal(to_uint32(card), to_uint32(host))
+                and np.array_equal(to_uint32(host), want.astype(np.uint32)),
+                f"sum_mod_p over [{k}, {d}]: card, CPU and the integer "
+                f"reference differ")
+    key = prng.PRNGKey(19)
+    card = mpc.ff_random(key, (d,), dev).cpu()
+    host = mpc.ff_random(key, (d,), cpu)
+    b0, b1 = prng.threefry2x32(key, np.zeros(d, np.uint32),
+                               np.arange(d, dtype=np.uint32))
+    bits = (b0 ^ b1).astype(np.uint64)
+    folded = (bits >> 31) + (bits & p)
+    folded = np.where(folded >= p, folded - p, folded).astype(np.uint32)
+    require(np.array_equal(to_uint32(card), to_uint32(host))
+            and np.array_equal(to_uint32(host), folded),
+            "ff_random: card, CPU and the host threefry differ")
+    return {"pairs": int(len(a)), "d": int(d), "sum_mod_p_k": [4, 64]}
+
+
+class CutSilo:
+    """A secure session's silo trainer (a ``SiloTrainer``, as the
+    sessions' ``client_factory`` hook hands it over) whose local training
+    stops after ``steps`` steps (``work_scale``, as the chaos straggler
+    cuts it); ``trained`` keeps each training's received params, new
+    params and sample count, on the trainer's device."""
+
+    def __init__(self, trainer, steps):
+        self.trainer, self.steps, self.trained = trainer, steps, []
+
+    def __getattr__(self, name):
+        return getattr(self.trainer, name)
+
+    def train(self, params, client_idx, round_idx):
+        real = int(self.trainer.batch_real[client_idx].sum())
+        new, n, metrics = self.trainer.train(
+            params, client_idx, round_idx,
+            work_scale=(self.steps - 0.5) / real)
+        self.trained.append((params, new, n))
+        return new, n, metrics
+
+
+def secagg_flagship_sessions(torch, cb, fa, parts, dev="cuda",
+                             steps=SECAGG_STEPS):
+    """Phase 19 (b): the SA and LSA INPROC sessions at ``parts``' width
+    (the flagship's: ``(args, fed, bundle)``) on ``dev``, every silo's
+    training cut to ``steps`` steps. Returns the record and the SA
+    session's silo trainings ``[(received, new, n)]``."""
+    import copy
+
+    from fedml_tpu_torch.cross_silo.lightsecagg import (LSAClientManager,
+                                                        run_lsa_inproc)
+    from fedml_tpu_torch.cross_silo.secagg import (SecAggClientManager,
+                                                   run_secagg_inproc)
+
+    args0, fed, bundle = parts
+    k = int(args0.client_num_per_round)
+    rounds = int(args0.comm_round)
+    n_eval = int(fed.test["x"].shape[0])
+    cuda = torch.device(dev).type == "cuda"
+    out, params, trained = {}, {}, None
+    for fo, run, manager in (("SA", run_secagg_inproc, SecAggClientManager),
+                             ("LSA", run_lsa_inproc, LSAClientManager)):
+        args = copy.copy(args0)
+        args.federated_optimizer = fo
+        silos = []
+
+        def factory(rank, a, trainer, manager=manager, silos=silos):
+            silos.append(CutSilo(trainer, steps))
+            return manager(a, silos[-1], rank=rank, size=k + 1,
+                           backend="INPROC")
+
+        reset_launches(cb, fa)
+        t0 = time.perf_counter()
+        res = run(args, fed, bundle, client_factory=factory, device=dev)
+        wall = time.perf_counter() - t0
+        b1 = launches(cb, fa)
+        require(res is not None and "error" not in res
+                and len(res["history"]) == rounds
+                and math.isfinite(res["history"][-1]["test_loss"]),
+                f"{fo} flagship session: {res and res.get('error')}")
+        stats = [s.program_stats() for s in silos]
+        silo_steps = [sum(r["steps"] for r in s.log) for s in silos]
+        forwards = (sum(st["warmup_steps"] + st["replays"] for st in stats)
+                    + n_eval * rounds)
+        if cuda:
+            require(len(silos) == k
+                    and all(st["captures"] == 1 for st in stats)
+                    and silo_steps == [steps * rounds] * k
+                    and [st["replays"] for st in stats] == silo_steps
+                    and b1["conv_block"] == 27 * forwards
+                    and b1["flash_fwd"] == 0,
+                    f"{fo} flagship session: {stats}, steps {silo_steps}, "
+                    f"launches {b1} (B1 27 x (warm-up + replays + "
+                    f"{n_eval * rounds} eval batches) expected)")
+        # plain FedAvg of the same silos' deltas, in float64, with
+        # quantize's clip of n x delta at +-2^29 quanta (the JAX package
+        # clips there too)
+        done = [t for s in silos for t in s.trained]
+        wsum = float(sum(n for _, _, n in done))
+        quanta = rounds * k * 2.0 ** -16 / wsum
+        worst, clipped = 0.0, 0
+        for name, got in res["params"].items():
+            acc = torch.zeros(got.shape, dtype=torch.float64,
+                              device=got.device)
+            for received, new, n in done:
+                nd = (new[name].double() - received[name].double()) * n
+                clipped += int((nd.abs() > 2.0 ** 13).sum())
+                acc += nd.clamp(-2.0 ** 13, 2.0 ** 13)
+            ref = done[0][0][name].double() + acc / wsum
+            bound = HOUSE_TOL[1] + quanta + HOUSE_TOL[0] * ref.abs()
+            worst = max(worst, float(((got.double() - ref).abs()
+                                      / bound).max()))
+        require(worst <= 1.0, f"{fo} flagship session vs plain FedAvg of "
+                              f"its silos' deltas: {worst:.3f} of the "
+                              f"tolerance")
+        params[fo] = res["params"]
+        if fo == "SA":
+            trained = done
+        out[fo] = {"wall_s": wall, "within_tolerance": worst,
+                   "quanta": quanta, "clipped_coordinates": clipped,
+                   "samples": [n for _, _, n in done],
+                   "steps_per_silo": silo_steps,
+                   "train_s": [r["train_s"] for s in silos for r in s.log],
+                   "captures": sum(st["captures"] for st in stats),
+                   "capture_s": [st["capture_s"] for st in stats],
+                   "warmup_steps": sum(st["warmup_steps"] for st in stats),
+                   "replays": sum(st["replays"] for st in stats),
+                   "eval_batches": n_eval * rounds,
+                   "b1_launches": b1["conv_block"],
+                   "test_acc": res["final_test_acc"]}
+    out["sa_vs_lsa_max_abs"] = max(
+        float((params["SA"][k_] - params["LSA"][k_]).abs().max())
+        for k_ in params["SA"])
+    return out, trained
+
+
+def secagg_algebra(torch, trained, dev="cuda"):
+    """Phase 19 (c): the masking algebra over the silo trainings
+    ``trained`` (``[(received, new, n)]`` on ``dev``): each n x delta
+    quantized on the card, masked on the host; unmasked with 0 and 1
+    silo dropped, and LightSecAgg's coding over the same D. Returns the
+    record."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.mpc import (P, SecAggClient,
+                                          aggregate_encoded,
+                                          decode_aggregate_mask,
+                                          mask_encoding, quantize,
+                                          secagg_unmask, sum_mod_p)
+    from fedml_tpu_torch.core.mpc.field_ops import lanes, to_uint32
+    from fedml_tpu_torch.cross_silo.wire import flat_delta
+
+    p = int(P)
+    n = len(trained)
+    device = torch.device(dev)
+    cuda = device.type == "cuda"
+    qs, q_ms = [], []
+    for received, new, n_i in trained:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vec = flat_delta(new, received)
+        qs.append(to_uint32(quantize(vec * float(n_i))))   # waits
+        q_ms.append((time.perf_counter() - t0) * 1e3)
+        require(bool(torch.isfinite(vec).all()), "non-finite silo delta")
+    d = len(qs[0])
+    t = n // 2 + 1
+    clients = [SecAggClient(i, n, t, seed=100 + i) for i in range(n)]
+    publics = {c.cid: c.public_key for c in clients}
+    for c in clients:
+        c.receive_publics(publics)
+    shares = [c.make_shares() for c in clients]
+    seed_sh = {i: [shares[i][j][0] for j in range(n)] for i in range(n)}
+    key_sh = {i: [shares[i][j][1] for j in range(n)] for i in range(n)}
+    masked, mask_s = [], []
+    for i, c in enumerate(clients):
+        t0 = time.perf_counter()
+        masked.append(((qs[i].astype(np.uint64) + c.mask_total(d)) % p)
+                      .astype(np.uint32))
+        mask_s.append(time.perf_counter() - t0)
+    unmask_s, lsa = {}, {}
+    privacy_t = 1                  # LSA's defaults (cross_silo/lightsecagg:
+    threshold = max(n - 1, 2)      # lsa_params, lsa_privacy_t,
+    split_t = max(threshold - privacy_t, 1)   # lsa_threshold)
+    d_pad = -(-d // split_t) * split_t
+    zs = [np.random.RandomState(200 + i).randint(0, p, d_pad).astype(
+        np.uint64) for i in range(n)]
+    t0 = time.perf_counter()
+    enc = [mask_encoding(zs[i], n, privacy_t, split_t,
+                         np.random.RandomState(300 + i)) for i in range(n)]
+    lsa["encode_s_per_client"] = (time.perf_counter() - t0) / n
+    for drop in ((), (n - 1,)):
+        surv = [i for i in range(n) if i not in drop]
+        plain = to_uint32(sum_mod_p(torch.stack(
+            [lanes(qs[i], device) for i in surv])))
+        total = np.zeros(d, np.uint64)
+        for i in surv:
+            total = (total + masked[i]) % p
+        t0 = time.perf_counter()
+        un = secagg_unmask(total.astype(np.uint32), surv, list(drop),
+                           {i: seed_sh[i][:t] for i in surv},
+                           {i: key_sh[i][:t] for i in drop}, publics, d)
+        unmask_s[len(drop)] = time.perf_counter() - t0
+        require(np.array_equal(un, plain),
+                f"secagg_unmask with {len(drop)} dropped differs from the "
+                f"survivors' plain quantized sum")
+        need = split_t + privacy_t
+        t0 = time.perf_counter()
+        resp = [aggregate_encoded([enc[i][j] for i in surv]) for j in surv]
+        z_sum = decode_aggregate_mask(resp[:need], surv[:need], n,
+                                      privacy_t, split_t, d_pad)
+        lsa[f"decode_s_{len(drop)}_dropped"] = time.perf_counter() - t0
+        want_z = np.zeros(d_pad, np.uint64)
+        lsa_total = np.zeros(d_pad, np.uint64)
+        for i in surv:
+            want_z = (want_z + zs[i]) % p
+            lsa_total = (lsa_total + (np.pad(qs[i].astype(np.uint64),
+                                             (0, d_pad - d)) + zs[i]) % p) % p
+        lsa_un = (lsa_total + p - z_sum % p) % p
+        require(np.array_equal(z_sum % p, want_z)
+                and np.array_equal(lsa_un[:d].astype(np.uint32), plain),
+                f"LightSecAgg with {len(drop)} dropped: the aggregate mask "
+                f"or the unmasked sum differs")
+    return {"d": int(d), "silos": n, "threshold": t,
+            "delta_quantize_ms_per_client": float(np.mean(q_ms)),
+            "delta_quantize_ms": q_ms,
+            "mask_s_per_client": float(np.mean(mask_s)), "mask_s": mask_s,
+            "unmask_s_0_dropped": unmask_s[0],
+            "unmask_s_1_dropped": unmask_s[1],
+            "masks_expanded_per_round": n * n + n + (n - 1) * 2,
+            "lsa": dict(lsa, split_t=split_t, privacy_t=privacy_t)}
+
+
+def secagg_refusals(torch, dev="cuda", cfg=SECAGG_LR):
+    """On a host without ``cryptography``: SA and LSA, server and client,
+    must fail at build with the ModuleNotFoundError that names it."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch.core.distributed.communication.inproc import \
+        InProcBroker
+    for fo in ("SA", "LSA"):
+        for role in ("server", "client"):
+            try:
+                fedml_tpu_torch.cross_silo_runner(
+                    role, device=dev, backend="INPROC", rank=1,
+                    inproc_broker=InProcBroker(), federated_optimizer=fo,
+                    enable_tracking=False, **cfg)
+            except ModuleNotFoundError as e:
+                require((e.name or "").split(".")[0] == "cryptography",
+                        f"{fo} {role}: {e!r} does not name cryptography")
+            else:
+                raise SmokeFailure(f"{fo} {role} built without the "
+                                   f"cryptography package")
+
+
+def secagg_sessions(torch, dev="cuda", cpu="cpu", cfg=SECAGG_LR):
+    """Phase 19 (d): the SA and LSA INPROC sessions of ``cfg`` on ``dev``
+    against ``cpu``. Returns the record."""
+    import numpy as np
+
+    from fedml_tpu_torch.cross_silo.lightsecagg import run_lsa_inproc
+    from fedml_tpu_torch.cross_silo.secagg import run_secagg_inproc
+    out = {}
+    for fo, run in (("SA", run_secagg_inproc), ("LSA", run_lsa_inproc)):
+        res = {}
+        for where in (dev, cpu):
+            args, fed, bundle = _parts(dict(cfg, federated_optimizer=fo),
+                                       training_type="cross_silo")
+            t0 = time.perf_counter()
+            res[where] = run(args, fed, bundle, device=where)
+            require(res[where] is not None and "error" not in res[where],
+                    f"{fo} session on {where}: {res[where]}")
+            res[where]["wall_s"] = time.perf_counter() - t0
+        n = np.asarray(fed.train.num_samples)[:cfg["client_num_per_round"]]
+        quanta = cfg["comm_round"] * len(n) * 2.0 ** -16 / float(n.sum())
+        worst = 0.0
+        for k, v in res[cpu]["params"].items():
+            got = res[dev]["params"][k].detach().cpu().double()
+            ref = v.detach().cpu().double()
+            bound = HOUSE_TOL[1] + quanta + HOUSE_TOL[0] * ref.abs()
+            worst = max(worst, float(((got - ref).abs() / bound).max()))
+        require(worst <= 1.0, f"{fo} session: card vs CPU {worst:.3f} of "
+                              f"the tolerance")
+        out[fo] = {"within_tolerance": worst, "quanta": quanta,
+                   "test_acc": res[dev]["final_test_acc"],
+                   "cpu_test_acc": res[cpu]["final_test_acc"],
+                   "wall_s": res[dev]["wall_s"],
+                   "cpu_wall_s": res[cpu]["wall_s"]}
+    return out
+
+
+def secagg_phase(torch, cb, fa, tmp, dev="cuda", cpu="cpu",
+                 cfg=SECAGG_FULL):
+    """Phase 19: secure aggregation. Returns the ``secure_aggregation``
+    record (the field checks; the sessions at ``cfg``'s width and the
+    masking algebra over their silos' deltas; the sessions on
+    SECAGG_LR, card vs CPU)."""
+    from fedml_tpu_torch.core.collectives import FlatLayout
+    t_phase = time.perf_counter()
+    parts = _parts(dict(cfg, data_cache_dir=tmp), training_type="cross_silo")
+    d = FlatLayout.of(parts[2].init(torch.Generator().manual_seed(0),
+                                    "cpu")).size
+    reset_launches(cb, fa)
+    t0 = time.perf_counter()
+    field = field_checks(torch, d, dev, cpu)
+    field["s"] = time.perf_counter() - t0
+    try:
+        import cryptography  # noqa: F401
+    except ModuleNotFoundError:
+        secagg_refusals(torch, dev)
+        absent = "cpu_only: cryptography absent on this host"
+        return {"field": field, "flagship_sessions": absent,
+                "algebra": absent, "sessions": absent,
+                "phase_s": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    flagship, trained = secagg_flagship_sessions(torch, cb, fa, parts, dev)
+    flagship["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    algebra = secagg_algebra(torch, trained, dev)
+    algebra["s"] = time.perf_counter() - t0
+    del trained
+    reset_launches(cb, fa)
+    t0 = time.perf_counter()
+    sessions = secagg_sessions(torch, dev, cpu)
+    require(launches(cb, fa) == {"conv_block": 0, "flash_fwd": 0,
+                                 "flash_dq": 0, "flash_dkv": 0},
+            f"the secure-aggregation sessions launched {launches(cb, fa)}")
+    return {"field": field, "flagship_sessions": flagship,
+            "algebra": algebra, "sessions": sessions,
+            "sessions_s": time.perf_counter() - t0,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import tempfile
 
@@ -5470,7 +6104,7 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
           f"rounds to {w['target_acc']}: {w['dense_rounds_to_target']} / "
           f"{w['compressed_rounds_to_target']}, wall "
           f"{w['dense_wall_s']:.2f} / {w['compressed_wall_s']:.2f} s; legs "
-          f"{w['legs']} ({w['legs_reason']})", flush=True)
+          f"{w['legs']}", flush=True)
     f = cs["flagship"]
     print(f"cross-silo flagship ({card}): {f['s_per_round']:.3f} s per "
           f"round (wall) over {f['timed_rounds']} timed rounds = "
@@ -5557,6 +6191,42 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
     gossip["card"] = card
     print(json.dumps({"gossip": gossip}), flush=True)
 
+    sec = secagg_phase(torch, cb, fa, tmp)
+    f = sec["field"]
+    print(f"secagg field math ({card}): {f['pairs']} pairs of ff_add / "
+          f"ff_sub / ff_neg / ff_mul, quantize / dequantize over D = "
+          f"{f['d']}, sum_mod_p over [4, D] and [64, D], ff_random: card = "
+          f"CPU = integer reference bitwise", flush=True)
+    for fo in ("SA", "LSA"):
+        f = sec["flagship_sessions"]
+        if isinstance(f, str):
+            print(f"secagg {fo} session at the flagship's width: {f}",
+                  flush=True)
+            continue
+        f = f[fo]
+        print(f"secagg {fo} session at the flagship's width ({card}): 4 "
+              f"silos x {SECAGG_STEPS} steps, 1 round, {f['wall_s']:.2f} "
+              f"s; B1 {f['b1_launches']} = 27 x ({f['warmup_steps']} + "
+              f"{f['replays']} + {f['eval_batches']} eval batches); vs "
+              f"plain FedAvg of its silos' deltas {f['within_tolerance']:.4f}"
+              f" of the tolerance ({f['clipped_coordinates']} coordinates "
+              f"clipped)", flush=True)
+    f = sec["algebra"]
+    if not isinstance(f, str):
+        print(f"secagg algebra over the SA session's deltas ({card}): D = "
+              f"{f['d']}; delta + quantize on the card "
+              f"{f['delta_quantize_ms_per_client']:.2f} ms per client; "
+              f"masking on the host {f['mask_s_per_client']:.3f} s per "
+              f"client; unmask {f['unmask_s_0_dropped']:.3f} s with 0 "
+              f"dropped, {f['unmask_s_1_dropped']:.3f} s with 1; LSA encode "
+              f"{f['lsa']['encode_s_per_client']:.3f} s per client, decode "
+              f"{f['lsa']['decode_s_0_dropped']:.3f} / "
+              f"{f['lsa']['decode_s_1_dropped']:.3f} s; every unmasked sum "
+              f"= the survivors' plain quantized sum bitwise", flush=True)
+    print(f"secagg sessions: {json.dumps(sec['sessions'])}", flush=True)
+    sec["card"] = card
+    print(json.dumps({"secure_aggregation": sec}), flush=True)
+
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
@@ -5586,6 +6256,14 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         # node 0's evaluation of the average model
         "launches_gossip_nodes": gossip["flagship"]["b1_launches_nodes"],
         "launches_gossip_eval": gossip["flagship"]["b1_launches_eval"],
+        # phase 19 (b): the SA and LSA sessions at the flagship's width
+        # (their silos' captured steps and the server's evaluation)
+        "launches_secagg_sa": (None if isinstance(sec["flagship_sessions"],
+                                                  str) else
+                               sec["flagship_sessions"]["SA"]["b1_launches"]),
+        "launches_lightsecagg": (
+            None if isinstance(sec["flagship_sessions"], str) else
+            sec["flagship_sessions"]["LSA"]["b1_launches"]),
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],

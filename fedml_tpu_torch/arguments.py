@@ -161,6 +161,15 @@ _SCHEMA: Dict[str, Any] = {
     "comm_compression_ratio_min": None,
     "comm_compression_ratio_max": None,
     "comm_compression_latency_budget_s": None,  # uplink s == full pressure
+    # secure aggregation (federated_optimizer SA / LSA): SA's field lanes
+    # (0 = dense field; 4 | 8 | 16-bit lanes) and their round-0 clip
+    # (auto-scaled after); the Shamir threshold (0 = a majority); LSA's
+    # privacy parameter and decode threshold (0 = n - 1)
+    "secagg_compress_bits": 0,
+    "secagg_compress_clip": 4.0,
+    "secagg_threshold": 0,
+    "lsa_privacy_t": 1,
+    "lsa_threshold": 0,
     # comm retry policy (exponential backoff + jitter at the transport
     # send seam; 0 attempts = fail fast); deadline_s caps the total retry
     # budget in wall seconds (0 = attempt count only)
@@ -190,6 +199,10 @@ _SCHEMA: Dict[str, Any] = {
     "obs_profile_device": False,
     # the JAX package's per-program roofline capture; not ported (raises)
     "obs_roofline": False,
+    # accepted and inert, as in the JAX package (secure aggregation is
+    # federated_optimizer SA / LSA; core/fhe.FedMLFHE reads enable_fhe)
+    "enable_secure_agg": False,
+    "enable_fhe": False,
     # checkpoint/artifact args
     "save_model_path": None,     # persist final params (serving artifact)
     "checkpoint_dir": None,      # round checkpoints (with the codec)

@@ -2,10 +2,10 @@
 horizontal FedAvg server (synchronous, or buffered-async under
 ``round_mode: async_buffered``) and silo FSMs, serverless gossip
 (``decentralized.py``), split learning (``split_learning.py``), vertical
-FL (``vertical.py``) and the hierarchical scenario (``hierarchical/``),
-all over the same comm stack (in-proc, TCP, gRPC, pub/sub with its
-object store, TRPC). Secure aggregation (SA, LSA) is not ported yet and
-raises NotImplementedError naming itself."""
+FL (``vertical.py``), the hierarchical scenario (``hierarchical/``) and
+secure aggregation (``secagg/``: SA, ``lightsecagg/``: LSA; both need the
+``cryptography`` package), all over the same comm stack (in-proc, TCP,
+gRPC, pub/sub with its object store, TRPC)."""
 
 from __future__ import annotations
 

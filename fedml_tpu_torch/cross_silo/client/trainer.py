@@ -105,17 +105,20 @@ class SiloTrainer:
         return cd
 
     def train(self, params, client_idx: int, round_idx: int,
-              work_scale: float = 1.0, key_index: int = None
+              work_scale: float = 1.0, key_index: int = None, key=None
               ) -> Tuple[dict, float, Dict[str, float]]:
         """``key_index`` (default ``client_idx``) is folded into the
-        round's key: a gossip node folds in its rank."""
+        round's key: a gossip node folds in its rank. ``key`` (a prng
+        key) replaces the round's key."""
         t0 = time.perf_counter()
         self._cdata = cdata = self._client(int(client_idx))
         hyper = TrainHyper(learning_rate=float(self.args.learning_rate),
                            epochs=int(self.args.epochs),
                            work_scale=float(work_scale))
-        key = prng.fold_in(prng.fold_in(self.rng, round_idx),
-                           client_idx if key_index is None else key_index)
+        if key is None:
+            key = prng.fold_in(prng.fold_in(self.rng, round_idx),
+                               client_idx if key_index is None
+                               else key_index)
         out, steps, metrics = self._local_sgd(
             params, cdata, key, hyper, self.batch_real[int(client_idx)])
         # the program's static tensors are overwritten by the next round

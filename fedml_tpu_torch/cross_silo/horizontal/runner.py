@@ -9,11 +9,15 @@ real deployment. ``round_mode: async_buffered`` builds the buffered-async
 server (:mod:`..server.async_server`), as the JAX runner does. Every
 party runs on ``device``: the builders take it as given, the in-proc
 helper resolves it as ``run_simulation`` does (CUDA unless ``"cpu"``; no
-CUDA and no ``"cpu"`` raises). ``federated_optimizer`` split_nn /
-splitnn, decentralized_fl / gossip and classical_vertical / vertical_fl /
-vfl build the split-learning, gossip and vertical-FL managers, as the JAX
-runner does; secure aggregation (SA, LSA) is not ported yet and raises
-NotImplementedError naming itself.
+CUDA and no ``"cpu"`` raises). ``federated_optimizer`` SA / secagg and
+LSA / lightsecagg build the secure-aggregation managers (``cross_silo/
+secagg``, ``cross_silo/lightsecagg``; their silos train plain FedAvg
+steps), before the ``round_mode`` dispatch, as the JAX runner does; their
+modules need the ``cryptography`` package and are imported only here, so
+a host without it fails at build, naming it, and runs every other
+session. split_nn / splitnn, decentralized_fl / gossip and
+classical_vertical / vertical_fl / vfl build the split-learning, gossip
+and vertical-FL managers.
 """
 
 from __future__ import annotations
@@ -35,29 +39,11 @@ from ..server.fedml_server_manager import FedMLServerManager
 
 logger = logging.getLogger(__name__)
 
-# federated_optimizer values whose cross-silo protocols are not ported
-_UNPORTED_PROTOCOLS = {
-    "sa": "secure aggregation (federated_optimizer SA, cross_silo/secagg)",
-    "secagg": "secure aggregation (federated_optimizer SA, "
-              "cross_silo/secagg)",
-    "lsa": "LightSecAgg (federated_optimizer LSA, cross_silo/lightsecagg)",
-    "lightsecagg": "LightSecAgg (federated_optimizer LSA, "
-                   "cross_silo/lightsecagg)",
-}
+SA_FOS = ("sa", "secagg")
+LSA_FOS = ("lsa", "lightsecagg")
 SPLIT_FOS = ("split_nn", "splitnn")
 GOSSIP_FOS = ("decentralized_fl", "gossip")
 VERTICAL_FOS = ("classical_vertical", "vertical_fl", "vfl")
-
-
-def check_protocol(args) -> None:
-    """Refuse the cross-silo protocols the port lacks."""
-    fo = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
-    if fo in _UNPORTED_PROTOCOLS:
-        raise NotImplementedError(
-            f"{_UNPORTED_PROTOCOLS[fo]} is not ported to fedml_tpu_torch "
-            f"yet (ported cross-silo: the horizontal FedAvg session, "
-            f"synchronous or round_mode: async_buffered, gossip, split "
-            f"learning, vertical FL and the hierarchical scenario)")
 
 
 def _build_spec(fed, bundle, client_trainer):
@@ -79,21 +65,24 @@ def _make_eval_fn(spec, fed, device):
     return eval_fn
 
 
+def _global_init(args, bundle, device, init_params):
+    """The server's starting model on ``device``: ``init_params`` (a state
+    dict) or the bundle's init seeded by ``random_seed``."""
+    if init_params is None:
+        seed = int(getattr(args, "random_seed", 0))
+        return bundle.init(torch.Generator().manual_seed(seed), device)
+    return load_params(bundle, init_params, device)
+
+
 def build_server(args, fed, bundle, spec=None, backend: Optional[str] = None,
                  comm=None, *, device,
                  init_params: Optional[Dict[str, Any]] = None):
     """The server FSM on ``device``, starting from ``init_params`` (a state
     dict; :mod:`fedml_tpu_torch.interop` brings a flax tree) or the
     bundle's seeded init."""
-    check_protocol(args)
     device = torch.device(device)
     spec = _build_spec(fed, bundle, spec)
-    seed = int(getattr(args, "random_seed", 0))
-    if init_params is None:
-        global_params = bundle.init(torch.Generator().manual_seed(seed),
-                                    device)
-    else:
-        global_params = load_params(bundle, init_params, device)
+    global_params = _global_init(args, bundle, device, init_params)
     size = int(getattr(args, "client_num_per_round", 1)) + 1
     from ...core.async_rounds import round_mode_from_args
     if round_mode_from_args(args) == "async_buffered":
@@ -116,7 +105,6 @@ def build_server(args, fed, bundle, spec=None, backend: Optional[str] = None,
 def build_client(args, fed, bundle, rank: int, spec=None,
                  backend: Optional[str] = None, comm=None, *, device):
     """Silo ``rank``'s FSM, training on ``device``."""
-    check_protocol(args)
     spec = _build_spec(fed, bundle, spec)
     optimizer = create_optimizer(args, spec)
     trainer = SiloTrainer(args, fed, bundle, spec, optimizer, device)
@@ -124,6 +112,69 @@ def build_client(args, fed, bundle, rank: int, spec=None,
     return ClientMasterManager(
         args, trainer, comm=comm, rank=rank, size=size,
         backend=backend or _wan_backend(args))
+
+
+def build_secure_server(args, fed, bundle, fo: str, spec=None,
+                        backend: Optional[str] = None, *, device,
+                        init_params: Optional[Dict[str, Any]] = None):
+    """The SA (``fo`` in :data:`SA_FOS`) or LSA server on ``device``."""
+    device = torch.device(device)
+    spec = _build_spec(fed, bundle, spec)
+    kw = dict(eval_fn=_make_eval_fn(spec, fed, device), rank=0,
+              size=int(getattr(args, "client_num_per_round", 1)) + 1,
+              backend=backend or _wan_backend(args))
+    params = _global_init(args, bundle, device, init_params)
+    if fo in SA_FOS:
+        from ..secagg import SecAggServerManager
+        return SecAggServerManager(args, params, **kw)
+    from ..lightsecagg import LSAServerManager
+    return LSAServerManager(args, params, **kw)
+
+
+def build_secure_client(args, fed, bundle, fo: str, rank: int, spec=None,
+                        backend: Optional[str] = None, *, device,
+                        client_factory=None):
+    """SA or LSA silo ``rank``, training plain FedAvg steps on ``device``;
+    ``client_factory(rank, args, trainer)`` builds the manager instead
+    (tests inject faulty silos)."""
+    import copy
+    spec = _build_spec(fed, bundle, spec)
+    inner_args = copy.copy(args)
+    inner_args.federated_optimizer = "FedAvg"  # the local step is FedAvg
+    trainer = SiloTrainer(args, fed, bundle, spec,
+                          create_optimizer(inner_args, spec), device)
+    if client_factory is not None:
+        return client_factory(rank, args, trainer)
+    kw = dict(rank=rank,
+              size=int(getattr(args, "client_num_per_round", 1)) + 1,
+              backend=backend or _wan_backend(args))
+    if fo in SA_FOS:
+        from ..secagg import SecAggClientManager
+        return SecAggClientManager(args, trainer, **kw)
+    from ..lightsecagg import LSAClientManager
+    return LSAClientManager(args, trainer, **kw)
+
+
+def run_secure_inproc(args, fed, bundle, fo: str, spec=None,
+                      client_factory=None, device=None,
+                      init_params: Optional[Dict[str, Any]] = None
+                      ) -> Dict[str, Any]:
+    """An SA or LSA session over the in-proc broker: the server on the
+    calling thread, each silo on a thread of its own with its own copy of
+    ``bundle``, every party on ``device`` (CUDA unless ``"cpu"``)."""
+    import copy
+
+    from ...device import get_device
+    from .. import run_inproc_session
+    device = get_device(device)
+    n = int(getattr(args, "client_num_per_round", 2))
+    return run_inproc_session(args, lambda: [
+        build_secure_server(args, fed, bundle, fo, spec, backend="INPROC",
+                            device=device, init_params=init_params),
+        *[build_secure_client(args, fed, copy.deepcopy(bundle), fo, r, spec,
+                              backend="INPROC", device=device,
+                              client_factory=client_factory)
+          for r in range(1, n + 1)]], join_timeout_s=30.0)
 
 
 # the transports ``args.backend`` may name; any other value (a simulation
@@ -141,11 +192,11 @@ def _wan_backend(args) -> str:
 
 class CrossSiloRunner:
     """Single-role entry: ``args.role`` decides server vs client, and
-    ``federated_optimizer`` the protocol (split learning, gossip, vertical
-    FL, else FedAvg); ``run()`` blocks until the FL session finishes. A
-    gossip node's rank is 0 for the server role, else ``max(rank, 1)``;
-    split learning's ``init_params`` is ``{"bottom", "top"}``, vertical
-    FL's one state dict per party. A user ``ServerAggregator`` is not
+    ``federated_optimizer`` the protocol (SA, LSA, split learning,
+    gossip, vertical FL, else FedAvg); ``run()`` blocks until the FL
+    session finishes. A gossip node's rank is 0 for the server role, else
+    ``max(rank, 1)``; split learning's ``init_params`` is ``{"bottom",
+    "top"}``, vertical FL's one state dict per party. A user ``ServerAggregator`` is not
     taken here (neither does the JAX package's horizontal runner)."""
 
     def __init__(self, args, dataset, model, client_trainer=None,
@@ -157,9 +208,18 @@ class CrossSiloRunner:
         role = str(getattr(args, "role", "client")).lower()
         rank = int(getattr(args, "rank", 1) or 1)
         fo = str(getattr(args, "federated_optimizer", "FedAvg")).lower()
-        check_protocol(args)
         backend = _wan_backend(args)
-        if fo in SPLIT_FOS:
+        if fo in SA_FOS + LSA_FOS:
+            # before the round_mode dispatch of build_server, as in JAX
+            if role == "server":
+                self.manager = build_secure_server(
+                    args, dataset, model, fo, client_trainer, device=device,
+                    init_params=init_params)
+            else:
+                self.manager = build_secure_client(
+                    args, dataset, model, fo, max(rank, 1), client_trainer,
+                    device=device)
+        elif fo in SPLIT_FOS:
             # activations and their gradients cross the transport
             from ..split_learning import (SplitNNClientManager,
                                           SplitNNServerManager)

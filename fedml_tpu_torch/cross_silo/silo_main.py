@@ -23,7 +23,8 @@ uploads and the device's peak allocated bytes. The server (``role:
 "server"``) writes its final parameters with the wire codec
 (``dumps_tree`` of the state dict, on the host) to ``params_out`` when
 the spec names one, and prints ``{"server": {...}}``: its history,
-final accuracy and ``round_times``. A gossip node prints ``{"gossip":
+final accuracy and ``round_times`` (none for SA / LSA, whose server
+keeps no round records). A gossip node prints ``{"gossip":
 {...}}``: its rank, one record per round (steps, train / wait / mix
 seconds), its trainings, step-program counts and launches as a silo's,
 the bytes of the N2N messages it sent and its peak device bytes; node 0
@@ -53,12 +54,15 @@ def run_silo(kw: Dict[str, Any], device="cuda") -> Dict[str, Any]:
 
     runner = cross_silo_runner("client", Arguments(**kw), device)
     runner.run()
-    trainer = runner.runner.manager.trainer
+    manager = runner.runner.manager
+    trainer = manager.trainer
     stats = {"rank": int(runner.args.rank), "trainings": trainer.log,
              "launches": launch_counts()}
     stats.update(trainer.program_stats())
-    up = WIRE_STATS.snapshot()["by_type"].get(
-        str(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER), {})
+    # a secure-aggregation silo uploads masked field vectors
+    upload = getattr(manager, "upload_type",
+                     MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER)
+    up = WIRE_STATS.snapshot()["by_type"].get(str(upload), {})
     stats["c2s_bytes"] = int(up.get("bytes", 0))
     if trainer.device.type == "cuda":
         stats["peak_allocated_bytes"] = int(torch.cuda.max_memory_allocated(
@@ -118,7 +122,7 @@ def run_server(kw: Dict[str, Any], device="cuda",
                                 for k, v in result["params"].items()}))
     return {"history": result["history"],
             "final_test_acc": result["final_test_acc"],
-            "round_times": result["round_times"]}
+            "round_times": result.get("round_times")}
 
 
 def main(argv) -> int:

@@ -84,3 +84,21 @@ def vec_to_params(vec, template: Params) -> Params:
     v = torch.from_numpy(np.array(vec, np.float32, copy=True))
     dev = next(iter(template.values())).device
     return FlatLayout.of(template).unflatten(v.to(dev), like=template)
+
+
+def flat_delta(new_params: Params, params: Params) -> torch.Tensor:
+    """``new - old`` of two state dicts as the float32 ``[D]`` vector of
+    the JAX flat layout, on their device (a secure-aggregation silo's
+    update, before its quantization)."""
+    delta = {k: new_params[k] - params[k] for k in params}
+    return FlatLayout.of(delta).flatten(delta).float()
+
+
+def apply_mean_delta(global_params: Params, vec: np.ndarray,
+                     wsum: float) -> Params:
+    """A secure-aggregation server's step, ``global + vec / wsum``, with
+    the JAX package's dtype path: the division in numpy float32 on the
+    host, the sum in float32 on the model's device."""
+    agg = (vec / max(wsum, 1e-12)).astype(np.float32)
+    delta = vec_to_params(agg, global_params)
+    return {k: g + delta[k] for k, g in global_params.items()}

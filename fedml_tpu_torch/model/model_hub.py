@@ -43,7 +43,10 @@ class ModelBundle:
     def init(self, generator: torch.Generator,
              device: torch.device) -> Params:
         """Fresh parameters drawn from ``generator`` (on the CPU, so a seed
-        gives the same values on every device), moved to ``device``."""
+        gives the same values on every device), moved to ``device``. The
+        module is brought to the CPU first: a copy of a bundle that an
+        earlier ``init`` moved to the card draws there too."""
+        self.module.to("cpu")
         self.module.reset_parameters(generator)
         self.module.to(device)
         return {k: v.detach().clone()

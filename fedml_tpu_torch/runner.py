@@ -26,7 +26,6 @@ from .device import get_device
 # with the value(s) that mean "off". A run that sets one otherwise raises
 # NotImplementedError naming it, rather than silently ignoring it.
 UNPORTED_KNOBS: Dict[str, tuple] = {
-    "enable_secure_agg": (None, False), "enable_fhe": (None, False),
     "mesh_shape": (None,),
     "obs_roofline": (None, False),
     # the values of this knob that are ported
@@ -61,10 +60,13 @@ PORTED_SUMMARY = (
     "hierarchical, over INPROC, TCP, gRPC, PUBSUB (broker + object store) "
     "or TRPC with the comm_retry_*, comm_compression_*, "
     "gossip_compression, round_timeout_s / round_quorum_frac, async_*, "
-    "chaos_* (link faults included) and checkpoint knobs, whose secure "
-    "aggregation (SA, LSA) still raises; federated serving (training_type: "
-    "fedml_serving); the models and tasks of the zoo, round checkpoints, "
-    "the federated LoRA causal LM and serving")
+    "chaos_* (link faults included) and checkpoint knobs, and its secure "
+    "aggregation (federated_optimizer SA or LSA, secagg_compress_bits; "
+    "the cryptography package needed), Paillier FHE (core/fhe) and the "
+    "enable_secure_agg / enable_fhe flags (inert, as in the JAX package); "
+    "federated serving (training_type: fedml_serving); the models and "
+    "tasks of the zoo, round checkpoints, the federated LoRA causal LM "
+    "and serving")
 
 # federated_optimizer values that the JAX package dispatches to protocol
 # simulators of their own: none runs the engine, so none can honor

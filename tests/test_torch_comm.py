@@ -416,8 +416,7 @@ def test_mlops_init_writes_the_run_jsonl(tmp_path):
     assert mlops.log_path() is None
 
 
-_UNPORTED_ON = {"enable_secure_agg": True, "enable_fhe": True,
-                "mesh_shape": (2, 2), "obs_roofline": True,
+_UNPORTED_ON = {"mesh_shape": (2, 2), "obs_roofline": True,
                 "llm_attention_impl": "splash"}
 
 

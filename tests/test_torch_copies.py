@@ -23,7 +23,13 @@ outputs, bit for bit.
   framework's initializer; a no-op at world size 1). ``interceptor.py``,
   ``schema.py``, ``backoff.py`` and
   ``core/wire/*`` are pinned in ``tests/test_torch_comm.py`` and
-  ``tests/test_torch_compression.py``.
+  ``tests/test_torch_compression.py``;
+* secure aggregation's copies: ``core/mpc/channels.py`` (a blob sealed
+  by either package opens with the other's, ``mask_seed`` and the key
+  limbs agree), ``core/mpc/lightsecagg.py`` and ``core/fhe/paillier.py``;
+  and, with ``cryptography`` hidden, the port imports and runs its other
+  sessions while SA and LSA fail at build naming the package
+  (``core/mpc``'s torch math is pinned in ``tests/test_torch_mpc.py``).
 """
 
 from __future__ import annotations
@@ -601,3 +607,100 @@ def test_federated_serving_copy(monkeypatch, role):
     if role == "server":
         assert results[0]["serving_port"] == 4321
         assert ("start",) in logs[0] and ("run",) in logs[0]
+
+
+def test_channels_copy():
+    pytest.importorskip("cryptography")
+    from fedml_tpu.core.mpc import channels as jch
+    from fedml_tpu_torch.core.mpc import channels as tch
+    a_sk, a_pk = jch.keygen()
+    b_sk, b_pk = tch.keygen()
+    aad = tch.pair_aad(0, 1, b"sa-round-3")
+    assert aad == jch.pair_aad(0, 1, b"sa-round-3")
+    for seal, opener, sk_s, sk_o, pk_s, pk_o in (
+            (jch.seal, tch.open_sealed, a_sk, b_sk, a_pk, b_pk),
+            (tch.seal, jch.open_sealed, b_sk, a_sk, b_pk, a_pk)):
+        blob = seal(sk_s, pk_o, b"share", aad=aad)
+        assert opener(sk_o, pk_s, blob, aad=aad) == b"share"
+        with pytest.raises(ValueError):     # another round's aad
+            opener(sk_o, pk_s, blob, aad=tch.pair_aad(0, 1, b"sa-round-4"))
+    assert tch.mask_seed(b_sk, a_pk) == jch.mask_seed(a_sk, b_pk)
+    assert tch.key_to_limbs(b_sk) == jch.key_to_limbs(
+        jch.limbs_to_key(tch.key_to_limbs(b_sk)))
+    assert tch.private_bytes(tch.limbs_to_key(tch.key_to_limbs(b_sk))) == \
+        tch.private_bytes(b_sk)
+    seed = (1 << 127) + 12345
+    limbs = tch.int_to_limbs(seed, tch.SEED_LIMBS)
+    assert limbs == jch.int_to_limbs(seed, jch.SEED_LIMBS)
+    assert tch.limbs_to_int(limbs) == seed
+    assert (tch.KEY_LIMBS, tch.KEY_LIMB_BITS, tch.SEED_BITS) == \
+        (jch.KEY_LIMBS, jch.KEY_LIMB_BITS, jch.SEED_BITS)
+    draws = tch.secret_rng().randint(0, 7, size=(50,))
+    assert draws.shape == (50,) and draws.min() >= 0 and draws.max() < 7
+
+
+def test_lightsecagg_and_paillier_copies():
+    from fedml_tpu.core.fhe import paillier as jp
+    from fedml_tpu.core.mpc import lightsecagg as jl
+    from fedml_tpu_torch.core.fhe import paillier as tp
+    from fedml_tpu_torch.core.mpc import lightsecagg as tl
+    z = np.random.RandomState(0).randint(0, 2**31 - 1, 24).astype(np.uint64)
+    _equal(tl.mask_encoding(z, 5, 1, 3, np.random.RandomState(1)),
+           jl.mask_encoding(z, 5, 1, 3, np.random.RandomState(1)))
+    for n, t, d in ((4, 2, 1), (6, 1, 3)):
+        for a, b in zip(tl._eval_points(n, t, d), jl._eval_points(n, t, d)):
+            _equal(a, b)
+    p, q = 1000000007, 998244353
+    jpub, jpriv = jp.keygen(seed_primes=(p, q))
+    tpub, tpriv = tp.keygen(seed_primes=(p, q))
+    assert (tpub.n, tpriv.lam, tpriv.mu) == (jpub.n, jpriv.lam, jpriv.mu)
+    assert tp._slot_bias(48, 256) == jp._slot_bias(48, 256)
+    assert [tp._is_probable_prime(k) for k in range(3, 200)] == \
+        [jp._is_probable_prime(k) for k in range(3, 200)]
+    c = tpub.encrypt_int(424242)
+    assert jpriv.decrypt_int(c) == tpriv.decrypt_int(c) == 424242
+
+
+_NO_CRYPTOGRAPHY = r"""
+import sys
+sys.modules["cryptography"] = None       # a host without the package
+import fedml_tpu_torch
+from fedml_tpu_torch import data, model
+from fedml_tpu_torch.arguments import Arguments
+from fedml_tpu_torch.core import fhe, mpc
+from fedml_tpu_torch.core.distributed.communication.inproc import InProcBroker
+from fedml_tpu_torch.cross_silo.horizontal.runner import run_cross_silo_inproc
+kw = dict(dataset="synthetic_mnist", model="lr", client_num_in_total=2,
+          client_num_per_round=2, comm_round=1, max_total_samples=64,
+          training_type="cross_silo", enable_tracking=False)
+args = Arguments(**kw)
+fed, od = data.load(args)
+r = run_cross_silo_inproc(args, fed, model.create(args, od, fed.input_shape),
+                          device="cpu")
+assert len(r["history"]) == 1, r
+assert int(mpc.sum_mod_p(mpc.quantize(__import__("torch").ones(2, 3)))[0])     == 2 * 65536
+errors = []
+for fo in ("SA", "LSA"):
+    for role in ("server", "client"):
+        try:
+            fedml_tpu_torch.cross_silo_runner(
+                role, device="cpu", backend="INPROC", rank=1,
+                inproc_broker=InProcBroker(), federated_optimizer=fo, **kw)
+        except ModuleNotFoundError as e:
+            errors.append((e.name.split(".")[0], "cryptography" in str(e)))
+print(errors)
+"""
+
+
+def test_without_cryptography_the_port_runs_and_secure_sessions_name_it():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = root
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", _NO_CRYPTOGRAPHY], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == \
+        str([("cryptography", True)] * 4), out.stdout

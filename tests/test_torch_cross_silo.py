@@ -484,41 +484,46 @@ def test_entry_points_run_a_tcp_session():
     (dict(scenario="hierarchical"), "hierarchical")])
 @pytest.mark.parametrize("role", ["server", "client"])
 def test_unported_cross_silo_features_raise(knobs, name, role):
-    """What the port lacks raises, naming itself, with or without
-    ``round_mode: async_buffered`` (which is ported: the server and its
-    silos build; ``tests/test_torch_async_cross_silo.py`` runs them).
-    Split learning, gossip, vertical FL and the hierarchical scenario are
-    ported now: each builds its own party for the role
-    (``tests/test_torch_multiparty.py``, ``test_torch_gossip.py`` and
-    ``test_torch_hierarchical.py`` run them)."""
+    """Every cross-silo protocol is ported now: each builds its own party
+    for the role (``tests/test_torch_secagg.py``, ``test_torch_lsa.py``,
+    ``test_torch_multiparty.py``, ``test_torch_gossip.py`` and
+    ``test_torch_hierarchical.py`` run them). SA and LSA build their
+    managers before the ``round_mode`` dispatch, as the JAX runner does:
+    SA under ``round_mode: async_buffered`` builds the SA managers, and
+    async without SA the buffered-async server and its silos
+    (``tests/test_torch_async_cross_silo.py`` runs them)."""
     from fedml_tpu_torch.core.distributed.communication.inproc import \
         InProcBroker
     kw = dict(device="cpu", backend="INPROC", dataset="synthetic_mnist",
               model="lr", client_num_in_total=2, client_num_per_round=2,
               max_total_samples=16, enable_tracking=False, rank=1, **knobs)
-    ported = {"split learning": ("SplitNNServerManager",
+    ported = {"secure aggregation": ("SecAggServerManager",
+                                     "SecAggClientManager"),
+              "LightSecAgg": ("LSAServerManager", "LSAClientManager"),
+              "async_buffered": ("SecAggServerManager",
+                                 "SecAggClientManager"),
+              "split learning": ("SplitNNServerManager",
                                  "SplitNNClientManager"),
               "gossip": ("GossipNodeManager", "GossipNodeManager"),
               "vertical": ("VFLServerManager", "VFLPartyManager"),
               "hierarchical": ("FedMLServerManager",
                                "ClientMasterManager")}
-    if name in ported:
-        runner = fedml_tpu_torch.cross_silo_runner(
-            role, inproc_broker=InProcBroker(), **kw)
-        manager = runner.runner.manager
-        assert type(manager).__name__ == ported[name][role == "client"]
-        if name == "hierarchical" and role == "client":
-            assert type(manager.trainer).__name__ == \
-                "HierarchicalSiloTrainer"
-        manager.com_manager.stop_receive_message()
-        return
-    fn = (fedml_tpu_torch.run_cross_silo_server if role == "server"
-          else fedml_tpu_torch.run_cross_silo_client)
-    with pytest.raises(NotImplementedError, match=name) as ei:
-        fn(**kw)
+    if knobs.get("federated_optimizer") in ("SA", "LSA"):
+        pytest.importorskip("cryptography")
+    runner = fedml_tpu_torch.cross_silo_runner(
+        role, inproc_broker=InProcBroker(), **kw)
+    manager = runner.runner.manager
+    assert type(manager).__name__ == ported[name][role == "client"]
+    if name == "hierarchical" and role == "client":
+        assert type(manager.trainer).__name__ == "HierarchicalSiloTrainer"
+    if role == "client" and name in ("secure aggregation", "LightSecAgg",
+                                     "async_buffered"):
+        # a secure silo trains plain FedAvg steps on its device
+        assert manager.trainer.opt.name == "FedAvg"
+        assert manager.trainer.device.type == "cpu"
+    manager.com_manager.stop_receive_message()
     if "round_mode" in knobs:
-        # the refusal names the unported protocol, and async as ported
-        assert str(ei.value).startswith("secure aggregation")
+        # without SA, async_buffered builds the buffered-async parties
         runner = fedml_tpu_torch.cross_silo_runner(
             role, device="cpu", backend="INPROC", dataset="synthetic_mnist",
             model="lr", client_num_in_total=2, client_num_per_round=2,

@@ -110,6 +110,16 @@ def test_fresh_init_is_seeded_and_runs():
     ("mesh_shape", (2, 2)), ("obs_roofline", True)])
 def test_unported_knobs_raise(knob, value):
     cfg = dict(CFG, comm_round=1, max_total_samples=16, **{knob: value})
+    if knob in ("enable_secure_agg", "enable_fhe"):
+        # ported, accepted and inert as in the JAX package (secure
+        # aggregation is federated_optimizer SA / LSA): the run equals
+        # one with the knob off, bitwise
+        on = fedml_tpu_torch.run_simulation(device="cpu", **cfg)
+        off = fedml_tpu_torch.run_simulation(device="cpu",
+                                             **dict(cfg, **{knob: False}))
+        for k, v in off["params"].items():
+            assert torch.equal(v, on["params"][k]), k
+        return
     with pytest.raises(NotImplementedError, match=knob) as ei:
         fedml_tpu_torch.run_simulation(device="cpu", **cfg)
     # the refusal names what is ported

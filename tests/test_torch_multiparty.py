@@ -193,14 +193,27 @@ def test_runner_dispatch_cross_silo(fo, server, party):
                                      ("LSA", "LightSecAgg")])
 @pytest.mark.parametrize("role", ["server", "client"])
 def test_secure_aggregation_still_raises(fo, name, role):
+    """SA and LSA are ported: the runner dispatches them to their own
+    managers over the party's transport (TCP here, as ``silo_main``
+    builds a silo), on the party's device."""
+    pytest.importorskip("cryptography")
     import fedml_tpu_torch
-    with pytest.raises(NotImplementedError, match=name) as ei:
-        fedml_tpu_torch.cross_silo_runner(
-            role, device="cpu", backend="INPROC", dataset="synthetic_mnist",
-            model="lr", client_num_in_total=2, client_num_per_round=2,
-            max_total_samples=16, enable_tracking=False, rank=1,
-            federated_optimizer=fo)
-    assert "gossip" in str(ei.value) and "hierarchical" in str(ei.value)
+    runner = fedml_tpu_torch.cross_silo_runner(
+        role, device="cpu", backend="TCP", tcp_base_port=_free_port(),
+        dataset="synthetic_mnist", model="lr", client_num_in_total=2,
+        client_num_per_round=2, max_total_samples=16,
+        enable_tracking=False, rank=1, federated_optimizer=fo)
+    manager = runner.runner.manager
+    cls = {"SA": "SecAgg", "LSA": "LSA"}[fo]
+    want = f"{cls}{'Server' if role == 'server' else 'Client'}Manager"
+    assert type(manager).__name__ == want
+    assert manager.backend == "TCP"
+    if role == "server":
+        assert all(v.device.type == "cpu"
+                   for v in manager.global_params.values())
+    else:
+        assert manager.trainer.device.type == "cpu"
+    manager.com_manager.stop_receive_message()
 
 
 @pytest.mark.parametrize("fo,cls", [

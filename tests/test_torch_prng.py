@@ -164,3 +164,37 @@ def test_segments_draw_is_per_leaf_split():
     got_l = prng.laplace_segments_t(rng, prng.segments_t(sizes, "cpu"))
     want_l = np.concatenate([prng.laplace(k, n) for k, n in zip(keys, sizes)])
     np.testing.assert_array_equal(_bits(got_l.numpy()), _bits(want_l))
+
+
+def test_bench_truncated_normal_bit_equal():
+    """``chip_smoke.bench_truncated_normal`` is
+    ``jax.random.truncated_normal`` on [-2, 2] (flax's ``lecun_normal``
+    draws it) bit for bit, at the SecAgg wire leg's LR kernel shape."""
+    import chip_smoke      # the repo root is on the path (conftest.py)
+    for seed in SEEDS:
+        key = prng.fold_in(prng.PRNGKey(seed), 17)
+        kj = jax.random.fold_in(jax.random.PRNGKey(seed), 17)
+        got = chip_smoke.bench_truncated_normal(key, (64, 10))
+        want = np.asarray(jax.random.truncated_normal(kj, -2.0, 2.0, (64, 10),
+                                                      jnp.float32))
+        assert got.shape == want.shape and got.dtype == np.float32
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_bench_lr_init_is_the_jax_packages():
+    """``chip_smoke.bench_lr_init`` (the SecAgg wire leg's start, as
+    bench.py draws it) equals the JAX package's LR init bit for bit."""
+    import chip_smoke      # the repo root is on the path (conftest.py)
+    from fedml_tpu import data as jdata, model as jmodel
+    from fedml_tpu.arguments import Arguments as JArgs
+    from fedml_tpu_torch.interop import flax_to_state_dict
+    args = JArgs(**chip_smoke.SECAGG_WIRE)
+    fed, od = jdata.load(args)
+    for seed in (0, 3):
+        want = flax_to_state_dict(jax.device_get(jmodel.create(
+            args, od).init(jax.random.split(jax.random.PRNGKey(seed))[0],
+                           fed.train.x[0, 0])))
+        got = chip_smoke.bench_lr_init(seed, 64, od)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]))
