@@ -36,7 +36,8 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
 6. the flagship benchmark (``bench.py``'s ``bench_flagship`` at full
    width: ResNet-56, synthetic CIFAR-10 50,000 / 1,000, 64 clients per
    round, bf16, fused conv block): the GPU engine's step captured, then
-   one block of 2 rounds through ``run_rounds_fused`` in timing mode and
+   one block of 1 round (2 until phases 20 and 21 took the time) through
+   ``run_rounds_fused`` in timing mode and
    one eval; the round's FLOPs and MFU; the SP golden loop for one round
    on 8 clients as the baseline; a ``{"flagship": ...}`` line. B1 held to
    27 launches per forward pass, counted through the graph's replays (its
@@ -106,8 +107,9 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    foolsgold) under byzantine_random x10; a crash at pour 1 of 3
    resumed to the end, bitwise; (b) MAIN_PATH at 64 of 128 clients in
    flight, K 32, ``bench_async_chaos``'s chaos: leg 1 the bootstrap then
-   2 timed pours (4 until phase 18 needed the time), leg 2 with ``bench_async_robust``'s attack (26 of 128
-   byzantine_random x10) and krum, the bootstrap then 2 timed pours:
+   1 timed pour (4 until phase 18 and 2 until phases 20 and 21 needed
+   the time), leg 2 with ``bench_async_robust``'s attack (26 of 128
+   byzantine_random x10) and krum, the bootstrap then 1 timed pour:
    seconds per pour, pours and updates per wall hour (beside phase 9's
    sync FedAvg at 64 of 128), updates per simulated hour, staleness,
    steps, dropped and straggling counts, B1 at 27 launches per forward
@@ -235,7 +237,36 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     over those deltas, the masking algebra with 0 and 1 silo dropped and
     LightSecAgg's coding, bitwise; (d) the LR sessions, card vs CPU; a
     ``{"secure_aggregation": ...}`` line;
-20. one JSON line describing each kernel, then the card line, then
+20. the compute plane (``core/obs/roofline.py``): (a) the flagship's step
+    (ResNet-56, batch 32, bf16, B1; 2 of its 64 clients, 1 round) through
+    the GPU engine's seam under ``obs_roofline``: one schema-valid
+    ``roofline`` record whose rows carry the round's steps as ``mult``,
+    its 27 B1 rows per forward each equal to ``core/kernels/cost.py``'s
+    ``block_cost`` for its geometry, the conv + matmul FLOPs equal to
+    ``FlopCounterMode``'s of the same step; its predicted ms per step
+    beside the step's graph replays timed with CUDA events, predicted MFU
+    and memory-bound share; (b) the 111M hot loop's SGD step (8 rows each
+    of B2, B3, B4 equal to ``attention_cost``, none of their launches
+    counted as the program's) and the serving decode and prefill programs
+    through ``DecodeScheduler(roofline=True)`` at 64 slots (one record
+    per program and signature, not one per token); (c) the engine at
+    batch 16: one ``recompile`` record naming ``['train']['x']``, none
+    before it; (d) the always-on signature's cost per dispatch at the
+    64-slot decode step; a ``{"roofline": ...}`` line;
+21. cross-device (``cross_device/``): (a) ``run_cross_device_inproc``'s
+    session at the flagship's width (ResNet-56, synthetic CIFAR-10,
+    bf16, B1; 4 device threads on the card, torch engine, each cut to 2
+    steps; 1 round, the server on the card): B1 held to 27 x (warm-up +
+    replays + eval batches), the model held to a float32 weighted mean of
+    the 4 uploads computed apart within the house tolerance, the round's
+    wait / aggregate / eval seconds; (b) the same with
+    ``device_wire_compression: topk_qsgd`` (ratio 0.1): each upload's
+    decode on the card equal to the CPU's bitwise; (c) the LR / digits
+    session with one native device and two torch devices, on the card
+    and on the CPU: the native device's round-0 artifact the same bytes,
+    the global model's on-device accuracy improving; a
+    ``{"cross_device": ...}`` line;
+22. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -316,7 +347,7 @@ MAIN_PATH = dict(
     client_num_per_round=64, comm_round=1, epochs=1, batch_size=32,
     learning_rate=0.1, synthetic_size=50000, synthetic_test_size=1000,
     frequency_of_the_test=-1, random_seed=0, rounds_per_dispatch=8)
-FLAGSHIP_BLOCK = 2
+FLAGSHIP_BLOCK = 1
 # bench_flagship's baseline: the golden loop (SP, eager local steps) on 8
 # clients over 6,250 samples, one round, per-sample normalised
 SP_BASELINE = dict(MAIN_PATH, backend="sp", client_num_in_total=8,
@@ -546,17 +577,18 @@ ASYNC_CHECKS = {
 # (b) the full-width legs on FAULTS_PATH (ResNet-56, synthetic CIFAR-10
 # 50,000, bf16, fused conv block, 128 clients, batch 32) with 64 clients in
 # flight and K 32 under bench_async_chaos's chaos. Leg 1: the bootstrap (64
-# clients), then 2 timed pours. Leg 2: leg 1 plus bench_async_robust's
+# clients), then 1 timed pour. Leg 2: leg 1 plus bench_async_robust's
 # attack scaled to 128 clients (byzantine_random x10 on 26, its 20 %) and
-# krum; the bootstrap, then 2 timed pours.
+# krum; the bootstrap, then 1 timed pour. (2 timed pours each until phases
+# 20 and 21 took the time; 4 in leg 1 until phase 18.)
 ASYNC_PATH = dict(FAULTS_PATH, round_mode="async_buffered",
                   async_buffer_k=32, **ASYNC_CHAOS)
-ASYNC_LEGS = (("async", ASYNC_PATH, 2),
+ASYNC_LEGS = (("async", ASYNC_PATH, 1),
               ("async_krum", dict(ASYNC_PATH, enable_attack=True,
                                   attack_type="byzantine_random",
                                   attack_scale=10.0, byzantine_client_num=26,
                                   enable_defense=True, defense_type="krum"),
-               2))
+               1))
 
 # The FedLLM hot loop: bench.py's _llm_train_step_timing model (~111M
 # params) at bench_llm_mfu's bs 8 x seq 1024, bf16, flash attention.
@@ -854,6 +886,27 @@ FIELD_EDGE = (0, 1, 2, 2**16 - 1, 2**16, 2**16 + 1, 2**30, 2**30 + 1,
 # tolerance plus one quantum per silo (2^-16 / sum(n)).
 SECAGG_FULL = dict(CS_FULL, comm_round=1)
 SECAGG_STEPS = 2
+# Phase 20: the roofline of the flagship's step at bench_flagship's widths
+# (ResNet-56, batch 32, bf16, B1), cut in depth to 2 of its 64 clients
+# for one round (the capture reads one step, whatever the round's depth);
+# its step's graph replayed ROOFLINE_STEP_REPLAYS times under CUDA
+# events; the serving decode step ROOFLINE_DECODE_STEPS times at 64 slots.
+ROOFLINE_PATH = dict(MAIN_PATH, client_num_per_round=2, obs_roofline=True)
+ROOFLINE_STEP_REPLAYS = 20
+ROOFLINE_DECODE_STEPS = 8
+# Phase 21: a cross-device session at the flagship's width (the
+# cross-silo flagship's model and data, 4 devices on the card, torch
+# engine, B1), 1 round, each device cut to CD_STEPS steps (the device
+# path, not training); the same with the JAX tests' uplink compression;
+# and tests/test_cross_device.py's native session on digits.
+CD_FULL = dict(CS_FULL, comm_round=1, training_type="cross_device")
+CD_STEPS = 2
+CD_WIRE = dict(device_wire_compression="topk_qsgd",
+               comm_compression_ratio=0.1)
+CD_NATIVE = dict(dataset="digits", model="lr", client_num_in_total=3,
+                 client_num_per_round=3, comm_round=3, epochs=1,
+                 batch_size=32, learning_rate=0.2, random_seed=3,
+                 training_type="cross_device")
 # (c) the dropout algebra at the same width, over the SA session's silo
 # deltas: each n x delta quantized on the card and masked on the host by a
 # core/mpc SecAggClient (threshold 3 of 4, the stand-in key agreement);
@@ -1121,25 +1174,12 @@ def library_block(torch, F, x_nchw, w, s, groups, eps):
     return torch.relu(r + y)
 
 
-def block_cost(n, h, cin, cout, s, itemsize):
-    """(bytes, ops) one block must move and do: x, every param and the
-    output once each; the conv multiply-adds (2 ops each) plus ~7 ops per
-    element for each GroupNorm and 1 each for the ReLUs and the add."""
-    ho = -(-h // s)
-    proj = s != 1 or cin != cout
-    params = 9 * cin * cout + 9 * cout * cout + 4 * cout + (
-        cin * cout + 2 * cout if proj else 0)
-    nbytes = itemsize * (n * h * h * cin + n * ho * ho * cout + params)
-    elems = n * ho * ho * cout
-    macs = elems * (9 * cin + 9 * cout + (cin if proj else 0))
-    ops = 2 * macs + elems * (7 * (3 if proj else 2) + 3)
-    return nbytes, ops
-
-
 def time_geometries(torch, F, cb, gen, dtype, geometries=FLAGSHIP):
     """Per-geometry ms at batch 32: the kernel (CUDA events, and device
     time), its plain version, the unfused cuDNN chain (device time as
-    ``library_ms``, and CUDA events) and the bound."""
+    ``library_ms``, and CUDA events) and the bound
+    (``core/kernels/cost.py``)."""
+    from fedml_tpu_torch.core.kernels.cost import block_cost
     dt = getattr(torch, dtype)
     rows = []
     for (h, cin, cout, s), count in geometries:
@@ -2643,18 +2683,6 @@ def check_attention(torch, fa, attn, gen, shape, dtype):
                 (dv.float() - rdv).abs().max().item()))
 
 
-def attention_cost(shape, itemsize, kernel):
-    """(bytes, causal FLOPs) the kernel's function must move and do: each
-    input read once and each output written once; 2·b·h·(s²/2)·d per
-    product, 2 products for B2, 3 for B3 and 4 for B4."""
-    b, s, h, d, _ = shape
-    t = b * s * h * d * itemsize
-    row = b * h * s * 4
-    tensors, rows, products = {"fwd": (4, 1, 2), "dq": (5, 2, 3),
-                               "dkv": (6, 2, 4)}[kernel]
-    return tensors * t + rows * row, products * b * h * s * s * d
-
-
 def device_ms(torch, fn, stream=None, iters=20, warmup=3):
     """(device time of one call of ``fn``, names of the kernels it runs):
     ``iters`` calls captured once into a CUDA graph on ``stream`` (a new
@@ -2712,6 +2740,7 @@ def time_attention(torch, F, fa, gen, shape, dtype):
     around back-to-back calls of its wrapper, so the wrapper's host time
     where it exceeds the kernel's) and its device time, its plain version,
     the library call's device time and the bound."""
+    from fedml_tpu_torch.core.kernels.cost import attention_cost
     q, k, v, g, m = attn_inputs(torch, gen, shape, dtype)
     with torch.no_grad():
         o, lse = fa.flash_fwd(q, k, v, m)
@@ -5304,7 +5333,8 @@ def field_checks(torch, d, dev="cuda", cpu="cpu"):
 
 class CutSilo:
     """A secure session's silo trainer (a ``SiloTrainer``, as the
-    sessions' ``client_factory`` hook hands it over) whose local training
+    sessions' ``client_factory`` hook hands it over; or a cross-device
+    torch engine's, which also passes its round key) whose local training
     stops after ``steps`` steps (``work_scale``, as the chaos straggler
     cuts it); ``trained`` keeps each training's received params, new
     params and sample count, on the trainer's device."""
@@ -5315,11 +5345,11 @@ class CutSilo:
     def __getattr__(self, name):
         return getattr(self.trainer, name)
 
-    def train(self, params, client_idx, round_idx):
+    def train(self, params, client_idx, round_idx, **kw):
         real = int(self.trainer.batch_real[client_idx].sum())
         new, n, metrics = self.trainer.train(
             params, client_idx, round_idx,
-            work_scale=(self.steps - 0.5) / real)
+            work_scale=(self.steps - 0.5) / real, **kw)
         self.trained.append((params, new, n))
         return new, n, metrics
 
@@ -5613,6 +5643,473 @@ def secagg_phase(torch, cb, fa, tmp, dev="cuda", cpu="cpu",
             "algebra": algebra, "sessions": sessions,
             "sessions_s": time.perf_counter() - t0,
             "phase_s": time.perf_counter() - t_phase}
+
+
+# -- phase 20: the compute plane ---------------------------------------------
+
+def _dims(shape: str):
+    """``"bf16[32,32,32,16]"`` -> ``(32, 32, 32, 16)``."""
+    return tuple(int(d) for d in shape[shape.index("[") + 1:-1].split(",")
+                 if d)
+
+
+def roofline_flagship(torch, cb, fa, records, card):
+    """Phase 20 (a) and (c): the flagship's step through the GPU engine's
+    seam under ``obs_roofline``, then a width change for the forensics.
+    Returns the record and the round's launches."""
+    from torch.utils.flop_counter import FlopCounterMode, flop_registry
+
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.local_training import batch_real_of
+    from fedml_tpu_torch.core.algframe.types import ClientData, TrainHyper
+    from fedml_tpu_torch.core.kernels.cost import block_cost
+    from fedml_tpu_torch.core.obs import roofline, schema
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    args = Arguments(**ROOFLINE_PATH)
+    fed, n_classes = data.load(args)
+    sim = FedMLRunner(args, dataset=fed, model=model.create(
+        args, n_classes, fed.input_shape)).runner
+    hyper = TrainHyper(learning_rate=ROOFLINE_PATH["learning_rate"],
+                       epochs=1)
+    require(sim._roofline.enabled, "roofline: obs_roofline did not reach "
+                                   "the engine")
+    sim.capture_step(hyper)
+    (prog,) = sim.programs.values()
+    reset_launches(cb, fa)
+    analysed0 = cb.fused_block.analysed
+    steps0, replays0 = prog.steps, prog.replays
+    t0 = time.perf_counter()
+    sim.run_round(0, hyper)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    b1 = launches(cb, fa)
+    steps = prog.steps - steps0
+    require(prog.replays - replays0 == steps and
+            b1["conv_block"] == 27 * steps,
+            f"roofline round: B1 launched {b1['conv_block']} times for "
+            f"{steps} replayed steps (27 each expected); the capture's "
+            f"launches are counted apart")
+    recs = [r for r in records if r["kind"] == "roofline"]
+    require(len(recs) == 1 and recs[0]["program"] == "round",
+            f"roofline: {len(recs)} records for the round")
+    rec = recs[0]
+    errs = schema.validate_record(rec)
+    require(not errs, f"roofline record against the schema: {errs}")
+    require(not rec["static_only"] and rec["attributed_share"] == 1.0
+            and {o["mult"] for o in rec["ops"] if o["op"] != "(other)"}
+            == {steps},
+            f"roofline record: static {rec['static_only']}, attributed "
+            f"{rec['attributed_share']}, mult != {steps}")
+    # the step's rows, uncapped: B1 and the registry ops
+    rows = roofline.capture_rows(prog.analysis_step)
+    require(cb.fused_block.analysed - analysed0 == 2 * 27,
+            f"roofline: {cb.fused_block.analysed - analysed0} B1 launches "
+            f"in the two captures, 54 expected")
+    kern = [r for r in rows if r.opcode == "kernel"]
+    geoms = {}
+    for r in kern:
+        n, h, _, cin = _dims(r.operands[0])
+        cout, ho = _dims(r.out)[3], _dims(r.out)[1]
+        s = h // ho
+        geoms[(h, cin, cout, s)] = geoms.get((h, cin, cout, s), 0) + 1
+        want = block_cost(n, h, cin, cout, s, 2)
+        require(r.name.startswith("fused_block") and n == BATCH
+                and (r.bytes, r.flops) == want,
+                f"roofline B1 row {r.name} {r.operands} -> {r.out}: "
+                f"{(r.bytes, r.flops)} != block_cost {want}")
+    require(geoms == dict(FLAGSHIP),
+            f"roofline: B1 rows by geometry {geoms}, expected "
+            f"{dict(FLAGSHIP)} (27 per forward)")
+    per_step = sum(r.flops for r in rows)
+    require(math.isclose(rec["total_flops"], per_step * steps,
+                         rel_tol=1e-9),
+            f"roofline: the record's {rec['total_flops']} FLOPs != "
+            f"{steps} x the step's {per_step}")
+    names = {p.__name__ for p in flop_registry if hasattr(p, "__name__")}
+    reg_flops = sum(r.flops for r in rows if r.opcode in names)
+    with FlopCounterMode(display=False) as fc:
+        prog.analysis_step()
+    require(reg_flops == fc.get_total_flops(),
+            f"roofline: conv + matmul rows {reg_flops} FLOPs != "
+            f"FlopCounterMode's {fc.get_total_flops()}")
+    # the step's measured time: replays of its CUDA graph, CUDA events
+    for _ in range(3):
+        prog.graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(ROOFLINE_STEP_REPLAYS):
+        prog.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / ROOFLINE_STEP_REPLAYS
+    predicted_ms = rec["predicted_s"] / steps * 1e3
+
+    # (c) forensics: the same engine at batch 16
+    n_fore = len([r for r in records if r["kind"] == "recompile"])
+    t = sim.train
+    c = t.x.shape[0]
+
+    def half(a):
+        return a.reshape((c, -1, BATCH // 2) + tuple(a.shape[3:]))
+    sim.train = ClientData(half(t.x), half(t.y), half(t.mask),
+                           t.num_samples)
+    sim.batch_real = batch_real_of(sim.train.mask.cpu().numpy())
+    sim.run_round(1, hyper)
+    torch.cuda.synchronize()
+    fore = [r for r in records if r["kind"] == "recompile"]
+    changed = {} if len(fore) != 1 else {
+        ch["arg"]: (ch["was"], ch["now"]) for ch in fore[0]["changed"]}
+    x_change = changed.get("['train']['x']")
+    require(n_fore == 0 and len(fore) == 1 and x_change is not None
+            and x_change[0].endswith(f",{BATCH},32,32,3]")
+            and x_change[1].endswith(f",{BATCH // 2},32,32,3]")
+            and not schema.validate_record(fore[0]),
+            f"roofline forensics: {n_fore} records before, {fore}")
+    return {
+        "program": rec["program"], "steps": steps, "round_s": round_s,
+        "ops": len(rows), "b1_rows": len(kern), "b1_geometries": {
+            "x".join(map(str, k)): v for k, v in geoms.items()},
+        "step_flops": per_step, "registry_flops": reg_flops,
+        "flop_counter_mode_flops": fc.get_total_flops(),
+        "total_flops": rec["total_flops"], "total_bytes":
+        rec["total_bytes"], "predicted_ms_per_step": predicted_ms,
+        "measured_ms_per_step": step_ms,
+        "predicted_over_measured": predicted_ms / step_ms,
+        "predicted_mfu": rec["predicted_mfu"],
+        "memory_bound_share": rec["memory_bound_share"],
+        "compute_bound_share": rec["compute_bound_share"],
+        "top_ops": [{k: o[k] for k in ("name", "op", "operands", "out",
+                                       "time_s", "bound")}
+                    for o in rec["ops"][:8]],
+        "recompile": fore[0], "card": card}, b1
+
+
+def roofline_llm(torch, llm, cb, fa, records, Arguments, card):
+    """Phase 20 (b) and (d): the 111M hot loop's SGD step (B2-B4 rows
+    against ``attention_cost``), the serving decode and prefill programs
+    through ``DecodeScheduler(roofline=True)`` (one record per program and
+    signature), and the cost of the always-on signature at the 64-slot
+    decode step."""
+    from torch.func import functional_call
+
+    from fedml_tpu_torch.core.kernels.cost import attention_cost
+    from fedml_tpu_torch.core.obs import roofline, schema
+    from fedml_tpu_torch.llm.data import BOS, SEP
+    from fedml_tpu_torch.serving.batch import DecodeScheduler
+
+    cfg = llm.LLMConfig(**HOT_LOOP)
+    mod, params = llm.init_llm(cfg, torch.Generator().manual_seed(0))
+    mod.to("cuda")
+    params = {k: v.to("cuda") for k, v in params.items()}
+    spec = llm.CausalLMTrainer(
+        lambda p, x, train=False: functional_call(mod, p, (x,)))
+    gen = torch.Generator().manual_seed(1)
+    seq = cfg.max_seq_len
+    batch = {"x": torch.randint(0, cfg.vocab_size, (HOT_BATCH, seq),
+                                generator=gen).cuda(),
+             "y": torch.randint(0, cfg.vocab_size, (HOT_BATCH, seq),
+                                generator=gen).cuda(),
+             "mask": torch.ones(HOT_BATCH).cuda()}
+
+    def hot_step(p, b):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        loss, _ = spec.loss(leaves, b)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            return {k: v - 1e-3 * g for (k, v), g in zip(p.items(), grads)}
+
+    reset_launches(cb, fa)
+    an0 = {fn.__name__: fn.analysed for fn in (fa.flash_fwd, fa.flash_dq,
+                                               fa.flash_dkv)}
+    t0 = time.perf_counter()
+    rows = roofline.capture_rows(hot_step, (params, batch))
+    hot_s = time.perf_counter() - t0
+    layers = HOT_LOOP["num_layers"]
+    shape = (HOT_BATCH, seq, HOT_LOOP["num_heads"],
+             HOT_LOOP["hidden_size"] // HOT_LOOP["num_heads"], False)
+    kern = {}
+    for r in (r for r in rows if r.opcode == "kernel"):
+        name = r.name.split(".")[0]
+        kern[name] = kern.get(name, 0) + 1
+        want = attention_cost(shape, 2, {"flash_fwd": "fwd",
+                                         "flash_dq": "dq",
+                                         "flash_dkv": "dkv"}[name])
+        require((r.bytes, r.flops) == want and
+                _dims(r.operands[0]) == shape[:4],
+                f"roofline hot step row {r.name} {r.operands}: "
+                f"{(r.bytes, r.flops)} != attention_cost {want}")
+    analysed = {fn.__name__: fn.analysed - an0[fn.__name__]
+                for fn in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)}
+    require(kern == {"flash_fwd": layers, "flash_dq": layers,
+                     "flash_dkv": layers} == analysed
+            and launches(cb, fa) == {"conv_block": 0, "flash_fwd": 0,
+                                     "flash_dq": 0, "flash_dkv": 0},
+            f"roofline hot step: kernel rows {kern}, analysed {analysed} "
+            f"(each {layers} expected), counted launches "
+            f"{launches(cb, fa)} (0 expected)")
+    hot = roofline.record_from_rows("llm_hot_step", rows, device="cuda")
+    errs = schema.validate_record(dict(hot, kind="roofline", ts=0.0,
+                                       run_id="chip"))
+    require(not errs, f"hot step record against the schema: {errs}")
+    del params, mod, batch
+    torch.cuda.empty_cache()
+
+    # the serving programs on the FedLLM main path's model, 64 slots
+    bundle, tok = llm.build_llm_bundle(Arguments(**LLM_MAIN_PATH))
+    bundle.to("cuda")
+    n0 = len([r for r in records if r["kind"] == "roofline"])
+    sched = DecodeScheduler(bundle.module, bundle.cfg, bundle.base_params,
+                            None, slots=SERVE_BATCH["slots"],
+                            block_size=SERVE_BATCH["block_size"],
+                            prefill_chunk=SERVE_BATCH["prefill_chunk"],
+                            device="cuda", roofline=True)
+    for i in range(SERVE_BATCH["slots"]):
+        sched.admit([BOS] + tok.encode(SERVE_PROMPTS[i % len(
+            SERVE_PROMPTS)]) + [SEP], max_new_tokens=SERVE_MAX_NEW)
+    sched.step()      # the decode programs' captures: timed apart
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ROOFLINE_DECODE_STEPS):
+        sched.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / ROOFLINE_DECODE_STEPS * 1e3
+    recs = [r for r in records if r["kind"] == "roofline"][n0:]
+    per = {}
+    for r in recs:
+        per[r["program"]] = per.get(r["program"], 0) + 1
+    sigs = {p: len(s) for p, s in sched._roofline._captured.items()}
+    require(per.get("llm_decode_step") == 1
+            and per.get("llm_prefill_chunk") == sigs["llm_prefill_chunk"]
+            and per == sigs
+            and all(not schema.validate_record(r) for r in recs),
+            f"serving roofline: records per program {per}, signatures "
+            f"{sigs} (one record each, decode 1 over "
+            f"{ROOFLINE_DECODE_STEPS + 1} steps)")
+    dec = roofline.report("llm_decode_step")
+    pre = roofline.report("llm_prefill_chunk")
+    # (d) the always-on path: the decode step's signature
+    args = (sched.params, sched._stack(), sched._kp, sched._vp,
+            sched._dev(sched._tables), sched._dev(sched._pos),
+            sched._dev(sched._active), sched._dev(sched._aidx).long(),
+            sched._dev(sched._last), *sched._sampling(
+                sched._temp, sched._seed, sched._pos + 1))
+    roofline.dispatch_signature(args)
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        roofline.dispatch_signature(args)
+    sig_us = (time.perf_counter() - t0) / n * 1e6
+    return {
+        "hot_step": {k: hot[k] for k in (
+            "total_flops", "total_bytes", "predicted_s", "predicted_mfu",
+            "memory_bound_share", "attributed_share")},
+        "hot_step_kernel_rows": kern, "hot_step_ops": len(rows),
+        "hot_step_capture_s": hot_s,
+        "serving_records": per, "serving_signatures": sigs,
+        "decode_step": {k: dec[k] for k in (
+            "total_flops", "total_bytes", "predicted_s",
+            "memory_bound_share")},
+        "prefill_chunk": {k: pre[k] for k in (
+            "total_flops", "total_bytes", "predicted_s",
+            "memory_bound_share")},
+        "decode_step_ms_64_slots": step_ms,
+        "signature_us_per_dispatch": sig_us,
+        "signature_share_of_step": sig_us / 1e3 / step_ms,
+        "signature_leaves": len(roofline.dispatch_signature(args)),
+        "card": card}
+
+
+def roofline_phase(torch, llm, cb, fa, Arguments, card):
+    """Phase 20: the compute plane on the card (records through the obs
+    sink into a list)."""
+    from fedml_tpu_torch.core.obs import sink
+    records = []
+    sink.set_sink(records.append)
+    try:
+        t0 = time.perf_counter()
+        flag, b1 = roofline_flagship(torch, cb, fa, records, card)
+        lm = roofline_llm(torch, llm, cb, fa, records, Arguments, card)
+    finally:
+        sink.set_sink(None)
+    return {"phase_s": time.perf_counter() - t0, "flagship": flag,
+            "llm": lm, "card": card}, b1
+
+
+# -- phase 21: cross-device --------------------------------------------------
+
+def cd_session(torch, cb, fa, parts, cache, dev="cuda", engines=None,
+               steps=None, **extra):
+    """One in-proc cross-device session of ``parts`` (``(args, fed,
+    bundle)``) on ``dev``, built as ``run_cross_device_inproc`` builds it,
+    every torch device's training cut to ``steps`` steps when given.
+    Returns (result, server, devices, launches, wall seconds)."""
+    import copy
+
+    from fedml_tpu_torch.cross_device import (build_device_client,
+                                              build_device_server)
+    from fedml_tpu_torch.cross_silo import run_inproc_session
+
+    args, fed, bundle = parts
+    args = copy.copy(args)
+    args.model_file_cache_dir = cache
+    for k, v in extra.items():
+        setattr(args, k, v)
+    n = int(args.client_num_per_round)
+    engs = engines or [None] * n
+    made = []
+
+    def build():
+        made.append(build_device_server(args, fed, bundle,
+                                        backend="INPROC", device=dev))
+        for i in range(n):
+            d = build_device_client(args, fed, copy.deepcopy(bundle),
+                                    device_id=i + 1, backend="INPROC",
+                                    engine=engs[i], device=dev)
+            if steps is not None and d.trainer is not None:
+                d.trainer = CutSilo(d.trainer, steps)
+            made.append(d)
+        return made
+
+    reset_launches(cb, fa)
+    t0 = time.perf_counter()
+    res = run_inproc_session(args, build, join_timeout_s=CS_JOIN_S)
+    wall = time.perf_counter() - t0
+    require(res is not None and len(res["history"]) == int(args.comm_round),
+            f"cross-device session ({dev}): {res and res.get('history')}")
+    return res, made[0], made[1:], launches(cb, fa), wall
+
+
+def _upload_state(path, dev):
+    """A dense upload artifact as a float32 state dict on ``dev``."""
+    from fedml_tpu_torch.interop import flax_to_state_dict
+    from fedml_tpu_torch.serving import load_model
+    import numpy as np
+    import torch
+    return {k: torch.tensor(np.asarray(v, np.float32), device=dev)
+            for k, v in flax_to_state_dict(load_model(path)).items()}
+
+
+def cd_flagship(torch, cb, fa, parts, tmp, wire):
+    """Phase 21 (a) / (b): 4 ResNet-56 devices (torch engine, B1, 2 steps
+    each) and the server on the card, 1 round; the model against a
+    float32 weighted mean of the uploads computed apart (and with
+    ``wire``, each upload's decode on the card against the CPU's)."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.collectives import tree_flatten_to_vector
+    from fedml_tpu_torch.core.wire import decode_update
+    from fedml_tpu_torch.serving import load_model
+
+    tag = "compressed" if wire else "dense"
+    cache = os.path.join(tmp, f"cd_{tag}")
+    res, server, devices, b1, wall = cd_session(
+        torch, cb, fa, parts, cache, steps=CD_STEPS, **wire)
+    _, fed, _ = parts
+    n_eval = int(fed.test["x"].shape[0])
+    stats = [d.trainer.program_stats() for d in devices]
+    forwards = (sum(s["warmup_steps"] + s["replays"] for s in stats)
+                + n_eval)
+    require(all(s["captures"] == 1 and s["replays"] == CD_STEPS
+                for s in stats)
+            and b1["conv_block"] == 27 * forwards
+            and b1["flash_fwd"] == 0,
+            f"cross-device {tag}: {stats}, launches {b1} (B1 27 x "
+            f"(warm-up + replays + {n_eval} eval batches) = "
+            f"{27 * forwards} expected)")
+    base = _upload_state(os.path.join(cache, "global_round_0.npk"), "cpu")
+    ns, ups, decode = [], [], []
+    for did in range(1, len(devices) + 1):
+        path = os.path.join(cache, f"device_{did}_round_0.npk")
+        ns.append(float(np.asarray(fed.train.num_samples)[did - 1]))
+        if not wire:
+            ups.append(_upload_state(path, "cpu"))
+            continue
+        blob = load_model(path)
+        base_cpu = tree_flatten_to_vector(base).float().numpy()
+        want = decode_update(blob, base=base_cpu)
+        base_dev = tree_flatten_to_vector(
+            {k: v.cuda() for k, v in base.items()}).float()
+        got = tree_flatten_to_vector(server.aggregator.decode_upload(
+            blob, base_dev)).cpu().numpy()
+        decode.append(int(np.sum(got != want)))
+        ups.append({k: v.cpu() for k, v in
+                    server.aggregator.decode_upload(blob, base_dev).items()})
+    require(not any(decode), f"cross-device compressed: decoded uploads "
+                             f"differ from the CPU's in {decode} entries")
+    # the weighted mean of the uploads, computed apart: f32 on the CPU
+    total = sum(ns)
+    worst = 0.0
+    for k, got in res["params"].items():
+        ref = sum(u[k] * (n / total) for u, n in zip(ups, ns))
+        bound = HOUSE_TOL[1] + HOUSE_TOL[0] * ref.abs()
+        worst = max(worst, float(((got.float().cpu() - ref).abs()
+                                  / bound).max()))
+    require(worst <= 1.0 and all(torch.isfinite(v).all().item()
+                                 for v in res["params"].values()),
+            f"cross-device {tag}: the model vs the uploads' weighted mean "
+            f"{worst:.3f} of the tolerance")
+    rt = res["round_times"][0]
+    return {"wall_s": wall, "round_s": rt["wait_s"] + rt["aggregate_s"]
+            + rt["eval_s"], "wait_s": rt["wait_s"],
+            "aggregate_s": rt["aggregate_s"], "eval_s": rt["eval_s"],
+            "b1_launches": b1["conv_block"], "forwards": forwards,
+            "warmup_steps": sum(s["warmup_steps"] for s in stats),
+            "replays": sum(s["replays"] for s in stats),
+            "eval_batches": n_eval,
+            "capture_s": [s["capture_s"] for s in stats],
+            "within_tolerance": worst, "decode_mismatches": decode,
+            "upload_bytes": [os.path.getsize(os.path.join(
+                cache, f"device_{i}_round_0.npk"))
+                for i in range(1, len(devices) + 1)],
+            "test_acc": res["final_test_acc"]}
+
+
+def cd_native_leg(torch, cb, fa, tmp):
+    """Phase 21 (c): the LR / digits session with one native device and
+    two torch devices, on the card and on the CPU (TF32 off): the native
+    device's round-0 artifact bitwise the CPU's, the global model
+    improving over the rounds (its on-device evals)."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    args = Arguments(**CD_NATIVE)
+    fed, od = data.load(args)
+    parts = (args, fed, model.create(args, od, fed.input_shape))
+    out, art = {}, {}
+    for dev in ("cuda", "cpu"):
+        cache = os.path.join(tmp, f"cd_native_{dev}")
+        res, server, _, b1, wall = cd_session(
+            torch, cb, fa, parts, cache, dev=dev,
+            engines=["native", None, None])
+        with open(os.path.join(cache, "device_1_round_0.npk"), "rb") as f:
+            art[dev] = f.read()
+        accs = [r.get("device_eval_acc") for r in res["history"]]
+        require(all(a is not None for a in accs) and accs[-1] > accs[0]
+                and server.devices_online[1]["engine"] == "native",
+                f"cross-device native ({dev}): device evals {accs}, "
+                f"engines {server.devices_online}")
+        out[dev] = {"wall_s": wall, "device_eval_acc": accs,
+                    "test_acc": res["final_test_acc"], "launches": b1}
+    require(art["cuda"] == art["cpu"], "cross-device native: the native "
+                                       "device's artifact differs between "
+                                       "the card's session and the CPU's")
+    out["native_artifact_bytes"] = len(art["cuda"])
+    return out
+
+
+def cross_device_phase(torch, cb, fa, tmp, card):
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    t0 = time.perf_counter()
+    args = Arguments(**CD_FULL)
+    fed, od = data.load(args)
+    parts = (args, fed, model.create(args, od, fed.input_shape))
+    dense = cd_flagship(torch, cb, fa, parts, tmp, {})
+    comp = cd_flagship(torch, cb, fa, parts, tmp, CD_WIRE)
+    nat = cd_native_leg(torch, cb, fa, tmp)
+    return {"phase_s": time.perf_counter() - t0, "flagship": dense,
+            "compressed": comp, "native": nat, "card": card}
 
 
 def main() -> int:
@@ -6227,6 +6724,48 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
     sec["card"] = card
     print(json.dumps({"secure_aggregation": sec}), flush=True)
 
+    roof, roof_b1 = roofline_phase(torch, llm, cb, fa, Arguments, card)
+    f = roof["flagship"]
+    print(f"roofline flagship step ({card}): {f['ops']} ops, "
+          f"{f['b1_rows']} B1 rows (27 per forward, each = block_cost), "
+          f"conv + matmul {f['registry_flops']:.6e} FLOPs = "
+          f"FlopCounterMode's; predicted {f['predicted_ms_per_step']:.4f} "
+          f"ms per step vs measured {f['measured_ms_per_step']:.4f} ms "
+          f"(CUDA events over {ROOFLINE_STEP_REPLAYS} graph replays), "
+          f"predicted MFU {f['predicted_mfu']}, memory-bound share "
+          f"{f['memory_bound_share']}; {f['steps']} steps in the round, B1 "
+          f"{roof_b1['conv_block']} launches; recompile at batch 16: "
+          f"{json.dumps(f['recompile']['changed'][:2])}", flush=True)
+    lm = roof["llm"]
+    print(f"roofline LLM ({card}): hot step kernel rows "
+          f"{lm['hot_step_kernel_rows']} (= attention_cost), predicted "
+          f"{lm['hot_step']['predicted_s'] * 1e3:.3f} ms, MFU "
+          f"{lm['hot_step']['predicted_mfu']}; serving records "
+          f"{lm['serving_records']} over {ROOFLINE_DECODE_STEPS + 1} "
+          f"decode steps at 64 slots ({lm['decode_step_ms_64_slots']:.3f} "
+          f"ms each after the first); dispatch_signature {lm['signature_us_per_dispatch']:.2f}"
+          f" us per dispatch ({lm['signature_leaves']} leaves, "
+          f"{lm['signature_share_of_step'] * 100:.3f} % of a step)",
+          flush=True)
+    print(json.dumps({"roofline": roof}), flush=True)
+
+    cd = cross_device_phase(torch, cb, fa, tmp, card)
+    for leg in ("flagship", "compressed"):
+        f = cd[leg]
+        print(f"cross-device {leg} ({card}): 4 ResNet-56 devices x "
+              f"{CD_STEPS} steps, 1 round: {f['round_s']:.3f} s (wait "
+              f"{f['wait_s']:.3f}, aggregate {f['aggregate_s']:.4f}, eval "
+              f"{f['eval_s']:.3f}), {f['wall_s']:.2f} s with the devices' "
+              f"start; B1 {f['b1_launches']} = 27 x ({f['warmup_steps']} + "
+              f"{f['replays']} + {f['eval_batches']} eval batches); vs the "
+              f"uploads' weighted mean {f['within_tolerance']:.4f} of the "
+              f"tolerance; uploads {f['upload_bytes']} bytes", flush=True)
+    print(f"cross-device native leg ({card}): on-device evals "
+          f"{cd['native']['cuda']['device_eval_acc']} (card), "
+          f"{cd['native']['cpu']['device_eval_acc']} (CPU); the native "
+          f"device's artifact the same bytes on both", flush=True)
+    print(json.dumps({"cross_device": cd}), flush=True)
+
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
@@ -6264,6 +6803,14 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "launches_lightsecagg": (
             None if isinstance(sec["flagship_sessions"], str) else
             sec["flagship_sessions"]["LSA"]["b1_launches"]),
+        # phase 20 (a): the round the roofline observed (the captures'
+        # launches are counted apart, 27 per capture of the step)
+        "launches_roofline_round": roof_b1["conv_block"],
+        "roofline_rows_per_forward": roof["flagship"]["b1_rows"],
+        # phase 21: the cross-device sessions at the flagship's width
+        "launches_cross_device": cd["flagship"]["b1_launches"],
+        "launches_cross_device_compressed":
+            cd["compressed"]["b1_launches"],
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
@@ -6296,6 +6843,10 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
             "launches": llm_launches[name],
             "launches_serving": serve_launches[name],
             "launches_fleet": fleet_launches[name],
+            # phase 20 (b): rows in the hot step's roofline (those
+            # launches are the capture's, not counted)
+            "roofline_rows_hot_step":
+                roof["llm"]["hot_step_kernel_rows"].get(name, 0),
             "max_abs_err": attn_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -124,6 +124,19 @@ _SCHEMA: Dict[str, Any] = {
     "pacer_util_saturation": 0.05,   # relative improvement below = plateau
     "pacer_min_cohort_scale": 1.0,   # k multiplier bounds
     "pacer_max_cohort_scale": 4.0,
+    # cross-device (cross_device/): the device's trainer engine (torch;
+    # "jax" names the same engine; native = the C++ core) and its uplink
+    # artifacts' wire compression (None = dense, byte-identical)
+    "device_engine": "torch",
+    "device_wire_compression": None,
+    # the durable multi-tenant fleet plane (core/fleet): a sqlite registry
+    # path (None = in-memory only), this server's task name in it (None =
+    # "train" for the FL server, "fa" for the analytics server), and the
+    # per-device participation cap in a trailing window (0 = uncapped)
+    "fleet_registry": None,
+    "fleet_task_id": None,
+    "fleet_max_rounds_per_window": 0,
+    "fleet_fairness_window_s": 3600.0,
     # contribution assessment: loo | gtg (None = off)
     "contribution_method": None,
     "shapley_max_perms": 20,         # GTG-Shapley permutation budget
@@ -197,7 +210,7 @@ _SCHEMA: Dict[str, Any] = {
     # host/device split + per-round MFU at the engine's dispatch seam
     # (waits for the device at every block's end)
     "obs_profile_device": False,
-    # the JAX package's per-program roofline capture; not ported (raises)
+    # per-program roofline capture (core/obs/roofline.py)
     "obs_roofline": False,
     # accepted and inert, as in the JAX package (secure aggregation is
     # federated_optimizer SA / LSA; core/fhe.FedMLFHE reads enable_fhe)

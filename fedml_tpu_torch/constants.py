@@ -1,9 +1,11 @@
 """Constants the ported slices read (counterpart of ``fedml_tpu/constants.py``,
-reduced to the simulation, cross-silo and federated serving platforms,
+reduced to the simulation, cross-silo, cross-device and federated serving
+platforms,
 their backends and the cross-silo wire's compression names)."""
 
 FEDML_TRAINING_PLATFORM_SIMULATION = "simulation"
 FEDML_TRAINING_PLATFORM_CROSS_SILO = "cross_silo"
+FEDML_TRAINING_PLATFORM_CROSS_DEVICE = "cross_device"
 FEDML_TRAINING_PLATFORM_CROSS_CLOUD = "cross_cloud"
 # a cross-silo session whose aggregate is then served (serving/federated.py)
 FEDML_TRAINING_PLATFORM_SERVING = "fedml_serving"

@@ -301,8 +301,9 @@ class _Program:
 
     Counters: ``captures`` (0 or 1), ``capture_s`` (host seconds of warm-up
     plus capture), ``warmup_steps`` (eager runs of the body the warm-up
-    made) and ``replays``. A failed capture or replay raises; nothing falls
-    back to the eager body on a CUDA device.
+    made), ``replays`` and ``steps`` (steps run, replayed or eager: the
+    roofline's multiplier). A failed capture or replay raises; nothing
+    falls back to the eager body on a CUDA device.
     """
 
     _key_cls = StepKeys
@@ -325,9 +326,19 @@ class _Program:
         self.capture_s = 0.0
         self.warmup_steps = 0
         self.replays = 0
+        self.steps = 0
 
     def _body(self) -> None:
         raise NotImplementedError
+
+    def analysis_step(self) -> None:
+        """One step of the body on copies of the static tensors, leaving
+        the program as it was: what a roofline capture records
+        (``core/obs/roofline.py``; the copying is not recorded)."""
+        from ..obs import roofline
+        with roofline.unrecorded():
+            twin = roofline.program_twin(self)
+        twin._body()
 
     def _capture(self, cdata: ClientData) -> None:
         """Warm the body up on a side stream, then capture it. The warm-up
@@ -368,6 +379,7 @@ class _Program:
             self.batch[k].copy_(getattr(cdata, k)[idx])
 
     def _step(self) -> None:
+        self.steps += 1
         if self.graph is None:
             self._body()
             return

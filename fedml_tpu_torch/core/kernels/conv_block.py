@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import count_launch
+from .cost import block_cost
 
 #: flax GroupNorm default epsilon — the unfused path's value
 GN_EPS = 1e-6
@@ -293,8 +294,20 @@ def _launch(x: torch.Tensor, params: Params, strides: int, groups: int,
     if err != 0:
         raise RuntimeError(f"conv_block kernel launch failed: CUDA error "
                            f"{err}")
-    count_launch(fused_block)
+    count_launch(fused_block, lambda: _work(x, p, out, strides))
     return out
+
+
+def _work(x, params, out, strides):
+    """The launch's roofline row: operand and output shapes and
+    :func:`.cost.block_cost` (square images, as ResNet's)."""
+    from ..obs.roofline import shape_str
+    nbytes, ops = block_cost(int(x.shape[0]), int(x.shape[1]),
+                             int(x.shape[3]), int(out.shape[3]),
+                             int(strides), x.element_size())
+    operands = [shape_str(x)] + [shape_str(params[k])
+                                 for k in ("w1", "w2", "wp") if k in params]
+    return operands, shape_str(out), nbytes, ops
 
 
 class _FusedBlock(torch.autograd.Function):
@@ -339,3 +352,4 @@ def fused_block(x: torch.Tensor, params: Params, *, strides: int = 1,
 
 
 fused_block.launches = fused_block.captured = 0
+fused_block.analysed = 0

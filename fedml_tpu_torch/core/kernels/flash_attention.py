@@ -57,6 +57,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import count_launch
+from .cost import attention_cost
 
 NEG_INF = -1e30
 
@@ -198,6 +199,18 @@ def _call(fn, tensors, q: torch.Tensor, name: str):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def _work(q: torch.Tensor, mask: Optional[torch.Tensor], kernel: str):
+    """The launch's roofline row: q's shape (k, v and the outputs share
+    it) and :func:`.cost.attention_cost`."""
+    from ..obs.roofline import shape_str
+    b, s, h, d = (int(x) for x in q.shape)
+    nbytes, flops = attention_cost((b, s, h, d, mask is not None),
+                                   q.element_size(), kernel)
+    operands = [shape_str(q)] * 3 + ([] if mask is None
+                                     else [shape_str(mask)])
+    return operands, shape_str(q), nbytes, flops
+
+
 def _contig(*ts):
     return tuple(None if t is None else t.contiguous() for t in ts)
 
@@ -222,7 +235,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if q.numel():
         _call(_lib().flash_fwd, (q, k, v, mask, o, lse), q, "flash_fwd")
-        count_launch(flash_fwd)
+        count_launch(flash_fwd, lambda: _work(q, mask, "fwd"))
     return o, lse
 
 
@@ -237,7 +250,7 @@ def flash_dq(q, k, v, mask, do, lse, dd) -> torch.Tensor:
     if q.numel():
         _call(_lib().flash_bwd_dq, (q, k, v, mask, do, lse, dd, dq), q,
               "flash_dq")
-        count_launch(flash_dq)
+        count_launch(flash_dq, lambda: _work(q, mask, "dq"))
     return dq
 
 
@@ -252,10 +265,10 @@ def flash_dkv(q, k, v, mask, do, lse, dd
     if q.numel():
         _call(_lib().flash_bwd_dkv, (q, k, v, mask, do, lse, dd, dk, dv), q,
               "flash_dkv")
-        count_launch(flash_dkv)
+        count_launch(flash_dkv, lambda: _work(q, mask, "dkv"))
     return dk, dv
 
 
-flash_fwd.launches = flash_fwd.captured = 0
-flash_dq.launches = flash_dq.captured = 0
-flash_dkv.launches = flash_dkv.captured = 0
+flash_fwd.launches = flash_fwd.captured = flash_fwd.analysed = 0
+flash_dq.launches = flash_dq.captured = flash_dq.analysed = 0
+flash_dkv.launches = flash_dkv.captured = flash_dkv.analysed = 0

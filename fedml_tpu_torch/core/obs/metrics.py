@@ -7,7 +7,9 @@ counter, ``record_round_mfu`` / ``record_hbm_peak``, ``record_wire`` /
 ``record_selection`` / ``record_cohort_assembly``, the async engine's
 ``record_pour`` / ``record_arrival``, the serving fleet's
 ``record_gateway_route`` / ``_failover`` / ``_heal`` / ``_latency`` and
-``record_fleet_scale``, :class:`LatencyWindow`, the
+``record_fleet_scale``, the fleet plane's ``record_fleet_round``,
+the compute plane's ``record_roofline`` / ``record_recompile``,
+:class:`LatencyWindow`, the
 snapshot cadences :func:`maybe_flush` / :func:`set_flush_interval` and
 :func:`flush_final`).
 
@@ -870,3 +872,67 @@ def flush_final(step: Optional[int] = None) -> None:
     if not _cfg["enabled"]:
         return
     REGISTRY.flush(step=step)
+
+
+def record_fleet_round(task_id: str, cohort: int, denied_busy: int,
+                       denied_cap: int) -> None:
+    """Multi-tenant fleet-plane seam (core/fleet): per-task selected
+    devices plus the fairness arbiter's denial counts — ``busy`` is the
+    one-task-per-round rule firing, ``cap`` the trailing-window
+    participation cap. A healthy single-tenant fleet shows zero of
+    both; a saturated multi-tenant one shows busy denials growing."""
+    if not _cfg["enabled"]:
+        return
+    c = REGISTRY.counter("fed_fleet_devices_total",
+                         "fleet-plane per-task device decisions",
+                         labels=("task", "outcome"))
+    c.inc(int(cohort), task=str(task_id), outcome="selected")
+    if denied_busy:
+        c.inc(int(denied_busy), task=str(task_id), outcome="denied_busy")
+    if denied_cap:
+        c.inc(int(denied_cap), task=str(task_id), outcome="denied_cap")
+    REGISTRY.gauge("fed_fleet_cohort_size",
+                   "devices granted to the most recent fleet round",
+                   labels=("task",)).set(int(cohort), task=str(task_id))
+
+
+def record_roofline(program: str, predicted_mfu: Optional[float],
+                    memory_bound_share: Optional[float],
+                    collective_wire_bytes: Optional[float]) -> None:
+    """Compute-plane roofline capture (core/obs/roofline): predicted
+    program MFU, time share classified memory-bound, and the per-device
+    collective wire bytes one execution moves."""
+    if not _cfg["enabled"]:
+        return
+    if predicted_mfu is not None:
+        REGISTRY.gauge("roofline_predicted_mfu",
+                       "roofline-predicted program MFU",
+                       labels=("program",)).set(float(predicted_mfu),
+                                                program=str(program))
+    if memory_bound_share is not None:
+        REGISTRY.gauge("roofline_memory_bound_share",
+                       "share of predicted device time in memory-bound "
+                       "ops", labels=("program",)).set(
+                           float(memory_bound_share),
+                           program=str(program))
+    if collective_wire_bytes is not None:
+        REGISTRY.gauge("roofline_collective_wire_bytes",
+                       "predicted per-device collective wire bytes per "
+                       "program execution",
+                       labels=("program",)).set(
+                           float(collective_wire_bytes),
+                           program=str(program))
+    REGISTRY.counter("roofline_captures_total",
+                     "compiled programs analyzed by the roofline "
+                     "plane").inc(1)
+
+
+def record_recompile(program: str) -> None:
+    """Recompile forensics: a program compiled PAST its pinned
+    expectation (the steady-state invariant is zero)."""
+    if not _cfg["enabled"]:
+        return
+    REGISTRY.counter("roofline_recompiles_total",
+                     "dispatches that recompiled past the pinned "
+                     "one-compile expectation",
+                     labels=("program",)).inc(1, program=str(program))

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 
 from .constants import (FEDML_SIMULATION_TYPE_GPU, FEDML_SIMULATION_TYPE_SP,
                         FEDML_TRAINING_PLATFORM_CROSS_CLOUD,
+                        FEDML_TRAINING_PLATFORM_CROSS_DEVICE,
                         FEDML_TRAINING_PLATFORM_CROSS_SILO,
                         FEDML_TRAINING_PLATFORM_SERVING,
                         FEDML_TRAINING_PLATFORM_SIMULATION)
@@ -27,7 +28,6 @@ from .device import get_device
 # NotImplementedError naming it, rather than silently ignoring it.
 UNPORTED_KNOBS: Dict[str, tuple] = {
     "mesh_shape": (None,),
-    "obs_roofline": (None, False),
     # the values of this knob that are ported
     "llm_attention_impl": (None, "", "dense", "flash"),
 }
@@ -64,7 +64,10 @@ PORTED_SUMMARY = (
     "aggregation (federated_optimizer SA or LSA, secagg_compress_bits; "
     "the cryptography package needed), Paillier FHE (core/fhe) and the "
     "enable_secure_agg / enable_fhe flags (inert, as in the JAX package); "
-    "federated serving (training_type: fedml_serving); the models and "
+    "federated serving (training_type: fedml_serving); the cross-device "
+    "platform (training_type: cross_device: the device server, simulated "
+    "devices on the torch or native engine, cohort assembly and the fleet "
+    "registry); the models and "
     "tasks of the zoo, round checkpoints, the federated LoRA causal LM "
     "and serving")
 
@@ -133,7 +136,8 @@ class FedMLRunner:
     """Dispatch on ``args.training_type`` x ``args.backend``: the port has
     the simulation platform on the GPU and SP backends, the cross-silo
     platform (``cross_silo`` / ``cross_cloud``) over INPROC, TCP, gRPC,
-    PUBSUB and TRPC, and federated serving (``fedml_serving``)."""
+    PUBSUB and TRPC, the cross-device platform (``cross_device``) and
+    federated serving (``fedml_serving``)."""
 
     def __init__(self, args, device=None, dataset=None, model=None,
                  client_trainer=None, server_aggregator=None,
@@ -155,6 +159,16 @@ class FedMLRunner:
                 args, dataset, model, client_trainer,
                 device=get_device(device), init_params=init_params)
             return
+        if ttype == FEDML_TRAINING_PLATFORM_CROSS_DEVICE:
+            if server_aggregator is not None:
+                raise NotImplementedError(
+                    "server_aggregator: the device server takes no user "
+                    "ServerAggregator (the JAX package's ignores one)")
+            from .cross_device.runner import build_cross_device_runner
+            self.runner = build_cross_device_runner(
+                args, dataset, model, device=get_device(device),
+                init_params=init_params)
+            return
         if ttype in (FEDML_TRAINING_PLATFORM_SERVING, "serving"):
             if server_aggregator is not None:
                 raise NotImplementedError(
@@ -169,7 +183,8 @@ class FedMLRunner:
         if ttype != FEDML_TRAINING_PLATFORM_SIMULATION:
             raise NotImplementedError(
                 f"training_type={ttype!r} is not ported to fedml_tpu_torch "
-                f"yet (ported: simulation, cross_silo, fedml_serving)")
+                f"yet (ported: simulation, cross_silo, cross_device, "
+                f"fedml_serving)")
         from .core.async_rounds import round_mode_from_args
         from .core.algframe.client_trainer import make_trainer_spec
         from .optimizers.registry import create_optimizer

@@ -16,9 +16,12 @@ functions here, run eagerly on the scheduler's device: ``sample``,
 ``prefill_wave`` / ``wave_write`` and ``cow_read`` / ``cow_write``. Each
 compute half reads the pools; each write half scatters into them in place
 (``index_put_``), which is what buffer donation gives the JAX package.
-They run through one named call point, :meth:`DecodeScheduler._dispatch`;
-the JAX package's compile counter and roofline capture there have no
-eager counterpart, and the roofline knob raises.
+They run through one named call point, :meth:`DecodeScheduler._dispatch`,
+the compute-plane seam (``core/obs/roofline.py``): every dispatch's
+abstract signature feeds recompile forensics (an eager program builds
+nothing, so it never fires here), and with ``roofline`` (default: the
+``obs_roofline`` process default) each program is captured once per
+(name, signature) on copies of its inputs before its dispatch.
 
 Sampling is stateless per (seed, position): the token for position ``p``
 uses ``fold_in(PRNGKey(seed), p)`` — the Gumbel noise is drawn on the host
@@ -48,6 +51,7 @@ from torch.func import functional_call
 
 from ... import prng
 from ...core.obs import metrics as obs_metrics
+from ...core.obs import roofline as obs_roofline
 from ...llm import kv_cache as kvc
 from ...llm.lora import lora_select
 
@@ -91,11 +95,7 @@ class DecodeScheduler:
                  prefill_batch: int = 0,
                  suffix_cache: bool = False,
                  device: Optional[torch.device] = None,
-                 roofline: bool = False):
-        if roofline:
-            raise NotImplementedError(
-                "roofline capture at the serving dispatch seam "
-                "(obs_roofline) is not ported to fedml_tpu_torch yet")
+                 roofline: Optional[bool] = None):
         self.device = torch.device(device) if device is not None else \
             next(iter(base_params.values())).device
         self.module = module
@@ -141,13 +141,22 @@ class DecodeScheduler:
         # True until a decode step observes NaN/inf in an active slot's
         # logits — the watchdog's poison signal
         self.last_step_finite = True
+        self._roofline = obs_roofline.DispatchTracker(enabled=roofline,
+                                                      device=self.device)
         self._build_programs()
 
     def _dispatch(self, name: str, fn, *args):
-        """Run one serving program through the named call point (the JAX
-        package's compute-plane seam; ``name`` labels the program)."""
+        """Run one serving program through the compute-plane seam
+        (``name`` labels the program): its signature, the opt-in capture
+        (on copies: the write programs scatter into the pools in place)
+        before the call, forensics after."""
+        sig = obs_roofline.dispatch_signature(args)
         with torch.no_grad():
-            return fn(*args)
+            self._roofline.maybe_capture(name, fn, args, sig=sig)
+            out = fn(*args)
+        # an eager program builds nothing: no compile to report
+        self._roofline.observe(name, sig, 0)
+        return out
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """One host mirror → the scheduler's device."""

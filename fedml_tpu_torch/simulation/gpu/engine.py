@@ -79,6 +79,14 @@ store (``selection``): the part of the JAX engine's checkpoint state this
 engine has. ``run`` resumes from the newest one at the round after it; a
 checkpoint without an optional leaf restores without it (with a
 warning), that state then starts cold.
+
+The compute plane (``core/obs/roofline.py``) sits at the ``_traced``
+seam: every block's signature (the params', server state's and data's
+shapes) feeds recompile forensics, where a block that built a new step
+program past the first (on a card: a new CUDA-graph capture) emits a
+``kind: recompile`` record naming what changed; under ``obs_roofline``
+each program the block ran is captured once per signature after it, its
+rows multiplied by the steps it ran in the block.
 """
 
 from __future__ import annotations
@@ -105,6 +113,7 @@ from ...core.collectives import (FlatLayout, WeightedSum, stack_trees,
 from ...core.contribution import ContributionAssessorManager
 from ...core.dp import FedMLDifferentialPrivacy
 from ...core.obs import profiler as obs_profiler
+from ...core.obs import roofline as obs_roofline
 from ...core.obs import sink as obs_sink
 from ...core.obs import trace as obs_trace
 from ...core.security import FedMLAttacker, FedMLDefender
@@ -368,6 +377,12 @@ class GPUSimulator:
         # waits for the device at every block's end
         self._obs_profile = bool(getattr(args, "obs_profile_device", False))
         self._flops_per_round: Optional[float] = None
+        # compute plane: always-on recompile forensics, opt-in roofline
+        # capture (obs_roofline) of the programs a block runs
+        self._roofline = obs_roofline.DispatchTracker(
+            enabled=bool(getattr(args, "obs_roofline",
+                                 obs_roofline.default_enabled())),
+            device=device)
         self.ckpt = RoundCheckpointer(
             getattr(args, "checkpoint_dir", None),
             int(getattr(args, "checkpoint_every_rounds", 0) or 0))
@@ -985,10 +1000,15 @@ class GPUSimulator:
         enqueue of the block, and the step captures it triggered. With
         ``obs_profile_device`` the host then waits for the device
         (``device_wait_s``), the block is named in a ``torch.profiler``
-        trace, and
-        the FLOPs model becomes the per-round MFU gauge and a ``profile``
-        record."""
+        trace, and the FLOPs model becomes the per-round MFU gauge and a
+        ``profile`` record. The compute plane: the block's signature and
+        the programs it built feed recompile forensics; under
+        ``obs_roofline`` the programs it ran are captured after it (once
+        per signature), so nothing of the capture is charged to it."""
         c0 = self.dispatch_stats["captures"]
+        sig = obs_roofline.dispatch_signature(self._dispatch_args())
+        built = set(self.programs)
+        steps0 = {k: p.steps for k, p in self.programs.items()}
         with obs_trace.span("dispatch", attrs={"name": name,
                                                "rounds": int(n_rounds)}) \
                 as sp:
@@ -1008,6 +1028,14 @@ class GPUSimulator:
                 sp.set_attr("device_wait_s", round(wait, 6))
         self._update_program_stats()
         captures = self.dispatch_stats["captures"] - c0
+        # the port's compile: a new step program (captured on a card)
+        self._roofline.observe(name, sig, len(set(self.programs) - built))
+        ran = [(p, p.steps - steps0.get(k, 0))
+               for k, p in self.programs.items()]
+        ran = [(p, n) for p, n in ran if n > 0]
+        if ran:
+            self._roofline.maybe_capture(
+                name, lambda: _programs_body(ran), sig=sig)
         if self._obs_profile:
             obs_profiler.record_dispatch_profile(
                 name, n_rounds, wall, wait, self._flops_per_round, 1,
@@ -1015,6 +1043,13 @@ class GPUSimulator:
             obs_profiler.sample_hbm_peak_gb(self.device)
         self.dispatch_stats["dispatches"] += 1
         return out
+
+    def _dispatch_args(self) -> Dict[str, Any]:
+        """What a block reads: the signature's tree."""
+        t = self.train
+        return {"params": self.params, "server_state": self.server_state,
+                "client_states": self.client_states,
+                "train": {"x": t.x, "y": t.y, "mask": t.mask}}
 
     def round_cost_flops(self, hyper: TrainHyper) -> float:
         """FLOPs of one round's training, for MFU: one fwd+bwd step at the
@@ -1154,6 +1189,15 @@ class GPUSimulator:
 #: the host path's bound on the matrix contribution assessment takes (the
 #: JAX engine's 2 GiB host guard)
 CONTRIBUTION_HOST_GUARD_BYTES = 2 << 30
+
+
+def _programs_body(ran) -> None:
+    """The roofline capture's body: each program that ran in a block, one
+    step on copies of its tensors, its rows multiplied by the steps it
+    ran."""
+    for prog, n in ran:
+        with obs_roofline.repeat(n):
+            prog.analysis_step()
 
 
 def load_params(bundle, init_params: Dict[str, Any],

@@ -416,8 +416,7 @@ def test_mlops_init_writes_the_run_jsonl(tmp_path):
     assert mlops.log_path() is None
 
 
-_UNPORTED_ON = {"mesh_shape": (2, 2), "obs_roofline": True,
-                "llm_attention_impl": "splash"}
+_UNPORTED_ON = {"mesh_shape": (2, 2), "llm_attention_impl": "splash"}
 
 
 @pytest.mark.parametrize("where", ["gpu", "sp", "cross_silo"])

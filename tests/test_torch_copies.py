@@ -29,7 +29,14 @@ outputs, bit for bit.
   limbs agree), ``core/mpc/lightsecagg.py`` and ``core/fhe/paillier.py``;
   and, with ``cryptography`` hidden, the port imports and runs its other
   sessions while SA and LSA fail at build naming the package
-  (``core/mpc``'s torch math is pinned in ``tests/test_torch_mpc.py``).
+  (``core/mpc``'s torch math is pinned in ``tests/test_torch_mpc.py``);
+* the cross-device slice's copies: ``cross_device/message_define.py``,
+  ``utils/paths.py`` (``confine_path`` accepts and refuses the same
+  paths) and the native core's C++ source and C header (the same bytes;
+  its binding is held bitwise in ``tests/test_torch_native.py``).
+  ``core/fleet``, ``core/schedule`` and ``fa`` are held to the reference
+  in ``tests/test_torch_fleet.py``, ``test_torch_schedule.py`` and
+  ``test_torch_fa.py``.
 """
 
 from __future__ import annotations
@@ -704,3 +711,34 @@ def test_without_cryptography_the_port_runs_and_secure_sessions_name_it():
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == \
         str([("cryptography", True)] * 4), out.stdout
+
+
+def test_cross_device_copies(tmp_path):
+    from fedml_tpu.cross_device.message_define import DeviceMessage as JMsg
+    from fedml_tpu.utils.paths import confine_path as jconfine
+    from fedml_tpu_torch.cross_device.message_define import \
+        DeviceMessage as TMsg
+    from fedml_tpu_torch.utils.paths import confine_path as tconfine
+
+    def names(cls):
+        return {k: v for k, v in vars(cls).items() if k.isupper()}
+    assert names(TMsg) == names(JMsg) and names(TMsg)
+    root = tmp_path / "cache"
+    root.mkdir()
+    (root / "ok.npk").write_bytes(b"x")
+    for path in (str(root / "ok.npk"), str(root / "sub" / "x.npk"),
+                 "/etc/passwd", str(root / ".." / "escape.npk")):
+        outs = []
+        for fn in (jconfine, tconfine):
+            try:
+                outs.append(fn(path, str(root)))
+            except ValueError as e:
+                outs.append(("raises", str(e)))
+        assert outs[0] == outs[1], path
+    import fedml_tpu.native as jn
+    import fedml_tpu_torch.native as tn
+    for rel in ("mobilenn.cpp", os.path.join("include", "fedml_client.h")):
+        with open(os.path.join(os.path.dirname(jn.__file__), rel),
+                  "rb") as f, open(os.path.join(
+                      os.path.dirname(tn.__file__), rel), "rb") as g:
+            assert f.read() == g.read(), rel

@@ -120,6 +120,25 @@ def test_unported_knobs_raise(knob, value):
         for k, v in off["params"].items():
             assert torch.equal(v, on["params"][k]), k
         return
+    if knob == "obs_roofline":
+        # ported: the run emits its round program's roofline record and
+        # trains the params of a run with the knob off, bitwise
+        from fedml_tpu_torch.core.obs import roofline, sink
+        recs = []
+        sink.set_sink(recs.append)
+        try:
+            on = fedml_tpu_torch.run_simulation(device="cpu", **cfg)
+        finally:
+            sink.set_sink(None)
+        off = fedml_tpu_torch.run_simulation(device="cpu",
+                                             **dict(cfg, obs_roofline=False))
+        rec = [r for r in recs if r["kind"] == "roofline"]
+        assert rec and rec[0]["program"] in ("round", "rounds_fused")
+        assert rec[0]["total_flops"] > 0 and rec[0]["static_only"]
+        assert roofline.report(rec[0]["program"]) is not None
+        for k, v in off["params"].items():
+            assert torch.equal(v, on["params"][k]), k
+        return
     with pytest.raises(NotImplementedError, match=knob) as ei:
         fedml_tpu_torch.run_simulation(device="cpu", **cfg)
     # the refusal names what is ported

@@ -122,6 +122,7 @@ def test_fleet_chaos_and_load_script_import_without_jax():
                                   "scripts/serving_load_torch.py",
                                   "scripts/fleet_scaling.py",
                                   "scripts/serving_ab.py",
+                                  "scripts/chip_phases.py",
                                   "fedml_tpu_torch/serving/autoscale.py",
                                   "fedml_tpu_torch/serving/replica_main.py"])
 def test_no_jax_import_statement(path):

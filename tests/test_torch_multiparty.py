@@ -21,8 +21,6 @@ parameters carried across (``interop.split_params_from_flax`` /
 
 from __future__ import annotations
 
-import socket
-
 import numpy as np
 import pytest
 
@@ -35,6 +33,7 @@ from fedml_tpu_torch.interop import (split_params_from_flax,
                                      variables_to_state_dict,
                                      vfl_params_from_flax)
 
+from test_torch_comm import free_port_base
 from torch_port_support import single_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
@@ -162,9 +161,10 @@ def test_vfl_session_matches_jax(vfl_ref):
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A base port whose ranks 0 and 1 are both free: the party listens
+    on ``base + rank``, and another test's listener may hold the port
+    after a free one."""
+    return free_port_base(2)
 
 
 @pytest.mark.parametrize("fo,server,party", [

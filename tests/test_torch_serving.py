@@ -567,8 +567,14 @@ def test_shed_and_unported_knobs_raise(lora_art, monkeypatch, tmp_path):
         assert chaotic.engine._chaos.plan.serving_nan_at_step == 3
     finally:
         chaotic.close()
-    with pytest.raises(NotImplementedError, match="roofline"):
-        TScheduler(tb.module, tb.cfg, tb.base_params, roofline=True)
+    # ...and captures its programs' roofline (tests/test_torch_roofline.py
+    # holds the records)
+    from fedml_tpu_torch.core.obs import roofline
+    sched = TScheduler(tb.module, tb.cfg, tb.base_params, roofline=True)
+    sched.admit([1] + tok.encode("roofline") + [3], max_new_tokens=2)
+    sched.step()
+    for prog in ("llm_decode_step", "llm_prefill_chunk"):
+        assert roofline.report(prog)["total_flops"] > 0, prog
     # watch_dir polls a directory (nothing exported there yet) and stops
     bank = TBank(tparams)
     bank.watch_dir(str(tmp_path / "adapters"), poll_s=0.01)
