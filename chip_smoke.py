@@ -39,7 +39,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    one block of 1 round (2 until phases 20 and 21 took the time) through
    ``run_rounds_fused`` in timing mode and
    one eval; the round's FLOPs and MFU; the SP golden loop for one round
-   on 8 clients as the baseline; a ``{"flagship": ...}`` line. B1 held to
+   on 4 clients as the baseline (per sample); a ``{"flagship": ...}`` line. B1 held to
    27 launches per forward pass, counted through the graph's replays (its
    B1 nodes read from the graph's DOT dump), and one capture. After the
    timed block: the engine's state through ``RoundCheckpointer`` (bytes,
@@ -150,7 +150,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
    traffic and plan (c8, 24 requests, stall + NaN, watchdog 0.3 s) with
    recovery on and off, plus a chaos-free leg: goodput, success rate,
    faults, resets, trips; (c) ``bench_llm_serving_fleet``'s soak (3
-   in-process replicas + 1 burst, 96 multi-turn requests at c256 (the
+   in-process replicas + 1 burst, 48 multi-turn requests at c256 (the
    bench's 768 cut in depth), 4 % connection drops, the last replica lost
    after 40 %), fleet_off then
    fleet_on: tokens/s, TTFT, success before and after the loss, suffix
@@ -187,7 +187,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     against the dense field, bytes, rounds to 90 %, the masked sums equal
     to the plain ones); (c) the flagship's configuration as
     a session over TCP
-    (ResNet-56, synthetic CIFAR-10 50,000 / 1,000, bf16, fused block; 4
+    (ResNet-56, synthetic CIFAR-10 25,000 / 1,000, bf16, fused block; 4
     silo subprocesses on the card, the server through
     ``run_cross_silo_server`` in this process): 1 untimed round (the
     captures) and 1 timed round, seconds per round, rounds/hour, the
@@ -206,7 +206,7 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     ledger, staleness >= 1); (b) the flagship's configuration as a
     buffered-async session (K 2 of 4 ResNet-56 silo processes, the server
     and the broker in this process, PUBSUB_STORAGE): 2 untimed pours (the
-    captures), 2 timed: seconds per pour, updates per wall hour beside
+    captures), 1 timed (2 until phase 22): seconds per pour, updates per wall hour beside
     phase 16 (c)'s, the wait / aggregate / eval / broadcast split, the
     staleness histogram, the store's objects and bytes, per silo its
     trainings, ms per local step, captures (1) and B1 launches held to 27
@@ -266,7 +266,23 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     and on the CPU: the native device's round-0 artifact the same bytes,
     the global model's on-device accuracy improving; a
     ``{"cross_device": ...}`` line;
-22. one JSON line describing each kernel, then the card line, then
+22. multi-rank on the one card (``core/mesh.py``, ``core/launch.py``:
+    one process per rank, the kernels built before the ranks start, f32
+    checks with TF32 off and cuDNN deterministic): (a) the GPU engine's
+    client axis at the flagship's width (ResNet-56, bf16, B1, 8 of 8
+    clients over 4,096 samples, 1 round): the plain engine here,
+    ``mesh_shape={"client": 1}`` in an NCCL group of one rank (bitwise
+    the plain engine) and ``{"client": 2}`` on two gloo ranks sharing
+    the card (within the house tolerance of one rank, the ranks bitwise
+    equal), B1 held to 27 x each rank's forwards, the all-reduce's bytes
+    and ms and the bytes staged through the host; (b) ring attention at
+    the FedLLM shape on the two ranks (sp 2), f32 and bf16, and
+    ``make_ring_forward`` of the FedLLM model, against dense attention
+    on the card; (c) the FSDP + tensor-parallel step of the FedLLM model
+    (flash, f32) at ``{"fsdp": 2}`` and ``{"tensor": 2}`` on the two
+    ranks against the unsharded step, B2-B4 counted on each rank; a
+    ``{"multi_rank": ...}`` line;
+23. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -348,11 +364,12 @@ MAIN_PATH = dict(
     learning_rate=0.1, synthetic_size=50000, synthetic_test_size=1000,
     frequency_of_the_test=-1, random_seed=0, rounds_per_dispatch=8)
 FLAGSHIP_BLOCK = 1
-# bench_flagship's baseline: the golden loop (SP, eager local steps) on 8
-# clients over 6,250 samples, one round, per-sample normalised
-SP_BASELINE = dict(MAIN_PATH, backend="sp", client_num_in_total=8,
-                   client_num_per_round=8, synthetic_size=6250,
-                   max_total_samples=6250)
+# bench_flagship's baseline: the golden loop (SP, eager local steps), one
+# round, per-sample normalised; its 8 clients over 6,250 samples cut in
+# depth to 4 over 3,125 (the same rate per sample) for phase 22
+SP_BASELINE = dict(MAIN_PATH, backend="sp", client_num_in_total=4,
+                   client_num_per_round=4, synthetic_size=3125,
+                   max_total_samples=3125)
 # The captured step against the eager loop on the card (phase 5): one
 # ResNet-20 client's SGD steps (momentum 0.9, lr 0.01) from the same
 # params; largest param difference over the largest param update. The two
@@ -643,11 +660,12 @@ TIE_GAP = 1e-4
 # bench_llm_serving_chaos traffic and plan (c8, 24 requests of 12 tokens,
 # every second one sampled; stall at step 12 for 5 s, NaN at step 25;
 # watchdog 0.3 s; 64 resets against 0) and (c) bench_llm_serving_fleet's
-# soak (3 replicas + 1 burst, 288 requests at c256, 4 % connection drops,
+# soak (3 replicas + 1 burst, 48 requests at c256, 4 % connection drops,
 # the last replica lost after 40 % of the requests; fleet_off then
-# fleet_on; the bench's 32 sessions per tenant cut to 12, its depth, to
-# make room for the model-zoo phase: the same turns, concurrency, drop
-# rate and loss point), both on one build of the FedLLM main path's model at seq 1024
+# fleet_on; the bench's 32 sessions per tenant cut to 2, its depth: to
+# 12 for the model-zoo phase, to 4 for phase 18, to 2 for phase 22; the
+# same turns, concurrency, drop rate and loss point), both on one build
+# of the FedLLM main path's model at seq 1024
 # (d 512, bf16, the bench's fresh LoRA adapter on the seeded base).
 CHAOS_TINY = dict(dataset="llm_synth", model="causal_lm", random_seed=3,
                   llm_hidden_size=32, llm_num_layers=2, llm_num_heads=2,
@@ -669,7 +687,7 @@ CHAOS_BENCH = {"concurrency": 8, "requests": 24, "max_new": 12,
                "plan": dict(seed=13, serving_stall_at_step=12,
                             serving_stall_s=5.0, serving_nan_at_step=25)}
 FLEET_REPLICAS, FLEET_CONC, FLEET_LOSS_AT = 3, 256, 0.4
-FLEET_LOAD = dict(tenants=8, sessions_per_tenant=4, turns_per_session=3,
+FLEET_LOAD = dict(tenants=8, sessions_per_tenant=2, turns_per_session=3,
                   seed=0, mean_gap_s=0.002, max_tokens=16, turn_chars=200)
 # 8,192 KV blocks of 16 at d 512, 4 layers, bf16: 1.07 GB per replica
 FLEET_OPTS = {"slots": 16, "block_size": 16, "prefill_chunk": 64,
@@ -770,8 +788,9 @@ CS_WIRE_CC = dict(comm_compression="topk_qsgd", comm_compression_ratio=0.05,
                   comm_compression_broadcast="compress")
 CS_WIRE_TARGET = 0.90
 # (c) the flagship's configuration as a cross-silo session: ResNet-56,
-# synthetic CIFAR-10 50,000 / 1,000 (hetero, alpha 0.5), batch 32, bf16,
-# the fused conv block, epochs 1, lr 0.1, seed 0; 4 silos (all of them in
+# synthetic CIFAR-10 (hetero, alpha 0.5; its 50,000 training samples cut
+# in depth to 25,000 for phase 22, 1,000 test), batch 32, bf16, the fused
+# conv block, epochs 1, lr 0.1, seed 0; 4 silos (all of them in
 # every round) as subprocesses, the server in this process, over TCP on
 # loopback. Round 0 captures each silo's step (untimed); rounds 1..
 # CS_FULL_TIMED are timed; the server evaluates after every round.
@@ -780,7 +799,7 @@ CS_FULL = dict(dataset="synthetic_cifar10", model="resnet56",
                precision="bfloat16", fused_conv_block="pallas",
                client_num_in_total=4, client_num_per_round=4,
                comm_round=1 + CS_FULL_TIMED, epochs=1, batch_size=32,
-               learning_rate=0.1, synthetic_size=50000,
+               learning_rate=0.1, synthetic_size=25000,
                synthetic_test_size=1000, partition_alpha=0.5,
                frequency_of_the_test=1, random_seed=0)
 CS_JOIN_S = 600.0
@@ -809,10 +828,11 @@ CS_ASYNC_LR_POURS = 8
 # as processes and the server in this process over PUBSUB_STORAGE (model
 # payloads through the object store); CS_ASYNC_WARM untimed pours (every
 # silo's first training, which holds its capture), then CS_ASYNC_TIMED
-# timed pours (one pair: the re-synced pairs alternate); the pour-timeout
+# timed pours (one pair; 2 until phase 22: so only that pair's silos
+# report a time per step after their first training); the pour-timeout
 # valve far above a pour (no partial pour).
 CS_ASYNC_WARM = 2
-CS_ASYNC_TIMED = 2
+CS_ASYNC_TIMED = 1
 CS_ASYNC_FULL = dict(CS_FULL, round_mode="async_buffered", async_buffer_k=2,
                      async_pour_timeout_s=120.0,
                      comm_round=CS_ASYNC_WARM + CS_ASYNC_TIMED)
@@ -841,7 +861,7 @@ MULTIPARTY = dict(dataset="digits", model="lr", client_num_in_total=3,
                   batch_size=32, learning_rate=0.1, frequency_of_the_test=1,
                   random_seed=7, party_num=3)
 # (b) gossip at the flagship's width: CS_FULL's knobs (ResNet-56, bf16,
-# the fused block, 4 nodes on synthetic CIFAR-10 50,000 / 1,000, alpha
+# the fused block, 4 nodes on synthetic CIFAR-10 25,000 / 1,000, alpha
 # 0.5, batch 32) with federated_optimizer decentralized_fl on a ring
 # (topology_neighbors 2); four node processes (silo_main's gossip role)
 # over TCP on loopback; round 0 holds each node's capture (untimed),
@@ -873,7 +893,7 @@ FIELD_PAIRS = 1 << 20
 FIELD_EDGE = (0, 1, 2, 2**16 - 1, 2**16, 2**16 + 1, 2**30, 2**30 + 1,
               2**31 - 3, 2**31 - 2)
 # (b) the SA and LSA sessions at the flagship's width: SECAGG_FULL (CS_FULL's
-# ResNet-56, bf16, the fused conv block, synthetic CIFAR-10 50,000 in 4
+# ResNet-56, bf16, the fused conv block, synthetic CIFAR-10 25,000 in 4
 # partitions at alpha 0.5; 1 round) through run_secagg_inproc and
 # run_lsa_inproc on the card, so the silos' own on_train (the delta, n x
 # delta quantized on the card, fresh X25519 mask keys, sealed shares, the
@@ -938,6 +958,46 @@ SECAGG_WIRE = dict(dataset="digits", model="lr", client_num_in_total=4,
                    batch_size=32, learning_rate=0.3, frequency_of_the_test=1,
                    random_seed=0)
 SECAGG_WIRE_BITS = 4
+
+# Multi-rank on the one card (phase 22): the port's torch.distributed
+# ranks, one process each (core/launch.py::run_ranks), built kernels
+# loaded, f32 checks with TF32 off and cuDNN held to deterministic
+# algorithms. (a) the client axis at the flagship's width (MAIN_PATH's
+# widths: ResNet-56, bf16, B1, synthetic CIFAR-10, batch 32, lr 0.1, seed
+# 0), cut in depth to 8 of 8 clients over 4,096 samples (16 steps a
+# client), 1 round: the plain engine in this process, mesh_shape
+# {"client": 1} through the multi-rank path in an NCCL group of 1 (≡ the
+# plain engine bitwise), and {"client": 2} on two gloo ranks sharing the
+# card, 4 clients each (within HOUSE_TOL of the 1-rank run: only the f32
+# sum's order differs; both ranks' params bitwise equal; B1 27 x each
+# rank's forwards). (b) ring attention at the FedLLM main path's shape
+# (b 8, s 256, h 8, d 64), sp 2 on the two ranks, f32 and bf16, against
+# dense attention on the card: the output with and without a key mask
+# (row 0's first 16 keys padded: exact zeros there) and dQ, dK, dV, each
+# within RING_TOL of the largest dense entry; make_ring_forward of the
+# FedLLM model (untied, LoRA off, f32) against its dense forward on the
+# real positions (row 0's last 64 tokens padded). (c) one SGD step (lr
+# 0.1) of the FedLLM model (flash attention, f32) through the sharded
+# step, against the unsharded step on the card: the loss within 1e-5 and every updated parameter within 1e-4
+# (tests/test_llm.py's bounds), B2-B4 counted on each rank. On the two
+# gloo ranks DTensor's all-gather of the CUDA shards (its functional
+# collective, wait_tensor) dies with a segmentation fault, where gloo's
+# own all_gather_into_tensor / reduce_scatter_tensor of CUDA tensors run
+# (scripts/gloo_cuda_probe.py): the step is not coded around the library,
+# so (c) runs at SHARDED_MESH_ONE in the NCCL group of one rank, and the
+# two-rank leg waits for cards of their own (ROADMAP.md Queue A 5b).
+MULTI_RANK = dict(MAIN_PATH, client_num_in_total=8, client_num_per_round=8,
+                  synthetic_size=4096, comm_round=1)
+MULTI_RANKS = 2
+MULTI_RANK_JOIN_S = 600.0
+RING_SHAPE = (8, 256, 8, 64)
+RING_DEAD_KEYS = 16
+RING_PAD_TOKENS = 64
+RING_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+SHARDED_MESH_ONE = {"fsdp": 1, "tensor": 1}
+SHARDED_LR = 0.1
+SHARDED_TOL = (1e-5, 1e-4)
+PSUM_TIMED = 5
 
 # Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
 # the trainer calls the model), the hot loop, bench_long_context, and the
@@ -6112,6 +6172,308 @@ def cross_device_phase(torch, cb, fa, tmp, card):
             "compressed": comp, "native": nat, "card": card}
 
 
+# -- phase 22: multi-rank on the one card ------------------------------------
+# The rank programs below run in the rank processes that run_ranks starts
+# (``python -m fedml_tpu_torch.core.launch``); they import this module, so
+# nothing here may run at import.
+
+def _rank_flags(torch):
+    """A rank's numerics for the checks: TF32 off, cuDNN deterministic."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _client_axis_leg(torch, w):
+    """(a) on this rank: MULTI_RANK with mesh_shape {"client": w}; the
+    params, the wall time, the dispatch stats, B1's launches, and the
+    round's all-reduce timed alone on a buffer of its size."""
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core import collectives
+    from fedml_tpu_torch.core.kernels import conv_block as cb
+    cb.fused_block.launches = 0
+    collectives.reset_collective_stats()
+    t0 = time.perf_counter()
+    r = fedml.run_simulation(mesh_shape={"client": w}, enable_tracking=False,
+                             **MULTI_RANK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    staged = collectives.collective_stats()["staged_bytes"]
+    st = r["dispatch_stats"]
+    require(st.get("ranks") == w, f"the run took no client axis: {st}")
+    import torch.distributed as dist
+    buf = torch.zeros(st["allreduce_bytes"] // 4 // st["allreduce_calls"],
+                      device="cuda")
+    for _ in range(2):
+        collectives.psum_packed([buf], dist.group.WORLD)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(PSUM_TIMED):
+        collectives.psum_packed([buf], dist.group.WORLD)
+    torch.cuda.synchronize()
+    return {"params": {k: v.float().cpu().numpy()
+                       for k, v in r["params"].items()},
+            "wall_s": wall, "run_wall_time_s": r["wall_time_s"],
+            "stats": st, "b1_launches": int(cb.fused_block.launches),
+            "staged_bytes": staged,
+            "allreduce_ms": (time.perf_counter() - t1) * 1e3 / PSUM_TIMED}
+
+
+def _ring_inputs(torch, dtype):
+    gen = torch.Generator().manual_seed(22)
+    b, s, h, d = RING_SHAPE
+    q, k, v, cot = (torch.randn(b, s, h, d, generator=gen) for _ in range(4))
+    mask = torch.ones(b, s)
+    mask[0, :RING_DEAD_KEYS] = 0.0
+    # the rows with no live key give zeros in the ring and a uniform mean
+    # in dense attention: no cotangent there, so neither's gradients see
+    # them, and the outputs are compared on the live rows
+    cot[0, :RING_DEAD_KEYS] = 0.0
+    return [t.to("cuda", getattr(torch, dtype)) for t in (q, k, v)], \
+        cot.to("cuda", getattr(torch, dtype)), mask.to("cuda")
+
+
+def _rel(torch, got, want):
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+def _ring_leg(torch):
+    """(b) on this rank: ring attention against dense attention on the
+    card, and make_ring_forward of the FedLLM model against its dense
+    forward."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.mesh import build_mesh
+    from fedml_tpu_torch.llm import attention as attn
+    from fedml_tpu_torch.llm.federated import llm_config_from_args
+    from fedml_tpu_torch.llm.model import CausalLM
+    from fedml_tpu_torch.llm.sharding import make_ring_forward
+    from torch.func import functional_call
+    me, size = dist.get_rank(), dist.get_world_size()
+    s_loc = RING_SHAPE[1] // size
+    cut = slice(me * s_loc, (me + 1) * s_loc)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        (q, k, v), cot, mask = _ring_inputs(torch, dtype)
+        for label, m in (("nomask", None), ("mask", mask)):
+            full = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = attn.dense_causal_attention(*full, attn_mask=m)
+            (ref.float() * cot.float()).sum().backward()
+            mine = [t[:, cut].detach().clone().requires_grad_()
+                    for t in (q, k, v)]
+            t0 = time.perf_counter()
+            o = attn.ring_causal_attention(
+                *mine, attn_mask=None if m is None else m[:, cut])
+            (o.float() * cot[:, cut].float()).sum().backward()
+            torch.cuda.synchronize()
+            live = (slice(None) if m is None or me else
+                    (slice(1, None),))
+            errs = [_rel(torch, o[live], ref[:, cut][live])] + [
+                _rel(torch, a.grad, b.grad[:, cut])
+                for a, b in zip(mine, full)]
+            tol = RING_TOL[dtype]
+            require(max(errs) <= tol,
+                    f"ring {dtype} {label} rank {me}: errors (O, dQ, dK, "
+                    f"dV) {errs} over {tol}")
+            if m is not None and me == 0:
+                require(bool((o[0, :RING_DEAD_KEYS] == 0).all()),
+                        f"ring {dtype}: rows with no live key not zero")
+            out[f"{dtype}_{label}"] = {
+                "rel_err_o_dq_dk_dv": errs,
+                "fwd_bwd_s": time.perf_counter() - t0}
+    cfg = dataclasses.replace(llm_config_from_args(Arguments(**LLM_MAIN_PATH)),
+                              tie_embeddings=False, dtype="float32",
+                              attention_impl="dense")
+    dense = CausalLM(cfg)
+    dense.reset_parameters(torch.Generator().manual_seed(0))
+    dense.to("cuda")
+    ring = CausalLM(dataclasses.replace(cfg, attention_impl="ring")).to(
+        "cuda")
+    params = dict(dense.state_dict())
+    gen = torch.Generator().manual_seed(23)
+    b, s = RING_SHAPE[0], RING_SHAPE[1]
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen).cuda()
+    pad = torch.ones(b, s, dtype=torch.int32)
+    pad[0, -RING_PAD_TOKENS:] = 0
+    pad = pad.cuda()
+    fwd = make_ring_forward(lambda p, t, m: functional_call(
+        ring, p, (t,), {"attn_mask": m}), build_mesh({"sp": size}))
+    with torch.no_grad():
+        want = dense(tokens, attn_mask=pad)[:, cut]
+        got = fwd(params, tokens, pad)
+    real = pad[:, cut].bool()
+    err = _rel(torch, got[real], want[real])
+    require(err <= RING_TOL["float32"],
+            f"make_ring_forward rank {me}: {err} of the largest logit over "
+            f"{RING_TOL['float32']}")
+    out["model_forward_rel_err"] = err
+    return out
+
+
+def _sharded_leg(torch, meshes):
+    """(c) on this rank: one SGD step of the FedLLM model (flash, f32)
+    sharded at each mesh, against the unsharded step on the card; B2-B4
+    launches per mesh."""
+    import dataclasses
+
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.core.algframe.client_trainer import \
+        make_inner_optimizer
+    from fedml_tpu_torch.core.kernels import flash_attention as fa
+    from fedml_tpu_torch.core.mesh import build_mesh
+    from fedml_tpu_torch.llm.federated import llm_config_from_args
+    from fedml_tpu_torch.llm.model import CausalLM
+    from fedml_tpu_torch.llm.sharding import (llm_param_specs,
+                                              make_sharded_train_step,
+                                              shard_llm_params)
+    from fedml_tpu_torch.llm.trainer import CausalLMTrainer
+    from torch.func import functional_call
+    cfg = dataclasses.replace(llm_config_from_args(Arguments(**LLM_MAIN_PATH)),
+                              dtype="float32", attention_impl="flash")
+    model = CausalLM(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to("cuda")
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    spec = CausalLMTrainer(lambda p, x, rng=None, train=False:
+                           functional_call(model, p, (x,)))
+    gen = torch.Generator().manual_seed(24)
+    x = torch.randint(0, cfg.vocab_size, (RING_SHAPE[0], RING_SHAPE[1]),
+                      generator=gen).cuda()
+    batch = {"x": x, "y": x, "mask": torch.ones(x.shape[0], device="cuda")}
+    full = {k: v.clone().requires_grad_() for k, v in params.items()}
+    loss0, _ = spec.loss(full, batch)
+    loss0.backward()
+    want = {k: (v - SHARDED_LR * v.grad).detach() for k, v in full.items()}
+    out = {}
+    for shape in meshes:
+        mesh = build_mesh(shape)
+        specs = llm_param_specs(params, mesh)
+        sharded = shard_llm_params(params, mesh, specs)
+        step = make_sharded_train_step(
+            spec.loss, make_inner_optimizer("sgd", SHARDED_LR), mesh, specs)
+        for f in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv):
+            f.launches = 0
+        t0 = time.perf_counter()
+        new, _, loss = step(sharded, None, batch, None)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        dl = abs(float(loss) - float(loss0.detach()))
+        dp = max(float((new[k].full_tensor().detach() - want[k]).abs().max())
+                 for k in want)
+        require(dl <= SHARDED_TOL[0] and dp <= SHARDED_TOL[1],
+                f"sharded step {shape}: loss off by {dl}, params by {dp} "
+                f"(bounds {SHARDED_TOL})")
+        launches = {f.__name__: int(f.launches)
+                    for f in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)}
+        require(all(launches.values()),
+                f"sharded step {shape}: a flash kernel never ran "
+                f"{launches}")
+        out[json.dumps(shape)] = {
+            "loss": float(loss), "loss_err": dl, "param_err": dp,
+            "step_s": step_s, "launches": launches,
+            "local_shapes": {k: list(v.to_local().shape)
+                             for k, v in list(new.items())[:4]}}
+    return out
+
+
+def multi_rank_gloo():
+    """The two gloo ranks' program: (a) at {"client": 2}, (b)."""
+    import torch
+    import torch.distributed as dist
+    from fedml_tpu_torch.core import collectives
+    from fedml_tpu_torch.core.mesh import init_ranks
+    _rank_flags(torch)
+    dev = init_ranks()
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    out["client_axis"] = _client_axis_leg(torch, dist.get_world_size())
+    collectives.reset_collective_stats()
+    out["ring"] = _ring_leg(torch)
+    out["ring"]["collectives"] = collectives.collective_stats()
+    return out
+
+
+def multi_rank_nccl():
+    """The NCCL group of one rank: (a) at {"client": 1}, (c)."""
+    import torch
+    import torch.distributed as dist
+    from fedml_tpu_torch.core.mesh import init_ranks
+    _rank_flags(torch)
+    dev = init_ranks()
+    return {"backend": dist.get_backend(), "device": str(dev),
+            "client_axis": _client_axis_leg(torch, 1),
+            "sharded": _sharded_leg(torch, (SHARDED_MESH_ONE,))}
+
+
+def multi_rank_phase(torch, cb, fa, card):
+    """Phase 22: the plain engine here, then the NCCL group of one rank and
+    the two gloo ranks (kernels already built by this process)."""
+    import numpy as np
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core.launch import run_ranks
+    t0 = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches(cb, fa)
+        t1 = time.perf_counter()
+        plain = fedml.run_simulation(enable_tracking=False, **MULTI_RANK)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        plain_b1 = launches(cb, fa)["conv_block"]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    p0 = {k: v.float().cpu().numpy() for k, v in plain["params"].items()}
+    (one,) = run_ranks("chip_smoke:multi_rank_nccl", 1,
+                       timeout=MULTI_RANK_JOIN_S, threads=4)
+    two = run_ranks("chip_smoke:multi_rank_gloo", MULTI_RANKS,
+                    timeout=MULTI_RANK_JOIN_S, threads=4)
+    require(one["backend"] == "nccl", f"one rank: backend {one['backend']}")
+    require(all(r["backend"] == "gloo" for r in two),
+            f"two ranks on one card: backends {[r['backend'] for r in two]}")
+    p1 = one["client_axis"]["params"]
+    require(all(np.array_equal(p0[k], p1[k]) for k in p0),
+            "the NCCL rank's {'client': 1} run differs from the plain "
+            "engine")
+    p2 = [r["client_axis"]["params"] for r in two]
+    require(all(np.array_equal(p2[0][k], p2[1][k]) for k in p0),
+            "the two ranks' params differ")
+    rtol, atol = HOUSE_TOL
+    within = max(float(np.max(np.abs(p2[0][k] - p1[k])
+                              / (atol + rtol * np.abs(p1[k])))) for k in p1)
+    require(within <= 1.0, f"{{'client': 2}} vs {{'client': 1}}: {within} "
+                           f"of the house tolerance")
+    legs = {"plain": {"wall_s": plain_s, "b1_launches": plain_b1,
+                      "stats": plain["dispatch_stats"]},
+            "nccl_1": {k: v for k, v in one["client_axis"].items()
+                       if k != "params"}}
+    for r, rk in enumerate(two):
+        legs[f"gloo_2_rank{r}"] = {k: v for k, v in rk["client_axis"].items()
+                                   if k != "params"}
+    for name, leg in legs.items():
+        st = leg["stats"]
+        forwards = st["warmup_steps"] + st["replays"]
+        require(leg["b1_launches"] == 27 * forwards,
+                f"{name}: B1 {leg['b1_launches']} != 27 x {forwards}")
+        leg["b1_forwards"] = forwards
+    sharded = [one["sharded"]]
+    return {"phase_s": time.perf_counter() - t0, "card": card,
+            "client_axis": {"legs": legs, "vs_one_rank_of_tolerance": within,
+                            "one_rank_bitwise_plain": True,
+                            "ranks_bitwise_equal": True},
+            "ring": [r["ring"] for r in two],
+            "sharded": sharded,
+            "b1_launches_ranks": [r["client_axis"]["b1_launches"]
+                                  for r in two],
+            "b1_launches_nccl_1": one["client_axis"]["b1_launches"],
+            "b1_launches_plain": plain_b1}
+
+
 def main() -> int:
     import tempfile
 
@@ -6651,10 +7013,13 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
           f"{f['test_acc']:.4f}; server B1 {f['server_b1_launches']}; "
           f"{f['wall_s']:.1f} s with the silos' start", flush=True)
     for r in f["silos"]:
+        per_step = ("no training after the first"
+                    if r["ms_per_local_step"] is None else
+                    f"{r['ms_per_local_step']:.2f} ms per local step (after "
+                    f"the first)")
         print(f"async cross-silo silo {r['rank']} ({card}): "
               f"{r['trainings']} trainings of {r['steps_per_training']} "
-              f"steps, {r['ms_per_local_step']:.2f} ms per local step "
-              f"(after the first), {r['captures']} capture "
+              f"steps, {per_step}, {r['captures']} capture "
               f"({r['capture_s']:.2f} s), B1 {r['b1_launches']} launches = "
               f"27 x ({r['warmup_steps']} + {r['replays']})", flush=True)
     acs["card"] = card
@@ -6766,6 +7131,39 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
           f"device's artifact the same bytes on both", flush=True)
     print(json.dumps({"cross_device": cd}), flush=True)
 
+    mr = multi_rank_phase(torch, cb, fa, card)
+    for name, leg in mr["client_axis"]["legs"].items():
+        st = leg["stats"]
+        extra = ("" if "allreduce_ms" not in leg else
+                 f"; all-reduce {st['allreduce_bytes']} bytes in "
+                 f"{st['allreduce_calls']} call(s), {leg['allreduce_ms']:.3f}"
+                 f" ms alone, {leg['staged_bytes']} bytes staged through "
+                 f"the host")
+        print(f"multi-rank client axis {name} ({card}): {leg['wall_s']:.2f} "
+              f"s for 1 round of 8 ResNet-56 clients (capture included); B1 "
+              f"{leg['b1_launches']} = 27 x {leg['b1_forwards']}{extra}",
+              flush=True)
+    print(f"multi-rank client axis: NCCL 1 rank = plain engine bitwise; 2 "
+          f"gloo ranks bitwise equal, "
+          f"{mr['client_axis']['vs_one_rank_of_tolerance']:.4f} of the "
+          f"house tolerance from 1 rank", flush=True)
+    for r, ring in enumerate(mr["ring"]):
+        print(f"multi-rank ring attention rank {r} (sp 2, b,s,h,d="
+              f"{RING_SHAPE}): " + "; ".join(
+                  f"{k} {['%.2e' % e for e in v['rel_err_o_dq_dk_dv']]}"
+                  for k, v in ring.items() if isinstance(v, dict)
+                  and "rel_err_o_dq_dk_dv" in v)
+              + f"; model forward {ring['model_forward_rel_err']:.2e}; "
+              f"staged {ring['collectives']['staged_bytes']} bytes",
+              flush=True)
+    for r, sh in enumerate(mr["sharded"]):
+        for shape, leg in sh.items():
+            print(f"multi-rank sharded step (NCCL rank {r}) {shape}: loss "
+                  f"{leg['loss']:.6f} (off {leg['loss_err']:.1e}), params off"
+                  f" {leg['param_err']:.1e}, {leg['step_s']:.2f} s, "
+                  f"launches {leg['launches']}", flush=True)
+    print(json.dumps({"multi_rank": mr}), flush=True)
+
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
@@ -6811,6 +7209,10 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "launches_cross_device": cd["flagship"]["b1_launches"],
         "launches_cross_device_compressed":
             cd["compressed"]["b1_launches"],
+        # phase 22 (a): the plain engine, the NCCL rank and each gloo rank
+        "launches_multi_rank_plain": mr["b1_launches_plain"],
+        "launches_multi_rank_nccl_1": mr["b1_launches_nccl_1"],
+        "launches_multi_rank_ranks": mr["b1_launches_ranks"],
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
@@ -6847,6 +7249,10 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
             # launches are the capture's, not counted)
             "roofline_rows_hot_step":
                 roof["llm"]["hot_step_kernel_rows"].get(name, 0),
+            # phase 22 (c): each rank's launches in each sharded step
+            "launches_sharded_step_ranks": {
+                shape: [sh[shape]["launches"][name] for sh in mr["sharded"]]
+                for shape in mr["sharded"][0]},
             "max_abs_err": attn_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -47,3 +47,10 @@ COMM_COMPRESSION_METHODS = (
 COMM_BROADCAST_FULL = "full"          # dense float32 server->client sync
 COMM_BROADCAST_BF16 = "bf16"          # dense sync at half the bytes
 COMM_BROADCAST_COMPRESS = "compress"  # sync ships the compressed global delta
+
+# Mesh axis names (the JAX package's): ``mesh_shape`` maps them to sizes
+AXIS_CLIENT = "client"   # FL round-level data parallelism (clients per rank)
+AXIS_DATA = "data"       # intra-silo data parallelism (DDP analogue)
+AXIS_FSDP = "fsdp"       # parameter sharding (ZeRO-3 analogue)
+AXIS_TENSOR = "tensor"   # tensor parallelism
+AXIS_SEQ = "sp"          # sequence/context parallelism (ring attention)

@@ -6,8 +6,18 @@ optimizers' states and extras). Each helper walks them in the first
 tree's key order and runs the leaf arithmetic as multi-tensor
 ``torch._foreach_*`` ops: a ResNet-56 tree has ~280 leaves, and one op per
 leaf would put ~280 small kernels on the card for every line of a server
-step or a client's bookkeeping. The collectives over a mesh axis
-(``psum_tree`` and its kin) wait for multi-GPU.
+step or a client's bookkeeping.
+
+The collectives over the ranks of a process group: :func:`psum_packed`
+(the JAX package's ``psum_tree`` over the ``client`` axis: one
+``all_reduce(SUM)`` of every leaf packed into one flat float32 buffer,
+never one call per leaf) and :func:`ring_shift` (``ppermute`` one step
+round a ring: every tensor packed into one byte buffer, one send and one
+receive). gloo's point-to-point sends read host memory only, so on a
+gloo group :func:`ring_shift` copies a CUDA buffer through host memory
+explicitly (gloo's all-reduce takes device memory itself); NCCL and the
+CPU copy nothing. :data:`STATS` counts the calls, the bytes and the bytes
+staged through the host.
 
 :class:`FlatLayout` is the JAX package's flat vector of a parameter tree
 (``tree_flatten_to_vector``, ``vector_to_tree_like``, ``stack_to_matrix``):
@@ -268,3 +278,78 @@ def stack_to_matrix(stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
     """``[K, ...]``-leaved params -> the ``[K, D]`` matrix of their flat
     vectors (``fedml_tpu/core/security/defense/__init__.py``)."""
     return FlatLayout.of(stacked, stacked=True).stack_to_matrix(stacked)
+
+
+# -- collectives over the ranks of a process group ---------------------------
+
+#: calls, bytes moved and bytes staged through host memory (copied down and
+#: back up) by :func:`psum_packed` and :func:`ring_shift` in this process
+STATS: Dict[str, int] = {"all_reduce_calls": 0, "all_reduce_bytes": 0,
+                         "p2p_calls": 0, "p2p_bytes": 0, "staged_bytes": 0}
+
+def reset_collective_stats() -> None:
+    for k in STATS:
+        STATS[k] = 0
+
+
+def collective_stats() -> Dict[str, int]:
+    return dict(STATS)
+
+
+def psum_packed(tensors: Sequence[torch.Tensor], group
+                ) -> List[torch.Tensor]:
+    """The SUM over ``group``'s ranks of every tensor, by one
+    ``all_reduce`` of one flat float32 buffer; returns new tensors of the
+    inputs' shapes and dtypes. The order of the ranks' sum is the
+    backend's."""
+    import torch.distributed as dist
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    STATS["all_reduce_calls"] += 1
+    STATS["all_reduce_bytes"] += flat.numel() * 4
+    out, o = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[o:o + n].view(t.shape).to(t.dtype))
+        o += n
+    return out
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group
+               ) -> List[torch.Tensor]:
+    """One step of a ring over ``group``: each rank sends ``tensors`` to
+    the next rank (``(i + 1) % size``) and returns what the previous one
+    (``(i - 1) % size``) sent, in the same shapes and dtypes. All of them
+    travel as one byte buffer: one send and one receive per rank."""
+    import torch.distributed as dist
+    group = dist.group.WORLD if group is None else group
+    size = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+    # gloo's sends read host memory only
+    host = flat.is_cuda and dist.get_backend(group) == "gloo"
+    send = flat.cpu() if host else flat
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send,
+                      dist.get_global_rank(group, (me + 1) % size), group),
+           dist.P2POp(dist.irecv, recv,
+                      dist.get_global_rank(group, (me - 1) % size), group)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if host:
+        recv = recv.to(flat.device)
+        STATS["staged_bytes"] += 2 * flat.numel()
+    STATS["p2p_calls"] += 1
+    STATS["p2p_bytes"] += flat.numel()
+    out, o = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        chunk = recv[o:o + n]
+        if o % t.element_size():        # a view needs aligned storage
+            chunk = chunk.clone()
+        out.append(chunk.view(t.dtype).view(t.shape))
+        o += n
+    return out

@@ -28,3 +28,32 @@ def get_device(device: Optional[Union[str, torch.device]] = None
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def get_mesh(args=None, device=None):
+    """``(mesh, device)`` of a run: the ``DeviceMesh`` of
+    ``args.mesh_shape`` over the launch's ranks and this rank's device
+    (the counterpart of ``fedml_tpu/device.py``'s ``build_mesh`` branch).
+    No ``mesh_shape``, or a world of one rank with no process group, is
+    ``(None, get_device(device))``: one process, today's path. A
+    torchrun-style environment joins its group first
+    (:func:`~fedml_tpu_torch.core.mesh.init_ranks`). A shape whose product
+    is not the world size raises, naming the launch: a run never trains
+    quietly on fewer ranks than its mesh."""
+    import math
+
+    from .core import mesh as mesh_mod
+    shape = getattr(args, "mesh_shape", None) if args is not None else None
+    if not shape:
+        return None, get_device(device)
+    dev = mesh_mod.init_ranks(device)
+    try:
+        mesh_mod.mesh_axes(shape, mesh_mod.world_size())
+    except ValueError as e:
+        sizes = [int(s) for s in shape.values()]
+        n = "W" if -1 in sizes else math.prod(sizes)
+        raise ValueError(f"{e}; {mesh_mod.LAUNCH_HINT.format(n=n)}") \
+            from None
+    if dev is None:                      # one process, no group: size 1
+        return None, get_device(device)
+    return mesh_mod.build_mesh(shape, dev), dev

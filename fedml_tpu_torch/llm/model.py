@@ -16,6 +16,15 @@ statistics in f32 and multiplies by its f32 scale before casting back;
 rotary embedding rotates in f32 and casts back; residual adds run in the
 compute dtype; logits are f32.
 
+Tensor parallelism (inside ``llm/sharding.py::tensor_parallel``, with the
+parameters split by ``llm_param_specs``): the modules take their local
+shards (a Dense's output width and the heads follow its kernel's shape),
+and insert the Megatron collectives: the column-parallel projections
+(q/k/v, gate/up) copy their input in, the row-parallel ones (o, down,
+the untied lm_head over its split hidden axis) all-reduce their output,
+the embedding looks up its vocabulary slice and all-reduces, and the
+tied head gathers its vocabulary slices.
+
 Cache-aware path (continuous-batching serving): ``positions`` ``[b, s]``
 absolute positions (out-of-range values mark padded or inactive rows whose
 cache writes are dropped), ``kv_view`` per-layer ``(k_all, v_all)``
@@ -34,6 +43,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .sharding import (copy_to_tp, gather_from_tp, reduce_from_tp,
+                       tp_context)
 
 Params = Dict[str, torch.Tensor]
 
@@ -56,7 +68,8 @@ class LLMConfig:
     rms_eps: float = 1e-6
     # compute dtype for activations/matmuls; params stay float32 masters
     dtype: str = "float32"
-    # attention implementation: "dense" | "flash" (the CUDA kernels)
+    # attention implementation: "dense" | "flash" (the CUDA kernels) |
+    # "ring" (sequence-parallel, inside llm/attention.py::ring_axis)
     attention_impl: str = "dense"
     # tie input embedding and LM head (small models)
     tie_embeddings: bool = True
@@ -139,7 +152,9 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel.to(self.dtype)
         y = x.to(self.dtype) @ k.reshape(k.shape[0], -1)
-        return y.reshape(*x.shape[:-1], *self.features)
+        # the kernel's own output shape: a tensor-parallel shard's is
+        # narrower than ``features``
+        return y.reshape(*x.shape[:-1], *k.shape[1:])
 
 
 class Embed(nn.Module):
@@ -157,10 +172,20 @@ class Embed(nn.Module):
                 self.embedding.shape[1]), generator=gen)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens.long(), self.embedding).to(self.dtype)
+        tp = tp_context()
+        if tp is None:
+            return F.embedding(tokens.long(), self.embedding).to(self.dtype)
+        # vocabulary-parallel: this rank's rows, zeros for the others'
+        # tokens, summed over the ranks
+        n = self.embedding.shape[0]
+        local = tokens.long() - tp[2] * n
+        mine = (local >= 0) & (local < n)
+        emb = F.embedding(local.clamp(0, n - 1), self.embedding)
+        return reduce_from_tp(emb * mine[..., None]).to(self.dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.embedding.to(self.dtype).t()
+        y = copy_to_tp(x).to(self.dtype) @ self.embedding.to(self.dtype).t()
+        return gather_from_tp(y)
 
 
 class RMSNorm(nn.Module):
@@ -246,12 +271,18 @@ class Attention(nn.Module):
         paths."""
         cfg = self.cfg
         b, s, _ = x.shape
+        if tp_context() is not None:
+            if adapter:
+                raise NotImplementedError(
+                    "LoRA adapters in the tensor-parallel step are not "
+                    "ported to fedml_tpu_torch yet")
+            x = copy_to_tp(x)
         q = _adapted(self.q, "q", x, adapter, lora_scale)
         k = _adapted(self.k, "k", x, adapter, lora_scale)
         v = _adapted(self.v, "v", x, adapter, lora_scale)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
-        rep = cfg.num_heads // cfg.kv_heads
+        rep = q.shape[2] // k.shape[2]
         from .attention import cached_attention, causal_attention
         if kv_view is not None:
             new_kv = (k, v)
@@ -270,8 +301,9 @@ class Attention(nn.Module):
                 v = v.repeat_interleave(rep, dim=2)
             out = causal_attention(q, k, v, impl=cfg.attention_impl,
                                    attn_mask=attn_mask)
-        out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
-        return _adapted(self.o, "o", out, adapter, lora_scale), new_kv
+        out = out.reshape(b, s, -1)
+        return (reduce_from_tp(_adapted(self.o, "o", out, adapter,
+                                        lora_scale)), new_kv)
 
 
 class MLP(nn.Module):
@@ -283,10 +315,11 @@ class MLP(nn.Module):
         self.down = Dense(i, (h,), dt)
 
     def forward(self, x, adapter=None, lora_scale: float = 1.0):
+        x = copy_to_tp(x)
         gate = _adapted(self.gate, "gate", x, adapter, lora_scale)
         up = _adapted(self.up, "up", x, adapter, lora_scale)
-        return _adapted(self.down, "down", F.silu(gate) * up, adapter,
-                        lora_scale)
+        return reduce_from_tp(_adapted(self.down, "down", F.silu(gate) * up,
+                                       adapter, lora_scale))
 
 
 class DecoderLayer(nn.Module):
@@ -355,6 +388,13 @@ class CausalLM(nn.Module):
         if positions is None:
             pos = torch.arange(tokens.shape[1], dtype=torch.int32,
                                device=tokens.device)
+            if cfg.attention_impl == "ring":
+                # the sequence is split over the ring: global positions,
+                # so RoPE and the causal mask stay right on each slice
+                from .attention import ring_index
+                idx = ring_index()
+                if idx is not None:
+                    pos = pos + idx * tokens.shape[1]
             positions = pos[None, :].expand(tokens.shape)
         new_kvs = []
         for i in range(cfg.num_layers):
@@ -366,10 +406,16 @@ class CausalLM(nn.Module):
                 lora_scale=lora_scale)
             new_kvs.append(new_kv)
         x = self.ln_f(x)
+        tp = tp_context()
         if cfg.tie_embeddings:
             logits = self.embed.attend(x)
-        else:
+        elif tp is None:
             logits = self.lm_head(x)
+        else:
+            # row-parallel over the hidden axis the head's kernel splits
+            n = self.lm_head.kernel.shape[0]
+            part = copy_to_tp(x)[..., tp[2] * n:(tp[2] + 1) * n]
+            logits = reduce_from_tp(self.lm_head(part))
         logits = logits.float()
         if kv_view is not None:
             return logits, new_kvs

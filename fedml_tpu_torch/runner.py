@@ -21,16 +21,15 @@ from .constants import (FEDML_SIMULATION_TYPE_GPU, FEDML_SIMULATION_TYPE_SP,
                         FEDML_TRAINING_PLATFORM_CROSS_SILO,
                         FEDML_TRAINING_PLATFORM_SERVING,
                         FEDML_TRAINING_PLATFORM_SIMULATION)
-from .device import get_device
+from .device import get_device, get_mesh
 
 # Knobs of the JAX package whose features the port does not have yet, each
 # with the value(s) that mean "off". A run that sets one otherwise raises
-# NotImplementedError naming it, rather than silently ignoring it.
-UNPORTED_KNOBS: Dict[str, tuple] = {
-    "mesh_shape": (None,),
-    # the values of this knob that are ported
-    "llm_attention_impl": (None, "", "dense", "flash"),
-}
+# NotImplementedError naming it, rather than silently ignoring it. Every
+# knob is ported now (``mesh_shape`` and ring attention were the last);
+# combinations not ported yet raise where they are built, naming both
+# knobs (e.g. robust mode over more than one client rank).
+UNPORTED_KNOBS: Dict[str, tuple] = {}
 
 # the GPU engine's availability faults: the SP golden loop has none, as in
 # the JAX package, so backend="sp" refuses them rather than ignore them
@@ -69,7 +68,9 @@ PORTED_SUMMARY = (
     "devices on the torch or native engine, cohort assembly and the fleet "
     "registry); the models and "
     "tasks of the zoo, round checkpoints, the federated LoRA causal LM "
-    "and serving")
+    "and serving; multi-rank runs (one process per rank): the GPU "
+    "engine's client axis (mesh_shape), ring attention and the FSDP + "
+    "tensor-parallel LLM step (llm/sharding.py)")
 
 # federated_optimizer values that the JAX package dispatches to protocol
 # simulators of their own: none runs the engine, so none can honor
@@ -238,9 +239,16 @@ class FedMLRunner:
                     "ServerAggregator (neither do the JAX package's); "
                     "run it on backend='gpu'")
             kw["server_aggregator"] = server_aggregator
-        self.runner = Simulator(args, dataset, model, opt, spec,
-                                get_device(device), init_params=init_params,
-                                **kw)
+        if backend == FEDML_SIMULATION_TYPE_GPU and \
+                fo not in _PROTOCOL_SIMULATORS:
+            # the client axis: this rank's mesh and device (mesh_shape);
+            # the SP loops run in one process and ignore it, as the JAX
+            # package's do
+            kw["mesh"], dev = get_mesh(args, device)
+        else:
+            dev = get_device(device)
+        self.runner = Simulator(args, dataset, model, opt, spec, dev,
+                                init_params=init_params, **kw)
 
     def run(self, comm_round: Optional[int] = None) -> Any:
         return self.runner.run(comm_round)

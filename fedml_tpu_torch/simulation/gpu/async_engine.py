@@ -142,10 +142,10 @@ class AsyncBufferedSimulator(GPUSimulator):
     def __init__(self, args, fed_dataset, bundle, optimizer, spec,
                  device: torch.device,
                  init_params: Optional[Dict[str, Any]] = None,
-                 server_aggregator=None):
+                 server_aggregator=None, mesh=None):
         super().__init__(args, fed_dataset, bundle, optimizer, spec, device,
                          init_params=init_params,
-                         server_aggregator=server_aggregator)
+                         server_aggregator=server_aggregator, mesh=mesh)
         # --- config guards: fail loudly, never silently degrade ----------
         if self.contribution.enabled or self.server_aggregator is not None:
             raise ValueError(
@@ -544,7 +544,7 @@ class AsyncBufferedSimulator(GPUSimulator):
                 self.selection.note_results(
                     self.version, cohort,
                     slot_placement(cohort, 1, self.fed.num_clients),
-                    slot_metrics=self._slot_metrics(slots))
+                    slot_metrics=self._slot_metrics(slots, cohort))
             poured = len(entries)
             self.updates_aggregated += poured
             if poured:

@@ -6,22 +6,37 @@
 The JAX package runs a block of rounds as one SPMD program: a ``lax.scan``
 over rounds, over each chip's schedule slots and over a ``while_loop`` of
 local steps, a weighted ``psum`` over the ``client`` mesh axis and the
-server transform. On one card the psum is the identity, so a round here
-is: each sampled client in schedule order trains from the global params
-and its own row of the per-client state (its key is ``fold_in(round_key,
-client_id)``, the JAX engine's ``gcid``); its update and its extras are
-accumulated weighted by the client's weight and its new state is written
-back to its row; both sums are divided by ``max(Σw, 1e-12)`` and
-``server_update`` applies them with the round index.
+server transform. Here a round is: each sampled client in schedule order
+trains from the global params and its own row of the per-client state
+(its key is ``fold_in(round_key, client_id)``, the JAX engine's
+``gcid``); its update and its extras are accumulated weighted by the
+client's weight and its new state is written back to its row; both sums
+are divided by ``max(Σw, 1e-12)`` and ``server_update`` applies them with
+the round index.
+
+The ``client`` axis (``mesh_shape={"client": W}``, one process per rank,
+``device.get_mesh``): client ``cid`` lives on rank ``cid // cpd``, ``cpd =
+ceil(num_clients / W)``, the client table zero-padded to ``cpd * W`` rows
+as the JAX engine pads it. Each rank holds only its clients' data and
+rows of ``client_states``, trains its sampled clients in schedule order
+from the same global params with the same keys, and accumulates; then one
+``all_reduce(SUM)`` over the ``client`` group carries the round's update,
+extras, weight, metrics, local steps and per-client metrics, packed into
+one float32 buffer (``core/collectives.py::psum_packed``), and every rank
+runs ``server_update``, so the ranks' params stay bitwise equal. Without a
+mesh (or with one rank and no process group) the psum is the identity and
+nothing is sent. Robust mode and buffered-async rounds over more than one
+rank, and mesh axes other than ``client``, are not ported yet and raise.
 
 ``client_states`` holds the optimizer's per-client state (SCAFFOLD's
-``c_i``, FedDyn's ``h_i``) as one stacked tensor ``[num_clients, ...]`` per
-leaf on the device; a client that sits out a round keeps its row.
+``c_i``, FedDyn's ``h_i``) as one stacked tensor ``[clients of this rank,
+...]`` per leaf on the device; a client that sits out a round keeps its
+row.
 
 ``client_slot_fold`` (optimizers that declare ``folds_client_slots``:
-FedSGD) folds every sampled client into the batch axis: one full-batch
-pass over ``[n_batches, n_sampled * batch_size]`` replaces the per-client
-passes (the JAX engine folds each chip's slots; one card folds them all).
+FedSGD) folds every sampled client of a rank into the batch axis: one
+full-batch pass over ``[n_batches, n_sampled * batch_size]`` replaces the
+per-client passes (the JAX engine folds each chip's slots).
 
 What stands for the one dispatch: every local step is a replay of one CUDA
 graph (``core/algframe/local_training.py::StepProgram``), captured once per
@@ -73,7 +88,8 @@ until the next selection query. ``chaos_crash_at_round`` raises
 Round checkpoints (``checkpoint_dir`` / ``checkpoint_every_rounds``,
 ``core/checkpoint.py``) hold ``params``, ``server_state``, the round
 ``rng``, under DP the accountant's state (``dp``), for an optimizer with
-per-client state ``client_states``, for a stateful defense on the
+per-client state ``client_states`` (all ``[num_clients, ...]`` rows,
+gathered from the ranks; rank 0 writes), for a stateful defense on the
 device its ``defense_state`` and for a tracking selection strategy its
 store (``selection``): the part of the JAX engine's checkpoint state this
 engine has. ``run`` resumes from the newest one at the round after it; a
@@ -105,11 +121,14 @@ from ...core.algframe.local_training import (METRICS, GradProgram,
                                              StepProgram, batch_real_of,
                                              evaluate)
 from ...core.algframe.types import ClientData, Params, TrainHyper
+from ...constants import AXIS_CLIENT
 from ...core.chaos import ChaosCrash, FaultLedger, FaultPlan
 from ...core.checkpoint import RoundCheckpointer
-from ...core.collectives import (FlatLayout, WeightedSum, stack_trees,
-                                 tree_copy_, tree_leaves, tree_map,
+from ...core.collectives import (FlatLayout, WeightedSum, psum_packed,
+                                 stack_trees, tree_copy_, tree_leaves,
+                                 tree_map, tree_unflatten, tree_zeros_like,
                                  weighted_mean)
+from ...core.mesh import mesh_sizes
 from ...core.contribution import ContributionAssessorManager
 from ...core.dp import FedMLDifferentialPrivacy
 from ...core.obs import profiler as obs_profiler
@@ -243,12 +262,14 @@ class GPUSimulator:
 
     ``dispatch_stats``: ``dispatches`` (blocks run), ``captures`` (CUDA
     graphs captured; 1 per run on a card, 0 on the CPU), and the step
-    programs' ``warmup_steps``, ``replays`` and ``capture_s``."""
+    programs' ``warmup_steps``, ``replays`` and ``capture_s``; this
+    rank's, and over a ``mesh`` its ``ranks``, ``allreduce_calls`` and
+    ``allreduce_bytes``."""
 
     def __init__(self, args, fed_dataset, bundle, optimizer, spec,
                  device: torch.device,
                  init_params: Optional[Dict[str, Any]] = None,
-                 server_aggregator=None):
+                 server_aggregator=None, mesh=None):
         # `round_mode: async_buffered` lives in the AsyncBufferedSimulator
         # subclass (simulation/gpu/async_engine.py); built directly, this
         # engine would silently run the sync barrier: refuse
@@ -267,12 +288,32 @@ class GPUSimulator:
         self.spec = spec
         self.device = device
         self.server_aggregator = server_aggregator
+        n_clients = int(fed_dataset.num_clients)
+        # the client axis: this rank's place and its clients' rows
+        self._group, self.n_ranks, self.rank = None, 1, 0
+        if mesh is not None:
+            sizes = mesh_sizes(mesh)
+            if set(sizes) != {AXIS_CLIENT}:
+                raise NotImplementedError(
+                    f"mesh_shape={sizes}: mesh axes other than "
+                    f"'{AXIS_CLIENT}' in the simulation engine are not "
+                    "ported to fedml_tpu_torch yet (use {'client': W})")
+            self.n_ranks = sizes[AXIS_CLIENT]
+            self.rank = mesh.get_local_rank(AXIS_CLIENT)
+            self._group = mesh.get_group(AXIS_CLIENT)
+            if self.n_ranks > 1 and round_mode_from_args(args) == \
+                    "async_buffered":
+                raise NotImplementedError(
+                    f"mesh_shape={sizes} with round_mode: async_buffered: "
+                    "buffered-async rounds over more than one client rank "
+                    "are not ported to fedml_tpu_torch yet")
+        self.cpd = -(-n_clients // self.n_ranks)
+        self._offset = self.rank * self.cpd
         seed = int(getattr(args, "random_seed", 0))
         # the JAX engine splits PRNGKey(seed) into (init, round stream);
         # parameter init here draws from a torch.Generator instead, so only
         # the round stream is kept
         self.rng = prng.split(prng.PRNGKey(seed))[1]
-        n_clients = int(fed_dataset.num_clients)
         # chaos: each client's work fraction (0 dropped, (0, 1) straggler)
         # sets its local step count; chaos_tolerance picks the denominator
         self.chaos = FaultPlan.from_args(args)
@@ -317,7 +358,7 @@ class GPUSimulator:
         # [clients, n_batches] host bools, read once here rather than from
         # the device every round
         self.batch_real = batch_real_of(fed_dataset.train.mask)
-        self.train = fed_dataset.train.to(device)
+        self.train = self._local_rows(fed_dataset.train).to(device)
         self.test = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                      for k, v in fed_dataset.test.items()}
         if init_params is None:
@@ -328,13 +369,26 @@ class GPUSimulator:
         self.server_state = optimizer.server_init(self.params)
         self.client_states = (
             stack_trees(optimizer.client_state_init(self.params),
-                        fed_dataset.num_clients)
+                        self.cpd)
             if optimizer.has_client_state else {})
         self.contribution = ContributionAssessorManager(args)
         defended = (self.attacker.is_model_attack()
                     or self.defender.is_defense_enabled())
         self.robust_mode = (defended or self.contribution.enabled
                             or server_aggregator is not None)
+        if self.robust_mode and self.n_ranks > 1:
+            knob = ("enable_attack" if self.attacker.is_model_attack() else
+                    "enable_defense" if self.defender.is_defense_enabled()
+                    else "contribution_method" if self.contribution.enabled
+                    else "server_aggregator")
+            raise NotImplementedError(
+                f"mesh_shape={mesh_sizes(mesh)} with {knob}: robust mode "
+                "over more than one client rank (the defenses sharded over "
+                "the client axis, the relayout's all_to_all, contribution "
+                "and a user aggregator) is not ported to fedml_tpu_torch "
+                "yet")
+        if self.robust_mode:
+            self._group = None    # one rank: the psum is the identity
         if server_aggregator is not None and \
                 self.defender.is_defense_enabled():
             logger.warning(
@@ -372,6 +426,9 @@ class GPUSimulator:
         self.programs: Dict[Tuple, Any] = {}
         self.dispatch_stats: Dict[str, Any] = {"dispatches": 0,
                                                "captures": 0}
+        if self._group is not None:
+            self.dispatch_stats.update(ranks=self.n_ranks, allreduce_calls=0,
+                                       allreduce_bytes=0)
         # profiling plane (core/obs/profiler): opt-in host/device split and
         # per-round MFU at the dispatch seam; off by default because it
         # waits for the device at every block's end
@@ -408,7 +465,12 @@ class GPUSimulator:
             # every round, not of the rounds since the resume
             st["dp"] = self.dp.state_dict()
         if self.opt.has_client_state:
-            st["client_states"] = self.client_states
+            # over ranks: every client's row (the SP loop, which borrows
+            # this method, has no ranks)
+            st["client_states"] = (
+                self._all_client_states()
+                if getattr(self, "_group", None) is not None
+                else self.client_states)
         if getattr(self, "_defense_state", None) is not None:
             st["defense_state"] = self._defense_state
         if self.selection.stateful:
@@ -425,6 +487,8 @@ class GPUSimulator:
         built before this (``capture_step``) takes the restored params at
         its next client: it copies the start params into its own tensors
         then."""
+        if not self.ckpt.enabled:
+            return 0
         restored = self._ckpt_latest()
         if restored is None:
             return 0
@@ -468,10 +532,59 @@ class GPUSimulator:
             self.dp.load_state_dict(st["dp"])
         if self.opt.has_client_state:
             self.client_states = st["client_states"]
+            if getattr(self, "_group", None) is not None:
+                self.client_states = tree_map(self._local_rows,
+                                              self.client_states)
         if "defense_state" in st:
             self._defense_state = st["defense_state"]
         if "selection" in st:
             self.selection.load_state_dict(st["selection"])
+
+    # -- the client axis ----------------------------------------------------
+    def _owns(self, cid: int) -> bool:
+        return int(cid) // self.cpd == self.rank
+
+    def _local_rows(self, stacked):
+        """This rank's ``cpd`` rows of a ``[num_clients, ...]`` stack
+        (ClientData of numpy arrays or a tensor), zero-padded past the
+        last client as the JAX engine pads its client table."""
+        if isinstance(stacked, ClientData):
+            return ClientData(*(self._local_rows(a) for a in (
+                stacked.x, stacked.y, stacked.mask, stacked.num_samples)))
+        if self.n_ranks == 1:
+            return stacked
+        rows = stacked[self._offset:self._offset + self.cpd]
+        pad = self.cpd - int(rows.shape[0])
+        if not pad:
+            return rows
+        shape = (pad,) + tuple(rows.shape[1:])
+        if isinstance(rows, np.ndarray):
+            return np.concatenate([rows, np.zeros(shape, rows.dtype)])
+        return torch.cat([rows, rows.new_zeros(shape)])
+
+    def _psum(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The SUM over the client ranks (one packed all-reduce), counted
+        in ``dispatch_stats``."""
+        out = psum_packed(tensors, self._group)
+        st = self.dispatch_stats
+        st["allreduce_calls"] += 1
+        st["allreduce_bytes"] += sum(t.numel() for t in tensors) * 4
+        return out
+
+    def _all_client_states(self):
+        """``client_states`` with every client's row (``[num_clients,
+        ...]``): the ranks' rows summed into one zero stack (a collective:
+        every rank calls it)."""
+        n, lo = int(self.fed.num_clients), self._offset
+
+        def spread(a):
+            full = torch.zeros((self.cpd * self.n_ranks,) + tuple(a.shape[1:]),
+                               dtype=a.dtype, device=a.device)
+            full[lo:lo + self.cpd] = a
+            return full
+        leaves = [spread(a) for a in tree_leaves(self.client_states)]
+        return tree_unflatten(self.client_states,
+                              [a[:n] for a in self._psum(leaves)])
 
     # -- the local step -----------------------------------------------------
     def step_program(self, hyper: TrainHyper) -> StepProgram:
@@ -509,8 +622,11 @@ class GPUSimulator:
         block. Returns the seconds that took."""
         t0 = time.perf_counter()
         if self._slot_fold:
-            folded = self._fold(range(int(self.args.client_num_per_round)))
-            self.grad_program(folded).prepare(self.params, folded)
+            mine = [c for c in range(int(self.args.client_num_per_round))
+                    if self._owns(c)]
+            if mine:
+                folded = self._fold(mine)
+                self.grad_program(folded).prepare(self.params, folded)
         else:
             self.opt.prepare_programs(
                 self, self.params, self.server_state,
@@ -723,16 +839,29 @@ class GPUSimulator:
                           "tolerance": self.chaos_tolerance})
         return sampled, works
 
-    def _slot_metrics(self, slots) -> Optional[Dict[str, torch.Tensor]]:
-        """The per-client ``loss_sum`` / ``count`` of a round as ``[1, K]``
-        device tensors (the JAX engine's per-slot metrics on one device);
-        a client that reported nothing has zeros."""
+    def _slot_metrics(self, slots, sampled
+                      ) -> Optional[Dict[str, torch.Tensor]]:
+        """The per-client ``loss_sum`` / ``count`` of a round as ``[W, S]``
+        device tensors (the JAX engine's per-slot metrics, ``slot_placement``
+        order): this rank's row holds its clients', the others zeros until
+        the round's psum; a client that reported nothing has zeros."""
         if slots is None:
             return None
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        return {k: torch.stack([zero if m is None else m[k].float()
-                                for m in slots]).view(1, -1)
-                for k in ("loss_sum", "count")}
+        counts = np.bincount([int(c) // self.cpd for c in sampled],
+                             minlength=self.n_ranks)
+        out = {}
+        for k in ("loss_sum", "count"):
+            row = (torch.stack([zero if m is None else m[k].float()
+                                for m in slots]) if slots else
+                   zero.new_zeros(0))
+            if self.n_ranks == 1:
+                out[k] = row.view(1, -1)
+                continue
+            t = zero.new_zeros((self.n_ranks, int(counts.max())))
+            t[self.rank, :row.numel()] = row
+            out[k] = t
+        return out
 
     # -- contribution -------------------------------------------------------
     def _assess_contribution(self, mat: torch.Tensor, w: torch.Tensor,
@@ -787,14 +916,41 @@ class GPUSimulator:
         acc = WeightedSum({} if robust else self.params,
                           self.opt.server_extras_zero(self.params),
                           device=self.device)
+        mine = [k for k, c in enumerate(sampled) if self._owns(c)]
         acc_m, steps, slots = self._train_cohort(
-            sampled, works, round_key, hyper, rows=mat, w=w, acc=acc,
+            [sampled[k] for k in mine], [works[k] for k in mine], round_key,
+            hyper, rows=mat, w=w, acc=acc,
             skip_dropped=not robust and self.chaos_tolerance)
+        slot_m = self._slot_metrics(slots, sampled)
+        if self._group is not None:
+            acc_m, steps, slot_m = self._psum_round(acc, acc_m, steps,
+                                                    slot_m)
         agg, agg_ex = acc.mean()
         agg, verdict = self._server_aggregate(round_idx, agg, mat, w,
                                               sampled, round_key)
         self._server_step(round_idx, agg, agg_ex)
-        return acc_m, steps, verdict, self._slot_metrics(slots)
+        return acc_m, steps, verdict, slot_m
+
+    def _psum_round(self, acc: WeightedSum, acc_m, steps: int, slot_m):
+        """The round's one all-reduce over the client ranks: the weighted
+        update and extras sums and their weight (in ``acc``, in place), the
+        summed metrics, the local steps and the per-client metrics. Returns
+        (metrics, steps as a device scalar, per-client metrics)."""
+        st = torch.tensor(float(steps), dtype=torch.float32,
+                          device=self.device)
+        sm = [] if slot_m is None else [slot_m[k] for k in slot_m]
+        ups, exs = tree_leaves(acc.update), tree_leaves(acc.extras)
+        out = self._psum(ups + exs + [acc.weight]
+                         + [acc_m[k] for k in METRICS] + [st] + sm)
+        it = iter(out)
+        acc.update = tree_unflatten(acc.update, [next(it) for _ in ups])
+        acc.extras = tree_unflatten(acc.extras, [next(it) for _ in exs])
+        acc.weight = next(it)
+        acc_m = {k: next(it) for k in METRICS}
+        st = next(it)
+        if slot_m is not None:
+            slot_m = {k: next(it) for k in slot_m}
+        return acc_m, st, slot_m
 
     def _train_cohort(self, sampled, works, round_key: np.ndarray,
                       hyper: TrainHyper, rows: Optional[torch.Tensor] = None,
@@ -826,12 +982,13 @@ class GPUSimulator:
                 if slots is not None:
                     slots.append(None)
                 continue
+            li = cid - self._offset          # the client's row on this rank
             # views of the client's rows: written back in place below
-            cstate = tree_map(lambda a: a[cid], self.client_states)
+            cstate = tree_map(lambda a: a[li], self.client_states)
             ckey = prng.fold_in(round_key, cid)
             out, n_steps = self.opt.local_train(
                 self.params, self.server_state, cstate,
-                self.train.client(cid), ckey,
+                self.train.client(li), ckey,
                 hyper if ws == 1.0 else dataclasses.replace(
                     hyper, work_scale=ws),
                 batch_real=self.batch_real[cid], programs=self)
@@ -889,9 +1046,10 @@ class GPUSimulator:
         """The sampled clients' data folded into the batch axis:
         ``[clients, n_batches, bs, ...]`` -> ``[n_batches, n * bs, ...]``,
         batch i holding each client's batch i in schedule order. A client
-        whose ``report`` is 0 keeps its place with its samples masked."""
-        idx = torch.as_tensor(np.asarray(list(sampled), np.int64),
-                              device=self.device)
+        whose ``report`` is 0 keeps its place with its samples masked
+        (``sampled``: this rank's clients)."""
+        idx = torch.as_tensor(np.asarray(list(sampled), np.int64)
+                              - self._offset, device=self.device)
 
         def fold(a):
             a = a.transpose(0, 1)
@@ -910,16 +1068,31 @@ class GPUSimulator:
     def _folded_round(self, round_idx: int, sampled, works, round_key
                       ) -> Tuple[Dict[str, torch.Tensor], int]:
         """One folded round: one full-batch pass over the folded clients
-        gives the weight-scaled update sum directly. A dropped client's
-        samples are masked (the JAX engine's fold); a straggler reports
-        its whole gradient."""
-        report = np.asarray([w > 0.0 for w in works], np.float32)
-        folded = self._fold(sampled, None if report.all() else report)
-        den = folded.num_samples
-        if not self.chaos_tolerance and not report.all():
-            den = self._fold(sampled).num_samples
-        acc_u, acc_m = self.opt.local_train_folded(
-            self.params, folded, round_key, programs=self)
+        of this rank gives the weight-scaled update sum directly; the
+        ranks' sums and sample counts are then summed (one all-reduce). A
+        dropped client's samples are masked (the JAX engine's fold); a
+        straggler reports its whole gradient; a rank with no sampled
+        client adds zeros."""
+        mine = [k for k, c in enumerate(sampled) if self._owns(c)]
+        report = np.asarray([works[k] > 0.0 for k in mine], np.float32)
+        mine = [sampled[k] for k in mine]
+        if mine:
+            folded = self._fold(mine, None if report.all() else report)
+            den = folded.num_samples
+            if not self.chaos_tolerance and not report.all():
+                den = self._fold(mine).num_samples
+            acc_u, acc_m = self.opt.local_train_folded(
+                self.params, folded, round_key, programs=self)
+        else:
+            acc_u = tree_zeros_like(self.params)
+            den = torch.zeros((), dtype=torch.float32, device=self.device)
+            acc_m = {k: den.clone() for k in METRICS}
+        if self._group is not None:
+            ups = tree_leaves(acc_u)
+            out = self._psum(ups + [den] + [acc_m[k] for k in METRICS])
+            acc_u = tree_unflatten(acc_u, out[:len(ups)])
+            den = out[len(ups)]
+            acc_m = dict(zip(METRICS, out[len(ups) + 1:]))
         self._server_step(
             round_idx, weighted_mean(acc_u, den),
             weighted_mean(self.opt.server_extras_zero(self.params), den))
@@ -945,13 +1118,15 @@ class GPUSimulator:
                 self._round(start_round + i, hyper, scheds[i])
                 for i in range(n_rounds)])
             # the block's one device -> host read (and its stacked
-            # verdicts, on the fused robust path)
-            host = torch.stack([torch.stack([o[0][k] for k in METRICS])
-                                for o in out]).cpu().numpy()
+            # verdicts, on the fused robust path); over ranks the summed
+            # local steps are a device scalar too
+            host = torch.stack([torch.stack(
+                [o[0][k] for k in METRICS]
+                + ([o[1].reshape(())] if torch.is_tensor(o[1]) else []))
+                for o in out]).cpu().numpy()
             verdicts = [o[2] for o in out]
             if verdicts and torch.is_tensor(verdicts[0]):
                 verdicts = list(torch.stack(verdicts).cpu().numpy())
-        n = self.fed.num_clients
         for i, (o, v) in enumerate(zip(out, verdicts)):
             r, sampled = start_round + i, scheds[i][0]
             if v is not None and self.defender.is_defense_enabled():
@@ -961,10 +1136,11 @@ class GPUSimulator:
             # per-client losses stay on the device, queued until the
             # next selection query
             self.selection.note_results(
-                r, sampled, slot_placement(sampled, 1, n),
+                r, sampled, slot_placement(sampled, self.n_ranks, self.cpd),
                 slot_metrics=o[3], verdict=v)
         return [dict({k: float(v) for k, v in zip(METRICS, row)},
-                     local_steps=o[1])
+                     local_steps=(int(round(float(row[len(METRICS)])))
+                                  if torch.is_tensor(o[1]) else o[1]))
                 for row, o in zip(host, out)]
 
     def run_rounds_fused(self, start_round: int, n_rounds: int,
@@ -1154,11 +1330,14 @@ class GPUSimulator:
                                 rec["test_acc"])
                 self.history.append(rec)
                 obs_sink.log_round_info(rounds, r)
-                if self.ckpt.enabled:
+                if self.ckpt.enabled and (r + 1) % self.ckpt.every == 0:
                     with obs_trace.span("checkpoint", root=True,
                                         attrs={"role": "engine",
                                                "round_idx": r}):
-                        self.ckpt.maybe_save(r, self.ckpt_state())
+                        # every rank gathers; rank 0 writes
+                        st = self.ckpt_state()
+                        if self.rank == 0:
+                            self.ckpt.maybe_save(r, st)
                 if self.chaos.crash_due(r):
                     # the injected crash comes after the round's record
                     # and its checkpoint, flushed, so a resume restores a

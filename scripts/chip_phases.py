@@ -4,7 +4,8 @@ the kernels, with the script's checks.
 
     python3 scripts/chip_phases.py roofline cross_device [--out FILE]
 
-``roofline`` is phase 20 (the compute plane), ``cross_device`` phase 21.
+``roofline`` is phase 20 (the compute plane), ``cross_device`` phase 21,
+``multi_rank`` phase 22 (the port's ranks on the one card).
 A phase that fails prints its traceback and the run goes on to the next;
 the exit code is 1 if any failed. ``--out`` writes every phase's record
 (or traceback) as JSON. Needs a CUDA card, as ``chip_smoke.py`` does.
@@ -25,7 +26,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("phases", nargs="+", choices=("roofline",
-                                                 "cross_device"))
+                                                 "cross_device",
+                                                 "multi_rank"))
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
     import torch
@@ -48,7 +50,9 @@ def main(argv=None) -> int:
         run = {"roofline": lambda: cs.roofline_phase(
                    torch, llm, cb, fa, Arguments, card)[0],
                "cross_device": lambda: cs.cross_device_phase(
-                   torch, cb, fa, tmp, card)}
+                   torch, cb, fa, tmp, card),
+               "multi_rank": lambda: cs.multi_rank_phase(
+                   torch, cb, fa, card)}
         for name in a.phases:
             t0 = time.perf_counter()
             try:

@@ -107,7 +107,7 @@ def test_fresh_init_is_seeded_and_runs():
 
 @pytest.mark.parametrize("knob,value", [
     ("enable_secure_agg", True), ("enable_fhe", True),
-    ("mesh_shape", (2, 2)), ("obs_roofline", True)])
+    ("mesh_shape", {"client": 2}), ("obs_roofline", True)])
 def test_unported_knobs_raise(knob, value):
     cfg = dict(CFG, comm_round=1, max_total_samples=16, **{knob: value})
     if knob in ("enable_secure_agg", "enable_fhe"):
@@ -139,14 +139,20 @@ def test_unported_knobs_raise(knob, value):
         for k, v in off["params"].items():
             assert torch.equal(v, on["params"][k]), k
         return
-    with pytest.raises(NotImplementedError, match=knob) as ei:
+    assert knob == "mesh_shape"
+    # ported: the client axis over ranks. {"client": 1} in one process is
+    # the engine without a mesh, bitwise; more ranks than the process has
+    # raise (keeping JAX's wording), naming the launch
+    one = fedml_tpu_torch.run_simulation(
+        device="cpu", **dict(cfg, mesh_shape={"client": 1}))
+    off = fedml_tpu_torch.run_simulation(device="cpu",
+                                         **dict(cfg, mesh_shape=None))
+    for k, v in off["params"].items():
+        assert torch.equal(v, one["params"][k]), k
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2") \
+            as ei:
         fedml_tpu_torch.run_simulation(device="cpu", **cfg)
-    # the refusal names what is ported
-    assert "SCAFFOLD" in str(ei.value) and "client_slot_fold" in str(
-        ei.value)
-    assert "22 defenses" in str(ei.value) and "NbAFL" in str(ei.value)
-    assert "participant selection" in str(ei.value)
-    assert "contribution assessment" in str(ei.value)
+    assert str(ei.value).startswith("mesh shape {'client': 2} != 1 devices")
 
 
 @pytest.mark.parametrize("knob,value", [

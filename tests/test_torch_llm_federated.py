@@ -130,9 +130,17 @@ def test_full_fine_tune_when_rank_is_zero():
 @pytest.mark.parametrize("knob,value", [
     ("llm_attention_impl", "ring")])
 def test_unported_llm_knobs_raise(knob, value):
+    """``llm_attention_impl: ring`` is ported and behaves as the JAX
+    package's: accepted, and the round's first forward raises the
+    sequence-parallel context's RuntimeError (a federated round runs no
+    ring), with the same message."""
     cfg = dict(CFG, comm_round=1, llm_corpus_size=24, **{knob: value})
-    with pytest.raises(NotImplementedError, match=knob):
+    with pytest.raises(RuntimeError) as jerr:
+        jfed.run_federated_llm(JArguments(backend="tpu", **cfg))
+    with pytest.raises(RuntimeError) as terr:
         tfed.run_federated_llm(TArguments(**cfg), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    assert "sequence-parallel context" in str(terr.value)
 
 
 def test_serving_chaos_knob_leaves_training_alone():
