@@ -282,7 +282,26 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     (flash, f32) at ``{"fsdp": 2}`` and ``{"tensor": 2}`` on the two
     ranks against the unsharded step, B2-B4 counted on each rank; a
     ``{"multi_rank": ...}`` line;
-23. one JSON line describing each kernel, then the card line, then
+23. the long tail of training: (a) every model the slice ported
+    (LeNet-5, the finance nets, VGG-11 / 16, MobileNetV3-Small,
+    EfficientNet-B0, the GAN pair, SegNet, the FedGKT and FedNAS nets)
+    on the card against the CPU, f32 with TF32 off: logits and
+    gradients (the dropout models in training mode from one key), and
+    bf16 MobileNetV3-Small against its f32 self; (b) FedGKT, FedNAS,
+    FedSeg and FedGAN at ``tests/test_protocols.py``'s configurations
+    (FedGAN's data cut to 512 samples), 2 rounds each, card against CPU:
+    params, histories and FedNAS's architecture held to the house
+    tolerance after the first round, the second round's drift reported;
+    (c) ``bench_hierarchical_femnist``'s configuration
+    (MobileNetV3-Small bf16 over hierarchicalfl, 24 FEMNIST-shaped
+    clients, 4 groups x 2 edge rounds): s per global round; (d)
+    ``turbo_aggregate`` (8 of 64 clients, 2 groups, 1 round) and the
+    centralized trainer (128 captured steps, one eval) at the flagship's
+    widths with B1: the turbo model against plain FedAvg of the same
+    updates to one 2^-16 quantum per client, B1 = 27 x forwards for both;
+    a ``{"tail": ...}`` line. (To pay for it, the flagship-width legs of
+    phases 7-10 run MAIN_PATH's widths on 25,000 of its 50,000 samples.)
+24. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -364,6 +383,12 @@ MAIN_PATH = dict(
     learning_rate=0.1, synthetic_size=50000, synthetic_test_size=1000,
     frequency_of_the_test=-1, random_seed=0, rounds_per_dispatch=8)
 FLAGSHIP_BLOCK = 1
+# The flagship-width legs of phases 7-10 (SCAFFOLD, the defended
+# flagship, faults and selection, async) run MAIN_PATH's widths on its
+# 50,000 samples cut in depth to these (to pay for phase 23); their
+# rounds/hour are set beside phase 6's FedAvg scaled by the sample ratio
+# (a round's steps follow its samples)
+FLAGSHIP_LEG_SAMPLES = 25000
 # bench_flagship's baseline: the golden loop (SP, eager local steps), one
 # round, per-sample normalised; its 8 clients over 6,250 samples cut in
 # depth to 4 over 3,125 (the same rate per sample) for phase 22
@@ -421,7 +446,8 @@ FAMILY_ULPS = 4
 # captured apart, one timed block of SCAFFOLD_BLOCK rounds, one eval.
 # SCAFFOLD_BLOCK was FLAGSHIP_BLOCK (2) until the secure sessions at the
 # flagship's width (phase 19 (b)) took its time.
-SCAFFOLD_PATH = dict(MAIN_PATH, federated_optimizer="SCAFFOLD")
+SCAFFOLD_PATH = dict(MAIN_PATH, federated_optimizer="SCAFFOLD",
+                     synthetic_size=FLAGSHIP_LEG_SAMPLES)
 SCAFFOLD_BLOCK = 1
 # (c) FedSGD at the flagship's shape (ResNet-56, batch 32, bf16, fused conv
 # block, 64 clients a round), the data cut from 50,000 to 8,192 samples so
@@ -485,13 +511,15 @@ FLAGSHIP_PARAMS = 855770
 # clip 1.0) for 1 round each (2 LDP rounds put the phase at 148 s; the
 # fused path's block of FLAGSHIP_BLOCK rounds was cut to 1 to pay for
 # phase 18).
-ROBUST_FLAGSHIP = dict(MAIN_PATH, enable_attack=True,
+ROBUST_FLAGSHIP = dict(MAIN_PATH, synthetic_size=FLAGSHIP_LEG_SAMPLES,
+                       enable_attack=True,
                        attack_type="byzantine_flip", byzantine_client_num=12,
                        attack_scale=5.0, enable_defense=True,
                        defense_type="multi_krum", krum_param_m=20)
 ROBUST_LEGS = (("fused", ROBUST_FLAGSHIP, 1),
                ("host", dict(ROBUST_FLAGSHIP, robust_fused="host"), 1),
-               ("ldp", dict(MAIN_PATH, enable_dp=True, dp_type="local_dp",
+               ("ldp", dict(MAIN_PATH, synthetic_size=FLAGSHIP_LEG_SAMPLES,
+                            enable_dp=True, dp_type="local_dp",
                             dp_mechanism="gaussian", **ROBUST_DP), 1))
 # (c) bench.py's bench_robust_krum and bench_robust_rfa at their own
 # configuration: 16 clients of synthetic MNIST, logistic regression, 3
@@ -557,7 +585,8 @@ RELAYOUT_FLIP_SHARE = 0.01
 # FLAGSHIP_BLOCK (2) until the secure-aggregation phase (19) took its time.
 FAULTS_BLOCK = 1
 FAULTS_PATH = dict(MAIN_PATH, client_num_in_total=128,
-                   client_num_per_round=64)
+                   client_num_per_round=64,
+                   synthetic_size=FLAGSHIP_LEG_SAMPLES)
 FAULTS_KNOBS = dict(chaos_dropout_prob=0.2, chaos_straggler_prob=0.1,
                     chaos_straggler_work=0.5, chaos_seed=7,
                     chaos_tolerance=True, client_selection="oort",
@@ -738,7 +767,7 @@ ZOO_R18 = dict(backend="gpu", dataset="cifar10", model="resnet18",
                batch_size=32, learning_rate=0.1, frequency_of_the_test=-1,
                random_seed=0, allow_synthetic=True, synthetic_size=50000,
                rounds_per_dispatch=8)
-ZOO_R18_BLOCK = 2
+ZOO_R18_BLOCK = 1   # 2 until phase 23 took the time
 ZOO_R18_SP = dict(ZOO_R18, backend="sp", client_num_in_total=8,
                   client_num_per_round=8, synthetic_size=6250,
                   max_total_samples=6250)
@@ -6474,6 +6503,481 @@ def multi_rank_phase(torch, cb, fa, card):
             "b1_launches_plain": plain_b1}
 
 
+
+# -- phase 23: the long tail of training ------------------------------------
+
+# (a) every model this slice ported, card against CPU in f32 with TF32 off
+# (the logits and the gradients of sum(logits * cotangent), from the same
+# seeded params and input): name -> (model hub name, one sample's shape,
+# classes, batch). The GAN pair, SegNet and the GKT / NAS nets are built
+# apart (TAIL_EXTRA).
+TAIL_MODELS = {
+    "lenet": ("lenet", (28, 28, 1), 10, 8),
+    "vfl_feature_extractor": ("vfl_feature_extractor", (12,), 32, 8),
+    "vfl_classifier": ("vfl_classifier", (64,), 2, 8),
+    "lending_club_mlp": ("lending_club_mlp", (12,), 2, 8),
+    "vgg11": ("vgg11", (32, 32, 3), 10, 4),
+    "vgg16": ("vgg16", (32, 32, 3), 10, 4),
+    "mobilenet": ("mobilenet", (28, 28, 1), 62, 8),
+    "efficientnet-b0": ("efficientnet-b0", (32, 32, 3), 10, 4),
+}
+TAIL_EXTRA = ("generator", "discriminator", "segnet", "gkt_edge",
+              "gkt_head", "nas_supernet")
+# a gradient entry of a deep conv net sums over every pixel and sample:
+# its rounding follows the largest entry of that gradient, so the
+# absolute part of the house tolerance is scaled by it (when above 1),
+# as tests/test_torch_models_tail.py does on the CPU
+# bf16 MobileNetV3-Small against its f32 self, over the largest f32 logit
+# (the CPU gives ~0.045 at a seeded init; bf16 keeps 8 bits)
+TAIL_BF16_BOUND = 2.0 ** -3
+# (b) the four MLP / conv protocol simulators at tests/test_protocols.py's
+# configurations (the JAX defaults' widths), 2 rounds each, card vs CPU.
+# Training amplifies rounding (ReLU and argmax boundaries, Adam's
+# normalisation), so the house tolerance is held after the first round
+# (TAIL_GATED_ROUNDS), where the CPU's own drift from its initial params
+# moved one ulp stays inside it (scripts/tail_probe.py drift); the
+# second round's drift is reported beside it. FedGAN's data is cut in
+# depth to 512 samples (5 batches a client): over the full 4,000 the
+# CPU's own one-ulp drift is 3.6x the tolerance after one round.
+TAIL_PROTO_BASE = dict(dataset="synthetic_mnist", model="lr",
+                       client_num_in_total=4, client_num_per_round=4,
+                       comm_round=2, epochs=1, batch_size=32,
+                       learning_rate=0.1, frequency_of_the_test=3,
+                       random_seed=17, enable_tracking=False)
+TAIL_GATED_ROUNDS = 1
+# an accuracy moves by 1e-3 per test sample that flips (1,000 samples;
+# FedGAN's 256 + 256 by 2e-3; a few pixels move FedSeg's mIoU less)
+TAIL_ACC_DIFF = 0.01
+TAIL_PROTOCOLS = {
+    "FedGKT": dict(TAIL_PROTO_BASE, federated_optimizer="FedGKT"),
+    "FedNAS": dict(TAIL_PROTO_BASE, federated_optimizer="FedNAS",
+                   learning_rate=0.05),
+    "FedSeg": dict(TAIL_PROTO_BASE, federated_optimizer="FedSeg",
+                   dataset="synthetic_seg", learning_rate=0.2,
+                   batch_size=16),
+    "FedGAN": dict(TAIL_PROTO_BASE, federated_optimizer="FedGAN",
+                   model="gan", learning_rate=2e-4, max_total_samples=512),
+}
+# (c) bench.py's bench_hierarchical_femnist (BASELINE config 5): FEMNIST
+# shapes through the synthetic stand-in, MobileNetV3-Small in bf16, 24
+# clients, 4 groups x 2 edge rounds, batch 16; 1 warm-up and
+# TAIL_FEMNIST_TIMED timed global rounds
+TAIL_FEMNIST = dict(dataset="femnist", model="mobilenet",
+                    precision="bfloat16", client_num_in_total=24,
+                    client_num_per_round=24, comm_round=1, epochs=1,
+                    batch_size=16, learning_rate=0.05, group_num=4,
+                    group_comm_round=2, federated_optimizer="hierarchicalfl",
+                    frequency_of_the_test=-1, random_seed=0,
+                    allow_synthetic=True, enable_tracking=False)
+TAIL_FEMNIST_TIMED = 1
+# (d) the flagship's widths with B1 (ResNet-56, synthetic CIFAR-10, batch
+# 32, bf16, the fused block), its data cut in depth to CS_FULL's 25,000
+# samples: turbo_aggregate over 8 of 64 clients in 2 groups, 1 round; the
+# centralized trainer over 4,096 pooled samples (128 steps), 1 epoch and
+# its eval
+TAIL_TURBO = dict(dataset="synthetic_cifar10", model="resnet56",
+                  precision="bfloat16", fused_conv_block="pallas",
+                  federated_optimizer="turbo_aggregate", turbo_groups=2,
+                  client_num_in_total=64, client_num_per_round=8,
+                  comm_round=1, epochs=1, batch_size=32, learning_rate=0.1,
+                  synthetic_size=25000, synthetic_test_size=1000,
+                  frequency_of_the_test=1, random_seed=0,
+                  enable_tracking=False)
+TAIL_CENTRAL = dict(TAIL_TURBO, federated_optimizer="centralized",
+                    max_total_samples=4096)
+TAIL_QUANTUM = 2.0 ** -16
+
+
+def _scaled_ratio(torch, got, want):
+    """max |got - want| / (atol * max(1, max|want|) + rtol |want|) under
+    HOUSE_TOL: at most 1 passes."""
+    rtol, atol = HOUSE_TOL
+    want = want.detach().float().cpu()
+    got = got.detach().float().cpu()
+    scale = max(1.0, want.abs().max().item())
+    return ((got - want).abs() / (atol * scale + rtol * want.abs())
+            ).max().item()
+
+
+def _tail_model(torch, name):
+    """``(module, input shape, key or None)`` of a phase-23 (a) model."""
+    import numpy as np
+    from fedml_tpu_torch import prng
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.model import model_hub
+    from fedml_tpu_torch.model.cv.gan import Discriminator, Generator
+    from fedml_tpu_torch.simulation.sp.fedgkt import _EdgeNet, _ServerHead
+    from fedml_tpu_torch.simulation.sp.fednas import _SuperNet
+    from fedml_tpu_torch.simulation.sp.fedseg import SegNet
+    if name in TAIL_MODELS:
+        hub, shape, classes, bs = TAIL_MODELS[name]
+        b = model_hub.create(Arguments(model=hub), classes, shape)
+        key = (np.asarray(prng.PRNGKey(5)) if b.has_dropout else None)
+        return b.module, (bs,) + shape, key
+    return {"generator": (Generator(), (8, 100), None),
+            "discriminator": (Discriminator(), (8, 28, 28, 1), None),
+            "segnet": (SegNet(3), (4, 16, 16, 3), None),
+            "gkt_edge": (_EdgeNet(784, 64, 10), (8, 28, 28, 1), None),
+            "gkt_head": (_ServerHead(64, 10), (8, 64), None),
+            "nas_supernet": (_SuperNet(784, 10), (8, 784), None)}[name]
+
+
+def tail_models(torch, dev="cuda", cpu="cpu"):
+    """Phase 23 (a): each model's logits and gradients on the card against
+    the CPU, f32 (TF32 off, cuDNN deterministic); dropout models in
+    training mode from one key; bf16 MobileNetV3-Small against its f32
+    self. Returns {name: record}."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _tail_models(torch, dev, cpu)
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def _tail_models(torch, dev, cpu):
+    from fedml_tpu_torch import prng
+    from fedml_tpu_torch.model.model_hub import ModelBundle
+    out = {}
+    for i, name in enumerate(list(TAIL_MODELS) + list(TAIL_EXTRA)):
+        module, shape, key = _tail_model(torch, name)
+        module.reset_parameters(torch.Generator().manual_seed(i))
+        gen = torch.Generator().manual_seed(100 + i)
+        x = torch.randn(shape, generator=gen)
+        extra = ((torch.randn(2, 4, generator=gen),)
+                 if name == "nas_supernet" else ())
+        params = {k: v.detach().clone()
+                  for k, v in module.state_dict().items()}
+        runs = {}
+        for d in (cpu, dev):
+            module.to(d)
+            module.train(key is not None)
+            leaves = {k: v.to(d).requires_grad_() for k, v in params.items()}
+            kw = {} if key is None else {"rng": prng.key_t(key, d)}
+            o = torch.func.functional_call(
+                module, leaves, (x.to(d),) + tuple(e.to(d) for e in extra),
+                kw)
+            o = o[1] if isinstance(o, tuple) else o
+            cot = torch.randn(o.shape, generator=torch.Generator()
+                              .manual_seed(7)).to(d)
+            g = torch.autograd.grad((o * cot).sum(), list(leaves.values()))
+            runs[d] = (o.detach(), dict(zip(leaves, g)))
+        (oc, gc), (od, gd) = runs[cpu], runs[dev]
+        rec = {"logits": _house_ratio(torch, {"o": od}, {"o": oc}),
+               "grads": max(_scaled_ratio(torch, gd[k], gc[k])
+                            for k in gc),
+               "params": sum(v.numel() for v in params.values()),
+               "train_mode": key is not None}
+        require(rec["logits"] <= 1.0 and rec["grads"] <= 1.0,
+                f"phase 23 (a) {name}: card vs CPU {rec}")
+        out[name] = rec
+        if name == "mobilenet":
+            b16 = ModelBundle(module, "mobilenet",
+                              compute_dtype=torch.bfloat16)
+            p = {k: v.to(dev) for k, v in params.items()}
+            with torch.no_grad():
+                o16 = b16.apply(p, x.to(dev))
+                o32 = ModelBundle(module, "mobilenet").apply(p, x.to(dev))
+            rel = ((o16 - o32).abs().max() / o32.abs().max()).item()
+            require(rel <= TAIL_BF16_BOUND,
+                    f"phase 23 (a) bf16 MobileNet: {rel} of the largest f32 "
+                    f"logit (bound {TAIL_BF16_BOUND})")
+            out["mobilenet_bf16_vs_f32"] = rel
+        module.to(cpu)
+    return out
+
+
+def _tail_runner(cfg, dev, init_params=None):
+    """The runner of the simulator ``cfg`` names, built on ``dev``."""
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.runner import FedMLRunner
+    args = Arguments(**cfg)
+    fed, n_classes = data.load(args)
+    bundle = model.create(args, n_classes, fed.input_shape)
+    return FedMLRunner(args, device=dev, dataset=fed, model=bundle,
+                       init_params=init_params)
+
+
+def _tail_run(torch, cfg, dev, init_params=None):
+    """The protocol simulator ``cfg`` names, built on ``dev`` through the
+    runner (from ``init_params`` when given), and its result."""
+    runner = _tail_runner(cfg, dev, init_params)
+    t0 = time.perf_counter()
+    result = runner.run()
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+    return runner.runner, result, time.perf_counter() - t0
+
+
+def _tail_pairs(name, a, b):
+    """The (card, CPU) parameter dicts of two protocol results."""
+    if name == "FedGKT":
+        return [(a["params"], b["params"])] + list(
+            zip(a["edge_params"], b["edge_params"]))
+    if name == "FedGAN":
+        return [(a["gen_params"], b["gen_params"]),
+                (a["disc_params"], b["disc_params"])]
+    if name == "FedNAS":
+        return [(a["params"], b["params"]),
+                ({"a": a["alphas"]}, {"a": b["alphas"]})]
+    return [(a["params"], b["params"])]
+
+
+def _tail_state(sim, name):
+    """A protocol simulator's parameters now, copied to the CPU, keyed as
+    its result is (and FedNAS's derived architecture)."""
+    cp = lambda p: {k: v.detach().cpu().clone()  # noqa: E731
+                    for k, v in p.items()}
+    if name == "FedGKT":
+        return {"params": cp(sim.head_params),
+                "edge_params": [cp(e) for e in sim.edge_params]}
+    if name == "FedGAN":
+        return {"gen_params": cp(sim.gen_params),
+                "disc_params": cp(sim.disc_params)}
+    if name == "FedNAS":
+        return {"params": cp(sim.params), "alphas": sim.alphas.cpu().clone(),
+                "architecture": sim.derive_architecture()}
+    return {"params": cp(sim.params)}
+
+
+def _tail_rounds(torch, cfg, dev, name, init_params=None):
+    """The protocol simulator ``cfg`` names, run on ``dev`` (from
+    ``init_params`` when given); returns its result, its parameters at the
+    end of every round (taken where it appends the round's history
+    record) and the seconds."""
+    runner = _tail_runner(cfg, dev, init_params)
+    sim, states = runner.runner, []
+
+    class Rounds(list):
+        def append(self, rec):
+            states.append(_tail_state(sim, name))
+            super().append(rec)
+
+    sim.history = Rounds()
+    t0 = time.perf_counter()
+    result = runner.run()
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+    return result, states, time.perf_counter() - t0
+
+
+def _tail_history(a, b):
+    """The worst history loss over the house tolerance, and the largest
+    accuracy difference, of two runs' history records."""
+    rtol, atol = HOUSE_TOL
+    worst_hist, worst_acc = 0.0, 0.0
+    for hc, hr in zip(a, b):
+        for k, v in hr.items():
+            if k in ("round", "architecture"):
+                continue
+            if k in ("test_acc", "miou", "disc_acc"):
+                worst_acc = max(worst_acc, abs(hc[k] - v))
+            else:
+                worst_hist = max(worst_hist, abs(hc[k] - v)
+                                 / (atol + rtol * abs(v)))
+    return worst_hist, worst_acc
+
+
+def _tail_drift(torch, name, cfg, a, b, sa, sb, rounds):
+    """Two runs of one protocol compared after their first ``rounds``
+    rounds: the params and the history losses over the house tolerance
+    (FedGAN's params plus two Adam steps of lr: an entry whose gradient
+    is at rounding level steps either way), the largest accuracy
+    difference."""
+    extra = 2 * cfg["learning_rate"] if name == "FedGAN" else 0.0
+    hist, acc = _tail_history(a["history"][:rounds], b["history"][:rounds])
+    return {"params_of_tolerance": max(
+                _house_ratio(torch, x, y, extra)
+                for x, y in _tail_pairs(name, sa[rounds - 1],
+                                        sb[rounds - 1])),
+            "history_of_tolerance": hist, "acc_diff": acc}
+
+
+def tail_protocols(torch, dev="cuda", cpu="cpu", cfgs=None):
+    """Phase 23 (b): FedGKT, FedNAS, FedSeg and FedGAN, 2 rounds each on
+    the card and on the CPU (cuDNN deterministic), compared after
+    TAIL_GATED_ROUNDS rounds: the params and the history's losses within
+    the house tolerance, accuracies (FedSeg's mIoU, FedGAN's
+    real-vs-fake accuracy) within TAIL_ACC_DIFF, FedNAS's architecture
+    equal there and at the end. The drift after both rounds is reported,
+    not held. Returns {protocol: record}."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for name, cfg in (cfgs or TAIL_PROTOCOLS).items():
+            rc, sc, card_s = _tail_rounds(torch, cfg, dev, name)
+            rr, sr, cpu_s = _tail_rounds(torch, cfg, cpu, name)
+            k = TAIL_GATED_ROUNDS
+            rec = dict(_tail_drift(torch, name, cfg, rc, rr, sc, sr, k),
+                       gated_rounds=k, rounds=len(sc),
+                       all_rounds=_tail_drift(torch, name, cfg, rc, rr,
+                                              sc, sr, len(sc)),
+                       card_s=card_s, cpu_s=cpu_s,
+                       final={key: v for key, v in rc["history"][-1].items()
+                              if key != "round"})
+            if name == "FedNAS":
+                require(sc[k - 1]["architecture"] == sr[k - 1]["architecture"]
+                        and rc["architecture"] == rr["architecture"],
+                        f"phase 23 (b) FedNAS architecture "
+                        f"{rc['architecture']} != {rr['architecture']}")
+                rec["architecture"] = rc["architecture"]
+            require(len(sc) == len(sr) == cfg["comm_round"]
+                    and all(hc["round"] == hr["round"] for hc, hr in
+                            zip(rc["history"], rr["history"]))
+                    and rec["params_of_tolerance"] <= 1.0
+                    and rec["history_of_tolerance"] <= 1.0
+                    and rec["acc_diff"] <= TAIL_ACC_DIFF,
+                    f"phase 23 (b) {name}: card vs CPU {rec}")
+            out[name] = rec
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def tail_femnist(torch, dev="cuda", cfg=None):
+    """Phase 23 (c): bench_hierarchical_femnist's configuration through
+    the runner (the hierarchicalfl simulator, MobileNetV3-Small bf16):
+    1 warm-up global round, then TAIL_FEMNIST_TIMED timed; then one eval
+    of the model (finite, accuracy reported)."""
+    import math
+
+    from fedml_tpu_torch.core.algframe.local_training import evaluate
+    sim, _, warm_s = _tail_run(torch, cfg or TAIL_FEMNIST, dev)
+    t0 = time.perf_counter()
+    for _ in range(TAIL_FEMNIST_TIMED):
+        sim.run(comm_round=1)
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+    round_s = (time.perf_counter() - t0) / TAIL_FEMNIST_TIMED
+    stats = evaluate(sim.spec, sim.params, sim.test["x"], sim.test["y"],
+                     sim.test["mask"])
+    acc = float(stats["correct"]) / max(float(stats["count"]), 1.0)
+    require(all(bool(torch.isfinite(v).all()) for v in sim.params.values())
+            and math.isfinite(acc), "phase 23 (c): non-finite model")
+    return {"s_per_global_round": round_s,
+            "hierarchical_femnist_mobilenet_rounds_per_hour":
+                3600.0 / round_s,
+            "warmup_round_s": warm_s, "test_acc": acc,
+            "provenance": getattr(sim.fed, "provenance", None),
+            "clients": int(sim.fed.num_clients),
+            "train_samples": int(sim.fed.client_num_samples.sum())}
+
+
+def _forwards(progs, eval_batches):
+    st = {k: sum(getattr(p, k) for p in progs)
+          for k in ("warmup_steps", "replays", "captures", "capture_s")}
+    return st["warmup_steps"] + st["replays"] + eval_batches, st
+
+
+def tail_full_width(torch, cb, fa, dev="cuda", turbo=None, central=None):
+    """Phase 23 (d): turbo_aggregate and the centralized trainer at the
+    flagship's widths with B1. The turbo model against plain FedAvg of the
+    same clients' updates (float64) to one 2^-16 quantum per client; B1
+    launches = 27 x (warm-up + replayed steps + eval batches) for each
+    (read from the wrappers' counters)."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.collectives import tree_flatten_to_vector
+    on_card = str(dev).startswith("cuda")
+    out = {}
+    # turbo_aggregate: the ring's inputs recorded on the way in
+    reset_launches(cb, fa)
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.runner import FedMLRunner
+    cfg = turbo or TAIL_TURBO
+    args = Arguments(**cfg)
+    fed, n_classes = data.load(args)
+    sim = FedMLRunner(args, device=dev, dataset=fed, model=model.create(
+        args, n_classes, fed.input_shape)).runner
+    p0 = tree_flatten_to_vector(sim.params).cpu().numpy()
+    seen = {}
+    ring = sim._ring_aggregate
+
+    def recording(updates, weights, r):
+        seen.update(updates=[u.copy() for u in updates], weights=weights)
+        seen["agg"] = ring(updates, weights, r)
+        return seen["agg"]
+
+    sim._ring_aggregate = recording
+    t0 = time.perf_counter()
+    res = sim.run()
+    if on_card:
+        torch.cuda.synchronize()
+    turbo_s = time.perf_counter() - t0
+    w = np.asarray(seen["weights"], np.float64)
+    plain = sum(u * wi for u, wi in zip(seen["updates"], w)) / w.sum()
+    n = len(w)
+    agg_err = float(np.max(np.abs(seen["agg"] - plain)))
+    model_err = float(np.max(np.abs(
+        tree_flatten_to_vector(res["params"]).cpu().numpy().astype(
+            np.float64) - (p0.astype(np.float64) + plain))))
+    eval_batches = int(sim.test["x"].shape[0])
+    fwd, st = _forwards(sim.programs.values(), eval_batches)
+    b1 = launches(cb, fa)["conv_block"]
+    # the model's f32 rounding of p0 + agg adds at most one ulp of the
+    # largest param on top of the quanta
+    ulp = float(np.spacing(np.float32(np.max(np.abs(p0)) + 1.0)))
+    require(agg_err <= n * TAIL_QUANTUM and model_err <= n * TAIL_QUANTUM
+            + ulp, f"phase 23 (d) turbo: aggregate {agg_err}, model "
+                   f"{model_err} vs plain FedAvg (bound {n} quanta)")
+    if on_card:
+        require(b1 == 27 * fwd, f"phase 23 (d) turbo: B1 {b1} != 27 x "
+                                f"{fwd}")
+    out["turbo"] = {"s_per_round": turbo_s, "clients": n,
+                    "groups": sim.groups, "agg_vs_fedavg": agg_err,
+                    "model_vs_fedavg": model_err,
+                    "quanta_bound": n * TAIL_QUANTUM,
+                    "b1_launches": b1, "forwards": fwd, **st,
+                    "eval_batches": eval_batches,
+                    "test_acc": res["final_test_acc"]}
+    del sim
+    # centralized: 128 captured steps over the pooled samples, one eval
+    reset_launches(cb, fa)
+    sim, res, central_s = _tail_run(torch, central or TAIL_CENTRAL, dev)
+    eval_batches = int(sim.test["x"].shape[0])
+    fwd, st = _forwards([sim.program], eval_batches)
+    b1 = launches(cb, fa)["conv_block"]
+    steps = int(sim.data.x.shape[0])
+    require(np.isfinite(res["history"][-1]["train_loss"])
+            and res["final_test_acc"] is not None,
+            f"phase 23 (d) centralized: {res['history']}")
+    if on_card:
+        require(st["replays"] == steps and b1 == 27 * fwd,
+                f"phase 23 (d) centralized: B1 {b1} != 27 x {fwd} "
+                f"({st['replays']} replays of {steps} steps)")
+    out["centralized"] = {
+        "s_per_epoch": central_s, "steps": steps,
+        "s_per_step": (central_s - st["capture_s"]) / max(steps, 1),
+        "b1_launches": b1, "forwards": fwd, **st,
+        "eval_batches": eval_batches,
+        "train_loss": res["history"][-1]["train_loss"],
+        "test_acc": res["final_test_acc"]}
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def tail_phase(torch, cb, fa, card, dev="cuda", cpu="cpu"):
+    """Phase 23: (a) the new models card vs CPU, (b) the four protocol
+    simulators card vs CPU, (c) bench_hierarchical_femnist's round, (d)
+    turbo_aggregate and centralized at the flagship's widths with B1."""
+    t0 = time.perf_counter()
+    rec = {"card": card}
+    for part, fn in (("models", lambda: tail_models(torch, dev, cpu)),
+                     ("protocols", lambda: tail_protocols(torch, dev, cpu)),
+                     ("femnist", lambda: tail_femnist(torch, dev)),
+                     ("full_width", lambda: tail_full_width(torch, cb, fa,
+                                                            dev))):
+        t1 = time.perf_counter()
+        rec[part] = fn()
+        rec[f"{part}_s"] = time.perf_counter() - t1
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import tempfile
 
@@ -6658,12 +7162,14 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
               f"{diff:.3e} (largest update {moved:.3e}, bound "
               f"{FAMILY_ULPS} ulps), {caps} capture(s)", flush=True)
     family_s = time.perf_counter() - t_family
+    leg_scale = MAIN_PATH["synthetic_size"] / FLAGSHIP_LEG_SAMPLES
     scaffold, scaffold_launches = scaffold_flagship(torch, cb, fa)
     print(f"SCAFFOLD flagship ({card}): {scaffold['rounds_per_hour']:.2f} "
           f"rounds/hour ({scaffold['step_time_s']:.3f} s per round, "
           f"{scaffold['ms_per_local_step']:.2f} ms per local step) beside "
-          f"FedAvg's {record['value']:.2f} ({record['step_time_s']:.3f} s) "
-          f"above; capture {scaffold['capture_s']:.2f} s, "
+          f"FedAvg's {record['value'] * leg_scale:.2f} above scaled to its "
+          f"{FLAGSHIP_LEG_SAMPLES:,} samples; capture "
+          f"{scaffold['capture_s']:.2f} s, "
           f"{scaffold['replays']} replays, B1 {scaffold['b1_launches']} "
           f"launches = {scaffold['b1_per_forward']:.0f} per forward; "
           f"client-state stack [64, ...] {scaffold['client_state_bytes']} "
@@ -6705,7 +7211,8 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         print(f"defended flagship {leg:5s} ({card}): "
               f"{r['rounds_per_hour']:.2f} rounds/hour "
               f"({r['step_time_s']:.3f} s per round over {r['rounds']}) "
-              f"beside FedAvg's {record['value']:.2f}; attack + defense + "
+              f"beside FedAvg's {record['value'] * leg_scale:.2f} (scaled "
+              f"to {FLAGSHIP_LEG_SAMPLES:,} samples); attack + defense + "
               f"DP {r['defense_ms_per_round']:.2f} ms of device time per "
               f"round (server side {r['server_ms_per_round']:.2f}, clients' "
               f"DP {r['client_dp_ms_per_round']:.2f}); matrix "
@@ -7164,6 +7671,46 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
                   f"launches {leg['launches']}", flush=True)
     print(json.dumps({"multi_rank": mr}), flush=True)
 
+    tail = tail_phase(torch, cb, fa, card)
+    worst = max(max(r["logits"], r["grads"]) for k, r in
+                tail["models"].items() if isinstance(r, dict))
+    print(f"tail models ({card}): {len(tail['models']) - 1} models card vs "
+          f"CPU, worst {worst:.4f} of the house tolerance; bf16 "
+          f"MobileNetV3-Small {tail['models']['mobilenet_bf16_vs_f32']:.4f} "
+          f"of its largest f32 logit (bound {TAIL_BF16_BOUND})", flush=True)
+    for name, r in tail["protocols"].items():
+        a = r["all_rounds"]
+        print(f"tail {name} ({card}): {r['rounds']} rounds card "
+              f"{r['card_s']:.2f} s / CPU {r['cpu_s']:.2f} s; after "
+              f"{r['gated_rounds']} (held): params "
+              f"{r['params_of_tolerance']:.4f}, history "
+              f"{r['history_of_tolerance']:.4f} of the tolerance, accuracy "
+              f"off {r['acc_diff']:.4f}; after {r['rounds']} (reported): "
+              f"params {a['params_of_tolerance']:.4f}, history "
+              f"{a['history_of_tolerance']:.4f}, accuracy off "
+              f"{a['acc_diff']:.4f}; {r['final']}", flush=True)
+    fm = tail["femnist"]
+    print(f"tail hierarchical FEMNIST ({card}): MobileNetV3-Small bf16, 24 "
+          f"clients, 4 groups x 2 edge rounds: {fm['s_per_global_round']:.3f}"
+          f" s per global round, hierarchical_femnist_mobilenet_rounds_per_"
+          f"hour {fm['hierarchical_femnist_mobilenet_rounds_per_hour']:.2f}"
+          f" (warm-up round {fm['warmup_round_s']:.2f} s)", flush=True)
+    tb, ce = tail["full_width"]["turbo"], tail["full_width"]["centralized"]
+    print(f"tail turbo_aggregate ({card}): ResNet-56 bf16 + B1, 8 of 64 "
+          f"clients in 2 groups, 1 round {tb['s_per_round']:.2f} s (capture "
+          f"{tb['capture_s']:.2f} s); vs plain FedAvg: aggregate "
+          f"{tb['agg_vs_fedavg']:.3e}, model {tb['model_vs_fedavg']:.3e} "
+          f"(bound {tb['quanta_bound']:.3e}); B1 {tb['b1_launches']} = 27 x "
+          f"({tb['warmup_steps']} + {tb['replays']} + {tb['eval_batches']})",
+          flush=True)
+    print(f"tail centralized ({card}): ResNet-56 bf16 + B1, {ce['steps']} "
+          f"steps {ce['s_per_epoch']:.2f} s (capture {ce['capture_s']:.2f} "
+          f"s), {ce['s_per_step'] * 1e3:.3f} ms per step; B1 "
+          f"{ce['b1_launches']} = 27 x ({ce['warmup_steps']} + "
+          f"{ce['replays']} + {ce['eval_batches']}); phase 23 "
+          f"{tail['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"tail": tail}), flush=True)
+
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
@@ -7213,6 +7760,10 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "launches_multi_rank_plain": mr["b1_launches_plain"],
         "launches_multi_rank_nccl_1": mr["b1_launches_nccl_1"],
         "launches_multi_rank_ranks": mr["b1_launches_ranks"],
+        # phase 23 (d): turbo_aggregate and the centralized trainer at the
+        # flagship's widths
+        "launches_turbo_aggregate": tb["b1_launches"],
+        "launches_centralized": ce["b1_launches"],
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],

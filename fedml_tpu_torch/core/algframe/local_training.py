@@ -48,6 +48,7 @@ every replay: the host writes the client's key once, before its steps.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -364,8 +365,18 @@ class _Program:
         # keep_graph: the graph stays inspectable (debug_dump) after
         # instantiation
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._body()
+        # no automatic garbage collection while capturing: a collection
+        # in this thread that frees a dropped program destroys its graph
+        # mid-capture, which CUDA refuses and which invalidates the
+        # capture (``torch.cuda.graph`` collects once just before)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._body()
+        finally:
+            if collecting:
+                gc.enable()
         graph.instantiate()
         self.graph_launches = {fn: fn.captured - n
                                for fn, n in before.items()
@@ -429,13 +440,15 @@ class StepProgram(_Program):
 
     def run(self, params: Params, cdata: ClientData, rng: np.ndarray,
             hyper: TrainHyper, batch_real: np.ndarray,
-            ctx: Optional[Dict[str, Any]] = None
+            ctx: Optional[Dict[str, Any]] = None, reset_opt: bool = True
             ) -> Tuple[Params, int, Dict[str, torch.Tensor]]:
         """One client's local training from ``params``; same contract as
         :func:`run_local_sgd` (the returned params are the static tensors,
-        valid until the next call)."""
+        valid until the next call). ``reset_opt=False`` keeps the
+        optimizer state the previous call left (an epoch of one long run,
+        as the centralized trainer's)."""
         self.prepare(params, cdata, hyper, ctx)
-        self._reset(params, hyper, ctx)
+        self._reset(params, hyper, ctx, reset_opt)
         if self.keys is not None:
             self.keys.reset_(rng)
         total_steps = step_count(batch_real, hyper)
@@ -447,9 +460,10 @@ class StepProgram(_Program):
 
     @torch.no_grad()
     def _reset(self, params: Params, hyper: TrainHyper,
-               ctx: Optional[Dict[str, Any]]) -> None:
+               ctx: Optional[Dict[str, Any]], reset_opt: bool = True) -> None:
         tree_copy_(self.params, params)
-        self.opt.reset_(self.opt_state, hyper.learning_rate)
+        if reset_opt:
+            self.opt.reset_(self.opt_state, hyper.learning_rate)
         for v in self.metrics.values():
             v.zero_()
         if self.ctx is not None and ctx is not None:

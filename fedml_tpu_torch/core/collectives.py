@@ -116,6 +116,14 @@ def tree_weighted_average(stacked: PyTree, weights: torch.Tensor) -> PyTree:
         (-1,) + (1,) * (leaf.dim() - 1)).to(leaf.dtype)).sum(0), stacked)
 
 
+def average_trees(trees: Sequence[PyTree], weights: torch.Tensor) -> PyTree:
+    """A list of parameter dicts -> their average weighted by
+    ``weights`` (the JAX package's ``tree_weighted_average(stack_trees(
+    trees), weights)``)."""
+    return tree_weighted_average(
+        {k: torch.stack([t[k] for t in trees]) for k in trees[0]}, weights)
+
+
 class WeightedSum:
     """The round's aggregation: ``Σ_k w_k x_k`` of the clients' updates and
     extras, accumulated client by client in schedule order, and their mean

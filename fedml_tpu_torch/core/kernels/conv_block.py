@@ -84,14 +84,18 @@ def _same_pads(extent: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _conv_same(x: torch.Tensor, w: torch.Tensor, strides: int) -> torch.Tensor:
-    """NHWC x HWIO convolution with XLA SAME padding."""
+def _conv_same(x: torch.Tensor, w: torch.Tensor, strides: int,
+               groups: int = 1) -> torch.Tensor:
+    """NHWC x HWIO convolution with XLA SAME padding. ``groups`` is flax's
+    ``feature_group_count``: the kernel is ``[kh, kw, cin / groups,
+    cout]`` (a depthwise conv's ``[k, k, 1, C]`` with ``groups = C``)."""
     dt = torch.promote_types(x.dtype, w.dtype)
     kh, kw = int(w.shape[0]), int(w.shape[1])
     ph = _same_pads(int(x.shape[1]), kh, strides)
     pw = _same_pads(int(x.shape[2]), kw, strides)
     xn = F.pad(x.to(dt).permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
-    y = F.conv2d(xn, w.to(dt).permute(3, 2, 0, 1), stride=strides)
+    y = F.conv2d(xn, w.to(dt).permute(3, 2, 0, 1), stride=strides,
+                 groups=groups)
     return y.permute(0, 2, 3, 1)
 
 

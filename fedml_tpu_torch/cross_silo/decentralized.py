@@ -303,7 +303,10 @@ class GossipNodeManager(FedMLCommManager):
         t1 = time.perf_counter()
         self.params = self._mix(self._trained, ordered)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # this thread's stream only: a device-wide synchronize would
+            # also wait on another node thread's stream while it captures
+            # its step (thread-local capture), and invalidate the capture
+            torch.cuda.current_stream(self.device).synchronize()
         self.log[-1].update(wait_s=t0 - self._sent_at, decode_s=t1 - t0,
                             mix_s=time.perf_counter() - t1,
                             end_t=time.time())

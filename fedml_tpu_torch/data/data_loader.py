@@ -1,32 +1,42 @@
 """Dataset dispatch: ``fedml_tpu_torch.data.load(args)`` (counterpart of
 ``fedml_tpu/data/data_loader.py``), in the reference's order:
 
-1. LEAF natural partitions (``femnist``, ``shakespeare``,
+1. Local caches of the reference's on-disk formats, each read when its
+   files are present: the TFF HDF5 shards (``fed_cifar100``,
+   ``stackoverflow_nwp``, ``stackoverflow_lr``; :mod:`.tff_h5`), the
+   FedNLP HDF5 pair (``fednlp*``; :mod:`.fednlp_h5`), an ImageNet-style
+   folder tree (``imagenet``, ``ilsvrc2012``, ``tiny_imagenet``) and the
+   Landmarks CSV mappings (``landmarks``, ``gld23k``, ``gld160k``;
+   :mod:`.images`), under ``<data_cache_dir>/<name>/``.
+2. LEAF natural partitions (``femnist``, ``shakespeare``,
    ``fed_shakespeare``, ``celeba``, ``sent140``, ``reddit``) from
    ``<data_cache_dir>/<name>/{train,test}/*.json``; with no LEAF split on
    disk, ``shakespeare`` materialises the bundled real text (client =
    speaking role).
-2. The LEAF-style ``synthetic``, ``synthetic_1_1``, ``synthetic_0_0``,
+3. The LEAF-style ``synthetic``, ``synthetic_1_1``, ``synthetic_0_0``,
    ``synthetic_0.5_0.5`` and ``synthetic_iid`` sets (per-client logistic
    models, Li et al.).
-3. ``stackoverflow_lr`` / ``multilabel``: the synthetic multilabel
+4. ``stackoverflow_lr`` / ``multilabel``: the synthetic multilabel
    tag-prediction stand-in (``task="multilabel"``).
-4. The image and tabular tables: an offline ``<name>.npz`` cache
+5. The image and tabular tables: an offline ``<name>.npz`` cache
    (``x_train``/``y_train``/``x_test``/``y_test``; :func:`.acquire.
    import_archive` writes one), then for ``digits`` / ``wine`` /
    ``breast_cancer`` the bundled copy (:mod:`.acquire`), else the
    labelled synthetic stand-in.
-5. The synthetic next-token ``sequences`` (``task="sequence"``), which
+6. The finance tables (``lending_club``, ``lending_club_loan``, ``loan``,
+   ``nus_wide``: preprocessed CSVs, :mod:`.finance`) and the segmentation
+   stand-in (``pascal_voc``, ``coco_seg``, ``seg``, ``segmentation``;
+   ``task="segmentation"``, which the runner sends to FedSeg).
+7. The synthetic next-token ``sequences`` (``task="sequence"``), which
    ``shakespeare``, ``fed_shakespeare``, ``stackoverflow_nwp`` and
    ``reddit`` fall back to with no data.
-6. Anything else: the MNIST-shaped synthetic set.
+8. Anything else: the MNIST-shaped synthetic set.
 
 A stand-in for a named real dataset is used only when ``allow_synthetic``
 (or ``$FEDML_TPU_ALLOW_SYNTHETIC``) is set, loudly, and the dataset's
-``provenance`` says ``synthetic``. The port has no download code. The
-JAX package's HDF5 (TFF, FedNLP), image-folder, Landmarks, finance and
-segmentation readers are not ported: those names raise
-``NotImplementedError``.
+``provenance`` says ``synthetic``. The port has no download code: a
+reader whose files are absent falls through, as the JAX loader's does
+after a failed download.
 
 Every path produces exactly the JAX loader's padded client arrays, masks,
 sample counts and test set. Linear models (``lr``, ``logistic_regression``,
@@ -72,21 +82,6 @@ _SYNTHETIC_AB = {"synthetic": (1.0, 1.0), "synthetic_1_1": (1.0, 1.0),
                  "synthetic_0_0": (0.0, 0.0),
                  "synthetic_0.5_0.5": (0.5, 0.5),
                  "synthetic_iid": (0.0, 0.0)}
-
-# the JAX loader's readers that are not ported, by the names that reach
-# them: these raise rather than silently train on something else
-_UNPORTED = {
-    "imagenet": "images", "ilsvrc2012": "images", "tiny_imagenet": "images",
-    "landmarks": "images (Landmarks)", "gld23k": "images (Landmarks)",
-    "gld160k": "images (Landmarks)",
-    "lending_club": "finance", "lending_club_loan": "finance",
-    "loan": "finance", "nus_wide": "finance",
-    "pascal_voc": "segmentation", "coco_seg": "segmentation",
-    "seg": "segmentation", "segmentation": "segmentation",
-}
-# names whose TFF HDF5 shards the JAX loader reads when they are on disk
-_TFF = ("fed_cifar100", "stackoverflow_nwp", "stackoverflow_lr")
-
 
 class DatasetUnavailableError(FileNotFoundError):
     pass
@@ -147,20 +142,6 @@ def _try_npz(cache_dir: str, name: str):
     return None
 
 
-def _refuse_unported(raw_name: str, name: str, cache_dir: str) -> None:
-    if name.startswith("fednlp"):
-        reader = "fednlp_h5"
-    elif name in _TFF and os.path.isdir(os.path.join(cache_dir, name)) \
-            and not raw_name.startswith("synthetic"):
-        reader = "tff_h5"
-    else:
-        reader = _UNPORTED.get(name)
-    if reader is not None:
-        raise NotImplementedError(
-            f"dataset={raw_name!r} needs the JAX package's {reader} reader, "
-            f"which is not ported to fedml_tpu_torch")
-
-
 def load(args) -> Tuple[FederatedDataset, int]:
     raw_name = str(getattr(args, "dataset", "synthetic_mnist")).lower()
     name = raw_name.removeprefix("synthetic_")
@@ -174,7 +155,42 @@ def load(args) -> Tuple[FederatedDataset, int]:
         "lr", "logistic_regression", "mlp")
     cache_dir = os.path.expanduser(getattr(args, "data_cache_dir", None)
                                    or ".")
-    _refuse_unported(raw_name, name, cache_dir)
+    real = not raw_name.startswith("synthetic")
+
+    if name in ("fed_cifar100", "stackoverflow_nwp", "stackoverflow_lr") \
+            and real:
+        from .tff_h5 import load_tff_dataset
+        got = load_tff_dataset(name, os.path.join(cache_dir, name), bs,
+                               max_clients=num_clients)
+        if got is not None:
+            return got
+    if name.startswith("fednlp") and real:
+        from .fednlp_h5 import load_fednlp_text_classification
+        got = load_fednlp_text_classification(
+            os.path.join(cache_dir, name), bs, max_clients=num_clients,
+            partition_method=getattr(args, "partition_method", None))
+        if got is not None:
+            return got
+    if name in ("imagenet", "ilsvrc2012", "tiny_imagenet") and real:
+        from .images import load_image_folder
+        got = load_image_folder(os.path.join(cache_dir, name))
+        if got is not None:
+            (xtr, ytr), (xte, yte), n_classes = got
+            fed = from_central_arrays(xtr, ytr, xte, yte, num_clients, bs,
+                                      n_classes, partition_method=method,
+                                      partition_alpha=alpha, seed=seed)
+            fed.provenance = "real"
+            return fed, n_classes
+    if name in ("landmarks", "gld23k", "gld160k") and real:
+        from .images import load_landmarks
+        got = load_landmarks(os.path.join(cache_dir, name),
+                             max_clients=num_clients)
+        if got is not None:
+            cxs, cys, test_x, test_y, n_classes = got
+            fed = build_federated_dataset(cxs, cys, test_x, test_y, bs,
+                                          n_classes)
+            fed.provenance = "real"
+            return fed, n_classes
 
     if name in _LEAF:
         from .leaf import load_leaf_dataset
@@ -270,6 +286,41 @@ def load(args) -> Tuple[FederatedDataset, int]:
         fed = from_central_arrays(xtr, ytr, xte, yte, num_clients, bs,
                                   n_classes, method, alpha, seed)
         fed.provenance = provenance
+        return fed, n_classes
+    if name in ("lending_club", "lending_club_loan", "loan", "nus_wide"):
+        # the feature order is the vertical column split the VFL runs use
+        from . import finance
+        try:
+            if name == "nus_wide":
+                x, y = finance.load_nus_wide(cache_dir)
+            else:
+                x, y = finance.load_lending_club(cache_dir)
+            provenance = "real"
+        except (OSError, ValueError) as e:
+            logger.info("no cached %s (%s)", name, e)
+            _synthetic_fallback(args, raw_name, name)
+            make = (finance.synthetic_nus_wide if name == "nus_wide"
+                    else finance.synthetic_lending_club)
+            x, y = make(max(num_clients * 2 * bs, 2000) + 400, seed=seed)
+            provenance = "synthetic"
+        n_classes = int(y.max()) + 1
+        n_test = max(len(x) // 6, 1)
+        xtr, ytr = _cap_train(x[:-n_test], y[:-n_test], args, seed)
+        fed = from_central_arrays(xtr, ytr, x[-n_test:], y[-n_test:],
+                                  num_clients, bs, n_classes, method, alpha,
+                                  seed)
+        fed.provenance = provenance
+        return fed, n_classes
+    if name in ("pascal_voc", "coco_seg", "seg", "segmentation"):
+        if real and name not in ("seg", "segmentation"):
+            _synthetic_fallback(args, raw_name, name)
+        n_classes = 3
+        (xtr, ytr), (xte, yte) = synthetic.synthetic_segmentation(
+            n_train=max(num_clients * 2 * bs, 400), seed=seed)
+        fed = from_central_arrays(xtr, ytr, xte, yte, num_clients, bs,
+                                  n_classes, "homo", alpha, seed,
+                                  task="segmentation")
+        fed.provenance = "synthetic"
         return fed, n_classes
     if name in ("shakespeare", "fed_shakespeare", "stackoverflow_nwp",
                 "sequences", "reddit"):

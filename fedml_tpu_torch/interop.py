@@ -24,6 +24,17 @@ arrays in both packages (the port's store is a copy):
 port engine resumes a JAX run's selection history
 (``sim.selection.load_state_dict``).
 
+The slice-20 models cross the same way: LeNet, VGG, the finance nets,
+the GAN pair, MobileNetV3 (``InvertedResidual_k.Conv_j.kernel``, a
+depthwise conv's ``[k, k, 1, C]``; ``SqueezeExcite_0.Dense_j`` is a
+Dense layer like any other), EfficientNet (``MBConv_k``; its
+squeeze-excite's 1x1 ``Conv_j`` keep HWIO kernels and biases), SegNet
+(``ConvTranspose_k.kernel`` carried as flax stores it, unflipped: the
+module flips it) and the FedGKT nets. The FedNAS supernet's cells keep
+flax's Dense layout under their own names (``cell0.op_linear.kernel``
+``[in, out]``, ``op_relu``, ``op_proj``), so they cross path for path,
+unchanged; its head is a ``Dense_0``.
+
 The split-learning parts and the vertical-FL party nets are flax
 *variables* (``{"params": tree}``) in the JAX package and state dicts of
 ``Dense_k`` layers in the port: :func:`split_params_from_flax` and

@@ -19,15 +19,17 @@ from torch import nn
 
 from ...core.kernels.conv_block import _conv_same
 from ..dropout import Dropout
-from .resnet import GroupNorm, init_dense_, lecun_normal_, max_pool
+from .resnet import (ConvKernel, GroupNorm, init_dense_, lecun_normal_,
+                     max_pool)
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(features, (k, k))``: stride 1, ``SAME``, with a
-    bias."""
+    """flax ``nn.Conv(features, (k, k), strides=(s, s))``: ``SAME``, with
+    a bias."""
 
-    def __init__(self, cin: int, cout: int, ksize: int):
+    def __init__(self, cin: int, cout: int, ksize: int, strides: int = 1):
         super().__init__()
+        self.strides = strides
         self.kernel = nn.Parameter(torch.empty(ksize, ksize, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout))
 
@@ -38,7 +40,8 @@ class Conv(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_same(x, self.kernel, 1) + self.bias.to(x.dtype)
+        y = _conv_same(x, self.kernel, self.strides)
+        return y + self.bias.to(y.dtype)
 
 
 def _as_image(x: torch.Tensor) -> torch.Tensor:
@@ -50,18 +53,20 @@ def _as_image(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-class _CNN(nn.Module):
+class FlaxInit(nn.Module):
+    """A model whose layers take flax's initialisers (lecun_normal
+    kernels, zero biases, GN ones and zeros), drawn from ``generator`` in
+    module order; the values differ from flax's."""
+
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """flax's initialisers (lecun_normal kernels, zero biases, GN ones
-        and zeros); the values differ from flax's."""
         for m in self.modules():
-            if isinstance(m, (Conv, GroupNorm)):
+            if isinstance(m, (Conv, ConvKernel, GroupNorm)):
                 m.reset_parameters(generator)
             elif isinstance(m, nn.Linear):
                 init_dense_(m, generator)
 
 
-class CNNFemnist(_CNN):
+class CNNFemnist(FlaxInit):
     """conv3x3(32) relu, conv3x3(64) relu, maxpool 2, dropout ``dropout``,
     Dense 128 relu, dropout 0.5, Dense ``num_classes``."""
     has_dropout = True
@@ -88,7 +93,7 @@ class CNNFemnist(_CNN):
         return self.Dense_1(x)
 
 
-class SimpleCNN(_CNN):
+class SimpleCNN(FlaxInit):
     """(conv5x5 -> GroupNorm(8) -> relu -> maxpool 2) at 32 and 64
     channels, then Dense 384, 192 (relu) and ``num_classes``."""
 
@@ -112,7 +117,7 @@ class SimpleCNN(_CNN):
         return self.Dense_2(x)
 
 
-class DeviceCNN(_CNN):
+class DeviceCNN(FlaxInit):
     """(conv3x3 SAME -> relu -> maxpool 2) at ``features[0]`` and
     ``features[1]`` channels, then Dense ``num_classes``."""
 

@@ -64,18 +64,22 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
 
 
 class ConvKernel(nn.Module):
-    """A bias-free convolution's HWIO ``kernel`` (flax ``nn.Conv``)."""
+    """A bias-free convolution's HWIO ``kernel`` (flax ``nn.Conv``);
+    ``groups`` is its ``feature_group_count`` (kernel ``[k, k, cin /
+    groups, cout]``)."""
 
-    def __init__(self, cin: int, cout: int, ksize: int = 3):
+    def __init__(self, cin: int, cout: int, ksize: int = 3, groups: int = 1):
         super().__init__()
-        self.kernel = nn.Parameter(torch.empty(ksize, ksize, cin, cout))
+        self.groups = groups
+        self.kernel = nn.Parameter(torch.empty(ksize, ksize, cin // groups,
+                                               cout))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         kh, kw, cin, _ = self.kernel.shape
         lecun_normal_(self.kernel, kh * kw * cin, generator)
 
     def forward(self, x: torch.Tensor, strides: int = 1) -> torch.Tensor:
-        return _conv_same(x, self.kernel, strides)
+        return _conv_same(x, self.kernel, strides, self.groups)
 
 
 class GroupNorm(nn.Module):

@@ -107,13 +107,17 @@ def _compute_dtype(args) -> torch.dtype:
     return torch.float32
 
 
-def create(args, output_dim: int, input_shape=None) -> ModelBundle:
+def create(args, output_dim: int, input_shape=None):
     """The model named by ``args.model``, with ``args.precision`` selecting
-    the compute dtype of the bundle's apply path. ``input_shape`` is one
-    sample's shape (the dataset's): the linear models, the CNNs and
-    ResNet-18 size their layers from it."""
+    the compute dtype of the bundle's apply path: a :class:`ModelBundle`,
+    or for ``gan`` / ``mnist_gan`` the ``(generator, discriminator)``
+    bundle pair FedGAN trains (each at that dtype). ``input_shape`` is one
+    sample's shape (the dataset's): the linear, finance and GAN models,
+    the CNNs, LeNet, VGG and ResNet-18 size their layers from it, the
+    MobileNet and EfficientNet stems their input channels."""
     name = str(getattr(args, "model", "lr")).lower()
     shape = tuple(input_shape) if input_shape is not None else None
+    dt = _compute_dtype(args)
 
     def need_shape():
         if shape is None:
@@ -146,13 +150,44 @@ def create(args, output_dim: int, input_shape=None) -> ModelBundle:
         cls = (RNNStackOverflow if "stackoverflow" in dataset
                else RNNShakespeare)
         module = cls(vocab_size=output_dim)
+    elif name in ("lenet", "lenet5", "mnn_lenet"):
+        from .cv.lenet import LeNet5
+        module = LeNet5(output_dim, input_shape=need_shape())
+    elif name in ("vfl_feature_extractor", "local_model"):
+        from .finance import VFLFeatureExtractor
+        module = VFLFeatureExtractor(int(math.prod(need_shape())),
+                                     out_dim=output_dim)
+    elif name in ("vfl_classifier", "dense_model"):
+        from .finance import VFLClassifier
+        module = VFLClassifier(int(math.prod(need_shape())), output_dim)
+    elif name in ("lending_club_mlp", "finance_mlp"):
+        from .finance import LendingClubMLP
+        module = LendingClubMLP(int(math.prod(need_shape())), output_dim)
+    elif name.startswith("mobilenet"):
+        from .cv.mobilenet import MobileNetV3Small
+        module = MobileNetV3Small(output_dim, input_shape=need_shape())
+    elif name.startswith("efficientnet"):
+        from .cv.efficientnet import create_efficientnet
+        module = create_efficientnet(name, output_dim,
+                                     input_shape=need_shape())
+    elif name.startswith("vgg"):
+        from .cv.vgg import create_vgg
+        module = create_vgg(name, output_dim, input_shape=need_shape())
+    elif name in ("gan", "mnist_gan"):
+        from .cv.gan import Discriminator, Generator
+        img_dim = int(math.prod(shape)) if shape is not None else 784
+        return (ModelBundle(Generator(), "generator", compute_dtype=dt),
+                ModelBundle(Discriminator(img_dim), "discriminator",
+                            compute_dtype=dt))
     else:
-        raise NotImplementedError(
-            f"model={name!r} is not ported to fedml_tpu_torch yet "
-            f"(ported: {PORTED_MODELS})")
-    return ModelBundle(module, name, compute_dtype=_compute_dtype(args))
+        raise ValueError(f"unknown model {name!r} (the zoo: "
+                         f"{PORTED_MODELS})")
+    return ModelBundle(module, name, compute_dtype=dt)
 
 
 PORTED_MODELS = ("resnet20, resnet56, resnet18, lr, mlp, cnn (dropout), "
                  "simple_cnn, device_cnn, rnn (Shakespeare / StackOverflow "
-                 "LSTM)")
+                 "LSTM), lenet, vgg11 / vgg16 (dropout), mobilenet, "
+                 "efficientnet-b0 / b1 / b2 (dropout), gan (the generator "
+                 "and discriminator pair), vfl_feature_extractor, "
+                 "vfl_classifier, lending_club_mlp")

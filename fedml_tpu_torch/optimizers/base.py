@@ -36,6 +36,27 @@ def _device(params: Params) -> torch.device:
     return next(iter(params.values())).device
 
 
+class StepPrograms(dict):
+    """The program protocol ``local_train`` takes (``programs=``) for a
+    simulator that trains its clients one after another: one optimizer
+    step program per inner optimizer, built at first use from the
+    simulator's params and a client's data (captured into a CUDA graph at
+    its first client on a card, eager on the CPU)."""
+
+    def __init__(self, opt: "FedOptimizer", params: Params, server_state,
+                 cdata: ClientData):
+        super().__init__()
+        self.opt, self.params = opt, params
+        self.server_state, self.cdata = server_state, cdata
+
+    def step_program(self, hyper: TrainHyper) -> StepProgram:
+        key = self.opt.make_inner_opt(hyper).key
+        if key not in self:
+            self[key] = self.opt.make_step_program(
+                self.params, self.server_state, self.cdata, hyper)
+        return self[key]
+
+
 class FedOptimizer:
     """Base = FedAvg: weighted average of client models with post-sampling
     ``n_k/Σn`` weights, in delta form ``w <- w + Σ n_k Δ_k / Σ n_k``."""

@@ -1,10 +1,12 @@
 """FedMLRunner façade (counterpart of ``fedml_tpu/runner.py``): builds the
 GPU simulator (sync, or buffered-async under ``round_mode:
 async_buffered``), the SP golden loop, or the protocol simulators
-(``Async_FedAvg``, ``hierarchicalfl``, ``decentralized_fl``, ``split_nn``
-and the vertical names, on any backend, as the JAX package dispatches
-them), hands a user ``ServerAggregator`` to the GPU engine, builds a
-cross-silo party (``training_type: cross_silo``, ``cross_silo/``: the
+(``Async_FedAvg``, ``hierarchicalfl``, ``decentralized_fl``, ``split_nn``,
+the vertical names, ``turbo_aggregate``, ``FedGKT``, ``FedNAS``,
+``FedSeg`` (or a segmentation dataset), ``FedGAN`` (or the ``gan``
+bundle pair) and ``centralized``, on any backend, as the JAX package
+dispatches them), hands a user ``ServerAggregator`` to the GPU engine,
+builds a cross-silo party (``training_type: cross_silo``, ``cross_silo/``: the
 horizontal, gossip, split-learning or vertical session, or ``scenario:
 hierarchical``), runs a session and serves its aggregate
 (``training_type: fedml_serving``, alias ``serving``), and refuses what
@@ -51,9 +53,10 @@ PORTED_SUMMARY = (
     "client_slot_fold, differential privacy (LDP, CDP, NbAFL), the model "
     "and data attacks, the 22 defenses and the defended round, chaos, "
     "participant selection, contribution assessment, a user "
-    "ServerAggregator, buffered-async rounds and the protocol simulators "
+    "ServerAggregator, buffered-async rounds, the protocol simulators "
     "(Async_FedAvg, hierarchicalfl, decentralized_fl, split_nn, vertical "
-    "FL); the cross-silo platform (training_type: cross_silo), i.e. the "
+    "FL, turbo_aggregate, FedGKT, FedNAS, FedSeg, FedGAN) and centralized "
+    "training; the cross-silo platform (training_type: cross_silo), i.e. the "
     "horizontal session, synchronous or buffered-async (round_mode: "
     "async_buffered), gossip, split learning, vertical FL and scenario: "
     "hierarchical, over INPROC, TCP, gRPC, PUBSUB (broker + object store) "
@@ -92,7 +95,33 @@ _PROTOCOL_SIMULATORS = {
     "classical_vertical": ("vertical_fl", "VerticalFLSimulator", False),
     "vertical_fl": ("vertical_fl", "VerticalFLSimulator", False),
     "vfl": ("vertical_fl", "VerticalFLSimulator", False),
+    "turbo_aggregate": ("turbo_aggregate", "TurboAggregateSimulator", True),
+    "turboaggregate": ("turbo_aggregate", "TurboAggregateSimulator", True),
 }
+# the protocols with model and loss stacks of their own (no trainer spec:
+# segmentation, GAN, NAS and GKT tasks have no classification spec), by
+# module and class; dispatched before the spec is built, as in the JAX
+# runner. A segmentation dataset runs FedSeg and a (generator,
+# discriminator) bundle pair FedGAN whatever the optimizer's name.
+_OWN_STACK = {
+    "centralized": ("centralized", "CentralizedTrainer"),
+    "fedgkt": ("simulation.sp.fedgkt", "FedGKTSimulator"),
+    "fednas": ("simulation.sp.fednas", "FedNASSimulator"),
+    "fedseg": ("simulation.sp.fedseg", "FedSegSimulator"),
+    "fedgan": ("simulation.sp.fedgan", "FedGANSimulator"),
+}
+
+
+def _own_stack(fo: str, dataset, model) -> Optional[str]:
+    """The ``_OWN_STACK`` entry that runs ``fo`` on this dataset and
+    model, if any."""
+    if fo in ("centralized", "fedgkt", "fednas"):
+        return fo
+    if fo == "fedseg" or getattr(dataset, "task", None) == "segmentation":
+        return "fedseg"
+    if fo == "fedgan" or isinstance(model, tuple):
+        return "fedgan"
+    return None
 
 
 def _knob_on(args, knob: str, off: tuple) -> bool:
@@ -116,7 +145,7 @@ def check_ported(args) -> None:
             "async rounds)")
     if fo in _ASYNC_FEDAVG:
         loop = "the SP Async_FedAvg loop"
-    elif fo in _PROTOCOL_SIMULATORS and getattr(
+    elif (fo in _PROTOCOL_SIMULATORS or fo in _OWN_STACK) and getattr(
             args, "training_type",
             FEDML_TRAINING_PLATFORM_SIMULATION) == \
             FEDML_TRAINING_PLATFORM_SIMULATION:
@@ -198,6 +227,26 @@ class FedMLRunner:
                 f"federated_optimizer {fo!r} runs its own protocol "
                 "simulator and would silently ignore it (the SP async "
                 "equivalent is federated_optimizer: Async_FedAvg)")
+        own = _own_stack(fo, dataset, model)
+        if own is not None:
+            import importlib
+            if server_aggregator is not None:
+                raise NotImplementedError(
+                    "server_aggregator: the SP loops run no user "
+                    "ServerAggregator (neither do the JAX package's); "
+                    "run it on backend='gpu'")
+            module, name = _OWN_STACK[own]
+            Trainer = getattr(importlib.import_module(
+                f".{module}", __package__), name)
+            dev = get_device(device)
+            if own == "centralized":
+                self.runner = Trainer(args, dataset, model,
+                                      spec=client_trainer, device=dev,
+                                      init_params=init_params)
+            else:
+                self.runner = Trainer(args, dataset, model, device=dev,
+                                      init_params=init_params)
+            return
         spec = (client_trainer if client_trainer is not None
                 else make_trainer_spec(dataset, model))
         kw = {}

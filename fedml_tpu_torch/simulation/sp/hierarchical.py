@@ -7,7 +7,10 @@ clients ``g, g + G, g + 2G, ...``). Each global round runs
 ``group_comm_round`` FedAvg sub-rounds within each group over its sampled
 members (key ``fold_in(fold_in(rng, round), g * 1000 + edge_round)``,
 folded with the client), then averages the group models weighted by
-their sample counts. Local training is the optimizer's eager loop.
+their sample counts. Local training runs the optimizer's step program
+(:class:`~fedml_tpu_torch.core.algframe.local_training.StepProgram`): on
+a card one CUDA graph per run, captured at the first client and replayed
+per step; on the CPU the same step body eagerly, bitwise the eager loop.
 """
 
 from __future__ import annotations
@@ -22,15 +25,12 @@ import torch
 from ... import prng
 from ...core.algframe.local_training import batch_real_of, evaluate
 from ...core.algframe.types import Params, TrainHyper
-from ...core.collectives import tree_weighted_average
+from ...core.collectives import average_trees
+from ...optimizers.base import StepPrograms
 from ..gpu.engine import load_params
 from ..sampling import client_sampling, sampling_stream_from_args
 
 logger = logging.getLogger(__name__)
-
-
-def _stack(trees: List[Params]) -> Params:
-    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
 class HierarchicalSimulator:
@@ -63,6 +63,9 @@ class HierarchicalSimulator:
             [c for c in range(fed_dataset.num_clients)
              if c % self.group_num == g]
             for g in range(self.group_num)]
+        self.programs = StepPrograms(optimizer, self.params,
+                                     optimizer.server_init(self.params),
+                                     self.train.client(0))
         self.history: List[Dict[str, Any]] = []
 
     def _train_clients(self, params: Params, client_ids, round_key,
@@ -72,11 +75,11 @@ class HierarchicalSimulator:
             out, _ = self.opt.local_train(
                 params, {}, {}, self.train.client(cid),
                 prng.fold_in(round_key, cid), hyper,
-                batch_real=self.batch_real[cid])
+                batch_real=self.batch_real[cid], programs=self.programs)
             updates.append(out.update)
             weights.append(out.weight)
         weights = torch.stack(weights).float()
-        agg = tree_weighted_average(_stack(updates), weights)
+        agg = average_trees(updates, weights)
         return ({k: v + agg[k] for k, v in params.items()},
                 float(weights.sum()))
 
@@ -105,8 +108,8 @@ class HierarchicalSimulator:
                     gp, gw = self._train_clients(gp, active, key, hyper)
                 group_params.append(gp)
                 group_weights.append(gw)
-            self.params = tree_weighted_average(
-                _stack(group_params),
+            self.params = average_trees(
+                group_params,
                 torch.tensor(group_weights, dtype=torch.float32,
                              device=self.device))
             rec: Dict[str, Any] = {"round": round_idx}

@@ -5,7 +5,9 @@ the kernels, with the script's checks.
     python3 scripts/chip_phases.py roofline cross_device [--out FILE]
 
 ``roofline`` is phase 20 (the compute plane), ``cross_device`` phase 21,
-``multi_rank`` phase 22 (the port's ranks on the one card).
+``multi_rank`` phase 22 (the port's ranks on the one card), ``tail``
+phase 23 (the long tail of training: the new models, FedGKT / FedNAS /
+FedSeg / FedGAN, hierarchical FEMNIST, turbo_aggregate and centralized).
 A phase that fails prints its traceback and the run goes on to the next;
 the exit code is 1 if any failed. ``--out`` writes every phase's record
 (or traceback) as JSON. Needs a CUDA card, as ``chip_smoke.py`` does.
@@ -27,7 +29,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("phases", nargs="+", choices=("roofline",
                                                  "cross_device",
-                                                 "multi_rank"))
+                                                 "multi_rank", "tail"))
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
     import torch
@@ -52,7 +54,8 @@ def main(argv=None) -> int:
                "cross_device": lambda: cs.cross_device_phase(
                    torch, cb, fa, tmp, card),
                "multi_rank": lambda: cs.multi_rank_phase(
-                   torch, cb, fa, card)}
+                   torch, cb, fa, card),
+               "tail": lambda: cs.tail_phase(torch, cb, fa, card)}
         for name in a.phases:
             t0 = time.perf_counter()
             try:

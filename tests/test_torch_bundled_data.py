@@ -172,17 +172,30 @@ def test_stand_ins_stay_gated(tmp_path):
     "fednlp_agnews", "imagenet", "landmarks", "lending_club", "nus_wide",
     "pascal_voc", "segmentation"])
 def test_unported_readers_raise(tmp_path, name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdata.load(TArguments(dataset=name, client_num_in_total=2,
-                              data_cache_dir=str(tmp_path)))
+    """These readers are ported now: with no files on disk and no
+    ``allow_synthetic`` each name raises the synthetic gate's
+    DatasetUnavailableError, as the JAX loader does; ``segmentation`` (an
+    explicitly generated task) loads the segmentation stand-in."""
+    args = TArguments(dataset=name, client_num_in_total=2,
+                      data_cache_dir=str(tmp_path))
+    if name == "segmentation":
+        fed, n_classes = tdata.load(args)
+        assert fed.task == "segmentation" and n_classes == 3
+        return
+    with pytest.raises(tdata.DatasetUnavailableError, match=name):
+        tdata.load(args)
 
 
 def test_tff_shards_on_disk_raise(tmp_path):
-    """With a TFF directory on disk the JAX loader reads its HDF5 shards;
-    the port has no reader for them and says so (with none on disk it
-    takes the synthetic stand-in, as the JAX loader does)."""
+    """A TFF directory with no HDF5 shards in it: the port's reader finds
+    none and the loader takes the synthetic stand-in, as the JAX loader
+    does; without ``allow_synthetic`` the gate raises."""
     os.makedirs(tmp_path / "stackoverflow_lr")
-    with pytest.raises(NotImplementedError, match="tff_h5"):
-        tdata.load(TArguments(dataset="stackoverflow_lr",
-                              client_num_in_total=2, allow_synthetic=True,
-                              data_cache_dir=str(tmp_path)))
+    cfg = dict(dataset="stackoverflow_lr", client_num_in_total=2,
+               data_cache_dir=str(tmp_path))
+    with pytest.raises(tdata.DatasetUnavailableError):
+        tdata.load(TArguments(**cfg))
+    fed, n = tdata.load(TArguments(allow_synthetic=True, **cfg))
+    jfed, jn = jdata.load(JArguments(allow_synthetic=True, **cfg))
+    assert n == jn and fed.task == jfed.task == "multilabel"
+    np.testing.assert_array_equal(fed.train.x, np.asarray(jfed.train.x))

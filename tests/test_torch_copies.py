@@ -742,3 +742,61 @@ def test_cross_device_copies(tmp_path):
                   "rb") as f, open(os.path.join(
                       os.path.dirname(tn.__file__), rel), "rb") as g:
             assert f.read() == g.read(), rel
+
+
+# -- the last data readers (their arrays: tests/test_torch_readers.py) -----
+
+READER_COPIES = ("edge_case", "finance", "images", "tff_h5", "fednlp_h5")
+
+_NO_H5PY_PIL = r"""
+import sys
+sys.modules["h5py"] = None               # a host without either package
+sys.modules["PIL"] = None
+import importlib
+for name in %r:
+    importlib.import_module("fedml_tpu_torch.data." + name)
+from fedml_tpu_torch import data
+from fedml_tpu_torch.arguments import Arguments
+fed, n = data.load(Arguments(dataset="synthetic_seg", client_num_in_total=2))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "optax", "fedml_tpu"))
+print(n, fed.task, bad)
+""" % (READER_COPIES,)
+
+
+@pytest.mark.parametrize("name", READER_COPIES)
+def test_reader_copies_keep_the_public_names(name):
+    """Each reader copy has the JAX module's public functions, classes
+    and constants, with the same signatures."""
+    import importlib
+    import inspect
+    j = importlib.import_module(f"fedml_tpu.data.{name}")
+    t = importlib.import_module(f"fedml_tpu_torch.data.{name}")
+
+    def public(m):
+        return {k: v for k, v in vars(m).items() if not k.startswith("_")
+                and getattr(v, "__module__", m.__name__) == m.__name__
+                and not inspect.ismodule(v)}
+
+    pj, pt = public(j), public(t)
+    assert sorted(pj) == sorted(pt)
+    for k, v in pj.items():
+        if callable(v):
+            assert inspect.signature(v) == inspect.signature(pt[k]), k
+        elif k != "logger":
+            assert v == pt[k], k
+
+
+def test_readers_import_without_h5py_and_pil_and_no_jax():
+    """h5py and PIL are imported inside the reader functions only, and
+    nothing of the port's data package imports JAX."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = root
+    out = subprocess.run([sys.executable, "-c", _NO_H5PY_PIL], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "3 segmentation []"

@@ -89,7 +89,9 @@ def test_missing_cache_needs_opt_in(tmp_path, monkeypatch):
     np.testing.assert_array_equal(fed.train.x, fs.train.x)
 
 
-def test_unported_dataset_raises():
-    # digits is ported (bundled); the FedNLP reader is not
-    with pytest.raises(NotImplementedError, match="dataset"):
-        tdata.load(TArguments(dataset="fednlp_agnews"))
+def test_unported_dataset_raises(tmp_path):
+    # the FedNLP reader is ported: with no shards on disk the name falls
+    # through to the synthetic gate, which raises as the JAX loader's does
+    with pytest.raises(tdata.DatasetUnavailableError, match="fednlp_agnews"):
+        tdata.load(TArguments(dataset="fednlp_agnews",
+                              data_cache_dir=str(tmp_path)))

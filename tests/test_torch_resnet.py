@@ -147,11 +147,17 @@ def test_wide_blocks_stay_unfused():
 
 
 def test_model_hub_refuses_unported_models():
-    # cnn and resnet18 are ported; the JAX hub's other CV models are not
-    with pytest.raises(NotImplementedError, match="model"):
-        thub.create(TArguments(model="vgg11"), 10)
-    with pytest.raises(NotImplementedError, match="efficientnet_b0"):
-        thub.create(TArguments(model="efficientnet_b0"), 10)
+    # every CV model of the JAX hub is ported now (vgg11 and
+    # efficientnet_b0 build, as in the JAX hub); a name no hub knows, and a
+    # VGG depth it does not know, are refused with ValueError (the JAX hub
+    # raises ValueError and KeyError)
+    assert type(thub.create(TArguments(model="vgg11"), 10,
+                            (32, 32, 3)).module).__name__ == "VGG"
+    assert thub.create(TArguments(model="efficientnet_b0"), 10,
+                       (32, 32, 3)).module.num_blocks == 16
+    for name in ("alexnet", "vgg13"):
+        with pytest.raises(ValueError, match=name):
+            thub.create(TArguments(model=name), 10, (32, 32, 3))
     bundle = thub.create(TArguments(model="resnet56", precision="bf16",
                                     fused_conv_block=True), 10)
     assert bundle.compute_dtype == torch.bfloat16
