@@ -279,12 +279,25 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     the FedLLM shape on the two ranks (sp 2), f32 and bf16, and
     ``make_ring_forward`` of the FedLLM model, against dense attention
     on the card; (c) the FSDP + tensor-parallel step of the FedLLM model
-    (flash, f32) at ``{"fsdp": 2}`` and ``{"tensor": 2}`` on the two
-    ranks against the unsharded step, B2-B4 counted on each rank; a
-    ``{"multi_rank": ...}`` line;
+    (flash, f32) in the NCCL group of one rank, without and with LoRA
+    adapters on every target, and with the adapters at ``{"tensor": 2}``
+    on the two gloo ranks (each factor's slice in its shard's side path,
+    its gradient summed over the ranks), against the unsharded step on
+    the card, B2-B4 counted on each rank; (d) defended rounds over the two
+    ranks (MULTI_RANK with a ``byzantine_flip`` client and RFA, the
+    relayout as f32 and as int8 rows: one ``all_to_all`` into feature
+    shards, the sharded defense summing its partials over the ranks)
+    against one rank in this process: f32 within the house tolerance,
+    int8's defense input on at most RELAYOUT_FLIP_SHARE other levels, the
+    verdicts equal, the ranks bitwise equal, B1 27 x forwards, the
+    all-to-all's calls, bytes, wire bytes ((g - 1) / g of them), ms and
+    staged bytes; (e) buffered-async pours over the two ranks (K 4 of 8
+    in flight, the bootstrap and 1 timed pour) against one rank, the same
+    cohorts drawn; a ``{"multi_rank": ...}`` line;
 23. the long tail of training: (a) every model the slice ported
     (LeNet-5, the finance nets, VGG-11 / 16, MobileNetV3-Small,
-    EfficientNet-B0, the GAN pair, SegNet, the FedGKT and FedNAS nets)
+    EfficientNet-B0, the GAN pair, SegNet, the FedGKT and FedNAS nets,
+    and SimpleCNN on 28x28x1, whose 1-channel stem is now a GEMM)
     on the card against the CPU, f32 with TF32 off: logits and
     gradients (the dropout models in training mode from one key), and
     bf16 MobileNetV3-Small against its f32 self; (b) FedGKT, FedNAS,
@@ -300,7 +313,8 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     widths with B1: the turbo model against plain FedAvg of the same
     updates to one 2^-16 quantum per client, B1 = 27 x forwards for both;
     a ``{"tail": ...}`` line. (To pay for it, the flagship-width legs of
-    phases 7-10 run MAIN_PATH's widths on 25,000 of its 50,000 samples.)
+    phases 7-10 ran MAIN_PATH's widths on 25,000 of its 50,000 samples;
+    since phase 22 (d) / (e), on 12,500.)
 24. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -385,10 +399,10 @@ MAIN_PATH = dict(
 FLAGSHIP_BLOCK = 1
 # The flagship-width legs of phases 7-10 (SCAFFOLD, the defended
 # flagship, faults and selection, async) run MAIN_PATH's widths on its
-# 50,000 samples cut in depth to these (to pay for phase 23); their
-# rounds/hour are set beside phase 6's FedAvg scaled by the sample ratio
-# (a round's steps follow its samples)
-FLAGSHIP_LEG_SAMPLES = 25000
+# 50,000 samples cut in depth to these (25,000 to pay for phase 23, 12,500
+# for phase 22 (d) / (e)); their rounds/hour are set beside phase 6's
+# FedAvg scaled by the sample ratio (a round's steps follow its samples)
+FLAGSHIP_LEG_SAMPLES = 12500
 # bench_flagship's baseline: the golden loop (SP, eager local steps), one
 # round, per-sample normalised; its 8 clients over 6,250 samples cut in
 # depth to 4 over 3,125 (the same rate per sample) for phase 22
@@ -1027,6 +1041,31 @@ SHARDED_MESH_ONE = {"fsdp": 1, "tensor": 1}
 SHARDED_LR = 0.1
 SHARDED_TOL = (1e-5, 1e-4)
 PSUM_TIMED = 5
+# (c) also steps the model with LoRA adapters on every target (rank 8,
+# both factors seeded nonzero, the base trained with them): at
+# SHARDED_MESH_ONE in the NCCL group, and on the two gloo ranks at
+# SHARDED_MESH_TP2, whose step reaches no DTensor functional collective
+# (the factors' gradients are summed over ``tensor`` by the model's own
+# all-reduce; local shards are held against the slices of the unsharded
+# step, so nothing gathers a DTensor)
+SHARDED_MESH_TP2 = {"fsdp": 1, "tensor": 2}
+SHARDED_LORA_RANK = 8
+# (d) defended rounds over the two gloo ranks: MULTI_RANK with one
+# byzantine_flip client and RFA (bench_robust_rfa_weak_scaling's pair),
+# robust_fused auto, the relayout as f32 rows and as int8 rows; each held
+# against the same run on one rank in this process: f32 within HOUSE_TOL,
+# int8's defense input on at most RELAYOUT_FLIP_SHARE other levels, the
+# verdicts equal, the ranks' params bitwise equal, B1 27 x each rank's
+# forwards. (e) buffered-async pours over the two ranks: MULTI_RANK with
+# K 4 of 8 in flight, the bootstrap and 1 timed pour, against one rank
+# within HOUSE_TOL, the same cohorts drawn
+MULTI_RANK_DEFENDED = dict(MULTI_RANK, enable_attack=True,
+                           attack_type="byzantine_flip",
+                           byzantine_client_num=1, enable_defense=True,
+                           defense_type="rfa", robust_fused="auto")
+MULTI_RANK_RELAYOUTS = ("none", "int8")
+MULTI_RANK_ASYNC = dict(MULTI_RANK, round_mode="async_buffered",
+                        async_buffer_k=4)
 
 # Attention shapes (b, s, h, d, mask): the FedLLM round (no key mask, as
 # the trainer calls the model), the hot loop, bench_long_context, and the
@@ -6344,10 +6383,25 @@ def _ring_leg(torch):
     return out
 
 
-def _sharded_leg(torch, meshes):
+def _local_slice(full, dt):
+    """The part of the full tensor ``full`` a DTensor ``dt`` holds on
+    this rank (its Shard placements applied), without a collective."""
+    from torch.distributed.tensor import Shard
+    mesh = dt.device_mesh
+    for mdim, pl in enumerate(dt.placements):
+        if isinstance(pl, Shard):
+            full = full.chunk(mesh.size(mdim), dim=pl.dim)[
+                mesh.get_local_rank(mdim)]
+    return full
+
+
+def _sharded_leg(torch, meshes, lora=False):
     """(c) on this rank: one SGD step of the FedLLM model (flash, f32)
-    sharded at each mesh, against the unsharded step on the card; B2-B4
-    launches per mesh."""
+    sharded at each mesh, against the unsharded step on the card (each
+    rank's local shards against their slices of it); with ``lora`` the
+    step trains a LoRA adapter on every target with the base (the model's
+    factored side path, both factors seeded nonzero); B2-B4 launches per
+    mesh."""
     import dataclasses
 
     from fedml_tpu_torch.arguments import Arguments
@@ -6356,6 +6410,7 @@ def _sharded_leg(torch, meshes):
     from fedml_tpu_torch.core.kernels import flash_attention as fa
     from fedml_tpu_torch.core.mesh import build_mesh
     from fedml_tpu_torch.llm.federated import llm_config_from_args
+    from fedml_tpu_torch.llm.lora import lora_shapes
     from fedml_tpu_torch.llm.model import CausalLM
     from fedml_tpu_torch.llm.sharding import (llm_param_specs,
                                               make_sharded_train_step,
@@ -6368,8 +6423,23 @@ def _sharded_leg(torch, meshes):
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to("cuda")
     params = {k: v.detach() for k, v in model.state_dict().items()}
-    spec = CausalLMTrainer(lambda p, x, rng=None, train=False:
-                           functional_call(model, p, (x,)))
+    adapter = {}
+    if lora:
+        gen = torch.Generator().manual_seed(25)
+        adapter = {k: (torch.randn(shape, generator=gen) * 0.05).cuda()
+                   for k, shape in lora_shapes(
+                       params, SHARDED_LORA_RANK).items()}
+        params = {**params, **adapter}
+
+    def apply(p, x, rng=None, train=False):
+        if not adapter:
+            return functional_call(model, p, (x,))
+        return functional_call(
+            model, {k: v for k, v in p.items() if k not in adapter}, (x,),
+            {"adapters": {k: p[k] for k in adapter},
+             "lora_scale": 16.0 / SHARDED_LORA_RANK})
+
+    spec = CausalLMTrainer(apply)
     gen = torch.Generator().manual_seed(24)
     x = torch.randint(0, cfg.vocab_size, (RING_SHAPE[0], RING_SHAPE[1]),
                       generator=gen).cuda()
@@ -6392,11 +6462,14 @@ def _sharded_leg(torch, meshes):
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         dl = abs(float(loss) - float(loss0.detach()))
-        dp = max(float((new[k].full_tensor().detach() - want[k]).abs().max())
+        dp = max(float((new[k].to_local().detach()
+                        - _local_slice(want[k], new[k])).abs().max())
                  for k in want)
+        da = max((float((new[k].to_local().detach() - want[k]).abs().max())
+                  for k in adapter), default=0.0)
         require(dl <= SHARDED_TOL[0] and dp <= SHARDED_TOL[1],
-                f"sharded step {shape}: loss off by {dl}, params by {dp} "
-                f"(bounds {SHARDED_TOL})")
+                f"sharded step {shape} (LoRA {lora}): loss off by {dl}, "
+                f"params by {dp} (bounds {SHARDED_TOL})")
         launches = {f.__name__: int(f.launches)
                     for f in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)}
         require(all(launches.values()),
@@ -6404,14 +6477,87 @@ def _sharded_leg(torch, meshes):
                 f"{launches}")
         out[json.dumps(shape)] = {
             "loss": float(loss), "loss_err": dl, "param_err": dp,
+            "adapter_err": da, "adapters": len(adapter),
             "step_s": step_s, "launches": launches,
             "local_shapes": {k: list(v.to_local().shape)
                              for k, v in list(new.items())[:4]}}
     return out
 
 
+def _robust_leg(torch, cfg, mesh_shape=None, pours=None):
+    """(d) / (e) on this rank (or, with no ``mesh_shape``, the plain
+    engine in this process): the run's params, wall time, dispatch stats,
+    collectives, B1's launches, verdicts and the defense's input (this
+    rank's feature shard, f32). Buffered-async (``pours``): the bootstrap,
+    then ``pours`` timed pours, and every cohort drawn."""
+    import fedml_tpu_torch.core.security.defense.sharded as sharded
+    from fedml_tpu_torch.core import collectives
+    from fedml_tpu_torch.core.algframe.types import TrainHyper
+    from fedml_tpu_torch.core.kernels import conv_block as cb
+    if mesh_shape is not None:
+        cfg = dict(cfg, mesh_shape=mesh_shape)
+    sim = _tail_runner(cfg, "cuda").runner
+    seen, real = [], sharded.defend_shard_stateful
+
+    def record(mat, *a, **kw):
+        seen.append(mat.detach().float().cpu().numpy())
+        return real(mat, *a, **kw)
+
+    cohorts, draw = [], getattr(sim, "_draw_cohort", None)
+    if pours is not None:
+        def drawn(target):
+            cohorts.append(list(draw(target)))
+            return cohorts[-1]
+        sim._draw_cohort = drawn
+    cb.fused_block.launches = 0
+    collectives.reset_collective_stats()
+    sharded.defend_shard_stateful = record
+    try:
+        t0 = time.perf_counter()
+        if pours is None:
+            sim.run()
+            timed = None
+        else:
+            hyper = TrainHyper(learning_rate=float(cfg["learning_rate"]),
+                               epochs=int(cfg["epochs"]))
+            sim._bootstrap(hyper)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(pours):
+                sim._pour_step(hyper)
+            torch.cuda.synchronize()
+            timed = (time.perf_counter() - t1) / pours
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sharded.defend_shard_stateful = real
+    sim._update_program_stats()
+    return {"params": {k: v.float().cpu().numpy()
+                       for k, v in sim.params.items()},
+            "wall_s": wall, "pour_s": timed, "cohorts": cohorts,
+            "stats": dict(sim.dispatch_stats),
+            "collectives": collectives.collective_stats(),
+            "b1_launches": int(cb.fused_block.launches),
+            "verdicts": {int(v): [list(map(int, ids)),
+                                  [float(x) for x in verdict]]
+                         for v, (ids, verdict) in sim.verdicts.items()},
+            "defense_input": seen}
+
+
+def _robust_rank_legs(torch, w):
+    """(d) and (e) on this rank."""
+    out = {q: _robust_leg(torch, dict(MULTI_RANK_DEFENDED,
+                                      robust_relayout_quant=q),
+                          {"client": w})
+           for q in MULTI_RANK_RELAYOUTS}
+    out["async"] = _robust_leg(torch, MULTI_RANK_ASYNC, {"client": w},
+                               pours=1)
+    return out
+
+
 def multi_rank_gloo():
-    """The two gloo ranks' program: (a) at {"client": 2}, (b)."""
+    """The two gloo ranks' program: (a) at {"client": 2}, (b), (c) at
+    SHARDED_MESH_TP2 with LoRA, (d), (e)."""
     import torch
     import torch.distributed as dist
     from fedml_tpu_torch.core import collectives
@@ -6423,6 +6569,9 @@ def multi_rank_gloo():
     collectives.reset_collective_stats()
     out["ring"] = _ring_leg(torch)
     out["ring"]["collectives"] = collectives.collective_stats()
+    out["sharded_lora"] = _sharded_leg(torch, (SHARDED_MESH_TP2,),
+                                       lora=True)
+    out["robust"] = _robust_rank_legs(torch, dist.get_world_size())
     return out
 
 
@@ -6435,7 +6584,86 @@ def multi_rank_nccl():
     dev = init_ranks()
     return {"backend": dist.get_backend(), "device": str(dev),
             "client_axis": _client_axis_leg(torch, 1),
-            "sharded": _sharded_leg(torch, (SHARDED_MESH_ONE,))}
+            "sharded": _sharded_leg(torch, (SHARDED_MESH_ONE,)),
+            "sharded_lora": _sharded_leg(torch, (SHARDED_MESH_ONE,),
+                                         lora=True)}
+
+
+def _robust_phase_checks(np, ref, ranks):
+    """(d) and (e): the two ranks' runs against the one-rank runs ``ref``
+    (the checks the phase requires), and what each leg reports."""
+    rtol, atol = HOUSE_TOL
+    out = {}
+    for leg, one in ref.items():
+        runs = [r[leg] for r in ranks]
+        p0, p1 = runs[0]["params"], one["params"]
+        require(all(np.array_equal(p0[k], r["params"][k])
+                    for r in runs[1:] for k in p0),
+                f"(d/e) {leg}: the two ranks' params differ")
+        within = max(float(np.max(np.abs(p0[k] - p1[k])
+                                  / (atol + rtol * np.abs(p1[k]))))
+                     for k in p1)
+        rec = {"vs_one_rank_of_tolerance": within,
+               "one_rank_wall_s": one["wall_s"],
+               "ranks_wall_s": [r["wall_s"] for r in runs],
+               "ranks_bitwise_equal": True}
+        if leg == "async":
+            require(within <= 1.0, f"(e) async: {within} of the house "
+                                   f"tolerance from one rank")
+            require(all(r["cohorts"] == one["cohorts"] for r in runs),
+                    f"(e) async: cohorts {runs[0]['cohorts']} != one "
+                    f"rank's {one['cohorts']}")
+            rec.update(cohorts=one["cohorts"],
+                       pour_s=[r["pour_s"] for r in runs],
+                       one_rank_pour_s=one["pour_s"])
+        else:
+            require(all(r["verdicts"] == one["verdicts"] for r in runs),
+                    f"(d) {leg}: verdicts {runs[0]['verdicts']} != one "
+                    f"rank's {one['verdicts']}")
+            # the defense's input: the ranks' feature shards side by side
+            # against the one rank's matrix, round by round
+            d = one["defense_input"][0].shape[1]
+            flips = 0
+            for i, m1 in enumerate(one["defense_input"]):
+                m2 = np.concatenate([r["defense_input"][i] for r in runs],
+                                    axis=1)[:, :d]
+                flips = max(flips, float(np.mean(m2 != m1)))
+            if leg == "int8":
+                require(flips <= RELAYOUT_FLIP_SHARE,
+                        f"(d) int8: {flips} of the defense input's entries "
+                        f"on another level (bound {RELAYOUT_FLIP_SHARE})")
+            else:
+                require(within <= 1.0, f"(d) {leg}: {within} of the house "
+                                       f"tolerance from one rank")
+            st = [r["stats"] for r in runs]
+            for r, s_ in zip(runs, st):
+                g = MULTI_RANKS
+                require(s_["all_to_all_wire_bytes"] * g ==
+                        s_["all_to_all_bytes"] * (g - 1)
+                        and s_["all_to_all_calls"] >= 1,
+                        f"(d) {leg}: all-to-all counted {s_}")
+            rec.update(
+                defense_input_other_share=flips,
+                all_to_all_calls=[s_["all_to_all_calls"] for s_ in st],
+                all_to_all_bytes=[s_["all_to_all_bytes"] for s_ in st],
+                all_to_all_wire_bytes=[s_["all_to_all_wire_bytes"]
+                                       for s_ in st],
+                all_to_all_ms=[s_["all_to_all_s"] * 1e3 for s_ in st],
+                all_gather_wire_bytes=[s_["all_gather_wire_bytes"]
+                                       for s_ in st],
+                staged_bytes=[r["collectives"]["staged_bytes"]
+                              for r in runs],
+                verdicts=one["verdicts"])
+        for name, r in [("one_rank", one)] + [(f"rank{i}", r)
+                                              for i, r in enumerate(runs)]:
+            st = r["stats"]
+            forwards = st["warmup_steps"] + st["replays"]
+            require(r["b1_launches"] == 27 * forwards,
+                    f"(d/e) {leg} {name}: B1 {r['b1_launches']} != 27 x "
+                    f"{forwards}")
+            rec[f"b1_launches_{name}"] = r["b1_launches"]
+        out[leg] = rec
+    return out
 
 
 def multi_rank_phase(torch, cb, fa, card):
@@ -6455,6 +6683,11 @@ def multi_rank_phase(torch, cb, fa, card):
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t1
         plain_b1 = launches(cb, fa)["conv_block"]
+        # (d), (e) on one rank: what the two ranks are held against
+        ref = {q: _robust_leg(torch, dict(MULTI_RANK_DEFENDED,
+                                          robust_relayout_quant=q))
+               for q in MULTI_RANK_RELAYOUTS}
+        ref["async"] = _robust_leg(torch, MULTI_RANK_ASYNC, pours=1)
     finally:
         torch.backends.cudnn.deterministic = det
     p0 = {k: v.float().cpu().numpy() for k, v in plain["params"].items()}
@@ -6491,7 +6724,11 @@ def multi_rank_phase(torch, cb, fa, card):
                 f"{name}: B1 {leg['b1_launches']} != 27 x {forwards}")
         leg["b1_forwards"] = forwards
     sharded = [one["sharded"]]
+    robust = _robust_phase_checks(np, ref, [r["robust"] for r in two])
     return {"phase_s": time.perf_counter() - t0, "card": card,
+            "robust": robust,
+            "sharded_lora": {"nccl_1": one["sharded_lora"],
+                             "gloo_2": [r["sharded_lora"] for r in two]},
             "client_axis": {"legs": legs, "vs_one_rank_of_tolerance": within,
                             "one_rank_bitwise_plain": True,
                             "ranks_bitwise_equal": True},
@@ -6523,6 +6760,10 @@ TAIL_MODELS = {
 }
 TAIL_EXTRA = ("generator", "discriminator", "segnet", "gkt_edge",
               "gkt_head", "nas_supernet")
+# the 1-channel stems whose cuDNN filter gradient was off on the card
+# (scripts/tail_probe.py wgrad: SimpleCNN's 5x5 at batch 8, 0.340 of a
+# largest entry 291.7), now GEMMs, held card vs CPU at the batch measured
+TAIL_STEMS = {"simple_cnn": ("simple_cnn", (28, 28, 1), 10, 8)}
 # a gradient entry of a deep conv net sums over every pixel and sample:
 # its rounding follows the largest entry of that gradient, so the
 # absolute part of the house tolerance is scaled by it (when above 1),
@@ -6609,8 +6850,8 @@ def _tail_model(torch, name):
     from fedml_tpu_torch.simulation.sp.fedgkt import _EdgeNet, _ServerHead
     from fedml_tpu_torch.simulation.sp.fednas import _SuperNet
     from fedml_tpu_torch.simulation.sp.fedseg import SegNet
-    if name in TAIL_MODELS:
-        hub, shape, classes, bs = TAIL_MODELS[name]
+    if name in TAIL_MODELS or name in TAIL_STEMS:
+        hub, shape, classes, bs = {**TAIL_MODELS, **TAIL_STEMS}[name]
         b = model_hub.create(Arguments(model=hub), classes, shape)
         key = (np.asarray(prng.PRNGKey(5)) if b.has_dropout else None)
         return b.module, (bs,) + shape, key
@@ -6639,7 +6880,8 @@ def _tail_models(torch, dev, cpu):
     from fedml_tpu_torch import prng
     from fedml_tpu_torch.model.model_hub import ModelBundle
     out = {}
-    for i, name in enumerate(list(TAIL_MODELS) + list(TAIL_EXTRA)):
+    for i, name in enumerate(list(TAIL_MODELS) + list(TAIL_EXTRA)
+                             + list(TAIL_STEMS)):
         module, shape, key = _tail_model(torch, name)
         module.reset_parameters(torch.Generator().manual_seed(i))
         gen = torch.Generator().manual_seed(100 + i)
@@ -7669,6 +7911,28 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
                   f"{leg['loss']:.6f} (off {leg['loss_err']:.1e}), params off"
                   f" {leg['param_err']:.1e}, {leg['step_s']:.2f} s, "
                   f"launches {leg['launches']}", flush=True)
+    for where, sh in [("NCCL rank 0", mr["sharded_lora"]["nccl_1"])] + [
+            (f"gloo rank {r}", x)
+            for r, x in enumerate(mr["sharded_lora"]["gloo_2"])]:
+        for shape, leg in sh.items():
+            print(f"multi-rank sharded step + LoRA ({where}) {shape}: "
+                  f"{leg['adapters']} factors, loss off {leg['loss_err']:.1e}"
+                  f", params off {leg['param_err']:.1e} (factors "
+                  f"{leg['adapter_err']:.1e}), launches {leg['launches']}",
+                  flush=True)
+    for leg, r in mr["robust"].items():
+        extra = ("" if leg == "async" else
+                 f"; all-to-all {r['all_to_all_calls']} call(s), "
+                 f"{r['all_to_all_bytes']} bytes, wire "
+                 f"{r['all_to_all_wire_bytes']}, "
+                 f"{['%.2f' % m for m in r['all_to_all_ms']]} ms, staged "
+                 f"{r['staged_bytes']}; defense input "
+                 f"{r['defense_input_other_share']:.2e} elsewhere")
+        print(f"multi-rank robust {leg} ({card}): ranks "
+              f"{['%.2f' % w for w in r['ranks_wall_s']]} s, one rank "
+              f"{r['one_rank_wall_s']:.2f} s, "
+              f"{r['vs_one_rank_of_tolerance']:.4f} of the house tolerance "
+              f"from 1 rank{extra}", flush=True)
     print(json.dumps({"multi_rank": mr}), flush=True)
 
     tail = tail_phase(torch, cb, fa, card)
@@ -7760,6 +8024,11 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         "launches_multi_rank_plain": mr["b1_launches_plain"],
         "launches_multi_rank_nccl_1": mr["b1_launches_nccl_1"],
         "launches_multi_rank_ranks": mr["b1_launches_ranks"],
+        # phase 22 (d), (e): the defended and buffered-async runs over
+        # the two gloo ranks and on one rank
+        "launches_multi_rank_robust": {
+            leg: {k: v for k, v in r.items() if k.startswith("b1_")}
+            for leg, r in mr["robust"].items()},
         # phase 23 (d): turbo_aggregate and the centralized trainer at the
         # flagship's widths
         "launches_turbo_aggregate": tb["b1_launches"],
@@ -7804,6 +8073,12 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
             "launches_sharded_step_ranks": {
                 shape: [sh[shape]["launches"][name] for sh in mr["sharded"]]
                 for shape in mr["sharded"][0]},
+            "launches_sharded_lora_step_ranks": {
+                shape: [sh[shape]["launches"][name] for sh in
+                        [mr["sharded_lora"]["nccl_1"]]
+                        + mr["sharded_lora"]["gloo_2"] if shape in sh]
+                for shape in (json.dumps(SHARDED_MESH_ONE),
+                              json.dumps(SHARDED_MESH_TP2))},
             "max_abs_err": attn_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

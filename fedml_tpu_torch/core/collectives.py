@@ -11,12 +11,18 @@ step or a client's bookkeeping.
 The collectives over the ranks of a process group: :func:`psum_packed`
 (the JAX package's ``psum_tree`` over the ``client`` axis: one
 ``all_reduce(SUM)`` of every leaf packed into one flat float32 buffer,
-never one call per leaf) and :func:`ring_shift` (``ppermute`` one step
-round a ring: every tensor packed into one byte buffer, one send and one
-receive). gloo's point-to-point sends read host memory only, so on a
-gloo group :func:`ring_shift` copies a CUDA buffer through host memory
-explicitly (gloo's all-reduce takes device memory itself); NCCL and the
-CPU copy nothing. :data:`STATS` counts the calls, the bytes and the bytes
+never one call per leaf), :func:`all_to_all_tiled` and
+:func:`all_gather_tiled` (``jax.lax.all_to_all`` / ``all_gather`` with
+``tiled=True``: the robust round's relayout of the update rows into
+feature shards, and the gather of weights, scales and the defended
+vector) and :func:`ring_shift` (``ppermute`` one step round a ring: every
+tensor packed into one byte buffer, one send and one receive). gloo's
+point-to-point sends read host memory only, so on a gloo group
+:func:`ring_shift` copies a CUDA buffer through host memory explicitly;
+gloo's all-reduce, all-to-all and all-gather take device memory
+themselves (``scripts/gloo_cuda_probe.py``); NCCL and the CPU copy
+nothing.
+:data:`STATS` counts the calls, the payload and wire bytes and the bytes
 staged through the host.
 
 :class:`FlatLayout` is the JAX package's flat vector of a parameter tree
@@ -27,6 +33,7 @@ what privacy noise, attacks and defenses see. The port's own
 
 from __future__ import annotations
 
+import time
 from functools import lru_cache
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -290,18 +297,43 @@ def stack_to_matrix(stacked: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 # -- collectives over the ranks of a process group ---------------------------
 
-#: calls, bytes moved and bytes staged through host memory (copied down and
-#: back up) by :func:`psum_packed` and :func:`ring_shift` in this process
-STATS: Dict[str, int] = {"all_reduce_calls": 0, "all_reduce_bytes": 0,
-                         "p2p_calls": 0, "p2p_bytes": 0, "staged_bytes": 0}
+#: calls, payload bytes, wire bytes by the ring rule and seconds of the
+#: collectives in this process, and the bytes staged through host memory
+#: (copied down and back up). A call's payload is its operand's bytes (an
+#: all-gather's: its result's); its wire bytes per rank are ``2 (g - 1) /
+#: g`` of the payload for an all-reduce and ``(g - 1) / g`` for an
+#: all-to-all and an all-gather over ``g`` ranks (the JAX package's
+#: ``core/obs/roofline.py::_collective_wire_bytes``); a ring step sends its
+#: payload whole.
+STATS: Dict[str, float] = {
+    "all_reduce_calls": 0, "all_reduce_bytes": 0,
+    "all_reduce_wire_bytes": 0,
+    "all_to_all_calls": 0, "all_to_all_bytes": 0,
+    "all_to_all_wire_bytes": 0, "all_to_all_s": 0.0,
+    "all_gather_calls": 0, "all_gather_bytes": 0,
+    "all_gather_wire_bytes": 0,
+    "p2p_calls": 0, "p2p_bytes": 0, "staged_bytes": 0}
 
 def reset_collective_stats() -> None:
     for k in STATS:
-        STATS[k] = 0
+        STATS[k] = 0.0 if k.endswith("_s") else 0
 
 
-def collective_stats() -> Dict[str, int]:
+def collective_stats() -> Dict[str, float]:
     return dict(STATS)
+
+
+def _count(op: str, payload: int, g: int) -> None:
+    """One call of ``op`` moving ``payload`` bytes over ``g`` ranks."""
+    STATS[op + "_calls"] += 1
+    STATS[op + "_bytes"] += payload
+    STATS[op + "_wire_bytes"] += (2 if op == "all_reduce" else 1) * \
+        payload * (g - 1) // g
+
+
+def group_size(group) -> int:
+    import torch.distributed as dist
+    return dist.get_world_size(group)
 
 
 def psum_packed(tensors: Sequence[torch.Tensor], group
@@ -315,13 +347,45 @@ def psum_packed(tensors: Sequence[torch.Tensor], group
         return []
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    STATS["all_reduce_calls"] += 1
-    STATS["all_reduce_bytes"] += flat.numel() * 4
+    _count("all_reduce", flat.numel() * 4, group_size(group))
     out, o = [], 0
     for t in tensors:
         n = t.numel()
         out.append(flat[o:o + n].view(t.shape).to(t.dtype))
         o += n
+    return out
+
+
+def all_to_all_tiled(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis=1, concat_axis=0,
+    tiled=True)`` over ``group``: this rank's ``[S, D]`` rows (``D`` a
+    multiple of the group size ``g``) -> the ``[g S, D / g]`` grid of every
+    rank's rows, column block of this rank's index, rows source-rank-major.
+    One ``all_to_all_single``; counted in :data:`STATS`."""
+    import torch.distributed as dist
+    g = group_size(group)
+    s, d = (int(n) for n in x.shape)
+    if d % g:
+        raise ValueError(f"all_to_all_tiled: {d} columns over {g} ranks")
+    inp = x.reshape(s, g, d // g).transpose(0, 1).contiguous()
+    out = torch.empty_like(inp)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out, inp, group=group)
+    STATS["all_to_all_s"] += time.perf_counter() - t0
+    _count("all_to_all", inp.numel() * inp.element_size(), g)
+    return out.reshape(g * s, d // g)
+
+
+def all_gather_tiled(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.all_gather(x, axis, tiled=True)`` over ``group``: every
+    rank's ``x`` concatenated along dim 0 in rank order. One
+    ``all_gather_into_tensor``; counted in :data:`STATS`."""
+    import torch.distributed as dist
+    g = group_size(group)
+    x = x.contiguous()
+    out = x.new_empty((g * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    _count("all_gather", out.numel() * out.element_size(), g)
     return out
 
 

@@ -153,16 +153,21 @@ def trimmed_mean(updates: Arr, weights: Arr, trim_fraction: float = 0.1
 
 
 def weiszfeld(updates: Arr, w: Arr, v: Arr, iters: int, tol: float,
-              eps: float = 1e-8, moved_of=None) -> Tuple[Arr, Arr]:
+              eps: float = 1e-8, moved_of=None,
+              sq_reduce=None) -> Tuple[Arr, Arr]:
     """``iters`` smoothed Weiszfeld steps from ``v`` with normalized
     weights ``w``; with ``tol > 0`` the estimate freezes once a step moves
     it by at most ``tol`` (``moved_of(new, old)``, euclidean by default).
-    Returns the estimate and the steps taken."""
+    ``sq_reduce`` sums the rows' squared distances over feature shards
+    (the sharded kernel's psum). Returns the estimate and the steps
+    taken."""
     moved_of = moved_of or (lambda a, b: torch.linalg.vector_norm(a - b))
+    sq_reduce = sq_reduce or (lambda t: t)
     ran = torch.zeros((), dtype=torch.int32, device=updates.device)
     live = torch.ones((), dtype=torch.bool, device=updates.device)
     for _ in range(iters):
-        dist = torch.sqrt(torch.sum((updates - v[None]) ** 2, dim=1) + eps)
+        dist = torch.sqrt(sq_reduce(torch.sum((updates - v[None]) ** 2,
+                                              dim=1)) + eps)
         beta = w / torch.clamp(dist, min=eps)
         beta = beta / torch.clamp(torch.sum(beta), min=1e-12)
         new = wsum(beta, updates)
@@ -273,16 +278,19 @@ def crfl_clip_and_perturb(global_vec: Arr, rng: np.ndarray,
 # ---------------------------------------------------------------------------
 
 def foolsgold_weights(history: Arr, eps: float = 1e-5,
-                      norms_of=None) -> Arr:
+                      norms_of=None, gram_reduce=None) -> Arr:
     """FoolsGold (Fung et al.; reference ``defense/foolsgold_defense.py``):
     down-weight clients whose *historical* aggregate updates are mutually
-    similar (sybils collude). ``history`` is [K, D] accumulated updates;
-    returns per-client learning weights in [0, 1]."""
+    similar (sybils collude). ``history`` is [K, D] accumulated updates
+    (or a feature shard of them: ``norms_of`` and ``gram_reduce`` then sum
+    over the shards); returns per-client learning weights in [0, 1]."""
     norms = (torch.linalg.vector_norm(history, dim=1, keepdim=True)
              if norms_of is None else norms_of(history)[:, None])
     normed = history / torch.clamp(norms, min=eps)
-    cs = f32_matmul(normed, normed.t()) - torch.eye(history.shape[0],
-                                                    device=history.device)
+    gram = f32_matmul(normed, normed.t())
+    if gram_reduce is not None:
+        gram = gram_reduce(gram)
+    cs = gram - torch.eye(history.shape[0], device=history.device)
     maxcs = torch.max(cs, dim=1).values
     # pardoning: rescale similarity of honest clients
     pard = torch.where(maxcs[None, :] > maxcs[:, None],

@@ -1,22 +1,25 @@
-"""The defense kernels of the fused robust round, on one card (counterpart
-of ``fedml_tpu/core/security/defense/sharded.py``).
+"""The feature-sharded defense kernels of the robust round (counterpart of
+``fedml_tpu/core/security/defense/sharded.py``).
 
 The JAX package runs every defense SPMD over a feature-sharded ``[K, D/n]``
 matrix: per-coordinate statistics stay on their shard, ``[K, K]`` Gram
 products and ``[K]`` row norms are ``psum`` s of per-shard partials, and
 cross-round state (FoolsGold's history, cclip's momentum, SLSGD's previous
 global, cross-round's previous updates) is a device-resident pytree the
-fused multi-round program threads through. On one card there is one
-feature shard: every ``psum`` is the identity, the shard index is 0 and
-``D`` needs no padding. So each kernel here is its JAX body with those
-three facts applied, on the whole ``[K, D]`` matrix on the device, and the
-state is a dict of device tensors updated in place. Where the body differs
-from the host kernel (:mod:`.robust_agg`), this keeps the body's form:
-krum slices ``[1:closest+1]`` of the sorted distances instead of adding
-``1e30`` on the diagonal, row norms are ``sqrt`` of summed squares, RFA
-starts from the plain weighted sum, and the stochastic kernels and attacks
-fold the shard index 0 into their key (``fold_in(key, 0)``), as JAX does on
-a one-device mesh.
+fused multi-round program threads through. Here each kernel takes a
+:class:`ShardAxis`: this rank's shard index, the shard count and the
+process group its partials are summed over (``core/collectives.py``).
+Over W client ranks each rank holds the ``[K, D_pad / W]`` column block of
+its index and its block of the state; on one card (:data:`ONE`) there is
+one shard: every ``psum`` is the identity, the index is 0 and ``D`` needs
+no padding. One implementation serves both. The state is a dict of device
+tensors updated in place. Where the body differs from the host kernel
+(:mod:`.robust_agg`), this keeps the body's form: krum slices
+``[1:closest+1]`` of the sorted distances instead of adding ``1e30`` on the
+diagonal, row norms are ``sqrt`` of summed squares, RFA starts from the
+plain weighted sum, and the stochastic kernels and attacks fold the shard
+index into their key (``fold_in(key, index)``), so W ranks draw what W JAX
+devices draw.
 
 ``row_mask`` (a ``[K]`` validity mask, 1 = a real row) is the buffered-
 async engine's partial pour: its ``[K]`` buffer shape is fixed, so a pour
@@ -42,12 +45,13 @@ path) runs the unmasked code unchanged:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .... import prng
+from ...collectives import all_gather_tiled, psum_packed
 from ..attack import apply_model_attack
 from . import robust_agg as ra
 
@@ -74,6 +78,10 @@ _SHARDED = (
 
 # defenses that carry cross-round device state
 _STATEFUL = ("foolsgold", "cclip", "slsgd", "cross_round")
+
+#: the state leaves laid out over the feature shards, on their last dim
+#: (the JAX package's ``defense_state_spec``); the others are replicated
+FEATURE_LEAVES = ("history", "momentum", "prev")
 
 
 def _canon(defense_type: str) -> str:
@@ -133,6 +141,30 @@ class DefenseHP:
         )
 
 
+@dataclass(frozen=True)
+class ShardAxis:
+    """The feature axis a kernel runs over: this rank's shard ``index`` of
+    ``size`` and the process ``group`` whose ranks hold the other shards
+    (None: one shard, every sum the identity)."""
+
+    group: Any = None
+    index: int = 0
+    size: int = 1
+
+    def psum(self, t: Arr) -> Arr:
+        """``jax.lax.psum`` of a per-shard partial."""
+        return t if self.group is None else psum_packed([t],
+                                                        self.group)[0]
+
+    def all_gather(self, t: Arr) -> Arr:
+        """``jax.lax.all_gather(t, axis, tiled=True)``."""
+        return t if self.group is None else all_gather_tiled(t, self.group)
+
+
+#: one card: one feature shard
+ONE = ShardAxis()
+
+
 # ---------------------------------------------------------------------------
 # cross-round defense state
 # ---------------------------------------------------------------------------
@@ -141,7 +173,9 @@ def defense_state_init(defense_type: str, n_total: int, d: int,
                        device) -> Dict[str, Arr]:
     """Zero cross-round state for a stateful defense on ``device``
     (``n_total``: the client population, per-client state is keyed by
-    client id). Empty for stateless defenses. Zeros reproduce the host
+    client id; ``d``: the feature shard's width, the ``[*, D]`` leaves are
+    feature-sharded as the JAX package's ``defense_state_spec`` lays them
+    out). Empty for stateless defenses. Zeros reproduce the host
     kernels' cold start: FoolsGold/cross_round accumulate from nothing,
     cclip's momentum starts at the origin, SLSGD's ``has`` flag skips the
     prev-global mix."""
@@ -163,28 +197,31 @@ def defense_state_init(defense_type: str, n_total: int, d: int,
 # ---------------------------------------------------------------------------
 
 def apply_attack(attack_type: str, mat: Arr, byz_mask: Arr,
-                 key: np.ndarray, scale: float) -> Arr:
-    """Model poisoning on the update matrix, the shard index 0 folded
-    into the key (the JAX body's ``fold_in(key, axis_index)``)."""
+                 key: np.ndarray, scale: float, ax: ShardAxis = ONE) -> Arr:
+    """Model poisoning on a feature shard of the update matrix, the shard
+    index folded into the key (the JAX body's ``fold_in(key,
+    axis_index)``)."""
     return apply_model_attack(attack_type, mat, byz_mask,
-                              prng.fold_in(key, 0), scale)
+                              prng.fold_in(key, ax.index), scale)
 
 
 # ---------------------------------------------------------------------------
 # kernel bodies (one shard)
 # ---------------------------------------------------------------------------
 
-def _sq_norms(mat: Arr) -> Arr:
-    """The psum'd per-row sums of squares, as ``sqrt``-able [K]."""
-    return torch.sum(mat * mat, dim=1)
+def _row_norms(mat: Arr, ax: ShardAxis) -> Arr:
+    """``[K]`` euclidean row norms from the psum'd per-shard squares."""
+    return torch.sqrt(ax.psum(torch.sum(mat * mat, dim=1)))
 
 
-def _row_norms(mat: Arr) -> Arr:
-    return torch.sqrt(_sq_norms(mat))
+def _dists(mat: Arr, ax: ShardAxis) -> Arr:
+    """The ``[K, K]`` squared-distance Gram from per-shard partials."""
+    return ax.psum(ra.pairwise_sq_dists(mat))
 
 
-def _dist_to_median(mat: Arr) -> Arr:
-    return torch.sqrt(torch.sum((mat - ra.median0(mat)[None]) ** 2, dim=1))
+def _dist_to(mat: Arr, med: Arr, ax: ShardAxis) -> Arr:
+    """``[K]`` distances of the rows to the per-coordinate ``med``."""
+    return torch.sqrt(ax.psum(torch.sum((mat - med[None]) ** 2, dim=1)))
 
 
 def _masked_median(x: Arr, mask: Arr) -> Arr:
@@ -239,41 +276,44 @@ def _krum_selection(dists: Arr, weights: Arr, byzantine_count: int,
     return sel * weights, sel
 
 
-def _bulyan(mat, hp: DefenseHP, mask=None):
+def _bulyan(mat, hp: DefenseHP, ax: ShardAxis, mask=None):
     """Under a partial-pour ``mask`` padded rows are never preferred; a
     theta above the valid count pulls the trimmed mean toward the zero
     padding (a smaller step), as in JAX."""
     f = hp.byzantine_count
     theta = max(mat.shape[0] - 2 * f, 1)
-    scores = ra.krum_scores_from_dists(
-        _mask_dists(ra.pairwise_sq_dists(mat), mask), f)
+    scores = ra.krum_scores_from_dists(_mask_dists(_dists(mat, ax), mask),
+                                       f)
     sel = ra.smallest(scores, theta)
     return ra.bulyan_trim(mat[sel], f), ra.mask_of(sel, mat.shape[0], mat)
 
 
-def _rfa(mat, weights, hp: DefenseHP):
+def _rfa(mat, weights, hp: DefenseHP, ax: ShardAxis):
+    """Weiszfeld's [D]-sized estimate stays on the shard: each iteration
+    sums the rows' squared-distance partials (and, with ``rfa_tol``, the
+    movement's) over the shards."""
     w = weights / torch.clamp(torch.sum(weights), min=1e-12)
     v, _ = ra.weiszfeld(
         mat, w, ra.wsum(w, mat), hp.rfa_iters, hp.rfa_tol,
-        moved_of=lambda a, b: torch.sqrt(torch.sum((a - b) ** 2)))
+        moved_of=lambda a, b: torch.sqrt(ax.psum(torch.sum((a - b) ** 2))),
+        sq_reduce=ax.psum)
     return v
 
 
-def _three_sigma(mat, weights, mask=None):
+def _three_sigma(mat, weights, ax: ShardAxis, mask=None):
     if mask is None:
-        scores = _dist_to_median(mat)
+        scores = _dist_to(mat, ra.median0(mat), ax)
         mu, sd = ra.robust_band(scores)
         keep = (scores <= mu + 3.0 * sd).to(weights.dtype)
     else:
-        scores = torch.sqrt(torch.sum(
-            (mat - _masked_median(mat, mask)[None]) ** 2, dim=1))
+        scores = _dist_to(mat, _masked_median(mat, mask), ax)
         mu, sd = _masked_band(scores, mask)
         keep = ((scores <= mu + 3.0 * sd) & (mask > 0)).to(weights.dtype)
     return ra.weighted_mean(mat, weights * keep), keep
 
 
-def _outlier(mat, weights, hp: DefenseHP, mask=None):
-    norms = _row_norms(mat)
+def _outlier(mat, weights, hp: DefenseHP, ax: ShardAxis, mask=None):
+    norms = _row_norms(mat, ax)
     if mask is None:
         mu, sd = ra.robust_band(norms)
         keep = (torch.abs(norms - mu) <= hp.z_threshold * sd).to(mat.dtype)
@@ -284,12 +324,12 @@ def _outlier(mat, weights, hp: DefenseHP, mask=None):
     return ra.weighted_mean(mat, weights * keep), keep
 
 
-def _residual(mat, weights, hp: DefenseHP, mask=None):
+def _residual(mat, weights, hp: DefenseHP, ax: ShardAxis, mask=None):
     if mask is None:
-        conf = ra.residual_confidence(_dist_to_median(mat), hp.resid_lam)
+        conf = ra.residual_confidence(_dist_to(mat, ra.median0(mat), ax),
+                                      hp.resid_lam)
     else:
-        resid = torch.sqrt(torch.sum(
-            (mat - _masked_median(mat, mask)[None]) ** 2, dim=1))
+        resid = _dist_to(mat, _masked_median(mat, mask), ax)
         mad = _masked_median(torch.abs(resid - _masked_median(resid, mask)),
                              mask) + 1e-12
         conf = torch.clamp(hp.resid_lam * mad / torch.clamp(resid, min=1e-12),
@@ -297,20 +337,26 @@ def _residual(mat, weights, hp: DefenseHP, mask=None):
     return ra.weighted_mean(mat, weights * conf), conf
 
 
-def _wbc_keep_masked(mat, valid, iters: int) -> Arr:
-    """WBC's 2-means with padded rows out of the seeding (their pairs
-    score -1), the centroid means and the majority vote (the JAX body's
-    masked form)."""
+def _wbc_keep(mat, iters: int, ax: ShardAxis, valid=None) -> Arr:
+    """WBC's 2-means over the rows with feature-sharded ``[2, D/n]``
+    centroids: assignments from psum'd squared distances, the centroid
+    update a local mean. Under a partial-pour mask (``valid``) padded rows
+    stay out of the seeding (their pairs score -1), the centroid means
+    and the majority vote (the JAX body's masked form)."""
+    sq_dist_to = lambda c: ax.psum(  # noqa: E731
+        torch.sum((mat - c) ** 2, dim=1))
+    if valid is None:
+        return ra.two_means_keep(mat, _dists(mat, ax), iters,
+                                 sq_dist_to=sq_dist_to)
     k = mat.shape[0]
     dists = torch.where(valid[:, None] * valid[None, :] > 0,
-                        ra.pairwise_sq_dists(mat), -1.0)
+                        _dists(mat, ax), -1.0)
     flat_idx = torch.argmax(dists)   # first maximum, as jnp.argmax
     c = mat.index_select(0, torch.stack([flat_idx // k, flat_idx % k]))
 
     def assign_to(c):
-        return torch.argmin(torch.stack([
-            torch.sum((mat - c[0]) ** 2, dim=1),
-            torch.sum((mat - c[1]) ** 2, dim=1)]), dim=0)
+        return torch.argmin(torch.stack([sq_dist_to(c[0]),
+                                         sq_dist_to(c[1])]), dim=0)
 
     for _ in range(iters):
         one = ((assign_to(c) == 1).to(mat.dtype) * valid)[:, None]
@@ -325,20 +371,36 @@ def _wbc_keep_masked(mat, valid, iters: int) -> Arr:
     return (assign == majority).to(mat.dtype) * valid
 
 
-def _noisy(vec: Arr, hp: DefenseHP, key: np.ndarray) -> Arr:
-    return vec + hp.stddev * prng.normal_t(prng.fold_in(key, 0),
+def _noisy(vec: Arr, hp: DefenseHP, key: np.ndarray, ax: ShardAxis) -> Arr:
+    """Gaussian noise drawn per shard, the shard index folded into the
+    key."""
+    return vec + hp.stddev * prng.normal_t(prng.fold_in(key, ax.index),
                                            tuple(vec.shape), vec.device)
 
 
-def _crfl(mat, weights, hp: DefenseHP, key):
+def _crfl(mat, weights, hp: DefenseHP, key, ax: ShardAxis):
     agg = ra.weighted_mean(mat, weights)
-    norm = torch.sqrt(torch.sum(agg * agg))
+    norm = torch.sqrt(ax.psum(torch.sum(agg * agg)))
     clipped = agg * torch.clamp(
         hp.norm_bound / torch.clamp(norm, min=1e-12), max=1.0)
-    return _noisy(clipped, hp, key)
+    return _noisy(clipped, hp, key, ax)
 
 
-def _foolsgold(mat, weights, state, ids, mask=None):
+def _soteria(mat, weights, hp: DefenseHP, ax: ShardAxis, true_d: int):
+    """The per-row magnitude quantile needs the whole row: over shards one
+    row is gathered at a time (peak memory ``O(D)``, never ``O(K D)``), its
+    padding cut (``true_d``), then each shard prunes locally."""
+    mag = torch.abs(mat)
+    if ax.group is None:
+        cuts = ra.quantile_linear(mag[:, :true_d], hp.soteria_frac, dim=1)
+    else:
+        cuts = torch.cat([ra.quantile_linear(
+            torch.abs(ax.all_gather(mat[i]))[None, :true_d],
+            hp.soteria_frac, dim=1) for i in range(mat.shape[0])])
+    return ra.weighted_mean(torch.where(mag >= cuts, mat, 0.0), weights)
+
+
+def _foolsgold(mat, weights, state, ids, ax: ShardAxis, mask=None):
     """Add this round's (post-attack) rows into the clients' history
     FIRST — the host kernel scores similarities on the updated history —
     then down-weight mutually-similar clients. Masked rows add nothing
@@ -346,14 +408,16 @@ def _foolsgold(mat, weights, state, ids, mask=None):
     add = mat if mask is None else mask[:, None] * mat
     hist_rows = state["history"].index_select(0, ids) + add
     state["history"].index_copy_(0, ids, hist_rows)
-    wv = ra.foolsgold_weights(hist_rows, norms_of=_row_norms)
+    wv = ra.foolsgold_weights(hist_rows,
+                              norms_of=lambda h: _row_norms(h, ax),
+                              gram_reduce=ax.psum)
     return ra.weighted_mean(mat, weights * wv), wv
 
 
-def _cclip(mat, weights, hp: DefenseHP, state):
+def _cclip(mat, weights, hp: DefenseHP, state, ax: ShardAxis):
     w = weights / torch.clamp(torch.sum(weights), min=1e-12)
     v = ra.cclip_steps(mat, w, state["momentum"], hp.tau, hp.cclip_iters,
-                       norms_of=_row_norms)
+                       norms_of=lambda m: _row_norms(m, ax))
     state["momentum"] = v
     return v
 
@@ -377,13 +441,14 @@ def _slsgd(mat, hp: DefenseHP, state, mask=None):
     return mixed
 
 
-def _cross_round(mat, weights, hp: DefenseHP, state, ids, mask=None):
+def _cross_round(mat, weights, hp: DefenseHP, state, ids, ax: ShardAxis,
+                 mask=None):
     """Masked rows neither write their (zero) row into the state nor mark
     history as present (their ids are disjoint from the valid rows')."""
     prev = state["prev"].index_select(0, ids)
     has = state["has"].index_select(0, ids)
-    cos = torch.sum(mat * prev, dim=1) / (_row_norms(mat) * _row_norms(prev)
-                                          + 1e-12)
+    cos = ax.psum(torch.sum(mat * prev, dim=1)) / (
+        _row_norms(mat, ax) * _row_norms(prev, ax) + 1e-12)
     keep = torch.where(has > 0, (cos >= hp.cr_threshold).to(mat.dtype), 1.0)
     if mask is None:
         state["prev"].index_copy_(0, ids, mat)
@@ -409,14 +474,19 @@ def defend_shard_stateful(
     ids: Optional[Arr] = None,
     key: Optional[np.ndarray] = None,
     row_mask: Optional[Arr] = None,
+    ax: ShardAxis = ONE,
+    true_d: Optional[int] = None,
 ) -> Tuple[Arr, Dict[str, Arr], Arr]:
-    """``[K, D]`` matrix + ``[K]`` weights (+ the cross-round ``state``,
-    updated in place, the sampled client ``ids`` and the noise ``key``)
-    -> (defended aggregate ``[D]``, state, ``[K]`` verdict). The ONE
-    implementation of the fused robust round, the defended async pour and
-    :func:`defend_matrix_sharded`. ``row_mask`` (``[K]``, 1 = a real row)
-    marks a partial pour's padding (see the module notes); None runs the
-    unmasked kernels.
+    """``[K, D/n]`` feature shard + ``[K]`` weights (+ the cross-round
+    ``state``'s shard, updated in place, the sampled client ``ids`` and the
+    noise ``key``) -> (defended aggregate shard ``[D/n]``, state, ``[K]``
+    verdict, replicated over the shards). The ONE implementation of the
+    fused robust round, the defended async pour and
+    :func:`defend_matrix_sharded`, on one card (``ax`` :data:`ONE`, the
+    whole ``[K, D]``) and over client ranks. ``true_d`` is the unpadded
+    feature width (soteria's quantile; default: the shard's own).
+    ``row_mask`` (``[K]``, 1 = a real row) marks a partial pour's padding
+    (see the module notes); None runs the unmasked kernels.
 
     The **verdict** is each client's effective inclusion in [0, 1]: the
     krum/bulyan selection mask, three_sigma/outlier/wbc/cross_round keep
@@ -442,51 +512,52 @@ def defend_shard_stateful(
                         + 1e-6)
         return _masked_sorted_window_mean(mat, mask, b), state, ones
     if d == "three_sigma":
-        vec, keep = _three_sigma(mat, weights, mask)
+        vec, keep = _three_sigma(mat, weights, ax, mask)
         return vec, state, keep
     if d == "bulyan":
-        vec, sel = _bulyan(mat, hp, mask)
+        vec, sel = _bulyan(mat, hp, ax, mask)
         return vec, state, sel
     if d == "rfa":
-        return _rfa(mat, weights, hp), state, ones
+        return _rfa(mat, weights, hp, ax), state, ones
     if d == "norm_clip":
-        scale = torch.clamp(hp.norm_bound / torch.clamp(_row_norms(mat),
-                                                        min=1e-12), max=1.0)
+        scale = torch.clamp(hp.norm_bound / torch.clamp(
+            _row_norms(mat, ax), min=1e-12), max=1.0)
         return ra.weighted_mean(mat * scale[:, None], weights), state, ones
     if d == "outlier_detection":
-        vec, keep = _outlier(mat, weights, hp, mask)
+        vec, keep = _outlier(mat, weights, hp, ax, mask)
         return vec, state, keep
     if d == "residual_reweight":
-        vec, conf = _residual(mat, weights, hp, mask)
+        vec, conf = _residual(mat, weights, hp, ax, mask)
         return vec, state, conf
     if d == "rlr":
         return (ra.robust_learning_rate(mat, weights, hp.rlr_threshold)[0],
                 state, ones)
     if d == "wbc":
-        keep = (ra.two_means_keep(mat, ra.pairwise_sq_dists(mat),
-                                  hp.wbc_iters) if mask is None
-                else _wbc_keep_masked(mat, mask, hp.wbc_iters))
+        keep = _wbc_keep(mat, hp.wbc_iters, ax, mask)
         return ra.weighted_mean(mat, weights * keep), state, keep
     if d == "soteria":
-        return ra.soteria(mat, weights, hp.soteria_frac)[0], state, ones
+        return (_soteria(mat, weights, hp, ax,
+                         mat.shape[1] if true_d is None else int(true_d)),
+                state, ones)
     if d == "weak_dp":
-        return _noisy(ra.weighted_mean(mat, weights), hp, key), state, ones
+        return (_noisy(ra.weighted_mean(mat, weights), hp, key, ax), state,
+                ones)
     if d == "crfl":
-        return _crfl(mat, weights, hp, key), state, ones
+        return _crfl(mat, weights, hp, key, ax), state, ones
     if d == "foolsgold":
-        vec, wv = _foolsgold(mat, weights, state, ids, mask)
+        vec, wv = _foolsgold(mat, weights, state, ids, ax, mask)
         return vec, state, wv
     if d == "cclip":
-        return _cclip(mat, weights, hp, state), state, ones
+        return _cclip(mat, weights, hp, state, ax), state, ones
     if d == "slsgd":
         return _slsgd(mat, hp, state, mask), state, ones
     if d == "cross_round":
-        vec, keep = _cross_round(mat, weights, hp, state, ids, mask)
+        vec, keep = _cross_round(mat, weights, hp, state, ids, ax, mask)
         return vec, state, keep
     if d not in ("krum", "multi_krum"):
         raise ValueError(f"unknown defense_type {defense_type!r}")
     sel_w, sel = _krum_selection(
-        _mask_dists(ra.pairwise_sq_dists(mat), mask), weights,
+        _mask_dists(_dists(mat, ax), mask), weights,
         hp.byzantine_count, 1 if d == "krum" else hp.multi_k)
     return ra.weighted_mean(mat, sel_w), state, sel
 

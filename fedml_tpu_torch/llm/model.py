@@ -218,14 +218,41 @@ def _lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return ((xf @ a) @ b) * scale
 
 
+#: the row-parallel projections of the tensor-parallel step (their kernels
+#: split on the input axis); the others are column-parallel
+_ROW_PARALLEL = ("o", "down")
+
+
+def _tp_factors(name: str, a: torch.Tensor, b: torch.Tensor, size: int,
+                index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This tensor rank's part of a replicated LoRA pair: a column-parallel
+    projection takes all of ``a`` and its output columns of ``b``, a
+    row-parallel one its input rows of ``a`` and all of ``b`` (its side
+    output is then a partial sum, reduced with the main output). Each
+    rank's gradient of a factor is then a partial (or a slice) of the
+    whole: ``copy_to_tp`` sums it over the tensor ranks in the backward,
+    so every rank steps the same replicated factor."""
+    a, b = copy_to_tp(a), copy_to_tp(b)
+    if name in _ROW_PARALLEL:
+        n = a.shape[-2] // size
+        return a[..., index * n:(index + 1) * n, :], b
+    n = b.shape[-1] // size
+    return a, b[..., index * n:(index + 1) * n]
+
+
 def _adapted(dense: "Dense", name: str, x: torch.Tensor, adapter,
              scale: float) -> torch.Tensor:
     """``dense(x)`` plus the LoRA side path of ``adapter[name]`` when the
-    adapter has one (``adapter``: flat ``{"q.lora_a": ..., ...}``)."""
+    adapter has one (``adapter``: flat ``{"q.lora_a": ..., ...}``); inside
+    :func:`~.sharding.tensor_parallel` the side path follows the kernel's
+    shard (:func:`_tp_factors`)."""
     y = dense(x)
     if adapter is not None and f"{name}.lora_a" in adapter:
-        delta = _lora_delta(x, adapter[f"{name}.lora_a"],
-                            adapter[f"{name}.lora_b"], scale)
+        a, b = adapter[f"{name}.lora_a"], adapter[f"{name}.lora_b"]
+        tp = tp_context()
+        if tp is not None:
+            a, b = _tp_factors(name, a, b, tp[1], tp[2])
+        delta = _lora_delta(x, a, b, scale)
         y = y + delta.reshape(y.shape).to(y.dtype)
     return y
 
@@ -272,10 +299,6 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         if tp_context() is not None:
-            if adapter:
-                raise NotImplementedError(
-                    "LoRA adapters in the tensor-parallel step are not "
-                    "ported to fedml_tpu_torch yet")
             x = copy_to_tp(x)
         q = _adapted(self.q, "q", x, adapter, lora_scale)
         k = _adapted(self.k, "k", x, adapter, lora_scale)

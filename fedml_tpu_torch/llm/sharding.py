@@ -57,7 +57,8 @@ def llm_param_specs(params: Dict[str, torch.Tensor], mesh
       gate/up      [h, inter]      -> (fsdp, tensor)
       down         [inter, h]      -> (tensor, fsdp)
       embed/lm_head [vocab, h] / [h, vocab] -> (tensor, fsdp)
-      norms / biases / LoRA factors -> replicated
+      norms / biases / LoRA factors -> replicated (under ``tensor`` each
+        rank's side path takes its slice of a factor: ``model._tp_factors``)
       anything else: the largest divisible axis over fsdp
     """
     sizes = mesh_sizes(mesh)

@@ -24,16 +24,17 @@ from .cnn import Conv, FlaxInit, _image_shape
 
 
 def conv_gemm(x: torch.Tensor, w: torch.Tensor,
-              pads: Tuple[Tuple[int, int], Tuple[int, int]]) -> torch.Tensor:
-    """A stride-1 NHWC x HWIO convolution as one explicit im2col GEMM
-    (``unfold``, then a matmul); ``pads`` = ``((top, bottom), (left,
-    right))``."""
+              pads: Tuple[Tuple[int, int], Tuple[int, int]],
+              stride: int = 1) -> torch.Tensor:
+    """An NHWC x HWIO convolution as one explicit im2col GEMM (``unfold``,
+    then a matmul); ``pads`` = ``((top, bottom), (left, right))``."""
     dt = torch.promote_types(x.dtype, w.dtype)
     kh, kw, cin, cout = (int(d) for d in w.shape)
     (pt, pb), (pl, pr) = pads
     xn = F.pad(x.to(dt).permute(0, 3, 1, 2), (pl, pr, pt, pb))
-    ho, wo = xn.shape[2] - kh + 1, xn.shape[3] - kw + 1
-    cols = F.unfold(xn, (kh, kw))                     # [n, cin kh kw, L]
+    ho = (xn.shape[2] - kh) // stride + 1
+    wo = (xn.shape[3] - kw) // stride + 1
+    cols = F.unfold(xn, (kh, kw), stride=stride)      # [n, cin kh kw, L]
     wm = w.to(dt).permute(3, 2, 0, 1).reshape(cout, cin * kh * kw)
     return (wm @ cols).reshape(x.shape[0], cout, ho, wo).permute(0, 2, 3, 1)
 

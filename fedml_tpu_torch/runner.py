@@ -28,9 +28,8 @@ from .device import get_device, get_mesh
 # Knobs of the JAX package whose features the port does not have yet, each
 # with the value(s) that mean "off". A run that sets one otherwise raises
 # NotImplementedError naming it, rather than silently ignoring it. Every
-# knob is ported now (``mesh_shape`` and ring attention were the last);
-# combinations not ported yet raise where they are built, naming both
-# knobs (e.g. robust mode over more than one client rank).
+# knob is ported now (``mesh_shape`` and ring attention were the last),
+# and so is every multi-rank combination the JAX engine runs.
 UNPORTED_KNOBS: Dict[str, tuple] = {}
 
 # the GPU engine's availability faults: the SP golden loop has none, as in

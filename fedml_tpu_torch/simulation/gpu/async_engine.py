@@ -47,6 +47,17 @@ when it finally lands and redeemed back into the rotation, never waited on.
   to the selection store; ``reputation`` benches clients out of the
   rotation, ``oort`` / ``power_of_choice`` rank the idle pool.
 
+* **Over client ranks** (``mesh_shape={"client": W}``, the JAX engine's
+  ``client`` axis): each rank trains the cohort's clients it holds, at
+  most ``min(cpd, concurrency)`` a dispatch (the JAX program's slot width;
+  a client past it is deferred, in order, to the next dispatch), into its
+  ``[width, row_d]`` rows; one all-gather makes the replicated ``[W
+  width, row_d]`` dispatch matrix (client row ``rank * width + slot``),
+  and the metrics go through the packed all-reduce. The ring, the
+  staleness weights, the buffer and the re-syncs stay replicated; a
+  defended pour takes this rank's column block of the replicated,
+  re-based rows and runs the feature-sharded defense over the ranks.
+
 The async control state (buffer, in-flight events, virtual clock, idle
 rotation, latency EMAs, the ring) joins the round checkpoint as the
 ``async_rounds`` leaf, at fixed shapes. ``comm_round`` counts pours.
@@ -73,7 +84,7 @@ from ...core.async_rounds import (UpdateBuffer, adaptive_staleness_cap,
                                   staleness_cap_from_args,
                                   weighting_knobs_from_args)
 from ...core.chaos import ChaosCrash
-from ...core.collectives import FlatLayout
+from ...core.collectives import FlatLayout, all_gather_tiled
 from ...core.obs import metrics as obs_metrics
 from ...core.obs import sink as obs_sink
 from ...core.obs import trace as obs_trace
@@ -203,6 +214,8 @@ class AsyncBufferedSimulator(GPUSimulator):
         # validate the weighting knobs NOW, not at the first pour
         make_staleness_fn(self._weighting_kind, self._poly_a, self._hinge_b,
                           self.staleness_cap)
+        # a rank's slots per dispatch (the JAX program's schedule width)
+        self._async_width = min(self.cpd, self.concurrency)
         self.buffer = UpdateBuffer(self.k)
         self.durations = durations_from_args(n, args)
         self._n_k = np.asarray(self.fed.train.num_samples, np.float64)
@@ -314,21 +327,23 @@ class AsyncBufferedSimulator(GPUSimulator):
                              keep_frac=keep_frac, quorum=self.k))
 
     def _draw_cohort(self, target: int) -> List[int]:
-        """Pop up to ``target`` idle clients; reputation-benched clients
-        are skipped (they stay idle, at the head of the rotation), and
-        non-uniform strategies rank the pool first. (The JAX engine also
-        defers a client whose device filled its slot width; with every
-        client on one card no draw is ever deferred for that.)"""
+        """Pop up to ``target`` idle clients, deferring any whose rank
+        already filled its slot width this dispatch; reputation-benched
+        clients are skipped (both stay idle, at the head of the rotation,
+        in order), and non-uniform strategies rank the pool first."""
         benched = self._benched_now()
         if self.selection.strategy_name not in ("uniform", "reputation"):
             self._rank_idle()
+        counts = [0] * self.n_ranks
         cohort: List[int] = []
         deferred: List[int] = []
         while self._idle and len(cohort) < target:
             cid = self._idle.popleft()
-            if cid in benched:
+            d = cid // self.cpd
+            if cid in benched or counts[d] >= self._async_width:
                 deferred.append(cid)
                 continue
+            counts[d] += 1
             cohort.append(cid)
         self._idle.extendleft(reversed(deferred))
         return cohort
@@ -381,40 +396,52 @@ class AsyncBufferedSimulator(GPUSimulator):
 
     def _defended_aggregate(self, buf_mat: torch.Tensor, buf_nw: torch.Tensor,
                             entries, round_key: np.ndarray):
-        """Re-base the buffer onto the current version, inject the model
-        attack and run the defense: ``(aggregate [D], [K] verdict)``. The
-        defense's cross-round state is updated in place."""
+        """Re-base the buffer onto the current version, take this rank's
+        feature shard of it, inject the model attack and run the defense:
+        ``(aggregate [D], [K] verdict)``. The defense's cross-round state
+        is updated in place."""
         dmask, row_mask, ids, byz = self._defended_pour_data(entries)
         drift = f32_matmul(self._to_device(dmask), self._ring)
         mat = buf_mat - drift
+        ax = self._ax
+        if ax.group is not None:
+            w = self._d_pad // ax.size
+            mat = torch.nn.functional.pad(
+                mat, (0, self._d_pad - self._true_d))[
+                    :, ax.index * w:(ax.index + 1) * w]
         if self.attacker.is_model_attack():
             mat = sharded_defense.apply_attack(
                 self.attacker.attack_type, mat, self._to_device(byz),
                 prng.fold_in(round_key, ATTACK_FOLD),
-                float(self.attacker.attack_scale))
+                float(self.attacker.attack_scale), ax)
         defense = (self.defender.defense_type
                    if self.defender.is_defense_enabled() else "mean")
         vec, _, verdict = sharded_defense.defend_shard_stateful(
             mat, buf_nw, defense, self._defense_hp,
             state=self._defense_state, ids=self._to_device(ids),
             key=prng.fold_in(round_key, DEFENSE_FOLD),
-            row_mask=self._to_device(row_mask))
-        return vec, verdict
+            row_mask=self._to_device(row_mask), ax=ax,
+            true_d=self._true_d)
+        return ax.all_gather(vec)[:self._true_d], verdict
 
     def _push_events(self, plan, rows: torch.Tensor, ctx=None) -> None:
         """Turn a dispatch plan into future events: an arrival carries the
-        client's update row (computed at dispatch, delivered at arrival), a
-        drop becomes a redemption event. ``ctx`` is the dispatching pour
-        span's trace context: it rides the event to the buffer entry, so
-        the pour that consumes the update links back to its dispatch."""
+        client's update row (computed at dispatch, delivered at arrival;
+        row ``rank * width + slot`` of the dispatch matrix), a drop becomes
+        a redemption event. ``ctx`` is the dispatching pour span's trace
+        context: it rides the event to the buffer entry, so the pour that
+        consumes the update links back to its dispatch."""
         t0 = self.virtual_t
         dropped = []
+        cohort = [cid for cid, _, _ in plan]
+        at = [d * self._async_width + s for _, d, s in slot_placement(
+            cohort, self.n_ranks, self.cpd)]
         for k, (cid, ws, dur) in enumerate(plan):
             if ws <= 0.0:
                 kind, vec = _REDEEM, None
                 dropped.append(cid)
             else:
-                kind, vec = _ARRIVE, rows[k].clone()
+                kind, vec = _ARRIVE, rows[at[k]].clone()
             heapq.heappush(self._events,
                            (t0 + dur, self._evseq, kind, cid, self.version,
                             float(self._n_k[cid]), dur, vec, ctx))
@@ -503,17 +530,24 @@ class AsyncBufferedSimulator(GPUSimulator):
             cohort = self._draw_cohort(target)
             plan = self._dispatch_plan(cohort)
             round_key = prng.fold_in(self.rng, self._dispatch_seq)
-        rows = torch.empty((len(cohort), self._row_d), dtype=torch.float32,
-                           device=self.device)
         works = [1.0 if ws > 0.0 else 0.0 for _, ws, _ in plan]
+        mine = [k for k, c in enumerate(cohort) if self._owns(c)]
+        rows = torch.zeros((self._async_width if self._group is not None
+                            else len(cohort), self._row_d),
+                           dtype=torch.float32, device=self.device)
 
         def dispatch_and_pour():
             # training first, on the pre-pour params (the rows stay on the
             # device), then the pour
+            nonlocal rows
             out = self._train_cohort(
-                cohort, works, round_key, hyper, rows=rows,
+                [cohort[k] for k in mine], [works[k] for k in mine],
+                round_key, hyper, rows=rows,
                 extras_into=(self._extras.flatten_into
                              if self._extras.size else None))
+            if self._group is not None:
+                rows = all_gather_tiled(rows, self._group)
+                out = self._psum_dispatch(out, cohort)
             verdict = None
             if entries:
                 buf_mat = torch.stack([e.update for e in entries]
@@ -543,8 +577,9 @@ class AsyncBufferedSimulator(GPUSimulator):
                         verdict=verdict[:len(entries)])
                 self.selection.note_results(
                     self.version, cohort,
-                    slot_placement(cohort, 1, self.fed.num_clients),
-                    slot_metrics=self._slot_metrics(slots, cohort))
+                    slot_placement(cohort, self.n_ranks, self.cpd),
+                    slot_metrics=(slots if self._group is not None else
+                                  self._slot_metrics(slots, cohort)))
             poured = len(entries)
             self.updates_aggregated += poured
             if poured:
@@ -604,6 +639,22 @@ class AsyncBufferedSimulator(GPUSimulator):
                       self.layout.flatten(old),
                       out=self._ring[self.version % self._ring_r])
         return verdict
+
+    def _psum_dispatch(self, out, cohort):
+        """A dispatch's summed metrics, local steps and per-client
+        metrics over the client ranks (one packed all-reduce); the steps
+        come back as an int."""
+        metrics, steps, slots = out
+        slot_m = self._slot_metrics(slots, cohort)
+        sm = [] if slot_m is None else [slot_m[k] for k in slot_m]
+        st = torch.tensor(float(steps), dtype=torch.float32,
+                          device=self.device)
+        red = self._psum([metrics[k] for k in METRICS] + [st] + sm)
+        metrics = dict(zip(METRICS, red[:len(METRICS)]))
+        steps = int(round(float(red[len(METRICS)])))
+        if slot_m is not None:
+            slot_m = dict(zip(slot_m, red[len(METRICS) + 1:]))
+        return metrics, steps, slot_m
 
     def _bootstrap(self, hyper: TrainHyper) -> None:
         """Dispatch the initial in-flight cohort (empty buffer: a no-op
@@ -675,7 +726,9 @@ class AsyncBufferedSimulator(GPUSimulator):
                             v, rec["staleness_mean"], rec["test_acc"])
             self.history.append(rec)
             if self.ckpt.enabled:
-                self.ckpt.maybe_save(v, self.ckpt_state())
+                st = self.ckpt_state()      # a collective over ranks
+                if self._writer:
+                    self.ckpt.maybe_save(v, st)
             obs_sink.log_round_info(pours, v)
             if self.chaos.crash_due(v):
                 self.ckpt.flush()

@@ -25,8 +25,21 @@ extras, weight, metrics, local steps and per-client metrics, packed into
 one float32 buffer (``core/collectives.py::psum_packed``), and every rank
 runs ``server_update``, so the ranks' params stay bitwise equal. Without a
 mesh (or with one rank and no process group) the psum is the identity and
-nothing is sent. Robust mode and buffered-async rounds over more than one
-rank, and mesh axes other than ``client``, are not ported yet and raise.
+nothing is sent. Mesh axes beside ``client`` replicate the round (the JAX
+round's shard_map names only ``client``): ranks that share a client index
+run the same clients, and the round's collectives run over the client
+group. In robust mode each rank writes its clients' rows into its own
+``[S, D_pad]`` matrix (``D`` padded to a multiple of the ranks); on the
+sharded path one ``all_to_all`` turns them into this rank's ``[K, D_pad /
+W]`` feature shard in sampled order (the rows rounded first, as
+``robust_relayout_quant`` says), the weights and int8 scales are
+all-gathered, the attack and the defense run on the shards
+(``core/security/defense/sharded.py``, partials summed over the ranks)
+and the defended shards are all-gathered; the host path (``robust_fused:
+host`` without a sharded defense, ``sharded_defense: false``, a user
+aggregator) all-gathers every row, so every rank runs the host kernels or
+the hooks on the same ``[K, D]``. Contribution takes its coalition means
+on the shards and splits the eval batches over the ranks.
 
 ``client_states`` holds the optimizer's per-client state (SCAFFOLD's
 ``c_i``, FedDyn's ``h_i``) as one stacked tensor ``[clients of this rank,
@@ -124,12 +137,15 @@ from ...core.algframe.types import ClientData, Params, TrainHyper
 from ...constants import AXIS_CLIENT
 from ...core.chaos import ChaosCrash, FaultLedger, FaultPlan
 from ...core.checkpoint import RoundCheckpointer
-from ...core.collectives import (FlatLayout, WeightedSum, psum_packed,
-                                 stack_trees, tree_copy_, tree_leaves,
-                                 tree_map, tree_unflatten, tree_zeros_like,
+from ...core import collectives
+from ...core.collectives import (FlatLayout, WeightedSum, all_gather_tiled,
+                                 all_to_all_tiled, psum_packed, stack_trees,
+                                 tree_copy_, tree_leaves, tree_map,
+                                 tree_unflatten, tree_zeros_like,
                                  weighted_mean)
 from ...core.mesh import mesh_sizes
 from ...core.contribution import ContributionAssessorManager
+from ...core.contribution.contribution_assessor import masked_mean
 from ...core.dp import FedMLDifferentialPrivacy
 from ...core.obs import profiler as obs_profiler
 from ...core.obs import roofline as obs_roofline
@@ -222,36 +238,65 @@ def host_robust_aggregate(attacker: FedMLAttacker, defender: FedMLDefender,
 def assess_contribution(manager: ContributionAssessorManager, spec,
                         layout: FlatLayout, params: Params,
                         test: Dict[str, torch.Tensor], mat: torch.Tensor,
-                        w: torch.Tensor, sampled, round_idx: int) -> None:
+                        w: torch.Tensor, sampled, round_idx: int,
+                        ax: sharded_defense.ShardAxis = sharded_defense.ONE
+                        ) -> None:
     """Contribution of the round's clients from its post-attack ``[K, D]``
     matrix (both simulators): a coalition's value is the eval accuracy of
     the round-start ``params`` plus the masked weighted mean of its rows,
     one function on the matrix's device for every coalition; each value
-    is one scalar read."""
-    def eval_fn(p):
-        stats = evaluate(spec, layout.unflatten(p["v"], like=params),
+    is one scalar read. Over client ranks (the JAX engine's
+    ``_assess_contribution_fused``) ``mat`` is this rank's feature shard:
+    the masked mean is taken on the shards and gathered, ``test`` is this
+    rank's block of the eval batches, and ``correct`` / ``count`` are
+    summed over the ranks."""
+    flat = layout.flatten(params)
+
+    @torch.no_grad()
+    def value(mask):
+        m = torch.as_tensor(np.asarray(mask, np.float32)).to(w.device)
+        vec = ax.all_gather(masked_mean(mat, w, m))[:layout.size]
+        stats = evaluate(spec, layout.unflatten(flat + vec, like=params),
                          test["x"], test["y"], test["mask"])
-        return stats["correct"] / torch.clamp(stats["count"], min=1.0)
+        correct, count = ax.psum(torch.stack([stats["correct"].float(),
+                                              stats["count"].float()]))
+        return float(correct / torch.clamp(count, min=1.0))
 
-    manager.assess({"v": layout.flatten(params)}, {"v": mat}, w, eval_fn,
-                   client_ids=list(sampled), round_idx=round_idx)
+    manager.assess_values(value, int(w.shape[0]), client_ids=list(sampled),
+                          round_idx=round_idx)
 
 
-def quantize_rows(mat: torch.Tensor, mode: Optional[str]) -> torch.Tensor:
-    """The JAX engine's quantized relayout of the ``[K, D]`` matrix, as
-    the rows come out of it (``robust_relayout_quant``). On one card the
-    ``all_to_all`` moving the rows is the identity; what stays is the
-    rounding the defense sees: ``int8`` rows with per-row float32 scales
-    ``where(amax > 0, amax, 1) / 127`` (round half to even, then
-    ``q * scale``), or a bfloat16 round trip. None returns ``mat``."""
+def quantize_payload(mat: torch.Tensor, mode: Optional[str]
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """What the JAX engine's relayout sends of the ``[S, D]`` rows
+    (``robust_relayout_quant``): ``int8`` rows with per-row float32
+    scales ``where(amax > 0, amax, 1) / 127`` (round half to even), a
+    bfloat16 cast, or (None) the float32 rows; and the ``[S]`` scales or
+    None."""
     if mode == "bf16":
-        return mat.to(torch.bfloat16).to(torch.float32)
+        return mat.to(torch.bfloat16), None
     if mode == "int8":
         amax = torch.amax(torch.abs(mat), dim=1, keepdim=True)
         scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / 127.0
-        q = torch.round(mat / scale).to(torch.int8)
-        return q.to(torch.float32) * scale
-    return mat
+        return torch.round(mat / scale).to(torch.int8), scale[:, 0]
+    return mat, None
+
+
+def dequantize_payload(payload: torch.Tensor,
+                       scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The rows a :func:`quantize_payload` payload stands for, in float32
+    (``q * scale`` per row)."""
+    x = payload.to(torch.float32)
+    return x if scale is None else x * scale[:, None]
+
+
+def quantize_rows(mat: torch.Tensor, mode: Optional[str]) -> torch.Tensor:
+    """The rounding the defense sees of the ``[K, D]`` matrix under
+    ``robust_relayout_quant`` on one card, where the ``all_to_all`` moving
+    the rows is the identity. None returns ``mat``."""
+    if mode is None:
+        return mat
+    return dequantize_payload(*quantize_payload(mat, mode))
 
 
 class GPUSimulator:
@@ -289,24 +334,29 @@ class GPUSimulator:
         self.device = device
         self.server_aggregator = server_aggregator
         n_clients = int(fed_dataset.num_clients)
-        # the client axis: this rank's place and its clients' rows
+        # the client axis: this rank's place and its clients' rows. Other
+        # mesh axes replicate the round (the JAX round's shard_map names
+        # only 'client'): ranks that share a client index run the same
+        # clients, and the round's collectives run over the client group
         self._group, self.n_ranks, self.rank = None, 1, 0
+        self._writer = True          # the rank that writes checkpoints
         if mesh is not None:
             sizes = mesh_sizes(mesh)
-            if set(sizes) != {AXIS_CLIENT}:
-                raise NotImplementedError(
-                    f"mesh_shape={sizes}: mesh axes other than "
-                    f"'{AXIS_CLIENT}' in the simulation engine are not "
-                    "ported to fedml_tpu_torch yet (use {'client': W})")
+            if AXIS_CLIENT not in sizes:
+                raise ValueError(
+                    f"mesh_shape={sizes}: the simulation engine shards "
+                    f"clients over a '{AXIS_CLIENT}' axis and this mesh "
+                    "has none")
             self.n_ranks = sizes[AXIS_CLIENT]
             self.rank = mesh.get_local_rank(AXIS_CLIENT)
             self._group = mesh.get_group(AXIS_CLIENT)
-            if self.n_ranks > 1 and round_mode_from_args(args) == \
-                    "async_buffered":
-                raise NotImplementedError(
-                    f"mesh_shape={sizes} with round_mode: async_buffered: "
-                    "buffered-async rounds over more than one client rank "
-                    "are not ported to fedml_tpu_torch yet")
+            import torch.distributed as dist
+            self._writer = dist.get_rank() == 0
+        # the robust round's feature axis: this rank's column block of the
+        # update matrix, D padded to a multiple of the ranks
+        self._ax = sharded_defense.ShardAxis(
+            self._group if self.n_ranks > 1 else None, self.rank,
+            self.n_ranks)
         self.cpd = -(-n_clients // self.n_ranks)
         self._offset = self.rank * self.cpd
         seed = int(getattr(args, "random_seed", 0))
@@ -376,19 +426,6 @@ class GPUSimulator:
                     or self.defender.is_defense_enabled())
         self.robust_mode = (defended or self.contribution.enabled
                             or server_aggregator is not None)
-        if self.robust_mode and self.n_ranks > 1:
-            knob = ("enable_attack" if self.attacker.is_model_attack() else
-                    "enable_defense" if self.defender.is_defense_enabled()
-                    else "contribution_method" if self.contribution.enabled
-                    else "server_aggregator")
-            raise NotImplementedError(
-                f"mesh_shape={mesh_sizes(mesh)} with {knob}: robust mode "
-                "over more than one client rank (the defenses sharded over "
-                "the client axis, the relayout's all_to_all, contribution "
-                "and a user aggregator) is not ported to fedml_tpu_torch "
-                "yet")
-        if self.robust_mode:
-            self._group = None    # one rank: the psum is the identity
         if server_aggregator is not None and \
                 self.defender.is_defense_enabled():
             logger.warning(
@@ -397,6 +434,7 @@ class GPUSimulator:
                 "aggregator is SKIPPED", self.defender.defense_type)
         check_extras_compat(optimizer, self.params, self.dp, defended)
         self.layout = FlatLayout.of(self.params)
+        self._d_pad = self.layout.size + (-self.layout.size) % self.n_ranks
         self._sharded = self._use_sharded_defense()
         self.robust_fused = self._resolve_robust_fused()
         if self.robust_fused and self.selection.adaptive:
@@ -418,7 +456,7 @@ class GPUSimulator:
                 and sharded_defense.is_stateful(self.defender.defense_type)):
             self._defense_state = sharded_defense.defense_state_init(
                 self.defender.defense_type, int(fed_dataset.num_clients),
-                self.layout.size, device)
+                self._d_pad // self.n_ranks, device)
         self._slot_fold = self._resolve_slot_fold()
         self.history: List[Dict[str, Any]] = []
         # one step program per (model, dtype, batch shape, inner optimizer,
@@ -429,6 +467,9 @@ class GPUSimulator:
         if self._group is not None:
             self.dispatch_stats.update(ranks=self.n_ranks, allreduce_calls=0,
                                        allreduce_bytes=0)
+            if self.robust_mode:
+                self.dispatch_stats.update(
+                    {k: 0 for k in _RELAYOUT_STATS})
         # profiling plane (core/obs/profiler): opt-in host/device split and
         # per-round MFU at the dispatch seam; off by default because it
         # waits for the device at every block's end
@@ -472,7 +513,12 @@ class GPUSimulator:
                 if getattr(self, "_group", None) is not None
                 else self.client_states)
         if getattr(self, "_defense_state", None) is not None:
-            st["defense_state"] = self._defense_state
+            # over ranks: every shard's columns, the JAX engine's global
+            # [.., D_pad] leaves (a collective: every rank calls it)
+            st["defense_state"] = (
+                self._gather_defense_state()
+                if getattr(self, "_ax", sharded_defense.ONE).group
+                is not None else self._defense_state)
         if self.selection.stateful:
             # the observed history the strategies select from: a resumed
             # run selects the cohorts the uninterrupted one does
@@ -537,6 +583,13 @@ class GPUSimulator:
                                               self.client_states)
         if "defense_state" in st:
             self._defense_state = st["defense_state"]
+            if getattr(self, "_ax", sharded_defense.ONE).group is not None:
+                # this rank's column block of each [.., D_pad] leaf
+                w = self._d_pad // self.n_ranks
+                self._defense_state = {
+                    k: (v[..., self.rank * w:(self.rank + 1) * w].clone()
+                        if k in sharded_defense.FEATURE_LEAVES else v)
+                    for k, v in self._defense_state.items()}
         if "selection" in st:
             self.selection.load_state_dict(st["selection"])
 
@@ -763,35 +816,101 @@ class GPUSimulator:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _matrix(self, k: int) -> torch.Tensor:
-        """The round's ``[K, D]`` update matrix, allocated once per run."""
-        if self._mat is None or self._mat.shape[0] != k:
-            self._mat = torch.empty((k, self.layout.size),
+    def _matrix(self, n_slots: int) -> torch.Tensor:
+        """This rank's ``[S, D_pad]`` update rows of the round (one per
+        schedule slot, zeros past the last client and the true ``D``),
+        allocated once per run and slot count."""
+        if self._mat is None or self._mat.shape[0] != n_slots:
+            self._mat = torch.zeros((n_slots, self._d_pad),
                                     dtype=torch.float32, device=self.device)
         return self._mat
 
+    def _n_slots(self, sampled) -> int:
+        """The round's schedule slots per rank: the most sampled clients
+        any rank holds."""
+        return int(np.bincount([int(c) // self.cpd for c in sampled],
+                               minlength=self.n_ranks).max())
+
+    def _robust_rows(self, sampled, n_slots: int) -> np.ndarray:
+        """Client k's row of the rank-major ``[W S]`` grid (the JAX
+        engine's ``_robust_rows``): ``rank * S + slot``."""
+        return np.asarray([d * n_slots + s for _, d, s in slot_placement(
+            sampled, self.n_ranks, self.cpd)], np.int64)
+
+    def _collect(self, fn, *a):
+        """``fn(*a)`` with the relayout's collectives it ran added to
+        ``dispatch_stats``."""
+        if self._ax.group is None:
+            return fn(*a)
+        before = collectives.collective_stats()
+        out = fn(*a)
+        after = collectives.collective_stats()
+        for k in _RELAYOUT_STATS:
+            self.dispatch_stats[k] += after[k] - before[k]
+        return out
+
+    def _relayout(self, mat: torch.Tensor, w: torch.Tensor, sampled):
+        """This rank's ``[S, D_pad]`` rows -> its feature shard of the
+        ``[K, D_pad / W]`` matrix in sampled order and the ``[K]`` weights
+        (the JAX engine's ``relayout`` + ``grid[rows]``): the rows rounded
+        as ``robust_relayout_quant`` says BEFORE they cross the ranks, one
+        ``all_to_all`` of the payload, the int8 scales and the weights
+        all-gathered. On one rank the all-to-all is the identity."""
+        mode = self._relayout_quant
+        if self._ax.group is None:
+            return quantize_rows(mat, mode), w
+        payload, scale = quantize_payload(mat, mode)
+        grid = all_to_all_tiled(payload, self._group)
+        if scale is not None:
+            scale = all_gather_tiled(scale, self._group)
+        rows = torch.as_tensor(self._robust_rows(sampled, mat.shape[0]),
+                               device=self.device)
+        return (dequantize_payload(grid, scale)[rows],
+                all_gather_tiled(w, self._group)[rows])
+
+    def _gather_rows(self, mat: torch.Tensor, w: torch.Tensor, sampled):
+        """The host path's input on every rank: the host-ordered ``[K,
+        D]`` matrix and ``[K]`` weights, every rank's rows all-gathered."""
+        if self._ax.group is None:
+            return mat[:, :self.layout.size], w
+        rows = torch.as_tensor(self._robust_rows(sampled, mat.shape[0]),
+                               device=self.device)
+        return (all_gather_tiled(mat, self._group)[rows, :self.layout.size],
+                all_gather_tiled(w, self._group)[rows])
+
+    def _gather_defense_state(self) -> Dict[str, torch.Tensor]:
+        """The defense state with every shard's columns (a collective)."""
+        return {k: (all_gather_tiled(v.movedim(-1, 0).contiguous(),
+                                     self._group).movedim(0, -1)
+                    if k in sharded_defense.FEATURE_LEAVES else v)
+                for k, v in self._defense_state.items()}
+
     def _defend(self, mat: torch.Tensor, w: torch.Tensor, sampled,
                 round_key: np.ndarray, assess: Optional[Callable] = None):
-        """Attack -> defense on the round's matrix: ``(aggregate [D],
-        [K] verdict or None)``; ``assess(mat)`` sees the post-attack
-        matrix. On the one-card kernels (the fused path, or a defense on
-        the sharded kernels) the verdict stays on the device, and the
-        fused path first rounds the rows as ``robust_relayout_quant``
-        says; the host kernels' verdict comes back as numpy."""
+        """Attack -> defense on the round's rows (this rank's ``[S,
+        D_pad]``): ``(aggregate [D], [K] verdict or None)``;
+        ``assess(mat, w)`` sees the post-attack matrix (over ranks, this
+        rank's feature shard). On the sharded kernels (the fused path, or
+        a defense on them) the rows are relaid into feature shards, the
+        verdict stays on the device and the defended shards are gathered;
+        the host path gathers every row on every rank and its verdict
+        comes back as numpy."""
         if not (self._sharded or self.robust_fused):
+            mat, w = self._collect(self._gather_rows, mat, w, sampled)
             return host_robust_aggregate(
                 self.attacker, self.defender, mat, w, sampled, round_key,
-                server_aggregator=self.server_aggregator, assess=assess)
-        mat = quantize_rows(mat, self._relayout_quant)
+                server_aggregator=self.server_aggregator,
+                assess=None if assess is None else (lambda m: assess(m, w)))
+        mat, w = self._collect(self._relayout, mat, w, sampled)
         ids = self._to_device(np.asarray(sampled, np.int64))
         if self.attacker.is_model_attack():
             byz = self._to_device(self.attacker.byzantine_mask(sampled))
             mat = sharded_defense.apply_attack(
                 self.attacker.attack_type, mat, byz,
                 prng.fold_in(round_key, ATTACK_FOLD),
-                self.attacker.attack_scale)
+                self.attacker.attack_scale, self._ax)
         if assess is not None:
-            assess(mat)
+            assess(mat, w)
         # a contribution-only run aggregates with the mean kernel
         defense = (self.defender.defense_type
                    if self.defender.is_defense_enabled() else "mean")
@@ -799,10 +918,13 @@ class GPUSimulator:
             mat, w, defense,
             sharded_defense.DefenseHP.from_defender(self.defender),
             state=self._defense_state, ids=ids,
-            key=prng.fold_in(round_key, DEFENSE_FOLD))
+            key=prng.fold_in(round_key, DEFENSE_FOLD), ax=self._ax,
+            true_d=self.layout.size)
         if self._defense_state is not None:
             self._defense_state = state
-        return vec, verdict
+        if self._ax.group is not None:
+            vec = self._collect(all_gather_tiled, vec, self._group)
+        return vec[:self.layout.size], verdict
 
     # -- chaos and selection ------------------------------------------------
     def _schedule_for(self, round_idx: int) -> Tuple[List[int], List[float]]:
@@ -865,7 +987,9 @@ class GPUSimulator:
 
     # -- contribution -------------------------------------------------------
     def _assess_contribution(self, mat: torch.Tensor, w: torch.Tensor,
-                             sampled, round_idx: int) -> None:
+                             sampled, round_idx: int,
+                             ax: sharded_defense.ShardAxis = sharded_defense
+                             .ONE) -> None:
         """LOO / GTG-Shapley on the round's post-attack ``[K, D]`` matrix:
         a coalition's value is the eval accuracy of the round-start params
         plus the masked weighted mean of its rows, one function on the
@@ -881,8 +1005,26 @@ class GPUSimulator:
                 "contribution assessment", nbytes / 2**30)
             return
         assess_contribution(self.contribution, self.spec, self.layout,
-                            self.params, self.test, mat, w, sampled,
-                            round_idx)
+                            self.params, self._eval_block(ax), mat, w,
+                            sampled, round_idx, ax)
+
+    def _eval_block(self, ax: sharded_defense.ShardAxis
+                    ) -> Dict[str, torch.Tensor]:
+        """This rank's block of the eval batches, padded with masked
+        batches to a multiple of the ranks (the JAX engine shards them over
+        the client axis)."""
+        if ax.group is None:
+            return self.test
+        nb = int(self.test["x"].shape[0])
+        per = -(-nb // ax.size)
+        lo, hi = ax.index * per, min((ax.index + 1) * per, nb)
+        out = {}
+        for k, v in self.test.items():
+            block = v[lo:hi] if lo < nb else v[:0]
+            pad = per - int(block.shape[0])
+            out[k] = (torch.cat([block, block.new_zeros(
+                (pad,) + tuple(v.shape[1:]))]) if pad else block)
+        return out
 
     # -- rounds -------------------------------------------------------------
     def _round(self, round_idx: int, hyper: TrainHyper, sched):
@@ -908,9 +1050,10 @@ class GPUSimulator:
             return self._folded_round(round_idx, sampled, works,
                                       round_key) + (None, None)
         robust = self.robust_mode
-        mat = self._matrix(len(sampled)) if robust else None
-        w = (torch.empty(len(sampled), dtype=torch.float32,
-                         device=self.device) if robust else None)
+        n_slots = self._n_slots(sampled) if robust else 0
+        mat = self._matrix(n_slots) if robust else None
+        w = (torch.zeros(n_slots, dtype=torch.float32, device=self.device)
+             if robust else None)
         # robust mode sums only the extras and the weight here: the
         # updates go to the matrix
         acc = WeightedSum({} if robust else self.params,
@@ -1035,8 +1178,11 @@ class GPUSimulator:
         if mat is not None:
             assess = None
             if self.contribution.enabled:
-                assess = lambda m: self._assess_contribution(  # noqa: E731
-                    m, w, sampled, round_idx)
+                # the host path assesses the gathered matrix on every rank
+                ax = (self._ax if self._sharded or self.robust_fused
+                      else sharded_defense.ONE)
+                assess = lambda m, wk: self._assess_contribution(  # noqa
+                    m, wk, sampled, round_idx, ax)
             vec, verdict = self._defend(mat, w, sampled, round_key, assess)
             agg = self.layout.unflatten(vec)
         return dp_server_noise(self.dp, agg, round_key), verdict
@@ -1334,9 +1480,9 @@ class GPUSimulator:
                     with obs_trace.span("checkpoint", root=True,
                                         attrs={"role": "engine",
                                                "round_idx": r}):
-                        # every rank gathers; rank 0 writes
+                        # every rank gathers; global rank 0 writes
                         st = self.ckpt_state()
-                        if self.rank == 0:
+                        if self._writer:
                             self.ckpt.maybe_save(r, st)
                 if self.chaos.crash_due(r):
                     # the injected crash comes after the round's record
@@ -1368,6 +1514,13 @@ class GPUSimulator:
 #: the host path's bound on the matrix contribution assessment takes (the
 #: JAX engine's 2 GiB host guard)
 CONTRIBUTION_HOST_GUARD_BYTES = 2 << 30
+
+#: the relayout's and gathers' counters a robust run over ranks adds to
+#: ``dispatch_stats`` (``core/collectives.py::STATS``)
+_RELAYOUT_STATS = ("all_to_all_calls", "all_to_all_bytes",
+                   "all_to_all_wire_bytes", "all_to_all_s",
+                   "all_gather_calls", "all_gather_bytes",
+                   "all_gather_wire_bytes", "staged_bytes")
 
 
 def _programs_body(ran) -> None:

@@ -7,7 +7,10 @@ tensors: each operation in a fresh pair of rank processes
     python3 scripts/gloo_cuda_probe.py [op ...]
 
 Operations: ``all_reduce``, ``all_gather``, ``all_gather_into_tensor``,
-``reduce_scatter_tensor`` (``torch.distributed`` on CUDA tensors),
+``reduce_scatter_tensor``, ``all_to_all_single_f32`` / ``_bf16`` /
+``_int8`` (``torch.distributed`` on CUDA tensors), ``all_to_all_tiled``
+and ``all_gather_tiled`` (the port's ``core/collectives.py`` wrappers the
+robust round's relayout uses, with the bytes they counted),
 ``ring_shift`` (the port's point-to-point step, staged through host
 memory), ``dtensor_gather`` (DTensor's redistribute ``Shard -> Replicate``
 of a CUDA tensor) and ``dtensor_reduce_scatter`` (its backward ``Partial
@@ -22,8 +25,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 OPS = ("all_reduce", "all_gather", "all_gather_into_tensor",
-       "reduce_scatter_tensor", "ring_shift", "dtensor_gather",
-       "dtensor_reduce_scatter")
+       "reduce_scatter_tensor", "all_to_all_single_f32",
+       "all_to_all_single_bf16", "all_to_all_single_int8",
+       "all_to_all_tiled", "all_gather_tiled", "ring_shift",
+       "dtensor_gather", "dtensor_reduce_scatter")
 
 
 def op(name):
@@ -49,6 +54,24 @@ def op(name):
         out = x.new_zeros(x.numel() // dist.get_world_size())
         dist.reduce_scatter_tensor(out, x)
         return float(out[0])
+    if name.startswith("all_to_all_single_"):
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.int8}[name.rsplit("_", 1)[1]]
+        src = (torch.arange(8, device="cuda") + 10 * r).to(dt)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src)
+        return out.float().tolist()
+    if name in ("all_to_all_tiled", "all_gather_tiled"):
+        from fedml_tpu_torch.core import collectives
+        collectives.reset_collective_stats()
+        if name == "all_to_all_tiled":
+            got = collectives.all_to_all_tiled(
+                torch.arange(8.0, device="cuda").reshape(2, 4) + 10 * r,
+                None)
+        else:
+            got = collectives.all_gather_tiled(x[:2].to(torch.int8), None)
+        return {"out": got.float().tolist(), "device": str(got.device),
+                "stats": collectives.collective_stats()}
     if name == "ring_shift":
         from fedml_tpu_torch.core.collectives import ring_shift
         return float(ring_shift([x], None)[0][0])

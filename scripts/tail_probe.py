@@ -4,10 +4,12 @@ the card (f32 with TF32 off) and one on the CPU:
 
     python3 scripts/tail_probe.py [wgrad] [femnist] [drift] [--out FILE]
 
-``wgrad``: the filter gradient of LeNet-5's stem (1 input channel, 5x5
-SAME, 6 outputs, batch 8 of 28x28) through ``conv2d`` on the card under
+``wgrad``: the filter gradient of each 1-channel stem of the port on
+28x28 inputs (:data:`STEMS`: LeNet-5's 5x5 to 6, ``CNNFemnist``'s 3x3 to
+32, ``SimpleCNN``'s 5x5 to 32, ``DeviceCNN``'s 3x3 to 8, MobileNetV3-
+Small's 3x3 stride 2 to 16; SAME) through ``conv2d`` on the card under
 each cuDNN setting (deterministic, benchmark; the input as the port lays
-it out and contiguous), with cuDNN off, and as LeNet's im2col GEMM
+it out and contiguous), with cuDNN off, and as an im2col GEMM
 (``model/cv/lenet.py::conv_gemm``), and on the CPU: each one's largest
 error against a float64 reference on the CPU, beside that reference's
 largest entry.
@@ -37,14 +39,33 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def wgrad(torch):
+#: the port's 1-channel stems on 28x28 inputs: (kernel, outputs, stride,
+#: batches); LeNet-5's at phase 23 (a)'s batch, the CNNs' at the FedAvg
+#: benches' 32 and phase 15's 8, MobileNetV3-Small's at
+#: bench_hierarchical_femnist's 16
+STEMS = {"lenet": (5, 6, 1, (8,)),
+         "femnist_cnn": (3, 32, 1, (8, 32)),
+         "simple_cnn": (5, 32, 1, (8, 32)),
+         "device_cnn": (3, 8, 1, (8, 32)),
+         "mobilenet": (3, 16, 2, (16,))}
+
+
+def stem_wgrad(torch, k, cout, stride, batch):
+    """One stem's filter gradient (SAME, 28x28x1 inputs, seeded) through
+    ``conv2d`` on the card under each cuDNN setting, with cuDNN off, as an
+    im2col GEMM (``conv_gemm``) on the card and on the CPU: each one's
+    largest error against a float64 reference on the CPU, and that
+    reference's largest entry."""
     import torch.nn.functional as F
 
+    from fedml_tpu_torch.core.kernels.conv_block import _same_pads
     from fedml_tpu_torch.model.cv.lenet import conv_gemm
     g = torch.Generator().manual_seed(0)
-    x = torch.randn(8, 28, 28, 1, generator=g)
-    w = torch.randn(5, 5, 1, 6, generator=g) * 0.2
-    cot = torch.randn(8, 28, 28, 6, generator=g)
+    x = torch.randn(batch, 28, 28, 1, generator=g)
+    w = torch.randn(k, k, 1, cout, generator=g) * 0.2
+    p = _same_pads(28, k, stride)
+    side = -(-28 // stride)
+    cot = torch.randn(batch, side, side, cout, generator=g)
 
     def grad(dev, dt, how, det=False, bench=False, enabled=True):
         with torch.backends.cudnn.flags(enabled=enabled, benchmark=bench,
@@ -52,12 +73,13 @@ def wgrad(torch):
             ww = w.to(dev, dt).requires_grad_()
             xx = x.to(dev, dt)
             if how == "gemm":
-                y = conv_gemm(xx, ww, ((2, 2), (2, 2)))
+                y = conv_gemm(xx, ww, (p, p), stride)
             else:
-                xn = F.pad(xx.permute(0, 3, 1, 2), (2, 2, 2, 2))
+                xn = F.pad(xx.permute(0, 3, 1, 2), (p[0], p[1], p[0], p[1]))
                 if how == "contiguous":
                     xn = xn.contiguous()
-                y = F.conv2d(xn, ww.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+                y = F.conv2d(xn, ww.permute(3, 2, 0, 1),
+                             stride=stride).permute(0, 2, 3, 1)
             g, = torch.autograd.grad((y * cot.to(dev, dt)).sum(), [ww])
         return g.double().cpu()
 
@@ -75,6 +97,13 @@ def wgrad(torch):
         out[name] = (grad(dev, torch.float32, how, **kw) - ref).abs().max(
         ).item()
     return out
+
+
+def wgrad(torch):
+    """:func:`stem_wgrad` of every stem in :data:`STEMS` at each batch."""
+    return {f"{name}_b{b}": stem_wgrad(torch, k, cout, stride, b)
+            for name, (k, cout, stride, batches) in STEMS.items()
+            for b in batches}
 
 
 def femnist(torch):

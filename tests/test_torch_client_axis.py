@@ -16,10 +16,16 @@ parameters:
   engine without a mesh bitwise;
 * a run checkpointed at W = 2 resumes at W = 2 to the uninterrupted run's
   params;
-* robust mode, contribution, async rounds and axes other than ``client``
-  over more than one rank raise, naming ``mesh_shape`` and the other knob;
-  a ``mesh_shape`` of more than one rank with no process group raises,
-  naming the launch.
+* a mesh with an axis beside ``client`` (``{"client": 2, "fsdp": 2}`` on
+  4 ranks) replicates the round along it, as the JAX round's shard_map
+  does: FedAvg and a defended round agree with JAX on 4 devices with the
+  same mesh, every rank bitwise equal (robust mode, contribution and a
+  user aggregator over ranks are held in ``tests/
+  test_torch_robust_ranks*.py``, async rounds in ``tests/
+  test_torch_async_ranks.py``);
+* a mesh with no ``client`` axis raises (the JAX engine reads the axis
+  and fails too), naming it; a ``mesh_shape`` of more than one rank with
+  no process group raises, naming the launch.
 """
 
 from __future__ import annotations
@@ -177,32 +183,48 @@ def test_checkpoint_at_two_ranks_resumes(tmp_path):
     assert sorted(os.listdir(tmp_path / "ck"))[-1] == "round_00000003.fmtpu"
 
 
-REFUSED = {
-    "enable_defense": dict(LR_BASE, enable_defense=True,
-                           defense_type="krum", byzantine_client_num=1),
-    "enable_attack": dict(LR_BASE, enable_attack=True,
-                          attack_type="byzantine_random",
-                          byzantine_client_num=1),
-    "contribution_method": dict(LR_BASE, contribution_method="LOO"),
-    "round_mode": dict(LR_BASE, round_mode="async_buffered",
-                       async_buffer_k=2),
-}
+#: ``{"client": 2, "fsdp": 2}``: each client rank's pair of fsdp ranks
+#: runs the same clients
+BESIDE = {"fedavg_lr": LR_BASE,
+          "krum": dict(LR_BASE, comm_round=2, enable_defense=True,
+                       defense_type="krum", byzantine_client_num=1,
+                       enable_attack=True, attack_type="byzantine_flip")}
+
+
+@pytest.fixture(scope="module")
+def beside_runs():
+    init = init_of("fedavg_lr")
+    return ranks("simulate_robust", 4, mesh_shape={"client": 2, "fsdp": 2},
+                 cases={n: (c, init, False) for n, c in BESIDE.items()})
+
+
+@pytest.mark.parametrize("case", sorted(BESIDE))
+def test_mesh_axes_beside_client_match_jax(beside_runs, monkeypatch, case):
+    monkeypatch.setattr(jengine, "build_mesh", lambda shape: jbuild_mesh(
+        shape, devices=jax.devices()[:4]))
+    sim = jax_sim(dict(BESIDE[case], mesh_shape={"client": 2, "fsdp": 2}))
+    assert sim.n_devices == 2
+    rj = sim.run()
+    want = jax_params(rj["params"])
+    for k in want:
+        np.testing.assert_allclose(beside_runs[0][case]["params"][k],
+                                   want[k], rtol=RTOL, atol=ATOL, err_msg=k)
+    for other in beside_runs[1:]:
+        for k, v in beside_runs[0][case]["params"].items():
+            assert np.array_equal(v, other[case]["params"][k]), k
+    st = beside_runs[0][case]["stats"]
+    assert st["ranks"] == 2 and st["allreduce_calls"] == \
+        BESIDE[case]["comm_round"]
 
 
 def test_out_of_scope_combinations_raise():
-    cases = {k: (cfg, init_of("fedavg_lr")) for k, cfg in REFUSED.items()}
-    out = ranks("refusals", 2, cases=cases, mesh_shape={"client": 2})
+    """What the JAX engine refuses too: a mesh with no ``client`` axis."""
+    out = ranks("refusals", 2, cases={"axes": (LR_BASE, init_of(
+        "fedavg_lr"))}, mesh_shape={"data": 2})
     for got in out:
-        for knob in REFUSED:
-            assert got[knob] is not None, knob
-            kind, msg = got[knob]
-            assert kind == "NotImplementedError", (knob, msg)
-            assert "mesh_shape" in msg and knob in msg, (knob, msg)
-    other = ranks("refusals", 2, cases={"axes": (LR_BASE, init_of(
-        "fedavg_lr"))}, mesh_shape={"client": 1, "data": 2})
-    kind, msg = other[0]["axes"]
-    assert kind == "NotImplementedError" and "mesh_shape" in msg \
-        and "'client'" in msg
+        kind, msg = got["axes"]
+        assert kind == "ValueError" and "mesh_shape" in msg \
+            and "'client'" in msg
 
 
 def test_mesh_without_its_ranks_raises():

@@ -168,3 +168,53 @@ def zoo_runs(cfg, tmp_path):
     return runs["gpu"], rj
 
 
+
+
+# -- the port over W gloo rank processes against the JAX engine on W devices --
+
+
+def rank_runs(target, world, timeout=300.0, **kwargs):
+    """``tests/torch_rank_programs.py``'s ``target`` over ``world`` gloo
+    rank processes (``core/launch.py::run_ranks``): each rank's return."""
+    import os
+
+    from fedml_tpu_torch.core.launch import run_ranks
+    here = os.path.dirname(os.path.abspath(__file__))
+    return run_ranks(f"torch_rank_programs:{target}", world, kwargs,
+                     timeout=timeout, sys_path=[here])
+
+
+def jax_on_devices(cfg, w, monkeypatch, **kw):
+    """The JAX package's simulator for ``cfg`` on ``mesh_shape={"client":
+    w}`` over the first ``w`` virtual CPU devices."""
+    import jax
+
+    import fedml_tpu.simulation.tpu.engine as jengine
+    from fedml_tpu.core.mesh import build_mesh as jbuild_mesh
+    monkeypatch.setattr(jengine, "build_mesh", lambda shape: jbuild_mesh(
+        shape, devices=jax.devices()[:w]))
+    sim = jax_sim(dict(cfg, mesh_shape={"client": w}), **kw)
+    assert sim.n_devices == w
+    return sim
+
+
+def assert_history_close(got, want, **tol):
+    import numpy as np
+
+    assert len(got) == len(want)
+    for ht, hj in zip(got, want):
+        for k in ("train_loss", "train_acc", "test_acc", "test_loss"):
+            if k in hj:
+                np.testing.assert_allclose(
+                    ht[k], hj[k], **(tol or dict(rtol=RTOL, atol=ATOL)),
+                    err_msg=k)
+
+
+def assert_ranks_bitwise(runs, name):
+    """Every rank's params and history equal rank 0's, bitwise."""
+    import numpy as np
+
+    for other in runs[1:]:
+        for k, v in runs[0][name]["params"].items():
+            assert np.array_equal(v, other[name]["params"][k]), (name, k)
+        assert other[name]["history"] == runs[0][name]["history"], name

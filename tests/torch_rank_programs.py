@@ -52,6 +52,112 @@ def simulate(cases, mesh_shape):
     return out
 
 
+def _runner(cfg, init, mesh_shape, server_aggregator=None):
+    """The simulator ``run_simulation`` builds for ``cfg`` on this rank
+    (the CPU), kept so a test can read its verdicts and contributions."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.runner import FedMLRunner
+    args = fedml_tpu_torch.init(None, device=torch.device("cpu"),
+                                backend="gpu", enable_tracking=False,
+                                mesh_shape=mesh_shape, **cfg)
+    args.training_type = "simulation"
+    fed, out_dim = data.load(args)
+    bundle = model.create(args, out_dim, fed.input_shape)
+    return FedMLRunner(args, device=torch.device("cpu"), dataset=fed,
+                       model=bundle, server_aggregator=server_aggregator,
+                       init_params=init).runner
+
+
+class MedianAggregator:
+    """A user ``ServerAggregator`` for the rank programs: the coordinate
+    median of the rows, their weights floored at 1, scaled by 0.9 after;
+    it records the matrix shapes it saw."""
+
+    def __new__(cls):
+        from fedml_tpu_torch.core.algframe.server_aggregator import \
+            ServerAggregator
+        from fedml_tpu_torch.core.security.defense import robust_agg
+
+        class _Median(ServerAggregator):
+            def __init__(self):
+                self.seen = []
+
+            def on_before_aggregation(self, update_matrix, weights):
+                self.seen.append(tuple(update_matrix.shape))
+                return update_matrix, torch.clamp(weights, min=1.0)
+
+            def aggregate(self, update_matrix, weights):
+                return robust_agg.median0(update_matrix)
+
+            def on_after_aggregation(self, agg_vec):
+                return agg_vec * 0.9
+        return _Median()
+
+
+def simulate_robust(cases, mesh_shape):
+    """:func:`simulate` of robust cases ``name -> (cfg, init_params,
+    with_aggregator)``, adding each run's verdicts, contribution history,
+    the matrix shapes a user aggregator saw and the defense's input of
+    every round (this rank's feature shard, as ``defend_shard_stateful``
+    received it)."""
+    import fedml_tpu_torch
+    import fedml_tpu_torch.core.security.defense.sharded as sharded
+    from fedml_tpu_torch.core import collectives
+    seen, real = [], sharded.defend_shard_stateful
+
+    def record(mat, *a, **kw):
+        seen.append(mat.detach().clone().numpy())
+        return real(mat, *a, **kw)
+
+    sharded.defend_shard_stateful = record
+    out = {}
+    try:
+        for name, (cfg, init, with_agg) in cases.items():
+            agg = MedianAggregator() if with_agg else None
+            seen.clear()
+            collectives.reset_collective_stats()
+            sim = _runner(cfg, init, mesh_shape, agg)
+            r = sim.run()
+            out[name] = {
+                "params": _np(r["params"]), "history": r["history"],
+                "stats": r["dispatch_stats"],
+                "collectives": collectives.collective_stats(),
+                "defense_inputs": list(seen),
+                "aggregator_saw": None if agg is None else list(agg.seen),
+                "verdicts": {k: (list(v[0]), np.asarray(v[1]))
+                             for k, v in sim.verdicts.items()},
+                "contribution": list(sim.contribution.history)}
+    finally:
+        sharded.defend_shard_stateful = real
+    return out
+
+
+def simulate_async(cases, mesh_shape):
+    """Each buffered-async case ``name -> (cfg, init_params)`` on this
+    rank: params, history, ``async_stats``, this rank's dispatch stats,
+    every dispatch's cohort (as ``_draw_cohort`` drew it) and the
+    verdicts."""
+    out = {}
+    for name, (cfg, init) in cases.items():
+        sim = _runner(cfg, init, mesh_shape)
+        cohorts, draw = [], sim._draw_cohort
+
+        def record(target, _draw=draw, _log=cohorts):
+            got = _draw(target)
+            _log.append(list(got))
+            return got
+
+        sim._draw_cohort = record
+        r = sim.run()
+        out[name] = {"params": _np(r["params"]), "history": r["history"],
+                     "async_stats": r["async_stats"],
+                     "stats": r["dispatch_stats"], "cohorts": cohorts,
+                     "verdicts": {k: (list(v[0]), np.asarray(v[1]))
+                                  for k, v in sim.verdicts.items()}}
+    return out
+
+
 def simulate_resumed(cfg, init, mesh_shape, ckpt_dir, split):
     """``cfg`` run to round ``split`` with checkpoints, then resumed to its
     ``comm_round`` from the newest one; and the same run uninterrupted."""
@@ -190,6 +296,41 @@ def sharded_step(cfg_kw, params, batch, mesh_shape, lr):
     return (float(loss), {k: v.full_tensor().detach().numpy()
                           for k, v in new.items()},
             {k: tuple(v.to_local().shape) for k, v in new.items()})
+
+
+def sharded_lora_step(cfg_kw, params, lora, batch, mesh_shape, lr, scale):
+    """One SGD step of ``make_sharded_train_step`` over ``mesh_shape`` on
+    the base parameters and a LoRA adapter together (the adapter's keys
+    beside its kernels', the model's factored side path at ``scale``): the
+    loss and every updated base parameter and factor, gathered."""
+    from fedml_tpu_torch.core.algframe.client_trainer import \
+        make_inner_optimizer
+    from fedml_tpu_torch.core.mesh import build_mesh, init_ranks
+    from fedml_tpu_torch.llm.sharding import (llm_param_specs,
+                                              make_sharded_train_step,
+                                              shard_llm_params)
+    from fedml_tpu_torch.llm.trainer import CausalLMTrainer
+    from torch.func import functional_call
+    from fedml_tpu_torch.llm.model import CausalLM, LLMConfig
+    init_ranks("cpu")
+    mesh = build_mesh(mesh_shape, "cpu")
+    model = CausalLM(LLMConfig(**cfg_kw))
+
+    def apply(p, x, rng=None, train=False):
+        base = {k: v for k, v in p.items() if k not in lora}
+        return functional_call(model, base, (x,), {
+            "adapters": {k: p[k] for k in lora}, "lora_scale": scale})
+
+    spec = CausalLMTrainer(apply)
+    tp = {k: torch.tensor(v) for k, v in {**params, **lora}.items()}
+    specs = llm_param_specs(tp, mesh)
+    sharded = shard_llm_params(tp, mesh, specs)
+    step = make_sharded_train_step(spec.loss, make_inner_optimizer("sgd", lr),
+                                   mesh, specs)
+    new, _, loss = step(sharded, None, {k: torch.tensor(v)
+                                        for k, v in batch.items()}, None)
+    return float(loss), {k: v.full_tensor().detach().numpy()
+                         for k, v in new.items()}
 
 
 def ring_suite(attention, forward, saved):
