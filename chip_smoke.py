@@ -315,7 +315,22 @@ toolkit. Phases, in order; any failure exits non-zero before the last line:
     a ``{"tail": ...}`` line. (To pay for it, the flagship-width legs of
     phases 7-10 ran MAIN_PATH's widths on 25,000 of its 50,000 samples;
     since phase 22 (d) / (e), on 12,500.)
-24. one JSON line describing each kernel, then the card line, then
+24. the platform (``api``, ``cli``, ``agents``, ``utils``): PLATFORM_PATH
+    (MAIN_PATH's ResNet-56, bf16, B1, cut in depth to 8 of 8 clients over
+    2,048 samples, 1 round) written as a yaml: (a) ``collect_env`` names
+    the card and ``run_diagnosis`` reports the device (the card's name)
+    and TCP OK, gRPC as it comes; (b) ``cli.main(["train", "--cf",
+    yaml])`` in this process, its artifact the run's params bitwise, B1
+    held to 27 x (warm-up + replays + eval batches) with one capture; (c)
+    the same yaml through a broker, a master and an agent in this process
+    (bind token set), dispatched by ``launch_job_remote``: the agent runs
+    ``python -m fedml_tpu_torch.cli train`` as a subprocess on the card,
+    FINISHED, its params bitwise (b)'s;
+    (d) ``api.model_serve`` of that artifact on the card: ``/ready``, then
+    ``/predict`` of 32 test images bitwise equal to ``CheckpointPredictor``
+    called directly, 27 B1 launches per forward; a ``{"platform": ...}``
+    line;
+25. one JSON line describing each kernel, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Each main path is driven with every launch count set to 0 just before it
@@ -7220,6 +7235,300 @@ def tail_phase(torch, cb, fa, card, dev="cuda", cpu="cpu"):
     return rec
 
 
+# -- phase 24: the platform --------------------------------------------------
+
+# MAIN_PATH's ResNet-56 (bf16, the fused B1, synthetic CIFAR-10, batch 32)
+# cut in depth only: 8 of 8 clients over 2,048 training samples (8 steps a
+# client; drawn from the loader's smallest synthetic pool, 4,000), 256 test
+# samples (one eval batch: the loader's eval batch is 256), 1 round in a
+# block of 1, eval after it. Written as a yaml: (b) trained in this
+# process through the CLI's train command, (c) dispatched through a
+# broker, a master and an agent as a training job (a CLI subprocess on the
+# card), (d) its artifact served by api.model_serve.
+PLATFORM_PATH = dict(MAIN_PATH, client_num_in_total=8, client_num_per_round=8,
+                     synthetic_size=4000, max_total_samples=2048,
+                     synthetic_test_size=256, comm_round=1,
+                     rounds_per_dispatch=1, frequency_of_the_test=1,
+                     enable_tracking=False)
+PLATFORM_DEVICE_ID = 24
+PLATFORM_JOB_S = 600.0
+# (c) is held bitwise to (b): the same yaml from the same seed in two
+# processes on the card, both under torch's default numerics. In
+# scripts/platform_spread.py's readings every run of the same job agreed
+# bitwise (CLI subprocesses, and runs with cuDNN's deterministic mode, its
+# benchmark mode or TF32 off), while a job with another precision or conv
+# path landed 0.17-0.18 of the round's update away; a bound between the
+# two would rest on no reading of its own. It holds because each kernel
+# on the path is chosen from the shapes alone and reduces in a fixed
+# order, and the data and the init come from the seed.
+
+
+@contextlib.contextmanager
+def torch_default_numerics(torch):
+    """torch's own defaults for cuDNN and matmul (TF32 in cuDNN, no
+    deterministic algorithms), as a CLI subprocess runs: (b) trains with
+    the settings (c)'s job has."""
+    keep = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = keep
+
+
+def platform_env_checks(card, dev="cuda"):
+    """(a) ``collect_env`` names the card; ``run_diagnosis`` on the card
+    gives ``device`` OK with the card's name and ``tcp`` OK (the ``grpc``
+    line is reported as it comes: it needs grpcio on the card's host). The
+    echoes bind free ports, never the fixed defaults another process on
+    the host may hold."""
+    import torch
+
+    from fedml_tpu_torch.utils.collect_env import collect_env
+    from fedml_tpu_torch.utils.diagnosis import run_diagnosis
+    on_card = str(dev).startswith("cuda")
+    t0 = time.perf_counter()
+    env = collect_env()
+    env_s = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0) if on_card else "cpu"
+    require(("cuda devices:" in env) and (not on_card or name in env),
+            f"phase 24 (a): collect_env does not name {name}:\n{env}")
+    t0 = time.perf_counter()
+    base = free_port_base(4)  # an echo binds base and base + 1
+    report = run_diagnosis(device=None if on_card else dev, grpc_port=base,
+                           tcp_port=base + 2)
+    diag_s = time.perf_counter() - t0
+    for k, (ok, detail) in report.items():
+        print(f"diagnosis {k:<6} {'OK' if ok else 'FAIL'}  {detail}",
+              flush=True)
+    require(report["device"][0] and name in report["device"][1],
+            f"phase 24 (a): diagnosis device {report['device']}")
+    require(report["tcp"][0], f"phase 24 (a): diagnosis tcp {report['tcp']}")
+    return {"collect_env_s": env_s, "diagnosis_s": diag_s,
+            "env_device_lines": [line for line in env.splitlines()
+                                 if line.strip().startswith("- cuda:")],
+            "diagnosis": {k: {"ok": ok, "detail": d}
+                          for k, (ok, d) in report.items()}}
+
+
+def _state_of(torch, path):
+    """A ``save_model`` artifact as the port's state dict of CPU tensors."""
+    import numpy as np
+
+    from fedml_tpu_torch.interop import flax_to_state_dict
+    from fedml_tpu_torch.serving import load_model
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in flax_to_state_dict(load_model(path)).items()}
+
+
+def platform_train(torch, cb, fa, yml, art, dev="cuda"):
+    """(b) ``cli.main(["train", "--cf", yml])`` in this process: exit 0,
+    the artifact ``save_model`` wrote equal to the run's params bitwise,
+    B1 = 27 x (warm-up + replayed steps + eval batches) with one
+    capture."""
+    import fedml_tpu_torch
+    from fedml_tpu_torch import cli
+    on_card = str(dev).startswith("cuda")
+    seen = {}
+    run_simulation = fedml_tpu_torch.run_simulation
+
+    def recording(*a, **k):  # the run's result, read after the command
+        seen["result"] = run_simulation(*a, **k)
+        return seen["result"]
+
+    fedml_tpu_torch.run_simulation = recording
+    reset_launches(cb, fa)
+    t0 = time.perf_counter()
+    try:
+        with torch_default_numerics(torch):
+            rc = cli.main(["train", "--cf", yml]
+                          + ([] if on_card else ["--device", str(dev)]))
+    finally:
+        fedml_tpu_torch.run_simulation = run_simulation
+    wall = time.perf_counter() - t0
+    b1 = launches(cb, fa)["conv_block"]
+    require(rc == 0 and os.path.exists(art),
+            f"phase 24 (b): cli train exited {rc}, artifact "
+            f"{os.path.exists(art)}")
+    res = seen["result"]
+    st = res["dispatch_stats"]
+    eval_batches = res["history"][-1]["eval_batches"]
+    fwd = st["warmup_steps"] + st["replays"] + eval_batches
+    saved = _state_of(torch, art)
+    require(all(torch.equal(saved[k], v.detach().float().cpu())
+                for k, v in res["params"].items()),
+            "phase 24 (b): the artifact differs from the run's params")
+    if on_card:
+        require(st["captures"] == 1 and b1 == 27 * fwd,
+                f"phase 24 (b): B1 {b1} != 27 x ({st['warmup_steps']} + "
+                f"{st['replays']} + {eval_batches}), {st['captures']} "
+                f"captures")
+    return {"wall_s": wall, "run_wall_time_s": res["wall_time_s"],
+            "test_acc": res["final_test_acc"], "b1_launches": b1,
+            "forwards": fwd, "eval_batches": eval_batches,
+            **{k: st[k] for k in ("warmup_steps", "replays", "captures",
+                                  "capture_s")}}
+
+
+def platform_agent(torch, yml, art, dev="cuda"):
+    """(c) the same yaml through a ``PubSubBroker``, a ``MasterAgent`` and
+    a ``SlaveAgent`` in this process (bind token set), dispatched by
+    ``launch_job_remote``: the agent's ``api.launch_job`` runs ``python -m
+    fedml_tpu_torch.cli train`` as a subprocess on the card; the status
+    history ends FINISHED and the artifact exists."""
+    from fedml_tpu_torch import api
+    from fedml_tpu_torch.agents import (DEVICE_IDLE, JOB_FINISHED,
+                                        MasterAgent, SlaveAgent,
+                                        launch_job_remote)
+    from fedml_tpu_torch.core.distributed.communication.pubsub import \
+        PubSubBroker
+    on_card = str(dev).startswith("cuda")
+    t0 = time.perf_counter()
+    broker = PubSubBroker()
+    master = MasterAgent("127.0.0.1", broker.port)
+    master.start()
+    slave = SlaveAgent(PLATFORM_DEVICE_ID, "127.0.0.1", broker.port,
+                       poll_s=0.1, device=None if on_card else str(dev))
+    slave.start()
+    try:
+        require(master.wait_for_device(PLATFORM_DEVICE_ID, DEVICE_IDLE,
+                                       timeout_s=30) == DEVICE_IDLE,
+                "phase 24 (c): the agent never came online")
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        info = launch_job_remote(yml, PLATFORM_DEVICE_ID, master,
+                                 timeout_s=PLATFORM_JOB_S)
+        dispatch_s = time.perf_counter() - t1
+    finally:
+        slave.stop()
+        master.stop()
+        broker.stop()
+    history = [h["status"] for h in info.get("history", [])]
+    logs = api.run_logs(info["run_id"]) if info.get("run_id") else []
+    require(info["status"] == JOB_FINISHED and history
+            and history[-1] == JOB_FINISHED and os.path.exists(art),
+            f"phase 24 (c): job {info['status']}, statuses {history}; "
+            f"log tail: {logs[-20:]}")
+    meta = api._read_meta(info["run_id"])
+    summary = json.loads(logs[-1])
+    return {"agent_up_s": up_s, "dispatch_s": dispatch_s,
+            "subprocess_s": meta["ended"] - meta["started"],
+            "job_run_wall_time_s": summary["wall_time_s"],
+            "test_acc": summary["final_test_acc"], "statuses": history,
+            "cmd": meta["cmd"]}
+
+
+def platform_serve(torch, cb, fa, art, cfg, x, dev="cuda"):
+    """(d) ``api.model_serve`` of (c)'s artifact: ``/ready``, then a POST
+    ``/predict`` of ``x`` (32 test images), the outputs bitwise those of
+    ``CheckpointPredictor.from_files`` on the same device, 27 B1 launches
+    per forward on each."""
+    import urllib.request
+
+    from fedml_tpu_torch import api
+    from fedml_tpu_torch.arguments import Arguments
+    from fedml_tpu_torch.serving import CheckpointPredictor
+    on_card = str(dev).startswith("cuda")
+    body = {"inputs": x.cpu().tolist()}
+    t0 = time.perf_counter()
+    runner = api.model_serve(art, cfg["model"], 10, dataset=cfg["dataset"],
+                             device=None if on_card else str(dev),
+                             precision=cfg["precision"],
+                             fused_conv_block=cfg["fused_conv_block"])
+    try:
+        base = f"http://127.0.0.1:{runner.port}"
+        with urllib.request.urlopen(base + "/ready", timeout=60) as r:
+            require(json.load(r)["ready"] is True, "phase 24 (d): not ready")
+        up_s = time.perf_counter() - t0
+        reset_launches(cb, fa)
+        t1 = time.perf_counter()
+        req = urllib.request.Request(
+            base + "/predict", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served = json.load(r)
+        predict_s = time.perf_counter() - t1
+        served_b1 = launches(cb, fa)["conv_block"]
+    finally:
+        runner.stop()
+    pred = CheckpointPredictor.from_files(Arguments(**cfg), art, 10,
+                                          device=dev)
+    reset_launches(cb, fa)
+    direct = pred.predict(body)
+    direct_b1 = launches(cb, fa)["conv_block"]
+    out = torch.tensor(served["outputs"])
+    require(tuple(out.shape) == (x.shape[0], 10)
+            and torch.isfinite(out).all().item(),
+            f"phase 24 (d): outputs of shape {tuple(out.shape)}")
+    require(served == direct, "phase 24 (d): the served outputs differ "
+                              "from the direct predictor's")
+    if on_card:
+        require(served_b1 == direct_b1 == 27,
+                f"phase 24 (d): B1 {served_b1} served, {direct_b1} direct, "
+                f"27 each expected")
+    return {"serve_up_s": up_s, "predict_s": predict_s,
+            "images": int(x.shape[0]), "b1_launches_served": served_b1,
+            "b1_launches_direct": direct_b1, "bitwise_equal": True}
+
+
+def platform_phase(torch, cb, fa, card, tmp, dev="cuda", cfg=None):
+    """Phase 24: (a) env and diagnosis, (b) ``cli train`` in this process,
+    (c) the same yaml dispatched through an agent (a CLI subprocess), held
+    bitwise to (b), (d) its artifact served over HTTP, bitwise the direct
+    predictor."""
+    import yaml as _yaml
+
+    from fedml_tpu_torch import data, model
+    from fedml_tpu_torch.arguments import Arguments
+    cfg = dict(cfg or PLATFORM_PATH)
+    t0 = time.perf_counter()
+    rec = {"card": card, "env": platform_env_checks(card, dev)}
+    pdir = os.path.join(tmp, "platform")
+    os.makedirs(pdir, exist_ok=True)
+    art = os.path.join(pdir, "model.fmtpu")
+    yml = os.path.join(pdir, "job.yaml")
+    with open(yml, "w") as f:
+        _yaml.safe_dump(dict(cfg, save_model_path=art), f)
+    rec["train"] = platform_train(torch, cb, fa, yml, art, dev)
+    train_art = os.path.join(pdir, "train.fmtpu")
+    os.replace(art, train_art)
+    from unittest import mock
+
+    # the agent's bind token and the run registry in tmp, for this process
+    # and the jobs it starts
+    with mock.patch.dict(os.environ, {
+            "FEDML_TPU_AGENT_SECRET": "chip-smoke-bind-token",
+            "FEDML_TPU_RUNS_DIR": os.path.join(tmp, "runs")}):
+        rec["agent"] = platform_agent(torch, yml, art, dev)
+    # the round's start and 32 test images, from the yaml's seed
+    args = Arguments(**cfg)
+    fed, n_classes = data.load(args)
+    p0 = model.create(args, n_classes, fed.input_shape).init(
+        torch.Generator().manual_seed(int(cfg["random_seed"])), "cpu")
+    pb, pc = _state_of(torch, train_art), _state_of(torch, art)
+    moved = max(float((pb[k] - p0[k].float()).abs().max()) for k in pb)
+    diff = max(float((pc[k] - pb[k]).abs().max()) for k in pb)
+    require(moved > 0 and diff == 0,
+            f"phase 24 (c): the agent's params off (b)'s by {diff:.3e}, "
+            f"{diff / max(moved, 1e-30):.3e} of the update {moved:.3e} "
+            f"(held bitwise)")
+    rec["agent"].update(vs_train_max_abs=diff, update_max_abs=moved,
+                        vs_train_of_update=diff / moved)
+    x = torch.from_numpy(fed.test["x"][0][:BATCH])
+    rec["serve"] = platform_serve(torch, cb, fa, art, cfg, x, dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import tempfile
 
@@ -7975,6 +8284,24 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
           f"{tail['phase_s']:.1f} s", flush=True)
     print(json.dumps({"tail": tail}), flush=True)
 
+    plat = platform_phase(torch, cb, fa, card, tmp)
+    pt, pa, ps = plat["train"], plat["agent"], plat["serve"]
+    print(f"platform cli train ({card}): ResNet-56 bf16 + B1, 8 clients x "
+          f"2,048 samples, 1 round: {pt['wall_s']:.2f} s in process (run "
+          f"{pt['run_wall_time_s']:.2f} s, capture {pt['capture_s']:.2f} s); "
+          f"B1 {pt['b1_launches']} = 27 x ({pt['warmup_steps']} + "
+          f"{pt['replays']} + {pt['eval_batches']})", flush=True)
+    print(f"platform agent job ({card}): dispatch to FINISHED "
+          f"{pa['dispatch_s']:.2f} s, the CLI subprocess "
+          f"{pa['subprocess_s']:.2f} s (its run {pa['job_run_wall_time_s']:.2f} s); params off the "
+          f"in-process run by {pa['vs_train_of_update']:.3e} of the round's "
+          f"update (held bitwise)", flush=True)
+    print(f"platform serve ({card}): up {ps['serve_up_s']:.2f} s, /predict "
+          f"of {ps['images']} images {ps['predict_s'] * 1e3:.1f} ms, bitwise "
+          f"the direct predictor; B1 {ps['b1_launches_served']} per forward; "
+          f"phase 24 {plat['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"platform": plat}), flush=True)
+
     # round-shape fields, then the hot loop's shape (B2-B4 only)
     kernels = [{
         "name": "conv_block", "route": "cuda",
@@ -8033,6 +8360,10 @@ def run(torch, F, fedml, llm, Arguments, build, cb, fa, attn, tmp) -> int:
         # flagship's widths
         "launches_turbo_aggregate": tb["b1_launches"],
         "launches_centralized": ce["b1_launches"],
+        # phase 24: the CLI's in-process training run and the served
+        # artifact's one forward
+        "launches_platform_train": pt["b1_launches"],
+        "launches_platform_serve": ps["b1_launches_served"],
         "max_abs_err": main_err,
         "max_abs_err_plain_bf16": main_err16,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],

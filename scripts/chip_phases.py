@@ -7,7 +7,9 @@ the kernels, with the script's checks.
 ``roofline`` is phase 20 (the compute plane), ``cross_device`` phase 21,
 ``multi_rank`` phase 22 (the port's ranks on the one card), ``tail``
 phase 23 (the long tail of training: the new models, FedGKT / FedNAS /
-FedSeg / FedGAN, hierarchical FEMNIST, turbo_aggregate and centralized).
+FedSeg / FedGAN, hierarchical FEMNIST, turbo_aggregate and centralized),
+``platform`` phase 24 (env and diagnosis, ``cli train``, a job through an
+agent, ``api.model_serve``).
 A phase that fails prints its traceback and the run goes on to the next;
 the exit code is 1 if any failed. ``--out`` writes every phase's record
 (or traceback) as JSON. Needs a CUDA card, as ``chip_smoke.py`` does.
@@ -29,7 +31,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("phases", nargs="+", choices=("roofline",
                                                  "cross_device",
-                                                 "multi_rank", "tail"))
+                                                 "multi_rank", "tail",
+                                                 "platform"))
     p.add_argument("--out", default=None)
     a = p.parse_args(argv)
     import torch
@@ -55,7 +58,9 @@ def main(argv=None) -> int:
                    torch, cb, fa, tmp, card),
                "multi_rank": lambda: cs.multi_rank_phase(
                    torch, cb, fa, card),
-               "tail": lambda: cs.tail_phase(torch, cb, fa, card)}
+               "tail": lambda: cs.tail_phase(torch, cb, fa, card),
+               "platform": lambda: cs.platform_phase(torch, cb, fa, card,
+                                                     tmp)}
         for name in a.phases:
             t0 = time.perf_counter()
             try:
